@@ -1,0 +1,226 @@
+"""Device-resident tree-ensemble scoring (counterpart of the reference's
+``repro.kernels.tree_gather``).
+
+Batched tree traversal is a pure gather workload: every (row × tree)
+slot holds a node id, and one step gathers (feature, threshold, child)
+for all slots at once.  Because leaves self-loop (`left == right ==
+self` in `FlatEnsemble`), the update is idempotent, so a fixed number of
+``max_depth`` rounds needs no active mask.
+
+Residency (`CudaBank`): the flattened struct-of-arrays bank is uploaded
+to the device ONCE per `FlatEnsemble` and reused across every later
+flush — it lives on `flat._device_bank` until the ensemble itself is
+invalidated (retrain / bank swap), so a serving process pays the
+host→device transfer of the trees exactly once.  Inputs are staged
+through the same layer as float32.
+
+Dispatch: a bank on the card runs the hand-written CUDA kernels
+(`repro_torch.kernels.tree_gather_cuda`); a bank on the host runs the
+plain torch versions below (`gather_leaves_plain`, `fused_plain`), which
+the tests hold against the reference.  There is no fallback from one to
+the other: a CUDA bank launches the kernel or raises.
+
+Precision: float32 throughout, with the reference device tiers' compare
+form (``xv <= thr``), so leaves match the reference's jax and Pallas
+tiers bit for bit; near-tie rows can route differently from the float64
+numpy tier, as in the reference.
+
+Row sharding over several cards (the reference's mesh flush) waits until
+the port runs on more than one GPU.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.utils.device import DeviceLike, resolve_device
+
+Tensor = torch.Tensor
+
+# Lifetime counters (survive bank invalidation — `CudaBank` instances die
+# with their FlatEnsemble, these do not).  `LatencyService.stats()`
+# reports both views: what is resident now and what was ever uploaded.
+_COUNTERS = {"banks_built": 0, "bank_bytes": 0, "inputs_staged": 0,
+             "input_bytes": 0}
+_COUNTERS_LOCK = threading.Lock()
+
+
+def residency_counters() -> Dict[str, int]:
+    """Process-lifetime upload totals (includes invalidated banks)."""
+    with _COUNTERS_LOCK:
+        return dict(_COUNTERS)
+
+
+def _count(**deltas: int) -> None:
+    with _COUNTERS_LOCK:
+        for k, v in deltas.items():
+            _COUNTERS[k] += v
+
+
+# -- plain torch versions (CPU banks; the kernels' parity oracle) -------------
+
+def gather_leaves_plain(feature: Tensor, threshold: Tensor, left: Tensor,
+                        right: Tensor, value: Tensor, roots: Tensor,
+                        x: Tensor, *, depth: int) -> Tensor:
+    """(rows, trees) float32 leaf values — twin of the reference's
+    ``_traverse_core``: ``depth`` rounds of gathers, ``xv <= thr``."""
+    n = x.shape[0]
+    feature, left, right = feature.long(), left.long(), right.long()
+    nid = roots.long().unsqueeze(0).expand(n, -1)          # (rows, trees)
+    for _ in range(depth):
+        xv = torch.gather(x, 1, feature[nid])               # x[row, f[slot]]
+        nid = torch.where(xv <= threshold[nid], left[nid], right[nid])
+    return value[nid]
+
+
+def fused_plain(feature: Tensor, threshold: Tensor, left: Tensor,
+                right: Tensor, value: Tensor, roots: Tensor, mean: Tensor,
+                std: Tensor, scale: float, bias: float, x: Tensor, *,
+                depth: int, kind: str) -> Tensor:
+    """standardize → traverse → reduce → clamp — twin of the reference's
+    ``_fused_core``; ``kind`` is "sum" (GBDT) or "mean" (RF)."""
+    xs = (x - mean) / std
+    vals = gather_leaves_plain(feature, threshold, left, right, value, roots,
+                               xs, depth=depth)
+    red = vals.sum(dim=1) if kind == "sum" else vals.mean(dim=1)
+    # float32 scalars filled on the device (no host→device copy, which
+    # would wait for the stream).
+    s = torch.full((), scale, dtype=torch.float32, device=x.device)
+    b = torch.full((), bias, dtype=torch.float32, device=x.device)
+    return torch.clamp_min(b + s * red, 0.0)
+
+
+class CudaBank:
+    """One `FlatEnsemble`'s arrays resident on a device (the card by
+    default).
+
+    Built lazily by `FlatEnsemble.device_bank()` and cached on the
+    ensemble, so the host→device transfer happens once per trained
+    ensemble; retrain/bank swap drops the FlatEnsemble and this bank
+    with it.  Besides the reference's five node arrays and roots, a bank
+    on the card keeps ``nodes``: (n_nodes, 4) int32 rows of {feature,
+    threshold bits, left, right}, the kernels' one-load-per-round layout,
+    packed on the device from the uploaded arrays (not a second upload).
+    """
+
+    __slots__ = ("device", "n_nodes", "n_trees", "n_features", "depth",
+                 "feature", "threshold", "left", "right", "value", "roots",
+                 "nodes", "nbytes", "uploads", "inputs_staged", "input_bytes",
+                 "_lock")
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.nodes = None
+        self.uploads = 0
+        self.inputs_staged = 0
+        self.input_bytes = 0
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_flat(cls, flat, device: DeviceLike = "cuda") -> "CudaBank":
+        db = cls(resolve_device(device))
+        db.n_nodes = flat.n_nodes
+        db.n_trees = flat.n_trees
+        db.depth = max(1, flat.max_depth)
+        db.n_features = int(flat.feature.max()) + 1 if flat.n_nodes else 0
+        # Leaves carry feature = -1; clamp to 0 so the gather stays
+        # in-bounds (self-looped slots ignore the compare).
+        host = (np.maximum(flat.feature, 0).astype(np.int32),
+                flat.threshold.astype(np.float32),
+                flat.left.astype(np.int32),
+                flat.right.astype(np.int32),
+                flat.value.astype(np.float32),
+                flat.roots.astype(np.int32))
+        (db.feature, db.threshold, db.left, db.right, db.value,
+         db.roots) = (torch.from_numpy(a).to(db.device) for a in host)
+        if db.device.type == "cuda":
+            db.nodes = torch.stack(
+                [db.feature, db.threshold.view(torch.int32), db.left,
+                 db.right], dim=1).contiguous()
+        db.nbytes = sum(a.nbytes for a in host)
+        db.uploads = 1
+        _count(banks_built=1, bank_bytes=db.nbytes)
+        return db
+
+    @property
+    def bank_args(self) -> Tuple[Tensor, ...]:
+        return (self.feature, self.threshold, self.left, self.right,
+                self.value, self.roots)
+
+    # -- input staging --------------------------------------------------------
+    def stage_input(self, x: np.ndarray) -> Tensor:
+        """Host rows → contiguous float32 tensor on the bank's device."""
+        x32 = np.ascontiguousarray(x, dtype=np.float32)
+        if x32.ndim != 2:
+            raise ValueError(f"X must be 2-D, got {x32.shape}")
+        xd = torch.from_numpy(x32).to(self.device)
+        with self._lock:
+            self.inputs_staged += 1
+            self.input_bytes += x32.nbytes
+        _count(inputs_staged=1, input_bytes=x32.nbytes)
+        return xd
+
+    # -- traversal dispatch ---------------------------------------------------
+    def gather_leaves(self, xd: Tensor) -> Tensor:
+        """(rows, trees) leaf values for staged rows ``xd``."""
+        if self.device.type == "cuda":
+            from repro_torch.kernels.tree_gather_cuda import gather_leaves_cuda
+            return gather_leaves_cuda(self, xd)
+        return gather_leaves_plain(*self.bank_args, xd, depth=self.depth)
+
+    def fused(self, mean: Tensor, std: Tensor, scale: float, bias: float,
+              xd: Tensor, kind: str) -> Tensor:
+        """standardize → traverse → reduce → clamp: one kernel on the card."""
+        if self.device.type == "cuda":
+            from repro_torch.kernels.tree_gather_cuda import fused_predict_cuda
+            return fused_predict_cuda(self, mean, std, scale, bias, xd, kind)
+        return fused_plain(*self.bank_args, mean, std, scale, bias, xd,
+                           depth=self.depth, kind=kind)
+
+    # -- introspection --------------------------------------------------------
+    def stats(self) -> Dict[str, Any]:
+        return {"nbytes": int(self.nbytes), "n_nodes": int(self.n_nodes),
+                "n_trees": int(self.n_trees), "uploads": int(self.uploads),
+                "inputs_staged": int(self.inputs_staged),
+                "input_bytes": int(self.input_bytes),
+                "sharded": False}
+
+
+# -- public entry points ------------------------------------------------------
+
+def predict_trees_device(flat, x: np.ndarray, device: DeviceLike = "cuda"
+                         ) -> np.ndarray:
+    """(n_rows, n_trees) float64 leaf values from ``flat``'s resident
+    bank on ``device`` (kernel on the card, plain torch on the host)."""
+    db = flat.device_bank(device)
+    out = db.gather_leaves(db.stage_input(x))
+    return out.cpu().numpy().astype(np.float64)
+
+
+def to_device_scaler(scaler, device: DeviceLike = "cuda") -> Tuple[Tensor, Tensor]:
+    """(mean, std) as resident float32 tensors (cached by the model)."""
+    dev = resolve_device(device)
+    return (torch.from_numpy(scaler.mean.astype(np.float32)).to(dev),
+            torch.from_numpy(scaler.std.astype(np.float32)).to(dev))
+
+
+def fused_predict(flat, device_scaler: Tuple[Tensor, Tensor],
+                  reduction: Tuple, x: np.ndarray,
+                  device: DeviceLike = "cuda") -> np.ndarray:
+    """Whole per-op-type predict on the device: raw float32 features in,
+    clamped latencies out.
+
+    ``reduction`` is the model's ``(kind, scale, bias)`` — GBDT is
+    ``("sum", learning_rate, f0)``, RF is ``("mean", 1.0, 0.0)`` — so
+    standardization, traversal, the stage/tree reduction, and the ≥0
+    clamp run as one kernel launch on the card instead of bouncing a
+    (rows × trees) matrix back through the host.
+    """
+    kind, scale, bias = reduction
+    mean, std = device_scaler
+    db = flat.device_bank(device)
+    out = db.fused(mean, std, scale, bias, db.stage_input(x), kind)
+    return out.cpu().numpy().astype(np.float64)

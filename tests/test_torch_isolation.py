@@ -1,0 +1,159 @@
+"""The port stands alone: no JAX, nothing of the reference package, and
+every entry point defaults to the card.
+
+Parses every module of ``src/repro_torch`` and ``chip_smoke.py`` and fails
+on ``import jax`` / ``from jax …`` / ``import repro`` / ``from repro.…``
+(``repro_torch`` itself is fine).  Then, with CUDA reported absent, each
+entry point called with its default device must raise RuntimeError
+instead of quietly running on the host.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def test_port_has_the_slice_modules():
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for mod in ("utils/logging.py", "utils/registry.py", "utils/lru.py",
+                "utils/timing.py", "core/ir.py", "core/fusion.py",
+                "core/features.py", "core/nas_space.py",
+                "core/predictors/base.py", "core/predictors/trees.py",
+                "core/predictors/gbdt.py", "core/predictors/random_forest.py",
+                "core/predictors/flat.py", "core/composition.py",
+                "core/dataset.py", "core/executor.py", "core/profiler.py",
+                "kernels/tree_gather.py", "kernels/tree_gather_cuda.py",
+                "pipeline/store.py", "pipeline/hub.py", "pipeline/service.py",
+                "convert.py"):
+        assert mod in names
+    assert (PORT / "kernels" / "csrc" / "tree_gather.cu").exists()
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [(line, mod) for line, mod in _imported_roots(path)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_checker_catches_forbidden_imports(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import repro_torch.core\nfrom repro.core import ir\n"
+                 "import jax.numpy as jnp\nfrom . import x\n")
+    roots = [m.split(".")[0] for _, m in _imported_roots(p)]
+    assert [r for r in roots if r in FORBIDDEN] == ["repro", "jax"]
+
+
+def test_cuda_kernel_source_names_both_kernels():
+    src = (PORT / "kernels" / "csrc" / "tree_gather.cu").read_text()
+    for name in ("tree_gather_leaves", "tree_predict_fused",
+                 "_tree_gather_kernel", "__fdiv_rn", "cudaGetLastError"):
+        assert name in src
+
+
+# -- default device is the card ---------------------------------------------------
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_gbdt():
+    from repro_torch.core.predictors import GBDTPredictor
+
+    rng = np.random.default_rng(0)
+    x = rng.random((40, 3))
+    return GBDTPredictor(n_stages=3, max_depth=2).fit(x, x.sum(1) + 1), x
+
+
+def _graph():
+    from repro_torch.core.dataset import synthetic_graphs
+
+    return synthetic_graphs(1, resolution=16)[0]
+
+
+def _entry_points():
+    from repro_torch.core.executor import GraphExecutor, build_op_fn
+    from repro_torch.core.profiler import ProfileSession
+    from repro_torch.kernels.tree_gather import CudaBank, to_device_scaler
+    from repro_torch.pipeline import LatencyService, PredictorHub
+    from repro_torch.utils.device import resolve_device
+
+    return {
+        "resolve_device": lambda: resolve_device(),
+        "GraphExecutor": lambda: GraphExecutor(_graph()),
+        "build_op_fn": lambda: build_op_fn(_graph(), _graph().nodes[0]),
+        "ProfileSession": lambda: ProfileSession(),
+        "CudaBank": lambda: CudaBank.from_flat(_tiny_gbdt()[0].flat()),
+        "to_device_scaler": lambda: to_device_scaler(_tiny_gbdt()[0].scaler),
+        "LatencyService": lambda: LatencyService(PredictorHub()),
+        "predict_on_device": lambda: _tiny_gbdt()[0].predict_on_device(
+            _tiny_gbdt()[1].astype(np.float32)),
+        "predict_trees_cuda_tier": lambda: _tiny_gbdt()[0].flat().predict_trees(
+            _tiny_gbdt()[1], backend="cuda"),
+    }
+
+
+@pytest.mark.parametrize("name", list(_entry_points()))
+def test_default_device_raises_without_cuda(no_cuda, name):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_points()[name]()
+
+
+def test_explicit_cpu_runs_on_the_host(no_cuda):
+    from repro_torch.utils.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    model, x = _tiny_gbdt()
+    assert model.predict_on_device(x.astype(np.float32), device="cpu").shape == (40,)
+
+
+def test_unknown_device_type_rejected():
+    from repro_torch.utils.device import resolve_device
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+# -- chip_smoke refuses to run where it cannot measure ---------------------------
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_cuda():
+    proc = _run_smoke(ROOT)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_outside_the_repository(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
