@@ -7,25 +7,44 @@ Phases; each one fails the run on error, and a failed run prints no
 result line:
 
   1. Card and build — the card's name and power limit (nvidia-smi) and
-     the nvcc build of ``src/repro_torch/kernels/csrc/tree_gather.cu``.
-  2. Kernel parity — both kernels against their plain torch versions on
-     the card, at 32,768 rows × 20 features, on a GBDT bank (150 stages,
-     depth 4: the bank sits in shared memory) and on a depth-14 random
-     forest too large for shared memory (the bank stays in global
-     memory).  Leaves bit-equal; fused predictions within the summation
-     bound stated in `fused_tolerance`.
-  3. Main path — profile 40 NAS graphs at 224×224 on the card, train a
-     GBDT bank on 32, score the 8 held out (e2e MAPE through the fused
-     kernel, per-op MAPE through the leaves kernel), then answer a
-     1,024-graph `predict_batch`, a cached `predict_e2e` and a 256-graph
-     `predict_batch`.  Launch counts are zeroed just before and read just
-     after; every tree model must have run on "cuda".
-  4. Times at the main path's shapes — kernel, plain version and numpy
-     host tier; the bound from bytes moved at 3.35 TB/s (and operations
-     at 67 TFLOP/s float32); launches per `predict_batch`; and a
-     numpy-vs-kernel curve over 2^10 … 2^22 slots for the future
-     ``AUTO_DEVICE_MIN_SLOTS``.  No single PyTorch call computes a tree
-     traversal, so ``library_ms`` is null.
+     the nvcc build of the three sources under
+     ``src/repro_torch/kernels/csrc/`` (one nvcc each, started together):
+     seconds, registers and spills per kernel.
+  2. Kernel parity on the card, each kernel against its plain torch
+     version:
+       * tree kernels at 32,768 rows × 20 features, on a GBDT bank (150
+         stages, depth 4: the bank sits in shared memory) and on a
+         depth-14 random forest too large for shared memory.  Leaves
+         bit-equal; fused predictions within the summation bound stated
+         in `fused_tolerance`;
+       * int8 GEMM bit-equal at m = 1, at the main path's largest FC,
+         1×1 and k×k convolution shapes, and at shapes that are not
+         multiples of the tile;
+       * Winograd within `WINO_TOL` of its plain version and within
+         `DIRECT_TOL` of ``F.conv2d`` (TF32 off) at the four study shapes
+         and at odd H and W;
+       * the int8 float round trips on all 256 int8 values, card against
+         host, and the int8 executor on 2 graphs at 224×224, card against
+         host: exact, unless a transcendental kind differs on the card.
+  3. Main paths, each with every launch count zeroed just before it and
+     read just after:
+       * float32 (`fused_groups`): profile 40 NAS graphs at 224×224, train
+         a GBDT bank on 32, score the 8 held out (e2e MAPE through the
+         fused kernel, per-op MAPE through the leaves kernel), then answer
+         a 1,024-graph `predict_batch`, a cached `predict_e2e` and a
+         256-graph `predict_batch`; every tree model must run on "cuda";
+       * int8 (`op_by_op`): the same through the int8 executor, whose FC
+         and dense convolutions run the int8 GEMM kernel;
+       * kernel selection: Alg. C.2 for Mali G76 rewrites the 40 graphs;
+         those with a Winograd op are profiled on the float32 store (only
+         the new ops are measured, through the Winograd kernel), then the
+         paper's Fig. 8 study times the Winograd op against the direct
+         ``conv2d`` op through ``GraphExecutor(op_by_op)``.
+  4. Times at the paths' shapes — kernel, plain version, library call
+     where one exists (``torch._int_mm``, ``F.conv2d``) and the bound from
+     bytes at 3.35 TB/s or operations (67 TFLOP/s float32, 1,979 TOP/s
+     int8 tensor cores); for the tree kernels also the numpy host tier and
+     a numpy-vs-kernel curve over 2^10 … 2^22 slots.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or when run from a
@@ -44,11 +63,29 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
+PEAK_INT8_OPS_PER_S = 1979e12       # H100 SXM int8, dense tensor cores
 U32 = 2.0 ** -24                    # float32 unit roundoff
 N_FEATURES = 20
 PARITY_ROWS = 32768
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/tree_gather.cu"
-REPLACES = "src/repro/kernels/tree_gather_pallas.py:57"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"tree_gather_leaves": CSRC + "tree_gather.cu",
+           "tree_predict_fused": CSRC + "tree_gather.cu",
+           "int8_matmul": CSRC + "int8_matmul.cu",
+           "winograd_conv2d": CSRC + "winograd_conv.cu"}
+REPLACES = {"tree_gather_leaves": "src/repro/kernels/tree_gather_pallas.py:57",
+            "tree_predict_fused": "src/repro/kernels/tree_gather_pallas.py:57",
+            "int8_matmul": "src/repro/kernels/int8_matmul.py:27",
+            "winograd_conv2d": "src/repro/kernels/winograd_conv.py:58"}
+# Winograd against its plain version: float32 summation order only;
+# against a direct convolution: the transforms round at other places.
+WINO_TOL = 1e-5                     # × max |plain|
+DIRECT_TOL = 1e-4                   # × max |direct|
+# The paper's Fig. 8 shapes at its 224 scale (bench_kernel_selection's
+# ResNet convolutions) and the one NAS op Alg. C.2 selects for Mali.
+STUDY_SHAPES = {"resnet_conv1_64x56": (64, 64, 56),
+                "resnet_conv2_128x28": (128, 128, 28),
+                "resnet_conv3_256x14": (256, 256, 14),
+                "nas_79x77_56": (79, 77, 56)}
 
 
 def log(msg: str) -> None:
@@ -110,10 +147,11 @@ def host_ms(fn, repeats: int = 3) -> float:
     return best * 1e3
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
+def bound(bytes_moved: float, ops: float,
+          peak_ops: float = PEAK_F32_OPS_PER_S) -> tuple:
     """(ms, "bytes" | "operations"): the larger of the two floor times."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -224,6 +262,178 @@ def check_parity(name: str, model, in_smem: bool, device, rows: int = PARITY_ROW
     return res
 
 
+def gemm_shapes(graph) -> list:
+    """(op, m, k, n) of every int8 GEMM call one forward pass of ``graph``
+    makes: each fully_connected and each convolution with one group (an
+    im2col'd k×k convolution has k = kh·kw·C; a depthwise convolution has
+    as many groups as input channels)."""
+    out = []
+    for node in graph.nodes:
+        p = node.params_dict
+        x = graph.tensor(node.inputs[0]).shape
+        y = graph.tensor(node.outputs[0]).shape
+        groups = x[-1] if node.op_type == "dwconv2d" else p.get("groups", 1)
+        if node.op_type == "fully_connected":
+            out.append((node.op_type, int(math.prod(x[:-1])), x[-1], y[-1]))
+        elif node.op_type in ("conv2d", "grouped_conv2d", "winograd_conv2d",
+                              "dwconv2d") and groups == 1:
+            kk = p.get("kernel_h", 1) * p.get("kernel_w", 1)
+            out.append((node.op_type, y[0] * y[1] * y[2], kk * x[-1], y[-1]))
+    return out
+
+
+def _int8_operands(m, k, n, device, seed):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import int8_matmul as im
+
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(device)
+    b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(device)
+    bias = torch.from_numpy(rng.integers(-4096, 4096, n).astype(np.int32)).to(device)
+    return a, b, im.pack_weight(b), bias
+
+
+def check_int8_gemm(graphs, device) -> dict:
+    """int8 GEMM vs its plain version, bit for bit, at m = 1, at the main
+    path's largest FC, 1×1 and k×k shapes, and at ragged shapes."""
+    import torch
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import int8_matmul_cuda as imc
+
+    shapes = {s for g in graphs for s in gemm_shapes(g)}
+    fc = [s for s in shapes if s[0] == "fully_connected"]
+    conv = [s for s in shapes if s[0] != "fully_connected"]
+    pick = {"largest_fc": max(fc, key=lambda s: s[2] * s[3]),
+            "largest_conv": max(conv, key=lambda s: s[1] * s[2] * s[3]),
+            "largest_m": max(conv, key=lambda s: (s[1], s[2] * s[3])),
+            "largest_k": max(conv, key=lambda s: (s[2], s[1])),
+            "m1": (None, 1, 63, 252), "ragged_a": (None, 130, 27, 77),
+            "ragged_b": (None, 7, 1477, 13), "ragged_c": (None, 4099, 131, 65)}
+    scale = im.out_scale(4.0 / 127.0 * (0.4 / 127.0) / (4.0 / 127.0), 1.0)
+    rows = []
+    for i, (label, (_, m, k, n)) in enumerate(sorted(pick.items())):
+        a, _, bt, bias = _int8_operands(m, k, n, device, seed=i)
+        before = imc.launch_counts()["int8_matmul"]
+        got = imc.int8_matmul_cuda(a, bt, scale, bias)
+        got0 = imc.int8_matmul_cuda(a, bt, scale)
+        torch.cuda.synchronize()
+        if imc.launch_counts()["int8_matmul"] != before + 2:
+            raise AssertionError("int8_matmul launch counter did not advance")
+        for out, b_ in ((got, bias), (got0, None)):
+            want = im.int8_matmul_plain(a, bt, scale, b_)
+            if not torch.equal(out, want):
+                n_bad = int((out != want).sum())
+                raise AssertionError(f"int8 GEMM {label} (m={m}, k={k}, n={n}): "
+                                     f"{n_bad} outputs differ from the plain version")
+        rows.append({"shape": label, "m": m, "k": k, "n": n, "bit_equal": True})
+    log("parity int8_matmul " + json.dumps(rows))
+    return {"shapes": rows, "max_abs_err": 0.0}
+
+
+def check_winograd(device) -> dict:
+    """Winograd kernel vs its plain version (within WINO_TOL) and the whole
+    op vs F.conv2d with TF32 off (within DIRECT_TOL)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import winograd_conv as wc
+    from repro_torch.kernels import winograd_conv_cuda as wcc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = [(1, hw, hw, ci, co) for ci, co, hw in STUDY_SHAPES.values()]
+    shapes += [(1, 55, 57, 16, 24), (2, 7, 9, 8, 5), (1, 1, 1, 3, 2)]
+    rows, worst = [], 0.0
+    for i, (b, h, w, c, k) in enumerate(shapes):
+        rng = np.random.default_rng(100 + i)
+        x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(device)
+        wt = torch.from_numpy((rng.standard_normal((3, 3, c, k)) * 0.1)
+                              .astype(np.float32)).to(device)
+        u = wc.transform_weights(wt)
+        tiles = ref.extract_winograd_tiles(x).reshape(-1, 16, c).contiguous()
+        got = wcc.winograd_tiles_cuda(tiles, u)
+        plain = wc.winograd_tiles_plain(tiles, u)
+        y = wc.winograd_conv2d(x, u)
+        direct = ref.winograd_conv_ref(x, wt)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        rel = err / float(plain.abs().max())
+        rel_direct = float((y - direct).abs().max()) / float(direct.abs().max())
+        if not rel <= WINO_TOL:
+            raise AssertionError(f"Winograd {(b, h, w, c, k)}: {rel} × max off "
+                                 f"its plain version (> {WINO_TOL})")
+        if not rel_direct <= DIRECT_TOL:
+            raise AssertionError(f"Winograd {(b, h, w, c, k)}: {rel_direct} × max "
+                                 f"off F.conv2d (> {DIRECT_TOL})")
+        if not torch.equal(got, wcc.winograd_tiles_cuda(tiles, u)):
+            raise AssertionError("Winograd kernel is not repeatable")
+        worst = max(worst, err)
+        rows.append({"shape": [b, h, w, c, k], "max_abs_err": err,
+                     "err_over_max": rel, "vs_conv2d_over_max": rel_direct})
+    log("parity winograd_conv2d " + json.dumps(rows))
+    return {"shapes": rows, "max_abs_err": worst}
+
+
+def check_int8_round_trips(device) -> dict:
+    """Each unary float round trip on all 256 int8 values, card vs host:
+    the number of values that differ, per kind.  Only transcendental kinds
+    may differ, and by one step."""
+    import torch
+    from repro_torch.quant import int8 as q8
+
+    q = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    diffs = {}
+    for kind in sorted(q8._FLOAT_UNARY):
+        d = (q8._lut_roundtrip(q.to(device), kind).cpu().int()
+             - q8._lut_roundtrip(q, kind).int()).abs()
+        diffs[kind] = int((d > 0).sum())
+        if d.max() > (1 if kind in q8.TRANSCENDENTAL else 0):
+            raise AssertionError(f"int8 {kind} round trip: card and host differ "
+                                 f"by {int(d.max())} steps")
+    log("parity int8_round_trips_values_differing " + json.dumps(diffs))
+    return diffs
+
+
+def check_int8_executor(graphs, device, lut_diffs: dict) -> dict:
+    """The int8 executor, card against host port, on whole graphs: equal,
+    unless the graph uses a kind whose round trip differs on the card.
+    The GEMM launches once per dense op."""
+    import torch
+    from repro_torch.core.executor import GraphExecutor
+    from repro_torch.kernels import int8_matmul_cuda as imc
+
+    rows = []
+    for g in graphs:
+        kinds = {n.params_dict.get(k) for n in g.nodes for k in ("act", "ew_kind")}
+        kinds |= {f.split("@")[0] for n in g.nodes for f in n.fused}
+        loose = sorted(k for k in kinds if lut_diffs.get(k))
+        dev = GraphExecutor(g, "op_by_op", dtype="int8", device=device)
+        host = GraphExecutor(g, "op_by_op", dtype="int8", device="cpu")
+        imc.reset_launch_counts()
+        got = dev(*dev.example_inputs())
+        torch.cuda.synchronize()
+        launches = imc.launch_counts()["int8_matmul"]
+        if launches != len(gemm_shapes(g)):
+            raise AssertionError(f"{g.name}: {launches} GEMM launches for "
+                                 f"{len(gemm_shapes(g))} dense ops")
+        want = host(*host.example_inputs())
+        n_diff, max_diff = 0, 0
+        for a, b in zip(got, want):
+            if a.dtype != torch.int8 or a.shape != b.shape:
+                raise AssertionError(f"{g.name}: int8 output {a.dtype} {tuple(a.shape)}")
+            d = (a.cpu().int() - b.int()).abs()
+            n_diff += int((d > 0).sum())
+            max_diff = max(max_diff, int(d.max()))
+        if n_diff and not loose:
+            raise AssertionError(f"{g.name}: {n_diff} int8 outputs differ card vs host")
+        rows.append({"graph": g.name, "ops": len(g.nodes), "gemm_launches": launches,
+                     "outputs_differing": n_diff, "max_step_diff": max_diff,
+                     "kinds_differing_on_card": loose})
+    log("parity int8_executor " + json.dumps(rows))
+    return {"graphs": rows}
+
+
 # -- phase 3 ------------------------------------------------------------------
 
 def per_type_matrices(graphs, op_types, f32: bool):
@@ -265,32 +475,42 @@ def per_op_mape(bank, graphs, store, setting) -> dict:
     return out
 
 
-def run_main_path(device, n_graphs: int = 40, n_train: int = 32,
-                  resolution: int = 224, population: int = 1024,
-                  second: int = 256) -> dict:
-    """Profile → train → serve through the port's entry points."""
+def kernel_modules():
+    from repro_torch.kernels import int8_matmul_cuda, tree_gather_cuda, winograd_conv_cuda
+
+    return (tree_gather_cuda, int8_matmul_cuda, winograd_conv_cuda)
+
+
+def reset_counts() -> None:
+    for m in kernel_modules():
+        m.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    out = {}
+    for m in kernel_modules():
+        out.update(m.launch_counts())
+    return out
+
+
+def run_main_path(device, setting, graphs, pop, pop2, n_train: int = 32) -> dict:
+    """Profile → train → serve through the port's entry points, every
+    launch count zeroed just before and read just after."""
     import numpy as np
     from repro_torch.core.composition import PredictorBank, mape
-    from repro_torch.core.dataset import synthetic_graphs
-    from repro_torch.core.features import graph_features
-    from repro_torch.core.fusion import fuse_graph
     from repro_torch.core.predictors.flat import device_tier
-    from repro_torch.core.profiler import DeviceSetting, ProfileSession
-    from repro_torch.kernels import tree_gather_cuda as tgc
+    from repro_torch.core.profiler import ProfileSession
     from repro_torch.pipeline import LatencyService, PredictorHub, ProfileStore
 
-    setting = DeviceSetting("h100_f32", "float32", "fused_groups", device="h100")
-    graphs = synthetic_graphs(n_graphs, resolution=resolution)
-    pop = synthetic_graphs(population, resolution=resolution, seed0=10_000)
-    pop2 = synthetic_graphs(second, resolution=resolution, seed0=20_000)
     train, held = graphs[:n_train], graphs[n_train:]
 
-    tgc.reset_launch_counts()
+    reset_counts()
     store = ProfileStore()
     session = ProfileSession(store=store, device=device)
     t0 = time.perf_counter()
     session.profile_suite(graphs, setting)
     profile_s = time.perf_counter() - t0
+    profile_counts = read_counts()
 
     hub = PredictorHub()
     t0 = time.perf_counter()
@@ -305,29 +525,20 @@ def run_main_path(device, n_graphs: int = 40, n_train: int = 32,
     e2e_mape = mape(measured, [r.e2e_s for r in held_reports])
     op_mape = per_op_mape(bank, held, store, setting)
 
-    launches0 = tgc.launch_counts()
+    launches0 = read_counts()
     t0 = time.perf_counter()
     reports = svc.predict_batch(pop)
     batch_s = time.perf_counter() - t0
-    launches1 = tgc.launch_counts()
+    launches1 = read_counts()
     hit = svc.predict_e2e(pop[0])
     t0 = time.perf_counter()
     reports2 = svc.predict_batch(pop2)
     batch2_s = time.perf_counter() - t0
-    counts = tgc.launch_counts()
+    counts = read_counts()
     stats = svc.stats()
 
-    # The host's share of a cold predict_batch: fingerprint, fuse and
-    # featurize graphs the process has not seen.
-    cold = synthetic_graphs(population, resolution=resolution, seed0=30_000)
-    t0 = time.perf_counter()
-    for g in cold:
-        g.fingerprint()
-        graph_features(fuse_graph(g)[1])
-    featurize_s = time.perf_counter() - t0
-
     # What came out, and how it was served.
-    for rs, n in ((reports, population), (reports2, second)):
+    for rs, n in ((reports, len(pop)), (reports2, len(pop2))):
         if len(rs) != n:
             raise AssertionError(f"predict_batch returned {len(rs)} reports for {n}")
         vals = np.array([r.e2e_s for r in rs] + [p for r in rs for _, p in r.per_op])
@@ -364,20 +575,106 @@ def run_main_path(device, n_graphs: int = 40, n_train: int = 32,
     if rel > 1e-5:   # same f32 leaves; per-type sums differ only in order
         raise AssertionError(f"card vs host torch tier: rel diff {rel}")
 
-    out = {"profile_s": profile_s, "train_s": train_s,
-           "measured_ops": session.measured_ops, "graphs": n_graphs,
+    out = {"setting": f"{setting.name} ({setting.dtype}/{setting.mode})",
+           "profile_s": profile_s, "train_s": train_s,
+           "measured_ops": session.measured_ops, "graphs": len(graphs),
            "op_types": sorted(bank.predictors), "e2e_mape_held_out": e2e_mape,
            "per_op_mape_held_out": op_mape,
            "predict_batch_1024_s": batch_s, "predict_batch_256_s": batch2_s,
-           "host_featurize_1024_cold_s": featurize_s,
            "launches_per_predict_batch_1024": {
                k: launches1[k] - launches0[k] for k in launches1},
+           "launches_while_profiling": profile_counts,
            "launches": counts, "backend_runs": runs,
            "device_fused_runs": stats["device_fused_runs"],
            "bank_uploads": res["bank_uploads"], "banks": res["banks"],
            "held_out_rel_diff_vs_host_torch": rel}
     log("main_path " + json.dumps(out))
-    return {"summary": out, "bank": bank, "held": held, "population": pop}
+    return {"summary": out, "bank": bank, "held": held, "store": store}
+
+
+def cold_featurize_s(graphs) -> float:
+    """The host's share of a cold predict_batch: fingerprint, fuse and
+    featurize graphs the process has not seen."""
+    from repro_torch.core.features import graph_features
+    from repro_torch.core.fusion import fuse_graph
+
+    t0 = time.perf_counter()
+    for g in graphs:
+        g.fingerprint()
+        graph_features(fuse_graph(g)[1])
+    return time.perf_counter() - t0
+
+
+def _conv_graph(c_in, c_out, hw, winograd=False):
+    """One 3×3 stride-1 convolution (bench_kernel_selection's graph)."""
+    from repro_torch.core.ir import OpGraph
+
+    g = OpGraph("sel")
+    x0 = g.add_input((1, hw, hw, c_in))
+    (c1,) = g.add_op("winograd_conv2d" if winograd else "conv2d", [x0],
+                     [(1, hw, hw, c_out)],
+                     {"kernel_h": 3, "kernel_w": 3, "stride": 1, "groups": 1})
+    g.mark_output(c1)
+    return g
+
+
+def run_selection_path(device, setting, graphs, store) -> dict:
+    """Alg. C.2 (Mali G76) over the main path's graphs; the graphs it
+    gives a Winograd op are profiled on the float32 store, then the Fig. 8
+    study times Winograd against the direct conv op."""
+    from repro_torch.core.executor import GraphExecutor
+    from repro_torch.core.fusion import fuse_graph
+    from repro_torch.core.ir import op_signature
+    from repro_torch.core.profiler import ProfileSession
+    from repro_torch.core.selection import apply_selection, check_winograd, get_device
+    from repro_torch.utils.timing import time_callable
+
+    mali = get_device("mali_g76")
+    selected = [apply_selection(g, mali) for g in graphs]
+    wino = [g for g in selected
+            if any(n.op_type == "winograd_conv2d" for n in g.nodes)]
+    if not wino:
+        raise AssertionError("Alg. C.2 selected no Winograd op")
+    execs = [fuse_graph(g)[1] for g in wino]
+    new_sigs = {op_signature(e, n) for e in execs for n in e.nodes
+                if n.op_type == "winograd_conv2d"}
+    reset_counts()
+    session = ProfileSession(store=store, device=device)
+    t0 = time.perf_counter()
+    recs = session.profile_suite(wino, setting)
+    profile_s = time.perf_counter() - t0
+    counts = read_counts()
+    if counts["winograd_conv2d"] == 0:
+        raise AssertionError("the Winograd kernel was never launched")
+    wino_ms = [o.latency_s * 1e3 for r in recs for o in r.ops
+               if o.op_type == "winograd_conv2d"]
+    if not all(math.isfinite(v) and v > 0 for v in wino_ms):
+        raise AssertionError(f"bad Winograd op latencies {wino_ms}")
+
+    study = []
+    for name, (c_in, c_out, hw) in STUDY_SHAPES.items():
+        row = {"name": name}
+        for kind, wg in (("winograd_us", True), ("conv2d_us", False)):
+            ex = GraphExecutor(_conv_graph(c_in, c_out, hw, wg), "op_by_op",
+                               device=device)
+            row[kind] = 1e6 * time_callable(
+                lambda *a: ex(*a, sync_per_op=True), ex.example_inputs(),
+                warmup=2, inner=8, repeats=3)
+        g = _conv_graph(c_in, c_out, hw)
+        row["direct_over_winograd"] = row["conv2d_us"] / row["winograd_us"]
+        row["select_mali"] = check_winograd(mali, g.nodes[0], g)
+        row["select_adreno"] = check_winograd(get_device("adreno640"),
+                                              g.nodes[0], g)
+        study.append(row)
+        log("fig8 " + json.dumps(row))
+    out = {"graphs_with_winograd": len(wino), "winograd_signatures": len(new_sigs),
+           "measured_ops": session.measured_ops, "profile_s": profile_s,
+           "winograd_op_ms": wino_ms, "launches": counts}
+    if session.measured_ops > len(new_sigs):
+        raise AssertionError(f"profiled {session.measured_ops} ops; only the "
+                             f"{len(new_sigs)} Winograd ops were new")
+    log("selection_path " + json.dumps(out))
+    return {"summary": out, "study": study, "graphs": wino}
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -486,6 +783,91 @@ def auto_curve(model, device) -> list:
     return points
 
 
+def time_int8_gemm(graph, device) -> list:
+    """The int8 GEMM at the shapes of one int8 forward pass of ``graph``:
+    kernel, plain version and ``torch._int_mm`` (int32 out, no scale).
+    cuBLASLt refuses many int8 shapes whose sides are multiples of 8
+    (m·k·n = 784·40·208 and 17·24·72 on this card), so the library's
+    operands are zero-padded to multiples of 32, with the weight
+    column-major, and the padded shape is reported."""
+    import torch
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import int8_matmul_cuda as imc
+
+    scale = im.out_scale(4.0 / 127.0 * (0.4 / 127.0) / (4.0 / 127.0), 1.0)
+    rows = []
+    for i, (op, m, k, n) in enumerate(gemm_shapes(graph)):
+        a, b, bt, bias = _int8_operands(m, k, n, device, seed=1000 + i)
+        if not torch.equal(imc.int8_matmul_cuda(a, bt, scale, bias),
+                           im.int8_matmul_plain(a, bt, scale, bias)):
+            raise AssertionError(f"int8 GEMM differs at {(m, k, n)}")
+        mp, kp, n_p = (-(-x // 32) * 32 for x in (m, k, n))
+        ap = torch.zeros((mp, kp), dtype=torch.int8, device=device)
+        bp = torch.zeros((n_p, kp), dtype=torch.int8, device=device)
+        ap[:m, :k] = a
+        bp[:n, :k] = b.t()
+        bp = bp.t()                                  # (kp, n_p), column-major
+        kern = cuda_ms(lambda: imc.int8_matmul_cuda(a, bt, scale, bias))
+        plain = cuda_ms(lambda: im.int8_matmul_plain(a, bt, scale, bias),
+                        iters=3, warmup=2)
+        lib = cuda_ms(lambda: torch._int_mm(ap, bp))
+        b_ms, b_by = bound(m * k + k * n + 4 * n + 4 * m * n, 2 * m * n * k,
+                           PEAK_INT8_OPS_PER_S)
+        rows.append({"op": op, "m": m, "k": k, "n": n, "max_abs_err": 0.0,
+                     "ms": kern["device"], "host_ms": kern["host"],
+                     "plain_ms": plain["device"], "library_ms": lib["device"],
+                     "library_shape": [mp, kp, n_p],
+                     "library_padded": [mp, kp, n_p] != [m, k, n],
+                     "bound_ms": b_ms, "bound_by": b_by})
+        log("time int8_matmul " + json.dumps(rows[-1]))
+    return rows
+
+
+def time_winograd(device) -> list:
+    """The Winograd kernel at the selection path's shape (first row) and
+    at the Fig. 8 study shapes: kernel on (T, 16, C) tiles, plain version
+    and ``F.conv2d`` (TF32 off) on the same input."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import winograd_conv as wc
+    from repro_torch.kernels import winograd_conv_cuda as wcc
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    names = ["nas_79x77_56"] + [n for n in STUDY_SHAPES if n != "nas_79x77_56"]
+    for i, name in enumerate(names):
+        c, k, hw = STUDY_SHAPES[name]
+        rng = np.random.default_rng(200 + i)
+        x = torch.from_numpy(rng.standard_normal((1, hw, hw, c)).astype(np.float32)).to(device)
+        wt = torch.from_numpy((rng.standard_normal((3, 3, c, k)) * 0.1)
+                              .astype(np.float32)).to(device)
+        u = wc.transform_weights(wt)
+        tiles = ref.extract_winograd_tiles(x).reshape(-1, 16, c).contiguous()
+        t = tiles.shape[0]
+        err = float((wcc.winograd_tiles_cuda(tiles, u)
+                     - wc.winograd_tiles_plain(tiles, u)).abs().max())
+        xc = x.permute(0, 3, 1, 2)
+        wc_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        kern = cuda_ms(lambda: wcc.winograd_tiles_cuda(tiles, u))
+        plain = cuda_ms(lambda: wc.winograd_tiles_plain(tiles, u), iters=3, warmup=2)
+        lib = cuda_ms(lambda: F.conv2d(xc, wc_oihw, padding=1))
+        # Bytes: tiles and U read once, output tiles written once.
+        # Operations: the 16 products, plus 32 adds per (tile, channel) in
+        # and 24 per (tile, output channel) out.
+        b_ms, b_by = bound(4 * (16 * t * c + 16 * c * k + 4 * t * k),
+                           32 * t * c * k + 32 * t * c + 24 * t * k)
+        rows.append({"shape": name, "tiles": t, "c": c, "k": k,
+                     "max_abs_err": err,
+                     "ms": kern["device"], "host_ms": kern["host"],
+                     "plain_ms": plain["device"], "library_ms": lib["device"],
+                     "bound_ms": b_ms, "bound_by": b_by})
+        log("time winograd_conv2d " + json.dumps(rows[-1]))
+    return rows
+
+
 def summarize(rows: list, launches: int, parity_err: float) -> dict:
     tot = {k: math.fsum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
     ops_bound = any(r["bound_by"] == "operations" for r in rows)
@@ -498,7 +880,8 @@ def summarize(rows: list, launches: int, parity_err: float) -> dict:
 
 
 def main() -> int:
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "tree_gather.cu").exists():
+    csrc = ROOT / CSRC
+    if not all((ROOT / src).exists() for src in SOURCES.values()):
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
         return 2
     import torch
@@ -516,39 +899,77 @@ def main() -> int:
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"python {sys.version.split()[0]}")
         phase = "build"
-        from repro_torch.kernels import tree_gather_cuda as tgc
+        from repro_torch.kernels import _build
 
-        tgc.load_library()
-        log(f"build: {tgc.BUILD_INFO['path']} in {tgc.BUILD_INFO['seconds']:.2f} s")
-        for line in tgc.BUILD_INFO["ptxas"].splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                log("ptxas: " + line.strip())
+        t0 = time.perf_counter()
+        info = _build.build_all([m.LIBRARY for m in kernel_modules()])
+        log(f"build: {len(info)} libraries from {csrc} in "
+            f"{time.perf_counter() - t0:.2f} s wall")
+        for name, b in info.items():
+            log(f"build {name}: {b['path']} in {b['seconds']:.2f} s")
+            for line in b["ptxas"].splitlines():
+                if "registers" in line or "Compiling entry" in line or "spill" in line:
+                    log(f"ptxas {name}: " + line.strip())
+
+        from repro_torch.core.dataset import synthetic_graphs
+        from repro_torch.core.profiler import DeviceSetting
+
+        graphs = synthetic_graphs(40, resolution=224)
+        pop = synthetic_graphs(1024, resolution=224, seed0=10_000)
+        pop2 = synthetic_graphs(256, resolution=224, seed0=20_000)
+        f32 = DeviceSetting("h100_f32", "float32", "fused_groups", device="h100")
+        int8 = DeviceSetting("h100_int8", "int8", "op_by_op", device="h100")
 
         phase = "parity"
         parity = [check_parity(n, m, s, device) for n, m, s in parity_models()]
+        gemm_parity = check_int8_gemm(graphs, device)
+        wino_parity = check_winograd(device)
+        lut_diffs = check_int8_round_trips(device)
+        check_int8_executor(graphs[:2], device, lut_diffs)
 
-        phase = "main path"
-        main_path = run_main_path(device)
-        summary = main_path["summary"]
+        phase = "main path (float32)"
+        main_f32 = run_main_path(device, f32, graphs, pop, pop2)
+        log("host_featurize_1024_cold_s " + json.dumps(cold_featurize_s(
+            synthetic_graphs(1024, resolution=224, seed0=30_000))))
+
+        phase = "main path (int8)"
+        main_i8 = run_main_path(device, int8, graphs, pop, pop2)
+        if main_i8["summary"]["launches"]["int8_matmul"] == 0:
+            raise AssertionError("the int8 GEMM was never launched on the int8 path")
+
+        phase = "selection path"
+        sel = run_selection_path(device, f32, graphs, main_f32["store"])
 
         phase = "times"
-        timed = time_kernels(main_path["bank"], main_path["held"],
-                             main_path["population"], device)
-        preds = main_path["bank"].predictors
+        timed = time_kernels(main_f32["bank"], main_f32["held"], pop, device)
+        preds = main_f32["bank"].predictors
         curve = auto_curve(preds.get("conv2d") or next(iter(preds.values())),
                            device)
         log("auto_curve_summary " + json.dumps(
             [(p["slots"], p["numpy_ms"], p["cuda_path_ms"]) for p in curve]))
-        log("library_ms: null — no single PyTorch call computes a tree-ensemble "
-            "traversal")
+        log("library_ms: null for the tree kernels — no single PyTorch call "
+            "computes a tree-ensemble traversal")
+        gemm_rows = time_int8_gemm(main_i8["held"][0], device)
+        wino_rows = time_winograd(device)
 
         parity_err = max(p["fused_max_abs_err"] for p in parity)
         kernels = []
         for name in ("tree_gather_leaves", "tree_predict_fused"):
-            entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                     "replaces": REPLACES}
-            entry.update(summarize(timed[name], summary["launches"][name],
+            entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+                     "replaces": REPLACES[name]}
+            entry.update(summarize(timed[name],
+                                   main_f32["summary"]["launches"][name],
                                    parity_err if name == "tree_predict_fused" else 0.0))
+            kernels.append(entry)
+        for name, rows, launches, err in (
+                ("int8_matmul", gemm_rows, main_i8["summary"]["launches"],
+                 gemm_parity["max_abs_err"]),
+                ("winograd_conv2d", wino_rows[:1], sel["summary"]["launches"],
+                 wino_parity["max_abs_err"])):
+            entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+                     "replaces": REPLACES[name]}
+            entry.update(summarize(rows, launches[name], err))
+            entry["library_ms"] = math.fsum(r["library_ms"] for r in rows)
             kernels.append(entry)
         log(f"card: {card_line()}")
         log(json.dumps({"kernels": kernels}))

@@ -12,6 +12,11 @@ The twin of the reference executor (``repro.core.executor``).  Modes:
                        after the convolution (its bias rides in the conv).
   * ``whole_jit``    — not ported yet (a CUDA graph in a later slice).
 
+``dtype="int8"`` builds its ops with `repro_torch.quant.int8`: the int8
+GEMM kernel carries fully-connected and dense convolution ops.  The
+float ``winograd_conv2d`` op runs the Winograd kernel
+(`repro_torch.kernels.winograd_conv`) on the card.
+
 Layout: the public layout is the reference's NHWC activations and HWIO
 weights.  Convolutions and pools view an NHWC tensor as NCHW with
 ``permute`` — a channels-last view, no copy — so cuDNN runs on the
@@ -39,6 +44,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.fusion import fuse_graph
 from repro_torch.core.ir import OpGraph, OpNode, op_signature
+from repro_torch.kernels.ops import winograd_conv2d
+from repro_torch.kernels.winograd_conv import transform_weights
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
@@ -68,49 +75,6 @@ def _float32_only() -> None:
     """A float32 setting measures float32: no TF32 in convs or matmuls."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-
-
-# ---------------------------------------------------------------------------
-# Winograd F(2x2, 3x3) — plain torch (the reference's jnp version)
-# ---------------------------------------------------------------------------
-
-_B_T = np.array([[1, 0, -1, 0],
-                 [0, 1, 1, 0],
-                 [0, -1, 1, 0],
-                 [0, 1, 0, -1]], dtype=np.float32)
-_G = np.array([[1, 0, 0],
-               [0.5, 0.5, 0.5],
-               [0.5, -0.5, 0.5],
-               [0, 0, 1]], dtype=np.float32)
-_A_T = np.array([[1, 1, 1, 0],
-                 [0, 1, -1, -1]], dtype=np.float32)
-
-
-def winograd_transform_weights(w: Tensor) -> Tensor:
-    """(3,3,C,K) → (4,4,C,K): U = G g G^T (precomputed offline, as TFLite)."""
-    g = torch.as_tensor(_G, device=w.device)
-    return torch.einsum("ij,jkcq,lk->ilcq", g, w, g)
-
-
-def winograd_conv2d(x: Tensor, u: Tensor, out_c: int) -> Tensor:
-    """Winograd F(2x2,3x3) convolution, stride 1, SAME padding.
-
-    x: (B,H,W,C); u: pre-transformed weights (4,4,C,K).
-    """
-    b, h, w, c = x.shape
-    nh, nw = (h + 1) // 2, (w + 1) // 2
-    xp = F.pad(x, (0, 0, 1, 2 * nw - w + 1, 1, 2 * nh - h + 1))
-    tiles = torch.stack([xp[:, i: i + 2 * nh: 2, :, :] for i in range(4)],
-                        dim=3)                        # (B, nh, W', 4, C)
-    tiles = torch.stack([tiles[:, :, j: j + 2 * nw: 2, :, :]
-                         for j in range(4)], dim=4)   # (B, nh, nw, 4, 4, C)
-    bt = torch.as_tensor(_B_T, device=x.device)
-    at = torch.as_tensor(_A_T, device=x.device)
-    v = torch.einsum("ij,bxyjkc,lk->bxyilc", bt, tiles, bt)
-    m = torch.einsum("bxyijc,ijck->bxyijk", v, u)
-    y = torch.einsum("ij,bxyjkq,lk->bxyilq", at, m, at)  # (B,nh,nw,2,2,K)
-    y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * nh, 2 * nw, out_c)
-    return y[:, :h, :w, :]
 
 
 # ---------------------------------------------------------------------------
@@ -317,13 +281,12 @@ def build_op_fn(graph: OpGraph, node: OpNode, device: DeviceLike = "cuda"
 
     if t == "winograd_conv2d":
         w, b = _conv_weights(node, graph)
-        out_c = graph.tensor(node.outputs[0]).shape[-1]
         act = p.get("act")
-        u = winograd_transform_weights(upload(w))       # offline
+        u = transform_weights(upload(w))                # offline: (16, C, K)
         bt = upload(b)
 
         def fn(*xs):
-            y = winograd_conv2d(xs[0], u, out_c) + bt
+            y = winograd_conv2d(xs[0], u) + bt
             if act:
                 y = _ACTS[act](y)
             return tail(y, list(xs[n_base:]))
@@ -435,6 +398,15 @@ def build_op_fn(graph: OpGraph, node: OpNode, device: DeviceLike = "cuda"
     raise NotImplementedError(f"executor: op type {t!r} (conv-space executor)")
 
 
+def op_builder(dtype: str) -> Callable[..., Tuple[Callable, List[int]]]:
+    """`build_op_fn` for float32, `repro_torch.quant.build_quant_op_fn`
+    for int8."""
+    if dtype == "int8":
+        from repro_torch.quant.int8 import build_quant_op_fn
+        return build_quant_op_fn
+    return build_op_fn
+
+
 # ---------------------------------------------------------------------------
 # Graph executors
 # ---------------------------------------------------------------------------
@@ -444,9 +416,9 @@ class GraphExecutor:
 
     ``fn_cache`` (optional, signature-keyed) shares built per-op
     callables across executors — valid for *timing* (latency depends on
-    the op config, not its weights), not for numerics.  Only float32 in
-    ``op_by_op`` / ``fused_groups`` is ported; ``whole_jit`` and int8
-    raise NotImplementedError.
+    the op config, not its weights), not for numerics.  ``dtype='int8'``
+    uses the integer-arithmetic path (`repro_torch.quant`).  ``whole_jit``
+    is not ported and raises NotImplementedError.
     """
 
     def __init__(self, graph: OpGraph, mode: str = "op_by_op",
@@ -459,8 +431,6 @@ class GraphExecutor:
             raise ValueError(f"unknown executor dtype {dtype!r}")
         if mode == "whole_jit":
             raise NotImplementedError("whole_jit is not ported to torch yet")
-        if dtype == "int8":
-            raise NotImplementedError("the int8 executor is not ported yet")
         self.device = resolve_device(device)
         self.graph = graph
         self.mode = mode
@@ -473,24 +443,26 @@ class GraphExecutor:
         if self.mode == "fused_groups":
             _, g = fuse_graph(self.graph)
         self.exec_graph = g
+        build = op_builder(self.dtype)
         self.op_fns: List[Tuple[OpNode, Callable, List[int]]] = []
         for node in g.nodes:
             if self.fn_cache is not None:
                 sig = self.dtype + ":" + op_signature(g, node)
                 fn = self.fn_cache.get(sig)
                 if fn is None:
-                    fn, in_ids = build_op_fn(g, node, self.device)
+                    fn, in_ids = build(g, node, self.device)
                     self.fn_cache[sig] = fn
                 else:
                     in_ids = list(node.inputs)
             else:
-                fn, in_ids = build_op_fn(g, node, self.device)
+                fn, in_ids = build(g, node, self.device)
             self.op_fns.append((node, fn, in_ids))
 
     def example_inputs(self, seed: int = 0) -> List[Tensor]:
+        dtype = "int8" if self.dtype == "int8" else None
         return [
             torch.from_numpy(make_array(self.exec_graph.tensor(t).shape,
-                                        self.exec_graph.tensor(t).dtype,
+                                        dtype or self.exec_graph.tensor(t).dtype,
                                         seed + i, scale=1.0)).to(self.device)
             for i, t in enumerate(self.exec_graph.input_ids)
         ]

@@ -28,7 +28,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.executor import GraphExecutor, build_op_fn, make_array
+from repro_torch.core.executor import GraphExecutor, make_array, op_builder
 from repro_torch.core.features import featurize, graph_features
 from repro_torch.core.ir import OpGraph, OpNode, op_signature
 from repro_torch.utils.device import DeviceLike, resolve_device
@@ -256,12 +256,10 @@ class ProfileSession:
         """Raw wall-clock measurement of one op (override point: replay /
         simulated sessions substitute a latency source without touching
         the caching, counting, and store write-back in `measure_op`)."""
-        if setting.dtype == "int8":
-            raise NotImplementedError("int8 profiling is not ported yet")
         sig = setting.dtype + ":" + op_signature(graph, node)
         fn = self.fn_cache.get(sig)
         if fn is None:
-            fn, _ = build_op_fn(graph, node, self.device)
+            fn, _ = op_builder(setting.dtype)(graph, node, self.device)
             self.fn_cache[sig] = fn
         args = self._op_inputs(graph, node, setting.dtype)
         # Adaptive amortization (paper §4.3.1 dispatches the same kernel

@@ -1,0 +1,181 @@
+"""nvcc build, hashing and ctypes loading shared by every CUDA kernel module.
+
+Each ``csrc/*.cu`` file is one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds).  A library is built at
+first use with ``nvcc … -shared`` into ``build/`` at the repository
+root, under a name keyed by a hash of its sources and flags, and loaded
+with ctypes.  Nothing is built or loaded at import time.
+
+Every source exports ``<name>_error_string(int)`` beside its launch
+functions, and every launch function returns ``cudaGetLastError()`` of
+its launch; `CudaLibrary.raise_on` turns a non-zero code into an error.
+`LaunchCounter` holds a module's launch counts, and `check_tensor` is
+the wrappers' argument check.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Library name → {"path", "seconds" (0 when the hashed library already
+# existed), "ptxas" (nvcc's register/spill report)}, filled at build time.
+BUILD_INFO: Dict[str, Dict[str, Any]] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+class CudaLibrary:
+    """One ``.cu`` source: its build, its loaded handle and its entry points.
+
+    ``declare(lib)`` sets ``argtypes``/``restype`` of the launch functions
+    once the library is loaded.
+    """
+
+    def __init__(self, name: str, sources: Sequence[str],
+                 declare: Callable[[ctypes.CDLL], None]):
+        self.name = name
+        self.sources = tuple(sources)
+        self._declare = declare
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def path(self) -> Path:
+        """Where the library for the sources and current flags lives."""
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in self.sources:
+            h.update(src.encode())
+            h.update((CSRC / src).read_bytes())
+        return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
+
+    def _command(self, out: Path) -> list:
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                *(str(CSRC / s) for s in self.sources)]
+
+    def start_build(self) -> Optional[Tuple[subprocess.Popen, Path, float]]:
+        """Start nvcc unless the hashed library exists (then None)."""
+        so = self.path()
+        if so.exists():
+            if BUILD_INFO.get(self.name, {}).get("path") != str(so):
+                BUILD_INFO[self.name] = {"path": str(so), "seconds": 0.0,
+                                         "ptxas": ""}
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(self._command(tmp), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        return proc, tmp, time.perf_counter()
+
+    def finish_build(self, started: Optional[Tuple[subprocess.Popen, Path, float]]
+                     ) -> Path:
+        so = self.path()
+        if started is None:
+            return so
+        proc, tmp, t0 = started
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {self.name} ({proc.returncode}):\n"
+                               f"{' '.join(proc.args)}\n{err}")
+        os.replace(tmp, so)                 # atomic: concurrent builds agree
+        BUILD_INFO[self.name] = {"path": str(so),
+                                 "seconds": time.perf_counter() - t0,
+                                 "ptxas": err}
+        return so
+
+    def build(self) -> Path:
+        return self.finish_build(self.start_build())
+
+    def load(self) -> ctypes.CDLL:
+        """Build (first use) and load the library, with typed entry points."""
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.build()))
+                err_fn = getattr(lib, f"{self.name}_error_string")
+                err_fn.argtypes = [ctypes.c_int]
+                err_fn.restype = ctypes.c_char_p
+                self._declare(lib)
+                self._lib = lib
+            return self._lib
+
+    def raise_on(self, err: int, kernel: str) -> None:
+        if err != 0:
+            msg = getattr(self.load(), f"{self.name}_error_string")(err).decode()
+            raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
+
+
+def build_all(libraries: Sequence[CudaLibrary]) -> Dict[str, Dict[str, Any]]:
+    """Build every library with one nvcc each, all started together, then
+    load them; returns `BUILD_INFO` for those libraries.  Every nvcc is
+    waited for before the first failure is raised."""
+    started = [(lib, lib.start_build()) for lib in libraries]
+    errors = []
+    for lib, s in started:
+        try:
+            lib.finish_build(s)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for lib in libraries:
+        lib.load()
+    return {lib.name: BUILD_INFO[lib.name] for lib in libraries}
+
+
+class LaunchCounter:
+    """Launches per kernel of one module: a wrapper calls `add` where it
+    launches its kernel, and nowhere else."""
+
+    def __init__(self, *names: str):
+        self.counts: Dict[str, int] = {n: 0 for n in names}
+        self._lock = threading.Lock()
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self.counts[name] += 1
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self.counts)
+
+    def reset(self) -> None:
+        with self._lock:
+            for k in self.counts:
+                self.counts[k] = 0
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 device: torch.device, shape: Optional[tuple] = None) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on the CUDA
+    ``device`` (and of ``shape``, when given)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if t.device != device or t.device.type != "cuda":
+        raise ValueError(f"{name} must lie on {device} (got {t.device})")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype} (got {t.dtype})")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape} (got {tuple(t.shape)})")

@@ -9,10 +9,9 @@ reference's ``repro.kernels.tree_gather_pallas``).
     features: standardize on load, traverse, reduce over trees in a
     fixed order, ``max(bias + scale·red, 0)``.
 
-The library is built at first use with ``nvcc … -shared`` into
-``build/`` at the repository root, keyed by a hash of the sources and
-flags, and loaded with ctypes (no PyTorch headers, so the build takes
-seconds).  Nothing is built or loaded at import time.
+The library is built at first use by `repro_torch.kernels._build`
+(nvcc ``-shared`` into ``build/``, keyed by a hash of the sources and
+flags) and loaded with ctypes.  Nothing is built or loaded at import time.
 
 Every wrapper checks device, dtype, contiguity and shape, allocates the
 output itself, launches on torch's current stream and raises if the C
@@ -24,23 +23,13 @@ bank to the plain torch versions and a CUDA bank here.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tree_gather.cu",)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels._build import CudaLibrary, LaunchCounter
+from repro_torch.kernels._build import check_tensor as _check
 
 # Rows of x staged in shared memory per block iteration (8 warps, one
 # row per warp at a time: 4 rows per warp per block iteration).
@@ -54,91 +43,23 @@ MAX_BLOCKS_PER_SM = 8                    # 2048 threads / 256 per block
 BANK_BYTES_PER_NODE = 20                 # int4 node + float value
 
 # Launches per kernel; `reset_launch_counts` zeroes them.
-LAUNCHES: Dict[str, int] = {"tree_gather_leaves": 0, "tree_predict_fused": 0}
-_LAUNCH_LOCK = threading.Lock()
-
-# Filled by the first `load_library` call: path, build seconds (0 when
-# the hashed library already existed) and nvcc's ptxas report.
-BUILD_INFO: Dict[str, Any] = {}
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
+_COUNTER = LaunchCounter("tree_gather_leaves", "tree_predict_fused")
+LAUNCHES: Dict[str, int] = _COUNTER.counts
+launch_counts = _COUNTER.snapshot
+reset_launch_counts = _COUNTER.reset
 
 
-def launch_counts() -> Dict[str, int]:
-    with _LAUNCH_LOCK:
-        return dict(LAUNCHES)
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
+    lib.tree_gather_leaves_launch.argtypes = [
+        p, p, p, p, p, i, i, i, i, i, i, i, i, z, p]
+    lib.tree_gather_leaves_launch.restype = i
+    lib.tree_predict_fused_launch.argtypes = [
+        p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, i, i, z, p]
+    lib.tree_predict_fused_launch.restype = i
 
 
-def reset_launch_counts() -> None:
-    with _LAUNCH_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def _count_launch(name: str) -> None:
-    with _LAUNCH_LOCK:
-        LAUNCHES[name] += 1
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the tree-gather kernels")
-
-
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libtree_gather_{h.hexdigest()[:16]}.so"
-
-
-def build_library() -> Path:
-    """Compile the sources with nvcc unless the hashed library exists."""
-    so = library_path()
-    if so.exists():
-        BUILD_INFO.update(path=str(so), seconds=0.0, ptxas="")
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, so)                 # atomic: concurrent builds agree
-    BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0,
-                      ptxas=proc.stderr)
-    return so
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library, with typed entry points."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        lib = ctypes.CDLL(str(build_library()))
-        p, i, f, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
-        lib.tree_gather_leaves_launch.argtypes = [
-            p, p, p, p, p, i, i, i, i, i, i, i, i, z, p]
-        lib.tree_gather_leaves_launch.restype = i
-        lib.tree_predict_fused_launch.argtypes = [
-            p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, i, i, z, p]
-        lib.tree_predict_fused_launch.restype = i
-        lib.tree_gather_error_string.argtypes = [i]
-        lib.tree_gather_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-        return lib
+LIBRARY = CudaLibrary("tree_gather", ("tree_gather.cu",), _declare)
 
 
 # -- launch geometry ----------------------------------------------------------
@@ -170,20 +91,6 @@ def _plan(bank, rows: int, d: int) -> Dict[str, int]:
     return launch_plan(bank.n_nodes, rows, d, n_sm)
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
-           device: torch.device, shape: tuple) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
-    if t.device != device or t.device.type != "cuda":
-        raise ValueError(f"{name} must lie on {device} (got {t.device})")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype} (got {t.dtype})")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape} (got {tuple(t.shape)})")
-
-
 def _check_bank_and_x(bank, x: torch.Tensor) -> None:
     if bank.device.type != "cuda":
         raise ValueError("the CUDA kernels need a bank resident on the card")
@@ -201,12 +108,6 @@ def _check_bank_and_x(bank, x: torch.Tensor) -> None:
            (bank.n_trees,))
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, kernel: str) -> None:
-    if err != 0:
-        msg = lib.tree_gather_error_string(err).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
-
-
 # -- wrappers -----------------------------------------------------------------
 
 def gather_leaves_cuda(bank, x: torch.Tensor) -> torch.Tensor:
@@ -218,7 +119,7 @@ def gather_leaves_cuda(bank, x: torch.Tensor) -> torch.Tensor:
                       device=bank.device)
     if rows == 0:
         return out
-    lib = load_library()
+    lib = LIBRARY.load()
     plan = _plan(bank, rows, d)
     stream = torch.cuda.current_stream(bank.device).cuda_stream
     err = lib.tree_gather_leaves_launch(
@@ -226,8 +127,8 @@ def gather_leaves_cuda(bank, x: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), rows, d, bank.n_nodes, bank.n_trees,
         bank.depth, ROWS_PER_BLOCK, plan["bank_in_smem"], plan["grid"],
         plan["smem_bytes"], stream)
-    _raise_on(lib, err, "tree_gather_leaves")
-    _count_launch("tree_gather_leaves")
+    LIBRARY.raise_on(err, "tree_gather_leaves")
+    _COUNTER.add("tree_gather_leaves")
     return out
 
 
@@ -245,7 +146,7 @@ def fused_predict_cuda(bank, mean: torch.Tensor, std: torch.Tensor,
     out = torch.empty((rows,), dtype=torch.float32, device=bank.device)
     if rows == 0:
         return out
-    lib = load_library()
+    lib = LIBRARY.load()
     plan = _plan(bank, rows, d)
     stream = torch.cuda.current_stream(bank.device).cuda_stream
     err = lib.tree_predict_fused_launch(
@@ -255,8 +156,8 @@ def fused_predict_cuda(bank, mean: torch.Tensor, std: torch.Tensor,
         plan["bank_in_smem"], float(np.float32(scale)),
         float(np.float32(bias)), int(kind == "mean"), plan["grid"],
         plan["smem_bytes"], stream)
-    _raise_on(lib, err, "tree_predict_fused")
-    _count_launch("tree_predict_fused")
+    LIBRARY.raise_on(err, "tree_predict_fused")
+    _COUNTER.add("tree_predict_fused")
     return out
 
 

@@ -115,3 +115,114 @@ def test_service_serves_on_the_card(card):
     want = host.predict_batch(graphs)     # re-uploads the banks to the host
     np.testing.assert_allclose([r.e2e_s for r in got], [r.e2e_s for r in want],
                                rtol=1e-5)
+
+
+# -- int8 GEMM and Winograd ------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(1, 63, 252), (1, 1477, 1000), (64, 128, 64),
+                                   (130, 27, 77), (3136, 79, 77), (12544, 96, 24)])
+def test_int8_matmul_bit_equal_to_plain(card, m, k, n):
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import int8_matmul_cuda as imc
+
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(card)
+    b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(card)
+    bias = torch.from_numpy(rng.integers(-999, 999, n).astype(np.int32)).to(card)
+    bt = im.pack_weight(b)
+    scale = im.out_scale(4.0 / 127.0 * (0.4 / 127.0) / (4.0 / 127.0), 1.0)
+    before = imc.launch_counts()["int8_matmul"]
+    got = imc.int8_matmul_cuda(a, bt, scale, bias)
+    got2 = im.int8_matmul(a, b, 0.02, 0.05)
+    torch.cuda.synchronize()
+    assert imc.launch_counts()["int8_matmul"] == before + 2
+    assert torch.equal(got, im.int8_matmul_plain(a, bt, scale, bias))
+    assert torch.equal(got2, im.int8_matmul_plain(a, bt, im.out_scale(0.02, 0.05)))
+
+
+def test_int8_wrapper_checks_its_inputs(card):
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import int8_matmul_cuda as imc
+
+    a = torch.zeros((4, 8), dtype=torch.int8, device=card)
+    bt = im.pack_weight(torch.zeros((8, 5), dtype=torch.int8, device=card))
+    with pytest.raises(TypeError):
+        imc.int8_matmul_cuda(a.int(), bt, 1.0)
+    with pytest.raises(ValueError, match="lie on"):
+        imc.int8_matmul_cuda(a.cpu(), bt, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        imc.int8_matmul_cuda(torch.zeros((8, 4), dtype=torch.int8, device=card).t(),
+                             bt, 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        imc.int8_matmul_cuda(a, bt, 1.0, torch.zeros(4, dtype=torch.int32, device=card))
+    with pytest.raises(ValueError, match="packs"):
+        imc.int8_matmul_cuda(torch.zeros((4, 40), dtype=torch.int8, device=card), bt, 1.0)
+    assert imc.int8_matmul_cuda(a[:0], bt, 1.0).shape == (0, 5)
+
+
+WINO_TOL = 1e-5     # × max|plain|: float32 summation order only
+
+
+@pytest.mark.parametrize("b,h,w,c,k", [(1, 8, 8, 16, 16), (2, 12, 12, 64, 64),
+                                       (1, 7, 9, 16, 16), (1, 56, 56, 79, 77),
+                                       (1, 14, 14, 256, 256), (3, 5, 3, 3, 5)])
+def test_winograd_within_tolerance_of_plain(card, b, h, w, c, k):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import winograd_conv as wc
+    from repro_torch.kernels import winograd_conv_cuda as wcc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(h * w + c)
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(card)
+    wt = torch.from_numpy((rng.standard_normal((3, 3, c, k)) * 0.1)
+                          .astype(np.float32)).to(card)
+    u = wc.transform_weights(wt)
+    tiles = ref.extract_winograd_tiles(x).reshape(-1, 16, c).contiguous()
+    before = wcc.launch_counts()["winograd_conv2d"]
+    got = wcc.winograd_tiles_cuda(tiles, u)
+    y = wc.winograd_conv2d(x, wt)
+    torch.cuda.synchronize()
+    assert wcc.launch_counts()["winograd_conv2d"] == before + 2
+    plain = wc.winograd_tiles_plain(tiles, u)
+    assert float((got - plain).abs().max()) <= WINO_TOL * float(plain.abs().max())
+    direct = ref.winograd_conv_ref(x, wt)
+    assert y.shape == direct.shape
+    assert float((y - direct).abs().max()) <= 1e-4 * float(direct.abs().max())
+    assert torch.equal(got, wcc.winograd_tiles_cuda(tiles, u))   # repeatable
+
+
+def test_winograd_wrapper_checks_its_inputs(card):
+    from repro_torch.kernels import winograd_conv_cuda as wcc
+
+    tiles = torch.zeros((10, 16, 8), device=card)
+    u = torch.zeros((16, 8, 5), device=card)
+    with pytest.raises(TypeError):
+        wcc.winograd_tiles_cuda(tiles.double(), u)
+    with pytest.raises(ValueError, match="lie on"):
+        wcc.winograd_tiles_cuda(tiles, u.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        wcc.winograd_tiles_cuda(torch.zeros((10, 8, 16), device=card).transpose(1, 2), u)
+    with pytest.raises(ValueError, match="shape"):
+        wcc.winograd_tiles_cuda(tiles, torch.zeros((16, 7, 5), device=card))
+    assert wcc.winograd_tiles_cuda(tiles[:0], u).shape == (0, 4, 5)
+
+
+@pytest.mark.parametrize("mode", ["op_by_op", "fused_groups"])
+def test_int8_executor_card_equals_host(card, mode):
+    from repro_torch.core.dataset import synthetic_graphs
+    from repro_torch.core.executor import GraphExecutor
+    from repro_torch.kernels import int8_matmul_cuda as imc
+
+    g = synthetic_graphs(2, resolution=32)[1]
+    host = GraphExecutor(g, mode=mode, dtype="int8", device="cpu")
+    dev = GraphExecutor(g, mode=mode, dtype="int8", device=card)
+    before = imc.launch_counts()["int8_matmul"]
+    got = dev(*dev.example_inputs())
+    torch.cuda.synchronize()
+    assert imc.launch_counts()["int8_matmul"] > before
+    want = host(*host.example_inputs())
+    for a, b in zip(got, want):
+        # Transcendental round trips may move an element by one step.
+        d = (a.cpu().int() - b.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 0.01

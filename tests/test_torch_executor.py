@@ -306,8 +306,7 @@ def test_fused_groups_is_one_callable_per_fusion_group():
     assert shrunk > 0
 
 
-@pytest.mark.parametrize("mode,dtype", [("whole_jit", "float32"),
-                                        ("op_by_op", "int8")])
+@pytest.mark.parametrize("mode,dtype", [("whole_jit", "float32")])
 def test_not_yet_ported_modes_raise(mode, dtype):
     g = synthetic_graphs(1, resolution=16)[0]
     with pytest.raises(NotImplementedError):
@@ -385,10 +384,3 @@ def test_profile_session_warm_store_measures_nothing(tmp_path):
                            device="cpu", **kw)
     again.profile_suite(graphs, setting)
     assert again.measured_ops == 0 and again.measured_graphs == 0
-
-
-def test_int8_profiling_is_not_ported():
-    g = synthetic_graphs(1, resolution=16)[0]
-    session = ProfileSession(device="cpu")
-    with pytest.raises(NotImplementedError):
-        session._time_op(g, g.nodes[0], DeviceSetting("q", "int8", "op_by_op"))

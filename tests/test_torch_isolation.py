@@ -45,10 +45,15 @@ def test_port_has_the_slice_modules():
                 "core/predictors/flat.py", "core/composition.py",
                 "core/dataset.py", "core/executor.py", "core/profiler.py",
                 "kernels/tree_gather.py", "kernels/tree_gather_cuda.py",
+                "kernels/_build.py", "kernels/ref.py", "kernels/ops.py",
+                "kernels/int8_matmul.py", "kernels/int8_matmul_cuda.py",
+                "kernels/winograd_conv.py", "kernels/winograd_conv_cuda.py",
+                "quant/__init__.py", "quant/int8.py", "core/selection.py",
                 "pipeline/store.py", "pipeline/hub.py", "pipeline/service.py",
                 "convert.py"):
         assert mod in names
-    assert (PORT / "kernels" / "csrc" / "tree_gather.cu").exists()
+    for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu"):
+        assert (PORT / "kernels" / "csrc" / src).exists()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -71,6 +76,19 @@ def test_cuda_kernel_source_names_both_kernels():
     for name in ("tree_gather_leaves", "tree_predict_fused",
                  "_tree_gather_kernel", "__fdiv_rn", "cudaGetLastError"):
         assert name in src
+
+
+@pytest.mark.parametrize("source,names", [
+    ("int8_matmul.cu", ("src/repro/kernels/int8_matmul.py", "_int8_mm_kernel",
+                        "__dp4a", "__int2float_rn", "__fmul_rn")),
+    ("winograd_conv.cu", ("src/repro/kernels/winograd_conv.py",
+                          "_winograd_kernel", "fmaf"))])
+def test_cuda_sources_name_the_tpu_kernel_they_replace(source, names):
+    src = (PORT / "kernels" / "csrc" / source).read_text()
+    for name in names + ("What bounds it", "cudaGetLastError"):
+        assert name in src
+    for fast in ("tf32", "__fdividef", "__expf"):
+        assert fast not in src
 
 
 # -- default device is the card ---------------------------------------------------
@@ -97,6 +115,7 @@ def _graph():
 def _entry_points():
     from repro_torch.core.executor import GraphExecutor, build_op_fn
     from repro_torch.core.profiler import ProfileSession
+    from repro_torch.quant import build_quant_op_fn
     from repro_torch.kernels.tree_gather import CudaBank, to_device_scaler
     from repro_torch.pipeline import LatencyService, PredictorHub
     from repro_torch.utils.device import resolve_device
@@ -105,6 +124,8 @@ def _entry_points():
         "resolve_device": lambda: resolve_device(),
         "GraphExecutor": lambda: GraphExecutor(_graph()),
         "build_op_fn": lambda: build_op_fn(_graph(), _graph().nodes[0]),
+        "int8_GraphExecutor": lambda: GraphExecutor(_graph(), dtype="int8"),
+        "build_quant_op_fn": lambda: build_quant_op_fn(_graph(), _graph().nodes[0]),
         "ProfileSession": lambda: ProfileSession(),
         "CudaBank": lambda: CudaBank.from_flat(_tiny_gbdt()[0].flat()),
         "to_device_scaler": lambda: to_device_scaler(_tiny_gbdt()[0].scaler),

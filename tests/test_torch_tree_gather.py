@@ -265,10 +265,13 @@ def test_launch_plan_rejects_rows_too_wide_for_shared_memory():
 
 
 def test_library_path_is_keyed_by_sources(monkeypatch):
-    p = tgc.library_path()
-    assert p.parent == tgc.BUILD_DIR and p.suffix == ".so"
-    assert tgc.library_path() == p
-    monkeypatch.setattr(tgc, "NVCC_FLAGS", tgc.NVCC_FLAGS + ("-lineinfo",))
-    assert tgc.library_path() != p
-    assert "arch=compute_90a,code=sm_90a" in " ".join(tgc.NVCC_FLAGS)
-    assert "--use_fast_math" not in tgc.NVCC_FLAGS
+    from repro_torch.kernels import _build
+
+    p = tgc.LIBRARY.path()
+    assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
+    assert p.name.startswith("libtree_gather_")
+    assert tgc.LIBRARY.path() == p
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert tgc.LIBRARY.path() != p
+    assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
