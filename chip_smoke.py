@@ -7,7 +7,7 @@ Phases; each one fails the run on error, and a failed run prints no
 result line:
 
   1. Card and build — the card's name and power limit (nvidia-smi) and
-     the nvcc build of the three sources under
+     the nvcc build of the five sources under
      ``src/repro_torch/kernels/csrc/`` (one nvcc each, started together):
      seconds, registers and spills per kernel.
   2. Kernel parity on the card, each kernel against its plain torch
@@ -25,9 +25,14 @@ result line:
          and at odd H and W;
        * the int8 float round trips on all 256 int8 values, card against
          host, and the int8 executor on 2 graphs at 224×224, card against
-         host: exact, unless a transcendental kind differs on the card.
-  3. Main paths, each with every launch count zeroed just before it and
-     read just after:
+         host: exact, unless a transcendental kind differs on the card;
+       * flash attention (`FLASH_CASES`: the forward's shape, float32,
+         non-causal, ragged s, d = 128) and the MoE GMM (`GMM_CASES`: the
+         decode and prefill shapes, float32, ragged) within `LM_TOL`;
+         reduced Granite-MoE and Qwen2 in float32 on the card against the
+         port on the host within `HOST_TOL`.
+  3. Paths, each with every launch count zeroed just before it and read
+     just after:
        * float32 (`fused_groups`): profile 40 NAS graphs at 224×224, train
          a GBDT bank on 32, score the 8 held out (e2e MAPE through the
          fused kernel, per-op MAPE through the leaves kernel), then answer
@@ -39,12 +44,21 @@ result line:
          those with a Winograd op are profiled on the float32 store (only
          the new ops are measured, through the Winograd kernel), then the
          paper's Fig. 8 study times the Winograd op against the direct
-         ``conv2d`` op through ``GraphExecutor(op_by_op)``.
+         ``conv2d`` op through ``GraphExecutor(op_by_op)``;
+       * the LM serving path: Granite-MoE 1B at full width and depth from
+         the port's own init (seed 0); forward/decode consistency first
+         (`check_prefill_decode`, not counted), then `Model.forward` on
+         4 × 1,024 tokens (24 flash and 72 GMM launches) and a 4-slot
+         `ServeEngine` answering 8 requests of 16 new tokens (72 GMM
+         launches per decode step); then a forward and decode steps under
+         torch.profiler for the time split and the device's idle share.
   4. Times at the paths' shapes — kernel, plain version, library call
-     where one exists (``torch._int_mm``, ``F.conv2d``) and the bound from
-     bytes at 3.35 TB/s or operations (67 TFLOP/s float32, 1,979 TOP/s
-     int8 tensor cores); for the tree kernels also the numpy host tier and
-     a numpy-vs-kernel curve over 2^10 … 2^22 slots.
+     where one exists (``torch._int_mm``, ``F.conv2d``,
+     ``F.scaled_dot_product_attention``, ``torch.bmm``) and the bound from
+     bytes at 3.35 TB/s or operations (67 TFLOP/s float32, 989 TFLOP/s
+     bfloat16 and 1,979 TOP/s int8 on the tensor cores); for the tree
+     kernels also the numpy host tier and a numpy-vs-kernel curve over
+     2^10 … 2^22 slots.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or when run from a
@@ -64,6 +78,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
 PEAK_INT8_OPS_PER_S = 1979e12       # H100 SXM int8, dense tensor cores
+PEAK_BF16_OPS_PER_S = 989e12        # H100 SXM bfloat16, dense tensor cores
 U32 = 2.0 ** -24                    # float32 unit roundoff
 N_FEATURES = 20
 PARITY_ROWS = 32768
@@ -71,11 +86,15 @@ CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"tree_gather_leaves": CSRC + "tree_gather.cu",
            "tree_predict_fused": CSRC + "tree_gather.cu",
            "int8_matmul": CSRC + "int8_matmul.cu",
-           "winograd_conv2d": CSRC + "winograd_conv.cu"}
+           "winograd_conv2d": CSRC + "winograd_conv.cu",
+           "flash_attention": CSRC + "flash_attention.cu",
+           "moe_gmm": CSRC + "moe_gmm.cu"}
 REPLACES = {"tree_gather_leaves": "src/repro/kernels/tree_gather_pallas.py:57",
             "tree_predict_fused": "src/repro/kernels/tree_gather_pallas.py:57",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:27",
-            "winograd_conv2d": "src/repro/kernels/winograd_conv.py:58"}
+            "winograd_conv2d": "src/repro/kernels/winograd_conv.py:58",
+            "flash_attention": "src/repro/kernels/flash_attention.py:33",
+            "moe_gmm": "src/repro/kernels/moe_gmm.py:25"}
 # Winograd against its plain version: float32 summation order only;
 # against a direct convolution: the transforms round at other places.
 WINO_TOL = 1e-5                     # × max |plain|
@@ -476,9 +495,12 @@ def per_op_mape(bank, graphs, store, setting) -> dict:
 
 
 def kernel_modules():
-    from repro_torch.kernels import int8_matmul_cuda, tree_gather_cuda, winograd_conv_cuda
+    from repro_torch.kernels import (flash_attention_cuda, int8_matmul_cuda,
+                                     moe_gmm_cuda, tree_gather_cuda,
+                                     winograd_conv_cuda)
 
-    return (tree_gather_cuda, int8_matmul_cuda, winograd_conv_cuda)
+    return (tree_gather_cuda, int8_matmul_cuda, winograd_conv_cuda,
+            flash_attention_cuda, moe_gmm_cuda)
 
 
 def reset_counts() -> None:
@@ -677,6 +699,329 @@ def run_selection_path(device, setting, graphs, store) -> dict:
     return {"summary": out, "study": study, "graphs": wino}
 
 
+# -- the LM serving path (Granite-MoE) -------------------------------------------
+
+LM_ARCH = "granite-moe-1b-a400m"
+# Flash and GMM kernels against their plain versions, max |err| over
+# max |plain|: float32, the order of float32 sums; bfloat16, one rounding
+# of the float32 result (a bfloat16 step is 2^-8 relative).
+LM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# Decode against forward, last-position logits (float32 compute and cache).
+CONSISTENCY_TOL = 2e-2
+# The full-width LM on the card against the port on the host, reduced size.
+HOST_TOL = 1e-4
+FORWARD_SHAPE = (4, 1024)           # (batch, tokens) of the timed forward
+FLASH_CASES = [                     # (label, b, s, h, kvh, d, causal, dtype)
+    ("forward", 4, 1024, 16, 8, 64, True, "bfloat16"),
+    ("forward_f32", 4, 1024, 16, 8, 64, True, "float32"),
+    ("non_causal", 2, 512, 16, 8, 64, False, "bfloat16"),
+    ("ragged", 2, 1000, 16, 8, 64, True, "bfloat16"),
+    ("ragged_f32", 1, 1000, 16, 8, 64, True, "float32"),
+    ("d128_one_kv_head", 1, 333, 8, 1, 128, True, "float32")]
+GMM_CASES = [                       # (label, e, rows, d, f, dtype)
+    ("decode", 32, 32, 1024, 512, "bfloat16"),
+    ("decode_down", 32, 32, 512, 1024, "bfloat16"),
+    ("prefill", 32, 1280, 1024, 512, "bfloat16"),
+    ("prefill_down", 32, 1280, 512, 1024, "bfloat16"),
+    ("decode_f32", 32, 32, 1024, 512, "float32"),
+    ("prefill_f32", 32, 1280, 1024, 512, "float32"),
+    ("ragged", 5, 77, 300, 129, "bfloat16"),
+    ("ragged_f32", 3, 33, 70, 17, "float32")]
+
+
+def _randn(shape, seed, device, dtype, scale=1.0):
+    import numpy as np
+    import torch
+
+    a = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.from_numpy(a.astype(np.float32)).to(device, getattr(torch, dtype))
+
+
+def _rel_check(label, got, want, tol) -> tuple:
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} against "
+                             f"{want.dtype} {tuple(want.shape)}")
+    err = float((got.float() - want.float()).abs().max())
+    rel = err / max(float(want.float().abs().max()), 1e-30)
+    if not (rel <= tol and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{label}: {rel} × max off its plain version (> {tol})")
+    return err, rel
+
+
+def _flash_inputs(b, s, h, kvh, d, dtype, device, seed):
+    return (_randn((b, s, h, d), seed, device, dtype),
+            _randn((b, s, kvh, d), seed + 1, device, dtype),
+            _randn((b, s, kvh, d), seed + 2, device, dtype))
+
+
+def _gmm_inputs(e, rows, d, f, dtype, device, seed):
+    return (_randn((e, rows, d), seed, device, dtype),
+            _randn((e, d, f), seed + 1, device, dtype, 1.0 / math.sqrt(d)))
+
+
+def check_flash(device) -> dict:
+    """Flash kernel vs its plain version at the forward's shape and around
+    it (float32, non-causal, ragged s, d = 128 with one kv head)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    rows, worst = [], 0.0
+    for i, (label, b, s, h, kvh, d, causal, dtype) in enumerate(FLASH_CASES):
+        q, k, v = _flash_inputs(b, s, h, kvh, d, dtype, device, seed=300 + 3 * i)
+        before = fac.launch_counts()["flash_attention"]
+        got = fac.flash_attention_cuda(q, k, v, causal=causal)
+        again = fac.flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if fac.launch_counts()["flash_attention"] != before + 2:
+            raise AssertionError("flash_attention launch counter did not advance")
+        err, rel = _rel_check(f"flash {label}", got,
+                              fa.flash_attention_plain(q, k, v, causal=causal),
+                              LM_TOL[dtype])
+        if not torch.equal(got, again):
+            raise AssertionError("flash kernel is not repeatable")
+        worst = max(worst, err)
+        rows.append({"case": label, "shape": [b, s, h, kvh, d], "causal": causal,
+                     "dtype": dtype, "max_abs_err": err, "err_over_max": rel,
+                     "tol": LM_TOL[dtype]})
+    log("parity flash_attention " + json.dumps(rows))
+    return {"cases": rows, "max_abs_err": worst}
+
+
+def check_gmm(device) -> dict:
+    """GMM kernel vs its plain version at the decode and prefill shapes of
+    the serving path and at a ragged shape."""
+    import torch
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, worst = [], 0.0
+    for i, (label, e, n, d, f, dtype) in enumerate(GMM_CASES):
+        x, w = _gmm_inputs(e, n, d, f, dtype, device, seed=400 + 2 * i)
+        before = gmmc.launch_counts()["moe_gmm"]
+        got = gmmc.moe_gmm_cuda(x, w)
+        torch.cuda.synchronize()
+        if gmmc.launch_counts()["moe_gmm"] != before + 1:
+            raise AssertionError("moe_gmm launch counter did not advance")
+        err, rel = _rel_check(f"gmm {label}", got, gmm.moe_gmm_plain(x, w),
+                              LM_TOL[dtype])
+        worst = max(worst, err)
+        rows.append({"case": label, "shape": [e, n, d, f], "dtype": dtype,
+                     "max_abs_err": err, "err_over_max": rel, "tol": LM_TOL[dtype]})
+    log("parity moe_gmm " + json.dumps(rows))
+    return {"cases": rows, "max_abs_err": worst}
+
+
+def check_lm_on_host(device) -> dict:
+    """Reduced Granite-MoE and Qwen2 in float32: forward and four decode
+    steps on the card, through both kernels, against the port on the host."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch in (LM_ARCH, "qwen2-72b"):
+        cfg = dataclasses.replace(get_arch(arch).reduced(), compute_dtype="float32")
+        m = build_model(cfg)
+        host = m.init(3, device="cpu")
+        card = m.init(3, device="cpu").to(device)
+        toks = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (2, 100)))
+        errs = [float((m.forward(card, {"tokens": toks.to(device)}).cpu()
+                       - m.forward(host, {"tokens": toks})).abs().max())]
+        cd = transformer.init_cache(cfg, 2, 16, "float32", device=device)
+        ch = transformer.init_cache(cfg, 2, 16, "float32", device="cpu")
+        for t in range(4):
+            a, cd = m.decode_step(card, {"token": toks[:, t:t + 1].to(device)}, cd)
+            b, ch = m.decode_step(host, {"token": toks[:, t:t + 1]}, ch)
+            errs.append(float((a.cpu() - b).abs().max()))
+        if not max(errs) <= HOST_TOL:
+            raise AssertionError(f"{cfg.name}: card vs host port {max(errs)}")
+        out[cfg.name] = max(errs)
+    log("parity lm_card_vs_host_reduced_f32_max_abs_err " + json.dumps(out))
+    return out
+
+
+def check_prefill_decode(cfg, params, device, seq: int = 128) -> dict:
+    """Forward on (1, seq) tokens against feeding them one by one through
+    `decode_step`: the last position's logits.
+
+    Gated in float32 compute with a float32 cache and a capacity factor of
+    e/k, which drops nothing: at the configured 1.25 the forward drops an
+    expert's latest tokens once its queue is full, while a one-token decode
+    step never drops, so the two paths differ by design.  The served
+    configuration (bfloat16, 1.25, bfloat16 cache) is read, not gated:
+    there a near-tie in top-k routing can go either way in the two paths."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, seq))).to(device)
+    out = {}
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              capacity_factor=cfg.num_experts / cfg.top_k)
+    for label, c, cache_dtype in (("float32_no_drop", f32, "float32"),
+                                  ("served_bfloat16", cfg, "bfloat16")):
+        m = build_model(c)
+        full = m.forward(params, {"tokens": toks})[:, -1]
+        cache = transformer.init_cache(c, 1, seq + 32, cache_dtype, device=device)
+        for t in range(seq):
+            logits, cache = m.decode_step(params, {"token": toks[:, t:t + 1]}, cache)
+        out[label] = float((logits - full).abs().max())
+        out[label + "_logit_max"] = float(full.abs().max())
+    if not out["float32_no_drop"] <= CONSISTENCY_TOL:
+        raise AssertionError(f"decode vs forward: {out['float32_no_drop']} "
+                             f"(> {CONSISTENCY_TOL})")
+    log("prefill_decode " + json.dumps(out))
+    return out
+
+
+def _serve_prompts(vocab: int, n: int = 8, seed: int = 0) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(8, 33))).astype(np.int32)
+            for _ in range(n)]
+
+
+def profile_lm(model, params, tokens, device, steps: int = 3) -> dict:
+    """Where the LM path's time goes: one forward on ``tokens`` and
+    ``steps`` decode steps of 4 slots, each under torch.profiler (CUPTI):
+    wall ms, device-busy ms (the sum of the kernels' and copies' device
+    intervals), launches and the device's idle share, with the kernels
+    that took the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = model.init_cache(4, 512, device=device)
+    token = torch.zeros((4, 1), dtype=torch.int32, device=device)
+
+    def decode():
+        nonlocal cache
+        _, cache = model.decode_step(params, {"token": token}, cache)
+
+    out = {}
+    for label, fn, n in (("forward", lambda: model.forward(params, {"tokens": tokens}), 1),
+                         ("decode_step", decode, steps)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        busy = math.fsum(by_name.values()) / 1e3 / n
+        launches = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        out[label] = {"wall_ms": wall, "device_busy_ms": busy,
+                      "idle_share": max(0.0, 1.0 - busy / wall),
+                      "launches": launches / n,
+                      "top_kernels_ms": [[k[:80], v / 1e3 / n] for k, v in top]}
+    log("lm_profile " + json.dumps(out))
+    return out
+
+
+def run_lm_path(device, new_tokens: int = 16) -> dict:
+    """Granite-MoE at full width from the port's own init (torch.Generator,
+    seed 0): prefill/decode consistency, then, with every launch count
+    zeroed just before and read just after, `Model.forward` on 4 × 1,024
+    tokens and a 4-slot `ServeEngine` answering 8 requests; then a
+    profiled forward and decode steps (`profile_lm`, not counted)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_arch(LM_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    consistency = check_prefill_decode(cfg, params, device)
+    # Warm-up (not counted): the bfloat16 weight copies and cuBLAS handles.
+    model.forward(params, {"tokens": torch.zeros((1, 16), dtype=torch.long,
+                                                  device=device)})
+    b, s = FORWARD_SHAPE
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s))).to(device)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    fwd = read_counts()
+    if logits.shape != (b, s, cfg.vocab_size) or logits.dtype != torch.float32 \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"forward logits {logits.dtype} {tuple(logits.shape)}")
+    if fwd["flash_attention"] != cfg.num_layers or \
+            fwd["moe_gmm"] != 3 * cfg.num_layers:
+        raise AssertionError(f"forward launches {fwd}")
+    del logits
+
+    engine = ServeEngine(model, params, batch_slots=4, max_len=512, device=device)
+    prompts = _serve_prompts(cfg.vocab_size)
+    for prompt in prompts:
+        engine.submit(prompt, max_new_tokens=new_tokens)
+    t0 = time.perf_counter()
+    done = engine.run(max_steps=1000)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = read_counts()
+    served = {k: counts[k] - fwd[k] for k in counts}
+    stats = engine.stats()
+    calls = stats["steps"] + sum(len(p) - 1 for p in prompts)
+    if len(done) != len(prompts) or any(
+            len(r.generated) != new_tokens or not all(0 <= t < cfg.vocab_size
+                                                      for t in r.generated)
+            for r in done):
+        raise AssertionError(f"{len(done)} of {len(prompts)} requests answered")
+    if served["moe_gmm"] != 3 * cfg.num_layers * calls or served["moe_gmm"] == 0:
+        raise AssertionError(f"serving made {served['moe_gmm']} GMM launches in "
+                             f"{calls} decode steps")
+    if int(engine.cache["layers"]["len"].max()) >= engine.max_len:
+        raise AssertionError("the engine ran past max_len")
+    del engine
+    breakdown = profile_lm(model, params, tokens, device)
+    out = {"arch": cfg.name, "params": n_params, "init_s": init_s,
+           "forward_tokens": [b, s], "forward_s": forward_s,
+           "forward_launches": {k: fwd[k] for k in ("flash_attention", "moe_gmm")},
+           "requests": len(prompts), "requests_finished": len(done),
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "tokens_generated": sum(len(r.generated) for r in done),
+           "decode_steps": stats["steps"], "decode_step_calls": calls,
+           "serve_s": serve_s,
+           "tokens_per_s": sum(len(r.generated) for r in done) / serve_s,
+           "mean_step_ms": 1e3 * stats["measured_step_s"],
+           "serve_launches": {k: served[k] for k in ("flash_attention", "moe_gmm")},
+           "launches": counts, "prefill_decode": consistency,
+           "profile": breakdown,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+    log("lm_path " + json.dumps(out))
+    return out
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def _timed(op_type: str, db, rows: int, d: int, fused: bool, kernel, plain,
@@ -868,6 +1213,73 @@ def time_winograd(device) -> list:
     return rows
 
 
+def time_flash(device) -> list:
+    """The flash kernel at the forward's shape (b = 4, s = 1,024, 16 query
+    and 8 kv heads, d = 64, causal, bfloat16): kernel, plain version and
+    ``F.scaled_dot_product_attention`` (GQA) on the same input.  Bound:
+    q, k, v read once and o written once, against 4·d operations for each
+    (query, key) pair the causal mask keeps, at the bfloat16 tensor rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    rows = []
+    for label, b, s, h, kvh, d, causal, dtype in FLASH_CASES[:2]:
+        q, k, v = _flash_inputs(b, s, h, kvh, d, dtype, device, seed=500)
+        err = float((fac.flash_attention_cuda(q, k, v, causal=causal).float()
+                     - fa.flash_attention_plain(q, k, v, causal=causal).float())
+                    .abs().max())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kern = cuda_ms(lambda: fac.flash_attention_cuda(q, k, v, causal=causal))
+        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                        iters=3, warmup=2)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        item = q.element_size()
+        b_ms, b_by = bound(item * (2 * b * s * h * d + 2 * b * s * kvh * d),
+                           4 * d * pairs,
+                           PEAK_BF16_OPS_PER_S if dtype == "bfloat16"
+                           else PEAK_F32_OPS_PER_S)
+        rows.append({"case": label, "shape": [b, s, h, kvh, d], "dtype": dtype,
+                     "causal": causal, "max_abs_err": err,
+                     "ms": kern["device"], "host_ms": kern["host"],
+                     "plain_ms": plain["device"], "library_ms": lib["device"],
+                     "bound_ms": b_ms, "bound_by": b_by})
+        log("time flash_attention " + json.dumps(rows[-1]))
+    return rows
+
+
+def time_gmm(device) -> list:
+    """The GMM kernel at the serving path's four shapes (gate/up and down,
+    decode with 4 slots × capacity 8 rows, prefill with 4 × 320), bfloat16:
+    kernel, plain version and ``torch.bmm``.  Bound: x and w read once and
+    the output written once, against 2·e·rows·d·f operations at the
+    bfloat16 tensor rate."""
+    import torch
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+
+    rows = []
+    for label, e, n, d, f, dtype in GMM_CASES[:4]:
+        x, w = _gmm_inputs(e, n, d, f, dtype, device, seed=600)
+        err = float((gmmc.moe_gmm_cuda(x, w).float()
+                     - gmm.moe_gmm_plain(x, w).float()).abs().max())
+        kern = cuda_ms(lambda: gmmc.moe_gmm_cuda(x, w))
+        plain = cuda_ms(lambda: gmm.moe_gmm_plain(x, w), iters=3, warmup=2)
+        lib = cuda_ms(lambda: torch.bmm(x, w))
+        b_ms, b_by = bound(x.element_size() * (e * n * d + e * d * f + e * n * f),
+                           2 * e * n * d * f, PEAK_BF16_OPS_PER_S)
+        rows.append({"case": label, "shape": [e, n, d, f], "dtype": dtype,
+                     "max_abs_err": err, "ms": kern["device"],
+                     "host_ms": kern["host"], "plain_ms": plain["device"],
+                     "library_ms": lib["device"], "bound_ms": b_ms,
+                     "bound_by": b_by})
+        log("time moe_gmm " + json.dumps(rows[-1]))
+    return rows
+
+
 def summarize(rows: list, launches: int, parity_err: float) -> dict:
     tot = {k: math.fsum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
     ops_bound = any(r["bound_by"] == "operations" for r in rows)
@@ -926,6 +1338,9 @@ def main() -> int:
         wino_parity = check_winograd(device)
         lut_diffs = check_int8_round_trips(device)
         check_int8_executor(graphs[:2], device, lut_diffs)
+        flash_parity = check_flash(device)
+        gmm_parity = check_gmm(device)
+        check_lm_on_host(device)
 
         phase = "main path (float32)"
         main_f32 = run_main_path(device, f32, graphs, pop, pop2)
@@ -940,6 +1355,9 @@ def main() -> int:
         phase = "selection path"
         sel = run_selection_path(device, f32, graphs, main_f32["store"])
 
+        phase = "LM serving path"
+        lm = run_lm_path(device)
+
         phase = "times"
         timed = time_kernels(main_f32["bank"], main_f32["held"], pop, device)
         preds = main_f32["bank"].predictors
@@ -951,6 +1369,8 @@ def main() -> int:
             "computes a tree-ensemble traversal")
         gemm_rows = time_int8_gemm(main_i8["held"][0], device)
         wino_rows = time_winograd(device)
+        flash_rows = time_flash(device)
+        gmm_rows = time_gmm(device)
 
         parity_err = max(p["fused_max_abs_err"] for p in parity)
         kernels = []
@@ -965,7 +1385,10 @@ def main() -> int:
                 ("int8_matmul", gemm_rows, main_i8["summary"]["launches"],
                  gemm_parity["max_abs_err"]),
                 ("winograd_conv2d", wino_rows[:1], sel["summary"]["launches"],
-                 wino_parity["max_abs_err"])):
+                 wino_parity["max_abs_err"]),
+                ("flash_attention", flash_rows[:1], lm["launches"],
+                 flash_parity["max_abs_err"]),
+                ("moe_gmm", gmm_rows, lm["launches"], gmm_parity["max_abs_err"])):
             entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name]}
             entry.update(summarize(rows, launches[name], err))

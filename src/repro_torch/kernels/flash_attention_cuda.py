@@ -1,0 +1,80 @@
+"""CUDA flash attention: build, bind, launch (``csrc/flash_attention.cu``).
+
+``flash_attention_cuda(q, k, v, causal, q_offset)`` → (b, sq, h, d) in
+q's type, on the card: q (b, sq, h, d), k and v (b, skv, kvh, d),
+contiguous and 16-byte aligned, all float32 or all bfloat16, d in
+`HEAD_DIMS`.  The wrapper
+checks device, dtype, contiguity and shape, allocates the output,
+launches on torch's current stream and raises if the C entry point
+reports a CUDA error.  It adds one to ``LAUNCHES["flash_attention"]``
+where it launches the kernel, and nowhere else.  CPU tensors never reach
+this module.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels._build import CudaLibrary, LaunchCounter
+from repro_torch.kernels._build import check_tensor as _check
+
+_COUNTER = LaunchCounter("flash_attention")
+LAUNCHES: Dict[str, int] = _COUNTER.counts
+launch_counts = _COUNTER.snapshot
+reset_launch_counts = _COUNTER.reset
+
+# Head dimensions the kernel is compiled for (one instance each).
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                           i, i, f, p]
+    lib.flash_attention_launch.restype = i
+
+
+LIBRARY = CudaLibrary("flash_attention", ("flash_attention.cu",), _declare)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """q (b, sq, h, d), k and v (b, skv, kvh, d) → (b, sq, h, d)."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16 (got {q.dtype})")
+    _check(q, "q", q.dtype, q.device)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    _check(k, "k", q.dtype, q.device, (b, skv, kvh, d))
+    _check(v, "v", q.dtype, q.device, (b, skv, kvh, d))
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported (one of {HEAD_DIMS})")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0 (got {q_offset})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"reads 16-byte vectors)")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if skv == 0:
+        raise ValueError("attention over an empty key sequence")
+    lib = LIBRARY.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, sq, skv, h, kvh, d, _DTYPES[q.dtype], int(causal), int(q_offset),
+        1.0 / math.sqrt(d), stream)
+    LIBRARY.raise_on(err, "flash_attention")
+    _COUNTER.add("flash_attention")
+    return out

@@ -1,0 +1,58 @@
+"""CUDA grouped expert matmul: build, bind, launch (``csrc/moe_gmm.cu``).
+
+``moe_gmm_cuda(x, w)`` → (e, c, f) in x's type: x (e, c, d) × w (e, d, f),
+contiguous, both float32 or both bfloat16, on the card.  The wrapper
+checks device, dtype, contiguity and shape, allocates the output,
+launches on torch's current stream and raises if the C entry point
+reports a CUDA error.  It adds one to ``LAUNCHES["moe_gmm"]`` where it
+launches the kernel, and nowhere else.  CPU tensors never reach this
+module.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels._build import CudaLibrary, LaunchCounter
+from repro_torch.kernels._build import check_tensor as _check
+
+_COUNTER = LaunchCounter("moe_gmm")
+LAUNCHES: Dict[str, int] = _COUNTER.counts
+launch_counts = _COUNTER.snapshot
+reset_launch_counts = _COUNTER.reset
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.moe_gmm_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.moe_gmm_launch.restype = i
+
+
+LIBRARY = CudaLibrary("moe_gmm", ("moe_gmm.cu",), _declare)
+
+
+def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(e, c, d) × (e, d, f) → (e, c, f), float32 sums, x's type out."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16 (got {x.dtype})")
+    _check(x, "x", x.dtype, x.device)
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"x and w must be 3-D, got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    e, c, d = x.shape
+    f = w.shape[2]
+    _check(w, "w", x.dtype, x.device, (e, d, f))
+    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = LIBRARY.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.moe_gmm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                             e, c, d, f, _DTYPES[x.dtype], stream)
+    LIBRARY.raise_on(err, "moe_gmm")
+    _COUNTER.add("moe_gmm")
+    return out

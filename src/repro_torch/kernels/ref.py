@@ -15,6 +15,30 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 
+def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                        window: int = 0) -> Tensor:
+    """q,k,v: (b, s, h, d) same head count (GQA repeat done by caller);
+    float32 scores and probabilities, masked with -2e38."""
+    sq, skv, hd = q.shape[1], k.shape[1], q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / np.sqrt(hd)
+    qpos = torch.arange(sq, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = scores.masked_fill(~mask, -2.0e38)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+
+
+def moe_gmm_ref(x: Tensor, w: Tensor) -> Tensor:
+    """Grouped expert matmul: (e, c, d) × (e, d, f) → (e, c, f), summed in
+    float32, returned in ``x.dtype``."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
 def int8_matmul_ref(a_q: Tensor, b_q: Tensor, a_scale: float,
                     b_scale: float) -> Tensor:
     """a_q: (m, k) int8; b_q: (k, n) int8 → (m, n) float32

@@ -1,0 +1,124 @@
+"""Attention: GQA + RoPE (+ sliding window and softcap on the host); the
+prefill paths and the decode path (twin of ``repro.models.attention``).
+
+``naive_attention`` and ``chunked_attention`` compute one function, the
+flash kernel's (`repro_torch.kernels.ops.flash_attention`): on a CUDA
+tensor they launch the hand-written kernel, on a CPU tensor its plain
+version.  Chunking query rows, as the reference's ``chunked_attention``
+does to bound its memory, changes no row's arithmetic, so the kernel
+serves both.  Unlike the reference, the probabilities stay float32 up to
+the weighted sum of V (the reference rounds them to the compute type
+first), as in the TPU kernel.
+
+A sliding window or a logit softcap (gemma2 only) is not in the kernel
+yet: on the host such calls take the reference's einsum attention, on
+the card they raise NotImplementedError (ROADMAP A.1).  ``decode_attention``
+stays plain torch einsums, as the reference computes it outside any
+kernel.  GQA never repeats K/V: query head i reads kv head i // (h / kvh).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import Params, apply_rope, dense, dense_init, softcap
+
+Tensor = torch.Tensor
+
+NEG_INF = -2.0e38
+UNPORTED_MASKS = ("a sliding window or a logit softcap is not in the CUDA "
+                  "flash kernel yet (ROADMAP A.1: window and softcap in the "
+                  "flash kernel, with the gemma2 local/global stack)")
+
+
+def attention_init(gen: torch.Generator, cfg) -> Dict[str, Dict[str, Tensor]]:
+    d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "q": dense_init(gen, d, h * hd, cfg.param_dtype, bias=cfg.qkv_bias),
+        "k": dense_init(gen, d, kvh * hd, cfg.param_dtype, bias=cfg.qkv_bias),
+        "v": dense_init(gen, d, kvh * hd, cfg.param_dtype, bias=cfg.qkv_bias),
+        "o": dense_init(gen, h * hd, d, cfg.param_dtype),
+    }
+
+
+def _split_heads(x: Tensor, n: int, hd: int) -> Tensor:
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def qkv_project(p: Params, x: Tensor, cfg, positions: Tensor,
+                dtype=None) -> Tuple[Tensor, Tensor, Tensor]:
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _split_heads(dense(p["q"], x, dtype), h, hd)
+    k = _split_heads(dense(p["k"], x, dtype), kvh, hd)
+    v = _split_heads(dense(p["v"], x, dtype), kvh, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attend(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
+            logit_softcap: float) -> Tensor:
+    """The reference's grouped einsum attention: scores in the operands'
+    type then float32, softmax in float32, probabilities rounded to q's
+    type before the weighted sum.  ``valid`` broadcasts to
+    (b, kvh, rep, sq, skv)."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    dt = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(b, sq, kvh, h // kvh, hd).to(dt)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.to(dt)).float()
+    scores = softcap(scores / math.sqrt(hd), logit_softcap)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    dt = torch.promote_types(probs.dtype, v.dtype)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(dt), v.to(dt))
+    return out.reshape(b, sq, h, hd)
+
+
+def naive_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int = 0, logit_softcap: float = 0.0,
+                    q_offset: int = 0) -> Tensor:
+    """q (b, sq, h, d) over k, v (b, skv, kvh, d) → (b, sq, h, d)."""
+    if not window and not logit_softcap:
+        return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    if q.is_cuda:
+        raise NotImplementedError(UNPORTED_MASKS)
+    sq, skv = q.shape[1], k.shape[1]
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    valid = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kpos <= qpos
+    if window:
+        valid &= kpos > qpos - window
+    return _attend(q, k, v, valid, logit_softcap)
+
+
+def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                      window: int = 0, logit_softcap: float = 0.0,
+                      q_chunk: int = 512, q_offset: int = 0) -> Tensor:
+    """The same function as `naive_attention`; ``q_chunk`` bounded the
+    reference's memory and has no effect here (the kernel streams K/V)."""
+    return naive_attention(q, k, v, causal=causal, window=window,
+                           logit_softcap=logit_softcap, q_offset=q_offset)
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, *,
+                     cache_len: Tensor, window: int = 0,
+                     logit_softcap: float = 0.0) -> Tensor:
+    """Single-token decode vs a (padded) KV cache.
+
+    q: (b, 1, h, hd); caches: (b, max_len, kvh, hd); cache_len: (b,)
+    number of valid cache entries (the new token's K/V already written).
+    """
+    max_len = k_cache.shape[1]
+    kpos = torch.arange(max_len, device=q.device)[None, :]
+    n = cache_len.reshape(-1, 1)
+    valid = kpos < n
+    if window:
+        valid &= kpos > n - 1 - window
+    return _attend(q, k_cache, v_cache, valid[:, None, None, None, :],
+                   logit_softcap)

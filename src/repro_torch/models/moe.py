@@ -1,0 +1,113 @@
+"""Mixture-of-Experts FFN with capacity-based token dispatch (twin of
+``repro.models.moe``).
+
+Per batch row, as the reference: router logits (float32) → top-k gates
+and experts → each (token, slot)'s position in its expert's queue by a
+stable sort → an (e·cap, d) dispatch buffer → three grouped expert
+matmuls → gather-combine weighted by the gates.  Assignments past an
+expert's capacity cap = max(ceil(s·k/e·cf), k) are dropped.
+
+The three expert matmuls go through `repro_torch.kernels.ops.moe_gmm`
+(the hand-written GMM kernel on the card) with the batch folded into the
+rows, (b, e, cap, d) → (e, b·cap, d), since the weights are shared
+across the batch.
+
+The reference scatters every assignment into a buffer of e·cap + 1 rows,
+a dropped one of expert j at row (j+1)·cap (the first row of expert
+j+1, or the overflow row for the last expert), and where two writes meet
+the later assignment in token-slot order wins (XLA's scatter).  The port
+builds the same buffer deterministically on every device: each row takes
+the last assignment that writes it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import Params, dense_init, dtype_of, uniform
+
+Tensor = torch.Tensor
+
+
+def moe_init(gen: torch.Generator, cfg) -> Dict[str, Any]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": dense_init(gen, d, e, cfg.param_dtype),
+        "gate": uniform(gen, (e, d, f), cfg.param_dtype, 1.0 / np.sqrt(d)),
+        "up": uniform(gen, (e, d, f), cfg.param_dtype, 1.0 / np.sqrt(d)),
+        "down": uniform(gen, (e, f, d), cfg.param_dtype, 1.0 / np.sqrt(f)),
+    }
+
+
+def expert_capacity(tokens_per_row: int, cfg) -> int:
+    cap = int(np.ceil(tokens_per_row * cfg.top_k / cfg.num_experts
+                      * cfg.capacity_factor))
+    return max(cap, cfg.top_k)
+
+
+def moe_ffn(p: Params, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
+    """x: (b, s, d) → (y: (b, s, d), aux_loss: float32 scalar)."""
+    dt = dtype_of(cfg)
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    cap = expert_capacity(s, cfg)
+    slots, sk = e * cap, s * k
+    dev = x.device
+
+    # Router (float32 for softmax stability).
+    logits = x.float() @ p["router"]["kernel"].float()            # (b, s, e)
+    probs = torch.softmax(logits, dim=-1)
+    gates, expert_idx = torch.topk(probs, k, dim=-1)               # (b, s, k)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # Position of each (token, slot) in its expert's queue, in token order.
+    flat_expert = expert_idx.reshape(b, sk)
+    order = torch.argsort(flat_expert, dim=1, stable=True)
+    sorted_e = flat_expert.gather(1, order)
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(e, device=dev).expand(b, e).contiguous(),
+        side="left")
+    pos_sorted = torch.arange(sk, device=dev)[None, :] - starts.gather(1, sorted_e)
+    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+    keep = pos < cap
+    dest = flat_expert * cap + torch.where(keep, pos, cap)         # (b, sk)
+
+    # Dispatch: buffer row r holds the token of the last assignment whose
+    # destination is r (token j // k of assignment j), zero if none.
+    writer = torch.full((b, slots + 1), -1, dtype=torch.long, device=dev)
+    writer.scatter_reduce_(1, dest.clamp(max=slots),
+                           torch.arange(sk, device=dev).expand(b, sk),
+                           reduce="amax")
+    writer = writer[:, :slots]
+    expert_in = x.to(dt).gather(
+        1, (writer.clamp(min=0) // k)[..., None].expand(b, slots, d))
+    expert_in = expert_in.masked_fill((writer < 0)[..., None], 0)
+
+    # Expert SwiGLU: three grouped matmuls, batch folded into the rows.
+    xin = expert_in.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    g = ops.moe_gmm(xin, p.cast("gate", dt))
+    u = ops.moe_gmm(xin, p.cast("up", dt))
+    h = F.silu(g) * u
+    out = ops.moe_gmm(h, p.cast("down", dt))                       # (e, b·cap, d)
+    out_flat = out.reshape(e, b, cap, d).transpose(0, 1).reshape(b, slots, d)
+
+    # Combine: each kept assignment's output weighted by its gate, summed
+    # over the k contiguous slots of a token.
+    safe_dest = dest.clamp(max=slots - 1)
+    per_assign = out_flat.gather(1, safe_dest[..., None].expand(b, sk, d))
+    per_assign = per_assign * (gates.reshape(b, sk, 1).to(dt)
+                               * keep[..., None].to(dt))
+    y = per_assign.reshape(b, s, k, d).sum(dim=2)
+
+    # Switch-style load-balancing aux loss.
+    me = probs.mean(dim=(0, 1))                                    # (e,)
+    # One-hot by comparison: F.one_hot checks its indices on the host,
+    # which waits for the card in every layer.
+    top1 = expert_idx[..., :1] == torch.arange(e, device=dev)
+    ce = top1.float().mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce)
+    return y, aux

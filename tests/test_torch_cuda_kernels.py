@@ -226,3 +226,116 @@ def test_int8_executor_card_equals_host(card, mode):
         # Transcendental round trips may move an element by one step.
         d = (a.cpu().int() - b.int()).abs()
         assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 0.01
+
+
+# -- flash attention and MoE GMM -------------------------------------------------
+
+# Kernel against its plain version: float32 1e-5 × max|plain| (float32 sums
+# in another order); bfloat16 2e-2 × max|plain| (both round the float32
+# result once, so they differ by at most one bfloat16 step).
+LM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _close(got, want, dtype):
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    scale = max(float(want.float().abs().max()), 1e-30)
+    assert float((got.float() - want.float()).abs().max()) <= LM_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,d,causal", [
+    (2, 256, 16, 8, 64, True), (1, 1000, 4, 2, 64, True), (2, 77, 4, 4, 32, False),
+    (1, 33, 8, 1, 128, True), (3, 5, 2, 2, 16, False), (1, 1, 4, 2, 64, True)])
+def test_flash_attention_within_tolerance_of_plain(card, dtype, b, s, h, kvh, d, causal):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    rng = np.random.default_rng(s + h + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d)).astype(np.float32))
+               .to(card, dtype) for n in (h, kvh, kvh))
+    before = fac.launch_counts()["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fac.launch_counts()["flash_attention"] == before + 1
+    _close(got, fa.flash_attention_plain(q, k, v, causal=causal), dtype)
+    assert torch.equal(got, fac.flash_attention_cuda(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", [(32, 32, 1024, 512), (32, 1280, 1024, 512),
+                                     (32, 32, 512, 1024), (3, 33, 70, 17),
+                                     (1, 1, 5, 3)])
+def test_moe_gmm_within_tolerance_of_plain(card, dtype, e, c, d, f):
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(e + c + d + f)
+    x = torch.from_numpy(rng.standard_normal((e, c, d)).astype(np.float32)).to(card, dtype)
+    w = torch.from_numpy((rng.standard_normal((e, d, f)) / np.sqrt(d))
+                         .astype(np.float32)).to(card, dtype)
+    before = gmmc.launch_counts()["moe_gmm"]
+    got = gmm.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert gmmc.launch_counts()["moe_gmm"] == before + 1
+    _close(got, gmm.moe_gmm_plain(x, w), dtype)
+
+
+def test_lm_wrappers_check_their_inputs(card):
+    from repro_torch.kernels import flash_attention_cuda as fac
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+    from repro_torch.models import attention
+
+    q = torch.zeros((1, 8, 4, 64), device=card)
+    kv = torch.zeros((1, 8, 2, 64), device=card)
+    with pytest.raises(TypeError):
+        fac.flash_attention_cuda(q.double(), kv.double(), kv.double())
+    with pytest.raises(ValueError, match="head dim"):
+        fac.flash_attention_cuda(q[..., :48].contiguous(), kv[..., :48].contiguous(),
+                                 kv[..., :48].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        fac.flash_attention_cuda(q, kv, kv[:, :4].contiguous())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.naive_attention(q, kv, kv, window=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.chunked_attention(q, kv, kv, logit_softcap=5.0)
+    x = torch.zeros((2, 4, 8), device=card)
+    with pytest.raises(TypeError):
+        gmmc.moe_gmm_cuda(x, torch.zeros((2, 8, 3), device=card, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="lie on"):
+        gmmc.moe_gmm_cuda(x, torch.zeros((2, 8, 3)))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-72b"])
+def test_reduced_lm_on_the_card_equals_the_host_port(card, arch):
+    """Forward and decode in float32 on the card, through both kernels,
+    against the port's plain versions on the host."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention_cuda as fac
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+    from repro_torch.models import build_model, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(arch).reduced(), compute_dtype="float32")
+    m = build_model(cfg)
+    host = m.init(3, device="cpu")
+    dev = host.to(card)
+    host = m.init(3, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int64))
+    fac.reset_launch_counts()
+    gmmc.reset_launch_counts()
+    got = m.forward(dev, {"tokens": toks.to(card)})
+    torch.cuda.synchronize()
+    assert fac.launch_counts()["flash_attention"] == cfg.num_layers
+    assert gmmc.launch_counts()["moe_gmm"] == (3 * cfg.num_layers if cfg.num_experts else 0)
+    want = m.forward(host, {"tokens": toks})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+    cd = transformer.init_cache(cfg, 2, 16, "float32", device=card)
+    ch = transformer.init_cache(cfg, 2, 16, "float32", device="cpu")
+    for t in range(4):
+        a, cd = m.decode_step(dev, {"token": toks[:, t:t + 1].to(card)}, cd)
+        b, ch = m.decode_step(host, {"token": toks[:, t:t + 1]}, ch)
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-4)

@@ -50,9 +50,19 @@ def test_port_has_the_slice_modules():
                 "kernels/winograd_conv.py", "kernels/winograd_conv_cuda.py",
                 "quant/__init__.py", "quant/int8.py", "core/selection.py",
                 "pipeline/store.py", "pipeline/hub.py", "pipeline/service.py",
-                "convert.py"):
+                "convert.py", "configs/__init__.py", "configs/base.py",
+                "configs/registry.py", "configs/paper_nas.py",
+                "configs/granite_moe_1b.py", "configs/qwen2_72b.py",
+                "rpc/__init__.py", "rpc/protocol.py",
+                "kernels/flash_attention.py", "kernels/flash_attention_cuda.py",
+                "kernels/moe_gmm.py", "kernels/moe_gmm_cuda.py",
+                "models/__init__.py", "models/layers.py", "models/attention.py",
+                "models/moe.py", "models/transformer.py",
+                "models/model_factory.py", "serving/__init__.py",
+                "serving/engine.py"):
         assert mod in names
-    for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu"):
+    for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
+                "flash_attention.cu", "moe_gmm.cu"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
@@ -82,7 +92,10 @@ def test_cuda_kernel_source_names_both_kernels():
     ("int8_matmul.cu", ("src/repro/kernels/int8_matmul.py", "_int8_mm_kernel",
                         "__dp4a", "__int2float_rn", "__fmul_rn")),
     ("winograd_conv.cu", ("src/repro/kernels/winograd_conv.py",
-                          "_winograd_kernel", "fmaf"))])
+                          "_winograd_kernel", "fmaf")),
+    ("flash_attention.cu", ("src/repro/kernels/flash_attention.py",
+                            "_flash_kernel", "expf", "__shfl_xor_sync")),
+    ("moe_gmm.cu", ("src/repro/kernels/moe_gmm.py", "_gmm_kernel", "fmaf"))])
 def test_cuda_sources_name_the_tpu_kernel_they_replace(source, names):
     src = (PORT / "kernels" / "csrc" / source).read_text()
     for name in names + ("What bounds it", "cudaGetLastError"):
@@ -117,8 +130,14 @@ def _entry_points():
     from repro_torch.core.profiler import ProfileSession
     from repro_torch.quant import build_quant_op_fn
     from repro_torch.kernels.tree_gather import CudaBank, to_device_scaler
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.models import build_model
     from repro_torch.pipeline import LatencyService, PredictorHub
+    from repro_torch.serving import ServeEngine
     from repro_torch.utils.device import resolve_device
+
+    lm = build_model(get_arch("qwen2-72b").reduced())
 
     return {
         "resolve_device": lambda: resolve_device(),
@@ -134,6 +153,11 @@ def _entry_points():
             _tiny_gbdt()[1].astype(np.float32)),
         "predict_trees_cuda_tier": lambda: _tiny_gbdt()[0].flat().predict_trees(
             _tiny_gbdt()[1], backend="cuda"),
+        "Model.init": lambda: lm.init(0),
+        "Model.init_cache": lambda: lm.init_cache(1, 8),
+        "ServeEngine": lambda: ServeEngine(lm, lm.init(0, device="cpu")),
+        "lm_params_from_reference": lambda: lm_params_from_reference(
+            {"layers": {"w": np.zeros((4, 2))}}, get_arch("qwen2-72b").reduced()),
     }
 
 
