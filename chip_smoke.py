@@ -7,7 +7,7 @@ Phases; each one fails the run on error, and a failed run prints no
 result line:
 
   1. Card and build — the card's name and power limit (nvidia-smi) and
-     the nvcc build of the five sources under
+     the nvcc build of the six sources under
      ``src/repro_torch/kernels/csrc/`` (one nvcc each, started together):
      seconds, registers and spills per kernel.
   2. Kernel parity on the card, each kernel against its plain torch
@@ -26,11 +26,16 @@ result line:
        * the int8 float round trips on all 256 int8 values, card against
          host, and the int8 executor on 2 graphs at 224×224, card against
          host: exact, unless a transcendental kind differs on the card;
-       * flash attention (`FLASH_CASES`: the forward's shape, float32,
-         non-causal, ragged s, d = 128) and the MoE GMM (`GMM_CASES`: the
+       * flash attention (`FLASH_CASES`: the Granite forward's shape,
+         float32, non-causal, ragged s, d = 128, and the Zamba2 forward's
+         MHA shape) and the MoE GMM (`GMM_CASES`: the
          decode and prefill shapes, float32, ragged) within `LM_TOL`;
          reduced Granite-MoE and Qwen2 in float32 on the card against the
-         port on the host within `HOST_TOL`.
+         port on the host within `HOST_TOL`;
+       * the SSD scan (`SSD_CASES`: both SSM path shapes, a ragged shape,
+         one chunk, bfloat16) bit-equal to its plain version; reduced
+         Mamba2 and a 5-layer Zamba2 (two groups and a tail) in float32
+         on the card against the port on the host within `HOST_TOL`.
   3. Paths, each with every launch count zeroed just before it and read
      just after:
        * float32 (`fused_groups`): profile 40 NAS graphs at 224×224, train
@@ -51,10 +56,20 @@ result line:
          4 × 1,024 tokens (24 flash and 72 GMM launches) and a 4-slot
          `ServeEngine` answering 8 requests of 16 new tokens (72 GMM
          launches per decode step); then a forward and decode steps under
-         torch.profiler for the time split and the device's idle share.
+         torch.profiler for the time split and the device's idle share;
+       * the SSM and hybrid path: Mamba2 2.7B, then Zamba2 1.2B, at full
+         width and depth from the port's own init (seed 0), each with
+         its counts zeroed: decode/forward consistency at 512 tokens
+         first (float32 gated at `CONSISTENCY_TOL`, bfloat16 read; not
+         counted), `Model.forward` on 2 × 4,096 tokens (64 ssd_scan
+         launches for Mamba2; 38 and 6 flash launches for Zamba2) and a
+         4-slot `ServeEngine` answering 8 (Mamba2) or 4 (Zamba2)
+         requests; then one Mamba2 forward and decode step under
+         torch.profiler with the ssd_scan share of device time.
   4. Times at the paths' shapes — kernel, plain version, library call
      where one exists (``torch._int_mm``, ``F.conv2d``,
-     ``F.scaled_dot_product_attention``, ``torch.bmm``) and the bound from
+     ``F.scaled_dot_product_attention``, ``torch.bmm``; none for the tree
+     kernels and the SSD scan) and the bound from
      bytes at 3.35 TB/s or operations (67 TFLOP/s float32, 989 TFLOP/s
      bfloat16 and 1,979 TOP/s int8 on the tensor cores); for the tree
      kernels also the numpy host tier and a numpy-vs-kernel curve over
@@ -88,13 +103,15 @@ SOURCES = {"tree_gather_leaves": CSRC + "tree_gather.cu",
            "int8_matmul": CSRC + "int8_matmul.cu",
            "winograd_conv2d": CSRC + "winograd_conv.cu",
            "flash_attention": CSRC + "flash_attention.cu",
-           "moe_gmm": CSRC + "moe_gmm.cu"}
+           "moe_gmm": CSRC + "moe_gmm.cu",
+           "ssd_scan": CSRC + "ssd_scan.cu"}
 REPLACES = {"tree_gather_leaves": "src/repro/kernels/tree_gather_pallas.py:57",
             "tree_predict_fused": "src/repro/kernels/tree_gather_pallas.py:57",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:27",
             "winograd_conv2d": "src/repro/kernels/winograd_conv.py:58",
             "flash_attention": "src/repro/kernels/flash_attention.py:33",
-            "moe_gmm": "src/repro/kernels/moe_gmm.py:25"}
+            "moe_gmm": "src/repro/kernels/moe_gmm.py:25",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:29"}
 # Winograd against its plain version: float32 summation order only;
 # against a direct convolution: the transforms round at other places.
 WINO_TOL = 1e-5                     # × max |plain|
@@ -496,11 +513,11 @@ def per_op_mape(bank, graphs, store, setting) -> dict:
 
 def kernel_modules():
     from repro_torch.kernels import (flash_attention_cuda, int8_matmul_cuda,
-                                     moe_gmm_cuda, tree_gather_cuda,
-                                     winograd_conv_cuda)
+                                     moe_gmm_cuda, ssd_scan_cuda,
+                                     tree_gather_cuda, winograd_conv_cuda)
 
     return (tree_gather_cuda, int8_matmul_cuda, winograd_conv_cuda,
-            flash_attention_cuda, moe_gmm_cuda)
+            flash_attention_cuda, moe_gmm_cuda, ssd_scan_cuda)
 
 
 def reset_counts() -> None:
@@ -717,7 +734,10 @@ FLASH_CASES = [                     # (label, b, s, h, kvh, d, causal, dtype)
     ("non_causal", 2, 512, 16, 8, 64, False, "bfloat16"),
     ("ragged", 2, 1000, 16, 8, 64, True, "bfloat16"),
     ("ragged_f32", 1, 1000, 16, 8, 64, True, "float32"),
-    ("d128_one_kv_head", 1, 333, 8, 1, 128, True, "float32")]
+    ("d128_one_kv_head", 1, 333, 8, 1, 128, True, "float32"),
+    ("zamba2_forward", 2, 4096, 32, 32, 64, True, "bfloat16")]
+# The flash cases `time_flash` times: both forwards' shapes.
+FLASH_TIMED = ("forward", "forward_f32", "zamba2_forward")
 GMM_CASES = [                       # (label, e, rows, d, f, dtype)
     ("decode", 32, 32, 1024, 512, "bfloat16"),
     ("decode_down", 32, 32, 512, 1024, "bfloat16"),
@@ -762,8 +782,9 @@ def _gmm_inputs(e, rows, d, f, dtype, device, seed):
 
 
 def check_flash(device) -> dict:
-    """Flash kernel vs its plain version at the forward's shape and around
-    it (float32, non-causal, ragged s, d = 128 with one kv head)."""
+    """Flash kernel vs its plain version at the Granite forward's shape and
+    around it (float32, non-causal, ragged s, d = 128 with one kv head),
+    and at the Zamba2 forward's (32 heads MHA over 4,096 tokens)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_cuda as fac
@@ -782,6 +803,8 @@ def check_flash(device) -> dict:
                               LM_TOL[dtype])
         if not torch.equal(got, again):
             raise AssertionError("flash kernel is not repeatable")
+        del q, k, v, got, again
+        torch.cuda.empty_cache()
         worst = max(worst, err)
         rows.append({"case": label, "shape": [b, s, h, kvh, d], "causal": causal,
                      "dtype": dtype, "max_abs_err": err, "err_over_max": rel,
@@ -895,12 +918,14 @@ def _serve_prompts(vocab: int, n: int = 8, seed: int = 0) -> list:
             for _ in range(n)]
 
 
-def profile_lm(model, params, tokens, device, steps: int = 3) -> dict:
+def profile_lm(model, params, tokens, device, steps: int = 3, tag: str = "lm_profile",
+               kernel: str = "") -> dict:
     """Where the LM path's time goes: one forward on ``tokens`` and
     ``steps`` decode steps of 4 slots, each under torch.profiler (CUPTI):
     wall ms, device-busy ms (the sum of the kernels' and copies' device
     intervals), launches and the device's idle share, with the kernels
-    that took the most device time."""
+    that took the most device time and, when ``kernel`` is given, the
+    share of device time in kernels whose name holds it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -934,7 +959,11 @@ def profile_lm(model, params, tokens, device, steps: int = 3) -> dict:
                       "idle_share": max(0.0, 1.0 - busy / wall),
                       "launches": launches / n,
                       "top_kernels_ms": [[k[:80], v / 1e3 / n] for k, v in top]}
-    log("lm_profile " + json.dumps(out))
+        if kernel:
+            ms = math.fsum(v for k, v in by_name.items() if kernel in k) / 1e3 / n
+            out[label][kernel + "_ms"] = ms
+            out[label][kernel + "_share"] = ms / busy if busy else 0.0
+    log(tag + " " + json.dumps(out))
     return out
 
 
@@ -1019,6 +1048,255 @@ def run_lm_path(device, new_tokens: int = 16) -> dict:
            "profile": breakdown,
            "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9}
     log("lm_path " + json.dumps(out))
+    return out
+
+
+# -- the SSM and hybrid LM path (Mamba2, Zamba2) ------------------------------------
+
+SSM_ARCHS = ("mamba2-2.7b", "zamba2-1.2b")
+SSM_FORWARD_SHAPE = (2, 4096)       # (batch, tokens): 16 chunks of 256
+SSM_CONSISTENCY_SEQ = 512           # two chunks, so h_prev is not all zero
+SSM_REQUESTS = {"mamba2-2.7b": 8, "zamba2-1.2b": 4}
+SSD_CASES = [                       # (label, nc, b, h, p, n, dtype, decay dtype)
+    ("mamba2_forward", 16, 2, 80, 64, 128, "float32", "float32"),
+    ("zamba2_forward", 16, 2, 64, 64, 64, "float32", "float32"),
+    ("ragged", 3, 1, 3, 5, 7, "float32", "float32"),
+    ("one_chunk", 1, 2, 80, 64, 128, "float32", "float32"),
+    ("bfloat16", 16, 2, 64, 64, 64, "bfloat16", "float32"),
+    ("bfloat16_decay", 3, 1, 3, 5, 7, "bfloat16", "bfloat16")]
+
+
+def _ssd_inputs(nc, b, h, p, n, dtype, ddtype, device, seed):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.3, 1.0, (nc, b, h)).astype(np.float32)
+    return (_randn((nc, b, h, p, n), seed, device, dtype),
+            torch.from_numpy(d).to(device, getattr(torch, ddtype)))
+
+
+def check_ssd_scan(device) -> dict:
+    """SSD scan kernel vs its plain version, bit for bit (the same float32
+    multiply, then add, per chunk, and one rounding to the output type), at
+    both path shapes, a ragged shape, one chunk and in bfloat16."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+
+    rows = []
+    for i, (label, nc, b, h, p, n, dtype, ddtype) in enumerate(SSD_CASES):
+        s, d = _ssd_inputs(nc, b, h, p, n, dtype, ddtype, device, seed=700 + i)
+        before = ssc.launch_counts()["ssd_scan"]
+        got = ssc.ssd_scan_cuda(s, d)
+        torch.cuda.synchronize()
+        if ssc.launch_counts()["ssd_scan"] != before + 1:
+            raise AssertionError("ssd_scan launch counter did not advance")
+        want = ss.ssd_scan_plain(s, d)
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"ssd_scan {label}: not bit-equal to its plain "
+                                 f"version (max |err| {err})")
+        rows.append({"case": label, "shape": [nc, b, h, p, n], "dtype": dtype,
+                     "decay_dtype": ddtype, "bit_equal": True, "max_abs_err": err})
+    log("parity ssd_scan " + json.dumps(rows))
+    return {"cases": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def _f32_kv(cache) -> dict:
+    """A hybrid cache with float32 K/V (its default is bfloat16 whatever the
+    compute type): float32 checks compare the recurrence, not a rounding."""
+    if "attn" in cache:
+        for k in ("k", "v"):
+            cache["attn"][k] = cache["attn"][k].float()
+    return cache
+
+
+def _ssm_configs() -> list:
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return [get_arch("mamba2-2.7b").reduced(),
+            dataclasses.replace(get_arch("zamba2-1.2b").reduced(), num_layers=5,
+                                shared_attn_every=2)]
+
+
+def check_ssm_on_host(device) -> dict:
+    """Reduced Mamba2, and Zamba2 with 5 layers (two groups and a tail), in
+    float32: forward on 2 × 128 tokens (4 chunks) and four decode steps on
+    the card, through the scan (and flash) kernels, against the port on
+    the host."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for cfg in _ssm_configs():
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        m = build_model(cfg)
+        host = m.init(3, device="cpu")
+        card = m.init(3, device="cpu").to(device)
+        toks = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (2, 128)))
+        errs = [float((m.forward(card, {"tokens": toks.to(device)}).cpu()
+                       - m.forward(host, {"tokens": toks})).abs().max())]
+        cd = _f32_kv(m.init_cache(2, 16, device=device))
+        ch = _f32_kv(m.init_cache(2, 16, device="cpu"))
+        for t in range(4):
+            a, cd = m.decode_step(card, {"token": toks[:, t:t + 1].to(device)}, cd)
+            b, ch = m.decode_step(host, {"token": toks[:, t:t + 1]}, ch)
+            errs.append(float((a.cpu() - b).abs().max()))
+        if not max(errs) <= HOST_TOL:
+            raise AssertionError(f"{cfg.name}: card vs host port {max(errs)}")
+        out[f"{cfg.name}_{cfg.num_layers}L"] = max(errs)
+    log("parity ssm_card_vs_host_reduced_f32_max_abs_err " + json.dumps(out))
+    return out
+
+
+def check_ssm_prefill_decode(cfg, params, device, seq: int = SSM_CONSISTENCY_SEQ
+                             ) -> dict:
+    """Forward on (1, seq) tokens against feeding them one by one through
+    `decode_step`: the last position's logits.  Gated in float32 compute
+    (float32 K/V in the hybrid); the served configuration (bfloat16
+    compute and K/V) is read, not gated."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, seq))).to(device)
+    out = {"tokens": seq}
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    for label, c in (("float32", f32), ("served_bfloat16", cfg)):
+        m = build_model(c)
+        full = m.forward(params, {"tokens": toks})[:, -1]
+        cache = m.init_cache(1, seq + 8, device=device)
+        if label == "float32":
+            cache = _f32_kv(cache)
+        for t in range(seq):
+            logits, cache = m.decode_step(params, {"token": toks[:, t:t + 1]}, cache)
+        out[label] = float((logits - full).abs().max())
+        out[label + "_logit_max"] = float(full.abs().max())
+        del cache
+    if not out["float32"] <= CONSISTENCY_TOL:
+        raise AssertionError(f"{cfg.name} decode vs forward: {out['float32']} "
+                             f"(> {CONSISTENCY_TOL})")
+    log("ssm_prefill_decode " + json.dumps({"arch": cfg.name, **out}))
+    return out
+
+
+def profile_ssm(model, params, tokens, device) -> dict:
+    """`profile_lm` over one Mamba2 forward and one decode step, with the
+    ssd_scan kernel's share of the device time."""
+    return profile_lm(model, params, tokens, device, steps=1, tag="ssm_profile",
+                      kernel="ssd_scan")
+
+
+def run_ssm_path(device, new_tokens: int = 16) -> dict:
+    """Mamba2 2.7B, then Zamba2 1.2B, at full width and depth from the
+    port's own init (seed 0; float32 parameters, bfloat16 compute): for
+    each, prefill/decode consistency first (not counted), then, with every
+    launch count zeroed just before and read just after, `Model.forward` on
+    2 × 4,096 tokens (one ssd_scan launch per Mamba block, one flash launch
+    per shared-block call) and a 4-slot `ServeEngine`; Mamba2 is then
+    profiled (`profile_ssm`, not counted).  Each model is freed before the
+    next is built."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    out, launches = {}, {}
+    for arch in SSM_ARCHS:
+        cfg = get_arch(arch)
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        params = model.init(0, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        consistency = check_ssm_prefill_decode(cfg, params, device)
+        # Warm-up (not counted): the bfloat16 weight copies and cuBLAS handles.
+        model.forward(params, {"tokens": torch.zeros((1, 256), dtype=torch.long,
+                                                      device=device)})
+        b, s = SSM_FORWARD_SHAPE
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (b, s))).to(device)
+        torch.cuda.synchronize()
+        groups = cfg.num_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
+
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        fwd = read_counts()
+        if logits.shape != (b, s, cfg.vocab_size) or logits.dtype != torch.float32 \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch} forward logits {logits.dtype} "
+                                 f"{tuple(logits.shape)}")
+        if fwd["ssd_scan"] != cfg.num_layers or fwd["flash_attention"] != groups \
+                or fwd["moe_gmm"] != 0:
+            raise AssertionError(f"{arch} forward launches {fwd}")
+        del logits
+
+        engine = ServeEngine(model, params, batch_slots=4, max_len=512, device=device)
+        prompts = _serve_prompts(cfg.vocab_size, n=SSM_REQUESTS[arch])
+        for prompt in prompts:
+            engine.submit(prompt, max_new_tokens=new_tokens)
+        t0 = time.perf_counter()
+        done = engine.run(max_steps=1000)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = read_counts()
+        served = {k: counts[k] - fwd[k] for k in counts}
+        stats = engine.stats()
+        calls = stats["steps"] + sum(len(p) - 1 for p in prompts)
+        if len(done) != len(prompts) or any(
+                len(r.generated) != new_tokens or not all(0 <= t < cfg.vocab_size
+                                                          for t in r.generated)
+                for r in done):
+            raise AssertionError(f"{arch}: {len(done)} of {len(prompts)} requests "
+                                 f"answered")
+        if "attn" in engine.cache and \
+                int(engine.cache["attn"]["len"].max()) >= engine.max_len:
+            raise AssertionError("the engine ran past max_len")
+        del engine
+        breakdown = profile_ssm(model, params, tokens, device) \
+            if cfg.family == "ssm" else None
+        generated = sum(len(r.generated) for r in done)
+        out[arch] = {
+            "arch": cfg.name, "params": n_params, "init_s": init_s,
+            "forward_tokens": [b, s], "forward_s": forward_s,
+            "forward_launches": {k: fwd[k] for k in ("ssd_scan", "flash_attention")},
+            "requests": len(prompts), "requests_finished": len(done),
+            "prompt_tokens": int(sum(len(p) for p in prompts)),
+            "tokens_generated": generated, "decode_steps": stats["steps"],
+            "decode_step_calls": calls, "serve_s": serve_s,
+            "tokens_per_s": generated / serve_s,
+            "mean_step_ms": 1e3 * stats["measured_step_s"],
+            "serve_launches": {k: served[k] for k in ("ssd_scan", "flash_attention")},
+            "launches": counts, "prefill_decode": consistency,
+            "profile": breakdown,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+        log("ssm_path " + json.dumps(out[arch]))
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        del model, params, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
     return out
 
 
@@ -1214,9 +1492,11 @@ def time_winograd(device) -> list:
 
 
 def time_flash(device) -> list:
-    """The flash kernel at the forward's shape (b = 4, s = 1,024, 16 query
-    and 8 kv heads, d = 64, causal, bfloat16): kernel, plain version and
-    ``F.scaled_dot_product_attention`` (GQA) on the same input.  Bound:
+    """The flash kernel at the Granite forward's shape (b = 4, s = 1,024,
+    16 query and 8 kv heads, d = 64, causal, bfloat16 and float32) and at
+    the Zamba2 forward's (b = 2, s = 4,096, 32 heads MHA, bfloat16):
+    kernel, plain version and ``F.scaled_dot_product_attention`` on the
+    same input.  Bound:
     q, k, v read once and o written once, against 4·d operations for each
     (query, key) pair the causal mask keeps, at the bfloat16 tensor rate."""
     import torch
@@ -1225,7 +1505,8 @@ def time_flash(device) -> list:
     from repro_torch.kernels import flash_attention_cuda as fac
 
     rows = []
-    for label, b, s, h, kvh, d, causal, dtype in FLASH_CASES[:2]:
+    for label, b, s, h, kvh, d, causal, dtype in (
+            c for c in FLASH_CASES if c[0] in FLASH_TIMED):
         q, k, v = _flash_inputs(b, s, h, kvh, d, dtype, device, seed=500)
         err = float((fac.flash_attention_cuda(q, k, v, causal=causal).float()
                      - fa.flash_attention_plain(q, k, v, causal=causal).float())
@@ -1280,6 +1561,37 @@ def time_gmm(device) -> list:
     return rows
 
 
+def time_ssd_scan(device) -> list:
+    """The SSD scan kernel at the SSM path's two shapes (Mamba2 2.7B and
+    Zamba2 1.2B forward on 2 × 4,096 tokens, float32): kernel and plain
+    version.  Bound: s and decay read once, h_prev and h_final written
+    once, against 2 operations per state element and chunk at the float32
+    rate.  No single PyTorch call computes this recurrence, so there is no
+    library time."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+
+    rows = []
+    for label, nc, b, h, p, n, dtype, ddtype in SSD_CASES[:2]:
+        s, d = _ssd_inputs(nc, b, h, p, n, dtype, ddtype, device, seed=800)
+        got, want = ssc.ssd_scan_cuda(s, d), ss.ssd_scan_plain(s, d)
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        kern = cuda_ms(lambda: ssc.ssd_scan_cuda(s, d))
+        plain = cuda_ms(lambda: ss.ssd_scan_plain(s, d), iters=5, warmup=2)
+        state = b * h * p * n
+        moved = (s.element_size() * (2 * nc * state + state)      # s, h_prev, h_final
+                 + d.element_size() * nc * b * h)                  # decay
+        b_ms, b_by = bound(moved, 2 * nc * state)
+        rows.append({"case": label, "shape": [nc, b, h, p, n], "dtype": dtype,
+                     "max_abs_err": err, "ms": kern["device"], "host_ms": kern["host"],
+                     "plain_ms": plain["device"], "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        log("time ssd_scan " + json.dumps(rows[-1]))
+    log("library_ms: null for ssd_scan — no single PyTorch call computes the "
+        "inter-chunk recurrence (a cumulative product-and-sum over chunks)")
+    return rows
+
+
 def summarize(rows: list, launches: int, parity_err: float) -> dict:
     tot = {k: math.fsum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
     ops_bound = any(r["bound_by"] == "operations" for r in rows)
@@ -1301,6 +1613,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 3
+    started = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -1341,6 +1654,8 @@ def main() -> int:
         flash_parity = check_flash(device)
         gmm_parity = check_gmm(device)
         check_lm_on_host(device)
+        ssd_parity = check_ssd_scan(device)
+        check_ssm_on_host(device)
 
         phase = "main path (float32)"
         main_f32 = run_main_path(device, f32, graphs, pop, pop2)
@@ -1358,6 +1673,9 @@ def main() -> int:
         phase = "LM serving path"
         lm = run_lm_path(device)
 
+        phase = "SSM and hybrid LM path"
+        ssm = run_ssm_path(device)
+
         phase = "times"
         timed = time_kernels(main_f32["bank"], main_f32["held"], pop, device)
         preds = main_f32["bank"].predictors
@@ -1371,6 +1689,7 @@ def main() -> int:
         wino_rows = time_winograd(device)
         flash_rows = time_flash(device)
         gmm_rows = time_gmm(device)
+        ssd_rows = time_ssd_scan(device)
 
         parity_err = max(p["fused_max_abs_err"] for p in parity)
         kernels = []
@@ -1394,6 +1713,12 @@ def main() -> int:
             entry.update(summarize(rows, launches[name], err))
             entry["library_ms"] = math.fsum(r["library_ms"] for r in rows)
             kernels.append(entry)
+        entry = {"name": "ssd_scan", "route": "cuda", "source": SOURCES["ssd_scan"],
+                 "replaces": REPLACES["ssd_scan"]}
+        entry.update(summarize(ssd_rows[:1], ssm["launches"]["ssd_scan"],
+                               ssd_parity["max_abs_err"]))
+        kernels.append(entry)
+        log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f} s")
         log(f"card: {card_line()}")
         log(json.dumps({"kernels": kernels}))
     except Exception:

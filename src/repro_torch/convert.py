@@ -50,19 +50,37 @@ def lm_params_from_reference(tree: Dict[str, Any], cfg,
 
     ``tree`` is the reference's ``Model.init`` pytree as nested dicts of
     numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``).  The
-    plain decoder stack keeps its layers stacked on a leading axis in
-    ``tree["layers"]``; the port holds one module per layer, so that axis
-    is unstacked.  Values are copied in their dtypes onto ``device``.
+    reference stacks its layers on leading axes; the port holds one
+    module per layer, so those axes are unstacked:
+      * decoder (dense, moe) and ssm: ``layers`` on (num_layers,);
+      * hybrid: ``mamba_groups`` on (n_groups, k), unstacked group-major
+        into n_groups·k modules; ``tail_mamba`` on (rem,), present only
+        when ``num_layers % shared_attn_every``; ``shared_attn`` is one
+        unstacked layer.
+    Each stack's leading shape is checked against ``cfg``.  Values are
+    copied in their dtypes onto ``device``.
     """
     check_plain_stack(cfg)
     dev = resolve_device(device)
-    lead = {np.shape(a)[0] for a in _leaves(tree["layers"])}
-    if lead != {cfg.num_layers}:
-        raise ValueError(f"tree stacks {sorted(lead)} layers, {cfg.name} has "
-                         f"{cfg.num_layers}")
-    out = {k: _tensors(v, dev) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_tensors(tree["layers"], dev, i)
-                     for i in range(cfg.num_layers)]
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        n_groups, rem = divmod(cfg.num_layers, every)
+        stacks = {"mamba_groups": (n_groups, every)}
+        if rem:
+            stacks["tail_mamba"] = (rem,)
+        if "tail_mamba" in tree and not rem:
+            raise ValueError(f"tree has tail_mamba, {cfg.name} has no tail group")
+    else:
+        stacks = {"layers": (cfg.num_layers,)}
+    out = {k: _tensors(v, dev) for k, v in tree.items() if k not in stacks}
+    for name, lead in stacks.items():
+        if name not in tree:
+            raise ValueError(f"tree has no {name!r} stack for {cfg.name}")
+        found = {tuple(np.shape(a)[:len(lead)]) for a in _leaves(tree[name])}
+        if found != {lead}:
+            raise ValueError(f"tree stacks {name} as {sorted(found)}, {cfg.name} "
+                             f"has {lead}")
+        out[name] = [_tensors(tree[name], dev, i) for i in np.ndindex(*lead)]
     return Params(out)
 
 
@@ -75,8 +93,8 @@ def _leaves(t):
 
 
 def _tensors(t, dev, index=None):
-    """Nested dicts of arrays → of tensors on ``dev`` (row ``index`` of each
-    array, when given)."""
+    """Nested dicts of arrays → of tensors on ``dev`` (the entry at
+    ``index`` of each array's leading axes, when given)."""
     if isinstance(t, dict):
         return {k: _tensors(v, dev, index) for k, v in t.items()}
     a = np.asarray(t)

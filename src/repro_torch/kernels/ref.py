@@ -8,6 +8,8 @@ card, where torch has no integer matrix product.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -31,6 +33,23 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     scores = scores.masked_fill(~mask, -2.0e38)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+
+
+def ssd_scan_ref(s_chunk: Tensor, decay: Tensor) -> Tuple[Tensor, Tensor]:
+    """Inter-chunk SSD recurrence, the state carried in s_chunk's type.
+
+    s_chunk: (nc, b, h, p, n) per-chunk input→state contributions;
+    decay:   (nc, b, h) per-chunk cumulative decay.
+    Returns (h_prev: (nc, b, h, p, n) state BEFORE each chunk,
+             h_final: (b, h, p, n)).
+    """
+    hstate = torch.zeros(s_chunk.shape[1:], dtype=s_chunk.dtype,
+                         device=s_chunk.device)
+    h_prev = torch.empty_like(s_chunk)
+    for c in range(s_chunk.shape[0]):
+        h_prev[c] = hstate
+        hstate = (hstate * decay[c][..., None, None] + s_chunk[c]).to(s_chunk.dtype)
+    return h_prev, hstate
 
 
 def moe_gmm_ref(x: Tensor, w: Tensor) -> Tensor:

@@ -1,0 +1,67 @@
+"""CUDA inter-chunk SSD scan: build, bind, launch (``csrc/ssd_scan.cu``).
+
+``ssd_scan_cuda(s_chunk, decay)`` → (h_prev (nc, b, h, p, n), h_final
+(b, h, p, n)) in s_chunk's type, on the card: s_chunk (nc, b, h, p, n)
+float32 or bfloat16, decay (nc, b, h) float32 or bfloat16, both
+contiguous on one card.  The wrapper checks device, dtype, contiguity and
+shape, allocates the outputs, launches on torch's current stream and
+raises if the C entry point reports a CUDA error.  It adds one to
+``LAUNCHES["ssd_scan"]`` where it launches the kernel, and nowhere else.
+CPU tensors never reach this module.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels._build import CudaLibrary, LaunchCounter
+from repro_torch.kernels._build import check_tensor as _check
+
+_COUNTER = LaunchCounter("ssd_scan")
+LAUNCHES: Dict[str, int] = _COUNTER.counts
+launch_counts = _COUNTER.snapshot
+reset_launch_counts = _COUNTER.reset
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssd_scan_launch.argtypes = [p, p, p, p, i, ll, ll, i, i, p]
+    lib.ssd_scan_launch.restype = i
+
+
+LIBRARY = CudaLibrary("ssd_scan", ("ssd_scan.cu",), _declare)
+
+
+def ssd_scan_cuda(s_chunk: torch.Tensor, decay: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_c = decay_c·h_{c-1} + s_c over the chunks, float32 state;
+    returns (state before each chunk, final state) in s_chunk's type."""
+    if not isinstance(s_chunk, torch.Tensor) or s_chunk.dtype not in _DTYPES:
+        raise TypeError(f"s_chunk must be a float32 or bfloat16 tensor "
+                        f"(got {getattr(s_chunk, 'dtype', type(s_chunk))})")
+    _check(s_chunk, "s_chunk", s_chunk.dtype, s_chunk.device)
+    if s_chunk.dim() != 5:
+        raise ValueError(f"s_chunk must be (nc, b, h, p, n), got "
+                         f"{tuple(s_chunk.shape)}")
+    if not isinstance(decay, torch.Tensor) or decay.dtype not in _DTYPES:
+        raise TypeError(f"decay must be a float32 or bfloat16 tensor "
+                        f"(got {getattr(decay, 'dtype', type(decay))})")
+    nc, b, h, p, n = s_chunk.shape
+    _check(decay, "decay", decay.dtype, s_chunk.device, (nc, b, h))
+    h_prev = torch.empty_like(s_chunk)
+    h_final = torch.empty((b, h, p, n), dtype=s_chunk.dtype, device=s_chunk.device)
+    if h_final.numel() == 0:
+        return h_prev, h_final
+    lib = LIBRARY.load()
+    stream = torch.cuda.current_stream(s_chunk.device).cuda_stream
+    err = lib.ssd_scan_launch(s_chunk.data_ptr(), decay.data_ptr(),
+                              h_prev.data_ptr(), h_final.data_ptr(), nc, b * h,
+                              p * n, _DTYPES[s_chunk.dtype], _DTYPES[decay.dtype],
+                              stream)
+    LIBRARY.raise_on(err, "ssd_scan")
+    _COUNTER.add("ssd_scan")
+    return h_prev, h_final

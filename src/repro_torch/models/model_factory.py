@@ -1,5 +1,6 @@
 """Uniform model API (twin of ``repro.models.model_factory``), for the
-families the port has: ``dense`` and ``moe`` (the plain decoder stack).
+families the port has: ``dense`` and ``moe`` (the plain decoder stack),
+``ssm`` (Mamba2) and ``hybrid`` (Zamba2).
 
 `build_model(cfg)` returns a `Model` with:
   * init(seed, device="cuda") → params         (the port's own init)
@@ -9,8 +10,8 @@ families the port has: ``dense`` and ``moe`` (the plain decoder stack).
   * decode_step(params, batch, cache) → (logits, cache)   (serve step body)
 
 The reference's ``input_specs`` (shape stand-ins for its dry-run) has no
-use without a tracer and is left out.  Families ``ssm``, ``hybrid``,
-``encdec`` and ``vlm`` raise NotImplementedError (ROADMAP A.1).
+use without a tracer and is left out.  Families ``encdec`` and ``vlm``
+raise NotImplementedError (ROADMAP A.1).
 """
 from __future__ import annotations
 
@@ -20,15 +21,15 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
-from repro_torch.models.layers import Params
+from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models.layers import (
+    Params, dtype_of, embed, embed_init, norm_init, rms_norm, unembed,
+)
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
 
 UNPORTED_FAMILIES = {
-    "ssm": "the SSM family with the ssd_scan kernel (ROADMAP A.1, B.6)",
-    "hybrid": "the hybrid family with the ssd_scan kernel (ROADMAP A.1, B.6)",
     "encdec": "the encoder-decoder family (ROADMAP A.1: encdec)",
     "vlm": "the VLM family (ROADMAP A.1: VLM cross-attention)",
 }
@@ -55,20 +56,34 @@ class Model:
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family in ("dense", "moe"):
         return _build_decoder(cfg)
+    if cfg.family == "ssm":
+        return _build_ssm(cfg)
+    if cfg.family == "hybrid":
+        return _build_hybrid(cfg)
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: {UNPORTED_FAMILIES[cfg.family]} "
                                   f"is not ported yet")
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
+def _generator(seed: int, device: DeviceLike) -> torch.Generator:
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def _nll_loss(forward):
+    def loss(params, batch):
+        nll = cross_entropy(forward(params, batch), batch["labels"])
+        return nll, {"nll": nll}
+    return loss
+
+
 def _build_decoder(cfg: ArchConfig) -> Model:
     transformer.check_plain_stack(cfg)
 
     def init(seed: int, device: DeviceLike = "cuda") -> Params:
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        return transformer.init_decoder(gen, cfg)
+        return transformer.init_decoder(_generator(seed, device), cfg)
 
     def forward(params, batch):
         logits, _ = transformer.decoder_forward(params, batch["tokens"], cfg)
@@ -87,3 +102,61 @@ def _build_decoder(cfg: ArchConfig) -> Model:
         return transformer.decode_step(params, batch["token"], cache, cfg)
 
     return Model(cfg, init, loss, forward, init_cache, decode_step)
+
+
+# ---------------------------------------------------------------------------
+# ssm — Mamba2
+# ---------------------------------------------------------------------------
+
+def _build_ssm(cfg: ArchConfig) -> Model:
+    def init(seed: int, device: DeviceLike = "cuda") -> Params:
+        gen = _generator(seed, device)
+        p = {
+            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.param_dtype),
+            "layers": [ssm.mamba_init(gen, cfg) for _ in range(cfg.num_layers)],
+            "final_norm": norm_init(cfg.d_model, cfg.param_dtype, gen.device),
+        }
+        if not cfg.tie_embeddings:
+            p["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                      cfg.param_dtype)
+        return Params(p)
+
+    def forward(params, batch):
+        """Logits in float32, no softcap (as the reference's SSM)."""
+        x = embed(params["embed"], batch["tokens"], dtype_of(cfg))
+        for lp in params["layers"]:
+            x = ssm.mamba_forward(lp, x, cfg)
+        x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return unembed(transformer._head(params, cfg), x).float()
+
+    def init_cache(batch: int, max_len: int, device: DeviceLike = "cuda"):
+        return ssm.init_mamba_cache(cfg, batch, cfg.num_layers,
+                                    resolve_device(device))
+
+    def decode_step(params, batch, cache):
+        x = embed(params["embed"], batch["token"], dtype_of(cfg))
+        x = ssm.mamba_decode_layers(params["layers"], x, cfg, cache)
+        x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return unembed(transformer._head(params, cfg), x[:, 0]).float(), cache
+
+    return Model(cfg, init, _nll_loss(forward), forward, init_cache, decode_step)
+
+
+# ---------------------------------------------------------------------------
+# hybrid — Zamba2
+# ---------------------------------------------------------------------------
+
+def _build_hybrid(cfg: ArchConfig) -> Model:
+    def init(seed: int, device: DeviceLike = "cuda") -> Params:
+        return hybrid.init_hybrid(_generator(seed, device), cfg)
+
+    def forward(params, batch):
+        return hybrid.hybrid_forward(params, batch["tokens"], cfg)
+
+    def init_cache(batch: int, max_len: int, device: DeviceLike = "cuda"):
+        return hybrid.init_hybrid_cache(cfg, batch, max_len, resolve_device(device))
+
+    def decode_step(params, batch, cache):
+        return hybrid.hybrid_decode_step(params, batch["token"], cache, cfg)
+
+    return Model(cfg, init, _nll_loss(forward), forward, init_cache, decode_step)

@@ -9,7 +9,11 @@ prefill also advances every other slot's cache length and writes a
 token-0 K/V into the other active slots; a freed slot's cache is not
 reset for the next request; once a slot's length reaches ``max_len`` its
 cache writes are dropped and attention reads the whole cache.  These are
-the reference's results, kept so the two engines agree.
+the reference's results, kept so the two engines agree.  The SSM and
+hybrid families' Mamba caches (each layer's SSD state and conv window)
+behave as the K/V cache does: a slot's prefill feeds token 0 through
+every other slot's state and window, and a freed slot's state is not
+reset; the engine only passes the cache along.
 
 What differs from the reference: ``jax.jit(model.decode_step)`` is the
 eager call; the engine runs on ``device`` (the card unless the caller

@@ -245,7 +245,8 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kvh,d,causal", [
     (2, 256, 16, 8, 64, True), (1, 1000, 4, 2, 64, True), (2, 77, 4, 4, 32, False),
-    (1, 33, 8, 1, 128, True), (3, 5, 2, 2, 16, False), (1, 1, 4, 2, 64, True)])
+    (1, 33, 8, 1, 128, True), (3, 5, 2, 2, 16, False), (1, 1, 4, 2, 64, True),
+    (1, 300, 32, 32, 64, True)])
 def test_flash_attention_within_tolerance_of_plain(card, dtype, b, s, h, kvh, d, causal):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_cuda as fac
@@ -339,3 +340,114 @@ def test_reduced_lm_on_the_card_equals_the_host_port(card, arch):
         a, cd = m.decode_step(dev, {"token": toks[:, t:t + 1].to(card)}, cd)
         b, ch = m.decode_step(host, {"token": toks[:, t:t + 1]}, ch)
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
+
+
+# -- SSD inter-chunk scan and the SSM / hybrid LMs -------------------------------
+
+# (nc, b, h, p, n): Mamba2 2.7B's and Zamba2 1.2B's forward on 2 × 4,096
+# tokens, an odd b·h with a p·n that is not a multiple of 4, one chunk.
+SSD_SHAPES = [(16, 2, 80, 64, 128), (16, 2, 64, 64, 64), (3, 1, 3, 5, 7),
+              (1, 2, 4, 8, 16)]
+
+
+def _ssd_inputs(shape, card, dtype, decay_dtype, seed):
+    rng = np.random.default_rng(seed)
+    s = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    d = torch.from_numpy(rng.uniform(0.3, 1.0, shape[:3]).astype(np.float32))
+    return s.to(card, dtype), d.to(card, decay_dtype)
+
+
+@pytest.mark.parametrize("dtype,decay_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+def test_ssd_scan_bit_equal_to_plain(card, shape, dtype, decay_dtype):
+    """The same float32 multiply, then add, per chunk (never an FMA), and
+    one rounding to the output type: bit-equal."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+
+    s, d = _ssd_inputs(shape, card, dtype, decay_dtype, seed=sum(shape))
+    before = ssc.launch_counts()["ssd_scan"]
+    hp, hf = ss.ssd_scan(s, d)
+    torch.cuda.synchronize()
+    assert ssc.launch_counts()["ssd_scan"] == before + 1
+    want = ss.ssd_scan_plain(s, d)
+    assert hp.dtype == hf.dtype == dtype
+    assert torch.equal(hp, want[0]) and torch.equal(hf, want[1])
+
+
+def test_ssd_scan_unaligned_operand_takes_the_scalar_kernel(card):
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+
+    s, d = _ssd_inputs((5, 1, 2, 4, 8), card, torch.float32, torch.float32, seed=1)
+    flat = torch.empty(s.numel() + 1, device=card)
+    shifted = flat[1:].view(s.shape)            # 4 bytes off a 16-byte boundary
+    shifted.copy_(s)
+    got = ssc.ssd_scan_cuda(shifted, d)
+    want = ss.ssd_scan_plain(s, d)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ssd_scan_wrapper_checks_its_inputs(card):
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+
+    s = torch.zeros((2, 1, 3, 4, 4), device=card)
+    d = torch.ones((2, 1, 3), device=card)
+    with pytest.raises(TypeError):
+        ssc.ssd_scan_cuda(s.double(), d)
+    with pytest.raises(TypeError):
+        ssc.ssd_scan_cuda(s, d.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        ssc.ssd_scan_cuda(s.transpose(3, 4), d)
+    with pytest.raises(ValueError, match="shape"):
+        ssc.ssd_scan_cuda(s, d[:, :, :2].contiguous())
+    with pytest.raises(ValueError, match="lie on"):
+        ssc.ssd_scan_cuda(s.cpu(), d.cpu())
+    with pytest.raises(ValueError, match="lie on"):
+        ssc.ssd_scan_cuda(s, d.cpu())
+    hp, hf = ssc.ssd_scan_cuda(s[:, :, :0].contiguous(), d[:, :, :0].contiguous())
+    assert hp.shape == (2, 1, 0, 4, 4) and hf.shape == (1, 0, 4, 4)
+
+
+@pytest.mark.parametrize("arch,over", [("mamba2-2.7b", {}), ("zamba2-1.2b", {}),
+                                       ("zamba2-1.2b", {"num_layers": 5})])
+def test_reduced_ssm_on_the_card_equals_the_host_port(card, arch, over):
+    """Forward and decode in float32 on the card, through the scan kernel
+    (and the flash kernel in the hybrid's shared block), against the
+    port's plain versions on the host; one scan launch per Mamba block."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention_cuda as fac
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(arch).reduced(), compute_dtype="float32",
+                              **over)
+    m = build_model(cfg)
+    host = m.init(3, device="cpu")
+    dev = m.init(3, device="cpu").to(card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 128)).astype(np.int64))
+    fac.reset_launch_counts()
+    ssc.reset_launch_counts()
+    got = m.forward(dev, {"tokens": toks.to(card)})
+    torch.cuda.synchronize()
+    assert ssc.launch_counts()["ssd_scan"] == cfg.num_layers
+    groups = cfg.num_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
+    assert fac.launch_counts()["flash_attention"] == groups
+    want = m.forward(host, {"tokens": toks})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+    cd, ch = m.init_cache(2, 16, device=card), m.init_cache(2, 16, device="cpu")
+    for c in (cd, ch):
+        if "attn" in c:
+            for k in ("k", "v"):
+                c["attn"][k] = c["attn"][k].float()
+    for t in range(4):
+        a, cd = m.decode_step(dev, {"token": toks[:, t:t + 1].to(card)}, cd)
+        b, ch = m.decode_step(host, {"token": toks[:, t:t + 1]}, ch)
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
+    assert ssc.launch_counts()["ssd_scan"] == cfg.num_layers   # decode: none

@@ -59,10 +59,11 @@ def test_port_has_the_slice_modules():
                 "models/__init__.py", "models/layers.py", "models/attention.py",
                 "models/moe.py", "models/transformer.py",
                 "models/model_factory.py", "serving/__init__.py",
-                "serving/engine.py"):
+                "serving/engine.py", "kernels/ssd_scan.py",
+                "kernels/ssd_scan_cuda.py", "models/ssm.py", "models/hybrid.py"):
         assert mod in names
     for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
-                "flash_attention.cu", "moe_gmm.cu"):
+                "flash_attention.cu", "moe_gmm.cu", "ssd_scan.cu"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
@@ -95,7 +96,9 @@ def test_cuda_kernel_source_names_both_kernels():
                           "_winograd_kernel", "fmaf")),
     ("flash_attention.cu", ("src/repro/kernels/flash_attention.py",
                             "_flash_kernel", "expf", "__shfl_xor_sync")),
-    ("moe_gmm.cu", ("src/repro/kernels/moe_gmm.py", "_gmm_kernel", "fmaf"))])
+    ("moe_gmm.cu", ("src/repro/kernels/moe_gmm.py", "_gmm_kernel", "fmaf")),
+    ("ssd_scan.cu", ("src/repro/kernels/ssd_scan.py", "_ssd_scan_kernel",
+                     "__fmul_rn", "__fadd_rn"))])
 def test_cuda_sources_name_the_tpu_kernel_they_replace(source, names):
     src = (PORT / "kernels" / "csrc" / source).read_text()
     for name in names + ("What bounds it", "cudaGetLastError"):
@@ -138,6 +141,8 @@ def _entry_points():
     from repro_torch.utils.device import resolve_device
 
     lm = build_model(get_arch("qwen2-72b").reduced())
+    ssm = build_model(get_arch("mamba2-2.7b").reduced())
+    hybrid = build_model(get_arch("zamba2-1.2b").reduced())
 
     return {
         "resolve_device": lambda: resolve_device(),
@@ -156,6 +161,11 @@ def _entry_points():
         "Model.init": lambda: lm.init(0),
         "Model.init_cache": lambda: lm.init_cache(1, 8),
         "ServeEngine": lambda: ServeEngine(lm, lm.init(0, device="cpu")),
+        "ssm Model.init": lambda: ssm.init(0),
+        "ssm Model.init_cache": lambda: ssm.init_cache(1, 8),
+        "hybrid Model.init": lambda: hybrid.init(0),
+        "hybrid Model.init_cache": lambda: hybrid.init_cache(1, 8),
+        "hybrid ServeEngine": lambda: ServeEngine(hybrid, hybrid.init(0, device="cpu")),
         "lm_params_from_reference": lambda: lm_params_from_reference(
             {"layers": {"w": np.zeros((4, 2))}}, get_arch("qwen2-72b").reduced()),
     }
