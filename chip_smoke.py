@@ -29,7 +29,10 @@ result line:
        * flash attention (`FLASH_CASES`: the Granite forward's shape,
          float32, non-causal, ragged s, d = 128, and the Zamba2 forward's
          MHA shape) and the MoE GMM (`GMM_CASES`: the
-         decode and prefill shapes, float32, ragged) within `LM_TOL`;
+         decode and prefill shapes, float32, ragged) within `LM_TOL`,
+         bfloat16 flash also row by row within `FLASH_ROW_TOL`;
+         bfloat16 on the tensor-core kernels and float32 on the CUDA-core
+         ones (each wrapper's per-route count);
          reduced Granite-MoE and Qwen2 in float32 on the card against the
          port on the host within `HOST_TOL`;
        * the SSD scan (`SSD_CASES`: both SSM path shapes, a ragged shape,
@@ -55,8 +58,9 @@ result line:
          (`check_prefill_decode`, not counted), then `Model.forward` on
          4 × 1,024 tokens (24 flash and 72 GMM launches) and a 4-slot
          `ServeEngine` answering 8 requests of 16 new tokens (72 GMM
-         launches per decode step); then a forward and decode steps under
-         torch.profiler for the time split and the device's idle share;
+         launches per decode step), every one on the bfloat16 tensor-core
+         route; then a forward and decode steps under torch.profiler for
+         the time split, the flash and GMM shares and the idle share;
        * the SSM and hybrid path: Mamba2 2.7B, then Zamba2 1.2B, at full
          width and depth from the port's own init (seed 0), each with
          its counts zeroed: decode/forward consistency at 512 tokens
@@ -64,14 +68,16 @@ result line:
          counted), `Model.forward` on 2 × 4,096 tokens (64 ssd_scan
          launches for Mamba2; 38 and 6 flash launches for Zamba2) and a
          4-slot `ServeEngine` answering 8 (Mamba2) or 4 (Zamba2)
-         requests; then one Mamba2 forward and decode step under
-         torch.profiler with the ssd_scan share of device time.
+         requests; then each model's forward and one decode step under
+         torch.profiler with the ssd_scan (and, for Zamba2, the flash)
+         share of device time.
   4. Times at the paths' shapes — kernel, plain version, library call
      where one exists (``torch._int_mm``, ``F.conv2d``,
      ``F.scaled_dot_product_attention``, ``torch.bmm``; none for the tree
      kernels and the SSD scan) and the bound from
      bytes at 3.35 TB/s or operations (67 TFLOP/s float32, 989 TFLOP/s
-     bfloat16 and 1,979 TOP/s int8 on the tensor cores); for the tree
+     bfloat16 and 1,979 TOP/s int8 on the tensor cores); the GMM's decode
+     shapes also with a cold L2 (weights rotated over 4 sets); for the tree
      kernels also the numpy host tier and a numpy-vs-kernel curve over
      2^10 … 2^22 slots.
 
@@ -81,6 +87,7 @@ directory that does not hold ``src/repro_torch``, it exits non-zero.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -532,6 +539,15 @@ def read_counts() -> dict:
     return out
 
 
+def read_routes() -> dict:
+    """Launches by route (bfloat16 tensor cores, float32 CUDA cores) of the
+    two kernels that have two, since the counts were last zeroed."""
+    from repro_torch.kernels import flash_attention_cuda, moe_gmm_cuda
+
+    return {"flash_attention": flash_attention_cuda.route_counts(),
+            "moe_gmm": moe_gmm_cuda.route_counts()}
+
+
 def run_main_path(device, setting, graphs, pop, pop2, n_train: int = 32) -> dict:
     """Profile → train → serve through the port's entry points, every
     launch count zeroed just before and read just after."""
@@ -721,8 +737,19 @@ def run_selection_path(device, setting, graphs, store) -> dict:
 LM_ARCH = "granite-moe-1b-a400m"
 # Flash and GMM kernels against their plain versions, max |err| over
 # max |plain|: float32, the order of float32 sums; bfloat16, one rounding
-# of the float32 result (a bfloat16 step is 2^-8 relative).
+# of the float32 result (a bfloat16 step is 2^-8 relative), and in flash
+# the probabilities' rounding to bfloat16 before P·V (2^-9 relative; the
+# CPU emulation in tests/test_torch_flash_attention.py bounds both at
+# 5e-3).
 LM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# Beside it, bfloat16 flash row by row: max |err| of each query row over
+# max |plain| of that row.  A causal row n averages n values, so its
+# outputs shrink as 1/sqrt(n) and the whole-output scale, set by the first
+# rows, would let a fault in the late key tiles pass.  Kernel and plain
+# version differ by at most one bfloat16 step of each element, at most
+# 2^-7 of the row's largest value (7.8e-3, what the card reads); the limit
+# allows two steps and no more.
+FLASH_ROW_TOL = 1.6e-2
 # Decode against forward, last-position logits (float32 compute and cache).
 CONSISTENCY_TOL = 2e-2
 # The full-width LM on the card against the port on the host, reduced size.
@@ -770,6 +797,33 @@ def _rel_check(label, got, want, tol) -> tuple:
     return err, rel
 
 
+def _row_check(label, got, want, tol) -> float:
+    """Max over rows (all but the last axis) of the row's max |err| over
+    its max |plain|; raises past ``tol``."""
+    g, w = got.float(), want.float()
+    rel = float(((g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)).max())
+    if not rel <= tol:
+        raise AssertionError(f"{label}: a row {rel} × its max off its plain "
+                             f"version (> {tol})")
+    return rel
+
+
+def _flash_bound(b, s, h, kvh, d, causal, dtype) -> tuple:
+    """q, k, v read once and o written once, against 4·d operations for
+    each (query, key) pair the causal mask keeps, at the type's rate."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    bf16 = dtype == "bfloat16"
+    return bound((2 if bf16 else 4) * (2 * b * s * h * d + 2 * b * s * kvh * d),
+                 4 * d * pairs, PEAK_BF16_OPS_PER_S if bf16 else PEAK_F32_OPS_PER_S)
+
+
+def _gmm_bound(e, n, d, f) -> tuple:
+    """bfloat16 x and w read once and the output written once, against
+    2·e·rows·d·f operations at the bfloat16 tensor rate."""
+    return bound(2 * (e * n * d + e * d * f + e * n * f), 2 * e * n * d * f,
+                 PEAK_BF16_OPS_PER_S)
+
+
 def _flash_inputs(b, s, h, kvh, d, dtype, device, seed):
     return (_randn((b, s, h, d), seed, device, dtype),
             _randn((b, s, kvh, d), seed + 1, device, dtype),
@@ -779,6 +833,30 @@ def _flash_inputs(b, s, h, kvh, d, dtype, device, seed):
 def _gmm_inputs(e, rows, d, f, dtype, device, seed):
     return (_randn((e, rows, d), seed, device, dtype),
             _randn((e, d, f), seed + 1, device, dtype, 1.0 / math.sqrt(d)))
+
+
+def _check_route(label, module, before: dict, dtype, launches: int) -> None:
+    """The launches went to the kernel of ``dtype``'s route (bfloat16: the
+    tensor cores; float32: the CUDA cores) and to no other."""
+    route = module.ROUTES[dtype][1]
+    now = module.route_counts()
+    moved = {r: now[r] - before[r] for r in now}
+    if moved != {r: launches if r == route else 0 for r in now}:
+        raise AssertionError(f"{label}: launches by route {moved}, expected "
+                             f"{launches} on {route}")
+
+
+def log_bf16_smem() -> None:
+    """Dynamic shared memory of the bfloat16 kernels' instances (ptxas
+    reports static shared memory only)."""
+    from repro_torch.kernels import flash_attention_cuda as fac
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+
+    fl, gl = fac.LIBRARY.load(), gmmc.LIBRARY.load()
+    log("smem flash_fwd_bf16_mma by head dim " + json.dumps(
+        {d: fl.flash_attention_bf16_smem_bytes(d) for d in fac.HEAD_DIMS}))
+    log("smem moe_gmm_mma_kernel by rows " + json.dumps(
+        {"<=64": gl.moe_gmm_bf16_smem_bytes(64), ">64": gl.moe_gmm_bf16_smem_bytes(65)}))
 
 
 def check_flash(device) -> dict:
@@ -793,22 +871,28 @@ def check_flash(device) -> dict:
     for i, (label, b, s, h, kvh, d, causal, dtype) in enumerate(FLASH_CASES):
         q, k, v = _flash_inputs(b, s, h, kvh, d, dtype, device, seed=300 + 3 * i)
         before = fac.launch_counts()["flash_attention"]
+        routes = fac.route_counts()
         got = fac.flash_attention_cuda(q, k, v, causal=causal)
         again = fac.flash_attention_cuda(q, k, v, causal=causal)
         torch.cuda.synchronize()
         if fac.launch_counts()["flash_attention"] != before + 2:
             raise AssertionError("flash_attention launch counter did not advance")
-        err, rel = _rel_check(f"flash {label}", got,
-                              fa.flash_attention_plain(q, k, v, causal=causal),
-                              LM_TOL[dtype])
+        _check_route(f"flash {label}", fac, routes, q.dtype, 2)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        err, rel = _rel_check(f"flash {label}", got, want, LM_TOL[dtype])
+        row = {"case": label, "shape": [b, s, h, kvh, d], "causal": causal,
+               "dtype": dtype, "max_abs_err": err, "err_over_max": rel,
+               "tol": LM_TOL[dtype]}
+        if dtype == "bfloat16":
+            row["row_err_over_max"] = _row_check(f"flash {label}", got, want,
+                                                 FLASH_ROW_TOL)
+            row["row_tol"] = FLASH_ROW_TOL
         if not torch.equal(got, again):
             raise AssertionError("flash kernel is not repeatable")
-        del q, k, v, got, again
+        del q, k, v, got, again, want
         torch.cuda.empty_cache()
         worst = max(worst, err)
-        rows.append({"case": label, "shape": [b, s, h, kvh, d], "causal": causal,
-                     "dtype": dtype, "max_abs_err": err, "err_over_max": rel,
-                     "tol": LM_TOL[dtype]})
+        rows.append(row)
     log("parity flash_attention " + json.dumps(rows))
     return {"cases": rows, "max_abs_err": worst}
 
@@ -825,10 +909,12 @@ def check_gmm(device) -> dict:
     for i, (label, e, n, d, f, dtype) in enumerate(GMM_CASES):
         x, w = _gmm_inputs(e, n, d, f, dtype, device, seed=400 + 2 * i)
         before = gmmc.launch_counts()["moe_gmm"]
+        routes = gmmc.route_counts()
         got = gmmc.moe_gmm_cuda(x, w)
         torch.cuda.synchronize()
         if gmmc.launch_counts()["moe_gmm"] != before + 1:
             raise AssertionError("moe_gmm launch counter did not advance")
+        _check_route(f"gmm {label}", gmmc, routes, x.dtype, 1)
         err, rel = _rel_check(f"gmm {label}", got, gmm.moe_gmm_plain(x, w),
                               LM_TOL[dtype])
         worst = max(worst, err)
@@ -919,13 +1005,14 @@ def _serve_prompts(vocab: int, n: int = 8, seed: int = 0) -> list:
 
 
 def profile_lm(model, params, tokens, device, steps: int = 3, tag: str = "lm_profile",
-               kernel: str = "") -> dict:
+               kernels: tuple = ()) -> dict:
     """Where the LM path's time goes: one forward on ``tokens`` and
     ``steps`` decode steps of 4 slots, each under torch.profiler (CUPTI):
     wall ms, device-busy ms (the sum of the kernels' and copies' device
     intervals), launches and the device's idle share, with the kernels
-    that took the most device time and, when ``kernel`` is given, the
-    share of device time in kernels whose name holds it."""
+    that took the most device time and, for each name stem in
+    ``kernels``, the device ms and share of the kernels whose name holds
+    it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -959,10 +1046,10 @@ def profile_lm(model, params, tokens, device, steps: int = 3, tag: str = "lm_pro
                       "idle_share": max(0.0, 1.0 - busy / wall),
                       "launches": launches / n,
                       "top_kernels_ms": [[k[:80], v / 1e3 / n] for k, v in top]}
-        if kernel:
-            ms = math.fsum(v for k, v in by_name.items() if kernel in k) / 1e3 / n
-            out[label][kernel + "_ms"] = ms
-            out[label][kernel + "_share"] = ms / busy if busy else 0.0
+        for stem in kernels:
+            ms = math.fsum(v for k, v in by_name.items() if stem in k) / 1e3 / n
+            out[label][stem + "_ms"] = ms
+            out[label][stem + "_share"] = ms / busy if busy else 0.0
     log(tag + " " + json.dumps(out))
     return out
 
@@ -1007,6 +1094,10 @@ def run_lm_path(device, new_tokens: int = 16) -> dict:
     if fwd["flash_attention"] != cfg.num_layers or \
             fwd["moe_gmm"] != 3 * cfg.num_layers:
         raise AssertionError(f"forward launches {fwd}")
+    fwd_routes = read_routes()
+    if fwd_routes["flash_attention"]["bf16_mma"] != fwd["flash_attention"] or \
+            fwd_routes["moe_gmm"]["bf16_mma"] != fwd["moe_gmm"]:
+        raise AssertionError(f"bfloat16 forward off the tensor-core route: {fwd_routes}")
     del logits
 
     engine = ServeEngine(model, params, batch_slots=4, max_len=512, device=device)
@@ -1029,10 +1120,14 @@ def run_lm_path(device, new_tokens: int = 16) -> dict:
     if served["moe_gmm"] != 3 * cfg.num_layers * calls or served["moe_gmm"] == 0:
         raise AssertionError(f"serving made {served['moe_gmm']} GMM launches in "
                              f"{calls} decode steps")
+    routes = read_routes()
+    if routes["moe_gmm"]["bf16_mma"] != counts["moe_gmm"]:
+        raise AssertionError(f"bfloat16 serving off the tensor-core route: {routes}")
     if int(engine.cache["layers"]["len"].max()) >= engine.max_len:
         raise AssertionError("the engine ran past max_len")
     del engine
-    breakdown = profile_lm(model, params, tokens, device)
+    breakdown = profile_lm(model, params, tokens, device,
+                           kernels=("flash_fwd", "moe_gmm"))
     out = {"arch": cfg.name, "params": n_params, "init_s": init_s,
            "forward_tokens": [b, s], "forward_s": forward_s,
            "forward_launches": {k: fwd[k] for k in ("flash_attention", "moe_gmm")},
@@ -1044,7 +1139,7 @@ def run_lm_path(device, new_tokens: int = 16) -> dict:
            "tokens_per_s": sum(len(r.generated) for r in done) / serve_s,
            "mean_step_ms": 1e3 * stats["measured_step_s"],
            "serve_launches": {k: served[k] for k in ("flash_attention", "moe_gmm")},
-           "launches": counts, "prefill_decode": consistency,
+           "launches": counts, "routes": routes, "prefill_decode": consistency,
            "profile": breakdown,
            "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9}
     log("lm_path " + json.dumps(out))
@@ -1192,11 +1287,14 @@ def check_ssm_prefill_decode(cfg, params, device, seq: int = SSM_CONSISTENCY_SEQ
     return out
 
 
-def profile_ssm(model, params, tokens, device) -> dict:
-    """`profile_lm` over one Mamba2 forward and one decode step, with the
-    ssd_scan kernel's share of the device time."""
-    return profile_lm(model, params, tokens, device, steps=1, tag="ssm_profile",
-                      kernel="ssd_scan")
+def profile_ssm(cfg, model, params, tokens, device) -> dict:
+    """`profile_lm` over one forward and one decode step of an SSM
+    (``ssm_profile``: the ssd_scan share of device time) or a hybrid
+    (``hybrid_profile``: the ssd_scan and flash shares)."""
+    hybrid = bool(cfg.shared_attn_every)
+    return profile_lm(model, params, tokens, device, steps=1,
+                      tag="hybrid_profile" if hybrid else "ssm_profile",
+                      kernels=("ssd_scan", "flash_fwd") if hybrid else ("ssd_scan",))
 
 
 def run_ssm_path(device, new_tokens: int = 16) -> dict:
@@ -1205,7 +1303,7 @@ def run_ssm_path(device, new_tokens: int = 16) -> dict:
     each, prefill/decode consistency first (not counted), then, with every
     launch count zeroed just before and read just after, `Model.forward` on
     2 × 4,096 tokens (one ssd_scan launch per Mamba block, one flash launch
-    per shared-block call) and a 4-slot `ServeEngine`; Mamba2 is then
+    per shared-block call) and a 4-slot `ServeEngine`; each is then
     profiled (`profile_ssm`, not counted).  Each model is freed before the
     next is built."""
     import gc
@@ -1273,8 +1371,7 @@ def run_ssm_path(device, new_tokens: int = 16) -> dict:
                 int(engine.cache["attn"]["len"].max()) >= engine.max_len:
             raise AssertionError("the engine ran past max_len")
         del engine
-        breakdown = profile_ssm(model, params, tokens, device) \
-            if cfg.family == "ssm" else None
+        breakdown = profile_ssm(cfg, model, params, tokens, device)
         generated = sum(len(r.generated) for r in done)
         out[arch] = {
             "arch": cfg.name, "params": n_params, "init_s": init_s,
@@ -1517,12 +1614,7 @@ def time_flash(device) -> list:
                         iters=3, warmup=2)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
-        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-        item = q.element_size()
-        b_ms, b_by = bound(item * (2 * b * s * h * d + 2 * b * s * kvh * d),
-                           4 * d * pairs,
-                           PEAK_BF16_OPS_PER_S if dtype == "bfloat16"
-                           else PEAK_F32_OPS_PER_S)
+        b_ms, b_by = _flash_bound(b, s, h, kvh, d, causal, dtype)
         rows.append({"case": label, "shape": [b, s, h, kvh, d], "dtype": dtype,
                      "causal": causal, "max_abs_err": err,
                      "ms": kern["device"], "host_ms": kern["host"],
@@ -1532,10 +1624,31 @@ def time_flash(device) -> list:
     return rows
 
 
+# Weight sets the cold-L2 GMM timing rotates over: 4 × 33.6 MB of decode
+# weights, well past the 50 MB L2, as serving reads each layer's experts.
+GMM_COLD_SETS = 4
+# The GMM shapes `time_gmm` times, each with the input sets its launches
+# rotate over: one (L2 warm) at the serving path's four shapes, and
+# `GMM_COLD_SETS` (L2 cold) at the two decode shapes.
+GMM_TIMED = [(c, 1) for c in GMM_CASES[:4]] + [(c, GMM_COLD_SETS) for c in GMM_CASES[:2]]
+
+
+def _gmm_turns(e, n, d, f, dtype, device, n_sets) -> tuple:
+    """``n_sets`` input sets of one GMM shape, and a function that hands
+    them out in turn: with several, no launch finds its weights in L2."""
+    sets = [_gmm_inputs(e, n, d, f, dtype, device, seed=600 + i) for i in range(n_sets)]
+    turn = itertools.cycle(sets)
+    return sets, lambda: next(turn)
+
+
 def time_gmm(device) -> list:
-    """The GMM kernel at the serving path's four shapes (gate/up and down,
-    decode with 4 slots × capacity 8 rows, prefill with 4 × 320), bfloat16:
-    kernel, plain version and ``torch.bmm``.  Bound: x and w read once and
+    """The GMM kernel at `GMM_TIMED`: the serving path's four shapes
+    (gate/up and down, decode with 4 slots × capacity 8 rows, prefill with
+    4 × 320), bfloat16, kernel, plain version and ``torch.bmm`` on the same
+    inputs (``l2`` "warm": the decode weights stay in L2); then the two
+    decode shapes with ``l2`` "cold", kernel and ``torch.bmm`` rotating
+    over `GMM_COLD_SETS` input sets, so every launch reads its weights from
+    device memory, as a serving step does.  Bound: x and w read once and
     the output written once, against 2·e·rows·d·f operations at the
     bfloat16 tensor rate."""
     import torch
@@ -1543,21 +1656,25 @@ def time_gmm(device) -> list:
     from repro_torch.kernels import moe_gmm_cuda as gmmc
 
     rows = []
-    for label, e, n, d, f, dtype in GMM_CASES[:4]:
-        x, w = _gmm_inputs(e, n, d, f, dtype, device, seed=600)
-        err = float((gmmc.moe_gmm_cuda(x, w).float()
-                     - gmm.moe_gmm_plain(x, w).float()).abs().max())
-        kern = cuda_ms(lambda: gmmc.moe_gmm_cuda(x, w))
-        plain = cuda_ms(lambda: gmm.moe_gmm_plain(x, w), iters=3, warmup=2)
-        lib = cuda_ms(lambda: torch.bmm(x, w))
-        b_ms, b_by = bound(x.element_size() * (e * n * d + e * d * f + e * n * f),
-                           2 * e * n * d * f, PEAK_BF16_OPS_PER_S)
-        rows.append({"case": label, "shape": [e, n, d, f], "dtype": dtype,
-                     "max_abs_err": err, "ms": kern["device"],
-                     "host_ms": kern["host"], "plain_ms": plain["device"],
-                     "library_ms": lib["device"], "bound_ms": b_ms,
-                     "bound_by": b_by})
+    for (label, e, n, d, f, dtype), n_sets in GMM_TIMED:
+        sets, turn = _gmm_turns(e, n, d, f, dtype, device, n_sets)
+        err = max(float((gmmc.moe_gmm_cuda(x, w).float()
+                         - gmm.moe_gmm_plain(x, w).float()).abs().max())
+                  for x, w in sets)
+        kern = cuda_ms(lambda: gmmc.moe_gmm_cuda(*turn()))
+        plain = None if n_sets > 1 else cuda_ms(
+            lambda: gmm.moe_gmm_plain(*turn()), iters=3, warmup=2)["device"]
+        lib = cuda_ms(lambda: torch.bmm(*turn()))
+        b_ms, b_by = _gmm_bound(e, n, d, f)
+        cold = n_sets > 1
+        rows.append({"case": label + ("_cold" if cold else ""), "shape": [e, n, d, f],
+                     "dtype": dtype, "l2": "cold" if cold else "warm", "sets": n_sets,
+                     "max_abs_err": err, "ms": kern["device"], "host_ms": kern["host"],
+                     "plain_ms": plain, "library_ms": lib["device"],
+                     "bound_ms": b_ms, "bound_by": b_by})
         log("time moe_gmm " + json.dumps(rows[-1]))
+        del sets, turn
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1635,6 +1752,7 @@ def main() -> int:
             for line in b["ptxas"].splitlines():
                 if "registers" in line or "Compiling entry" in line or "spill" in line:
                     log(f"ptxas {name}: " + line.strip())
+        log_bf16_smem()
 
         from repro_torch.core.dataset import synthetic_graphs
         from repro_torch.core.profiler import DeviceSetting
@@ -1707,7 +1825,8 @@ def main() -> int:
                  wino_parity["max_abs_err"]),
                 ("flash_attention", flash_rows[:1], lm["launches"],
                  flash_parity["max_abs_err"]),
-                ("moe_gmm", gmm_rows, lm["launches"], gmm_parity["max_abs_err"])):
+                ("moe_gmm", [r for r in gmm_rows if r["l2"] == "warm"],
+                 lm["launches"], gmm_parity["max_abs_err"])):
             entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name]}
             entry.update(summarize(rows, launches[name], err))

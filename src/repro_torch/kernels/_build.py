@@ -51,21 +51,25 @@ class CudaLibrary:
     """One ``.cu`` source: its build, its loaded handle and its entry points.
 
     ``declare(lib)`` sets ``argtypes``/``restype`` of the launch functions
-    once the library is loaded.
+    once the library is loaded.  ``headers`` are the ``csrc`` files the
+    sources include: hashed into the library's name, not passed to nvcc.
     """
 
     def __init__(self, name: str, sources: Sequence[str],
-                 declare: Callable[[ctypes.CDLL], None]):
+                 declare: Callable[[ctypes.CDLL], None],
+                 headers: Sequence[str] = ()):
         self.name = name
         self.sources = tuple(sources)
+        self.headers = tuple(headers)
         self._declare = declare
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
     def path(self) -> Path:
-        """Where the library for the sources and current flags lives."""
+        """Where the library for the sources, headers and current flags
+        lives."""
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in self.sources:
+        for src in self.sources + self.headers:
             h.update(src.encode())
             h.update((CSRC / src).read_bytes())
         return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"

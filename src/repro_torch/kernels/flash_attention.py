@@ -9,6 +9,9 @@ attention needs no repeat of K/V (the TPU kernel's equal-heads case is
 h == kvh).  Scores are ``q·k / sqrt(d)`` in float32; with ``causal`` key
 ``j`` is masked for query ``i`` when ``j > i + q_offset``.  Softmax and
 the probability-weighted sum of V are float32; the output is in q's type.
+On the card, the bfloat16 kernel rounds the probabilities to bfloat16
+before the weighted sum (its sums stay float32); see
+``csrc/flash_attention.cu``.
 
 Dispatch is by the device of ``q``: a CUDA tensor launches the
 hand-written kernel (`repro_torch.kernels.flash_attention_cuda`), a CPU

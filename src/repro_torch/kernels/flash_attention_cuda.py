@@ -3,12 +3,14 @@
 ``flash_attention_cuda(q, k, v, causal, q_offset)`` → (b, sq, h, d) in
 q's type, on the card: q (b, sq, h, d), k and v (b, skv, kvh, d),
 contiguous and 16-byte aligned, all float32 or all bfloat16, d in
-`HEAD_DIMS`.  The wrapper
-checks device, dtype, contiguity and shape, allocates the output,
-launches on torch's current stream and raises if the C entry point
-reports a CUDA error.  It adds one to ``LAUNCHES["flash_attention"]``
-where it launches the kernel, and nowhere else.  CPU tensors never reach
-this module.
+`HEAD_DIMS`.  The type picks the kernel: bfloat16 launches the
+tensor-core kernel (`flash_fwd_bf16_mma`), float32 the CUDA-core one
+(`flash_fwd`); there is no fallback between them.  The wrapper checks
+device, dtype, contiguity and shape, allocates the output, launches on
+torch's current stream and raises if the C entry point reports a CUDA
+error.  It adds one to ``LAUNCHES["flash_attention"]`` (every launch)
+and to ``route_counts()[route]`` (the kernel's route, `ROUTES`) where it
+launches, and nowhere else.  CPU tensors never reach this module.
 """
 from __future__ import annotations
 
@@ -21,14 +23,21 @@ import torch
 from repro_torch.kernels._build import CudaLibrary, LaunchCounter
 from repro_torch.kernels._build import check_tensor as _check
 
+# dtype → (code of the C entry point, route of the kernel it launches).
+ROUTES = {torch.float32: (0, "f32_simt"), torch.bfloat16: (1, "bf16_mma")}
 _COUNTER = LaunchCounter("flash_attention")
+_ROUTE_COUNTER = LaunchCounter(*(r for _, r in ROUTES.values()))
 LAUNCHES: Dict[str, int] = _COUNTER.counts
 launch_counts = _COUNTER.snapshot
-reset_launch_counts = _COUNTER.reset
+route_counts = _ROUTE_COUNTER.snapshot
 
-# Head dimensions the kernel is compiled for (one instance each).
+# Head dimensions the kernels are compiled for (one instance each).
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    _COUNTER.reset()
+    _ROUTE_COUNTER.reset()
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -36,15 +45,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                            i, i, f, p]
     lib.flash_attention_launch.restype = i
+    lib.flash_attention_bf16_smem_bytes.argtypes = [i]
+    lib.flash_attention_bf16_smem_bytes.restype = i
 
 
-LIBRARY = CudaLibrary("flash_attention", ("flash_attention.cu",), _declare)
+LIBRARY = CudaLibrary("flash_attention", ("flash_attention.cu",), _declare,
+                      headers=("mma_bf16.cuh",))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """q (b, sq, h, d), k and v (b, skv, kvh, d) → (b, sq, h, d)."""
-    if q.dtype not in _DTYPES:
+    if q.dtype not in ROUTES:
         raise TypeError(f"q must be float32 or bfloat16 (got {q.dtype})")
     _check(q, "q", q.dtype, q.device)
     if q.dim() != 4 or k.dim() != 4:
@@ -70,11 +82,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if skv == 0:
         raise ValueError("attention over an empty key sequence")
     lib = LIBRARY.load()
+    code, route = ROUTES[q.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, skv, h, kvh, d, _DTYPES[q.dtype], int(causal), int(q_offset),
+        b, sq, skv, h, kvh, d, code, int(causal), int(q_offset),
         1.0 / math.sqrt(d), stream)
     LIBRARY.raise_on(err, "flash_attention")
     _COUNTER.add("flash_attention")
+    _ROUTE_COUNTER.add(route)
     return out

@@ -1,11 +1,15 @@
 """CUDA grouped expert matmul: build, bind, launch (``csrc/moe_gmm.cu``).
 
 ``moe_gmm_cuda(x, w)`` → (e, c, f) in x's type: x (e, c, d) × w (e, d, f),
-contiguous, both float32 or both bfloat16, on the card.  The wrapper
+contiguous, both float32 or both bfloat16, on the card.  The type picks
+the kernel: bfloat16 launches the tensor-core kernel
+(`moe_gmm_mma_kernel`, its tile chosen from c), float32 the CUDA-core one
+(`moe_gmm_kernel`); there is no fallback between them.  The wrapper
 checks device, dtype, contiguity and shape, allocates the output,
 launches on torch's current stream and raises if the C entry point
-reports a CUDA error.  It adds one to ``LAUNCHES["moe_gmm"]`` where it
-launches the kernel, and nowhere else.  CPU tensors never reach this
+reports a CUDA error.  It adds one to ``LAUNCHES["moe_gmm"]`` (every
+launch) and to ``route_counts()[route]`` (the kernel's route, `ROUTES`)
+where it launches, and nowhere else.  CPU tensors never reach this
 module.
 """
 from __future__ import annotations
@@ -18,26 +22,35 @@ import torch
 from repro_torch.kernels._build import CudaLibrary, LaunchCounter
 from repro_torch.kernels._build import check_tensor as _check
 
+# dtype → (code of the C entry point, route of the kernel it launches).
+ROUTES = {torch.float32: (0, "f32_simt"), torch.bfloat16: (1, "bf16_mma")}
 _COUNTER = LaunchCounter("moe_gmm")
+_ROUTE_COUNTER = LaunchCounter(*(r for _, r in ROUTES.values()))
 LAUNCHES: Dict[str, int] = _COUNTER.counts
 launch_counts = _COUNTER.snapshot
-reset_launch_counts = _COUNTER.reset
+route_counts = _ROUTE_COUNTER.snapshot
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+def reset_launch_counts() -> None:
+    _COUNTER.reset()
+    _ROUTE_COUNTER.reset()
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.moe_gmm_launch.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.moe_gmm_launch.restype = i
+    lib.moe_gmm_bf16_smem_bytes.argtypes = [i]
+    lib.moe_gmm_bf16_smem_bytes.restype = i
 
 
-LIBRARY = CudaLibrary("moe_gmm", ("moe_gmm.cu",), _declare)
+LIBRARY = CudaLibrary("moe_gmm", ("moe_gmm.cu",), _declare,
+                      headers=("mma_bf16.cuh",))
 
 
 def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(e, c, d) × (e, d, f) → (e, c, f), float32 sums, x's type out."""
-    if x.dtype not in _DTYPES:
+    if x.dtype not in ROUTES:
         raise TypeError(f"x must be float32 or bfloat16 (got {x.dtype})")
     _check(x, "x", x.dtype, x.device)
     if x.dim() != 3 or w.dim() != 3:
@@ -50,9 +63,11 @@ def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = LIBRARY.load()
+    code, route = ROUTES[x.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.moe_gmm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                             e, c, d, f, _DTYPES[x.dtype], stream)
+                             e, c, d, f, code, stream)
     LIBRARY.raise_on(err, "moe_gmm")
     _COUNTER.add("moe_gmm")
+    _ROUTE_COUNTER.add(route)
     return out

@@ -6,9 +6,11 @@ flash kernel's (`repro_torch.kernels.ops.flash_attention`): on a CUDA
 tensor they launch the hand-written kernel, on a CPU tensor its plain
 version.  Chunking query rows, as the reference's ``chunked_attention``
 does to bound its memory, changes no row's arithmetic, so the kernel
-serves both.  Unlike the reference, the probabilities stay float32 up to
-the weighted sum of V (the reference rounds them to the compute type
-first), as in the TPU kernel.
+serves both.  In float32, and on the host in either type, the
+probabilities stay float32 up to the weighted sum of V, as in the TPU
+kernel.  The card's bfloat16 kernel rounds them to bfloat16 first (the
+tensor cores' operand type), as the reference rounds them to the compute
+type.
 
 A sliding window or a logit softcap (gemma2 only) is not in the kernel
 yet: on the host such calls take the reference's einsum attention, on

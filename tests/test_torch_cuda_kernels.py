@@ -232,14 +232,28 @@ def test_int8_executor_card_equals_host(card, mode):
 
 # Kernel against its plain version: float32 1e-5 × max|plain| (float32 sums
 # in another order); bfloat16 2e-2 × max|plain| (both round the float32
-# result once, so they differ by at most one bfloat16 step).
+# result once, so they differ by at most one bfloat16 step; the flash
+# kernel also rounds its probabilities to bfloat16 before P·V, which
+# tests/test_torch_flash_attention.py bounds with the output's rounding
+# at 5e-3).
 LM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# bfloat16 flash also row by row (each query row's max |err| over its own
+# max |plain|): causal outputs shrink as 1/sqrt(row), so the whole-output
+# scale would let a fault in the late key tiles pass.  One bfloat16 step
+# is at most 2^-7 of a row's largest value; the limit allows two.
+ROW_TOL = 1.6e-2
 
 
 def _close(got, want, dtype):
     assert got.dtype == want.dtype == dtype and got.shape == want.shape
     scale = max(float(want.float().abs().max()), 1e-30)
     assert float((got.float() - want.float()).abs().max()) <= LM_TOL[dtype] * scale
+
+
+def _rows_close(got, want):
+    g, w = got.float(), want.float()
+    rel = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)
+    assert float(rel.max()) <= ROW_TOL
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -280,6 +294,107 @@ def test_moe_gmm_within_tolerance_of_plain(card, dtype, e, c, d, f):
     torch.cuda.synchronize()
     assert gmmc.launch_counts()["moe_gmm"] == before + 1
     _close(got, gmm.moe_gmm_plain(x, w), dtype)
+
+
+def _bf16(rng, shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 8])
+@pytest.mark.parametrize("sq,skv,q_offset,causal", [
+    (200, 200, 0, True), (77, 333, 256, True), (100, 130, 0, False),
+    (64, 64, 0, True)])
+def test_flash_bf16_takes_the_tensor_core_kernel(card, d, rep, sq, skv, q_offset,
+                                                 causal):
+    """Every head dim, GQA groups of 1, 2 and 8, a ragged sq and skv, and a
+    query block at q_offset > 0 over a longer key sequence: within the
+    bfloat16 tolerance of the plain version, over the whole output and row
+    by row, repeatable, and launched on the tensor-core route."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    rng = np.random.default_rng(d + rep + sq + skv)
+    q = _bf16(rng, (2, sq, 2 * rep, d)).to(card, torch.bfloat16)
+    k, v = (_bf16(rng, (2, skv, 2, d)).to(card, torch.bfloat16) for _ in range(2))
+    before = fac.route_counts()
+    got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    again = fac.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    after = fac.route_counts()
+    assert after["bf16_mma"] == before["bf16_mma"] + 2
+    assert after["f32_simt"] == before["f32_simt"]
+    want = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    _close(got, want, torch.bfloat16)
+    _rows_close(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("e,c,d,f", [
+    (32, 1, 1024, 512), (32, 32, 1024, 512), (32, 64, 1024, 512),
+    (32, 1, 512, 1024), (32, 32, 512, 1024), (32, 64, 512, 1024),
+    (5, 77, 300, 129), (2, 200, 64, 40), (4, 65, 136, 72), (3, 5, 9, 7)])
+def test_moe_gmm_bf16_takes_the_tensor_core_kernel(card, e, c, d, f):
+    """Decode rows (1, 32, 64) at both decode widths, prefill-sized rows,
+    and depth and columns that are not multiples of 8: within the bfloat16
+    tolerance of the plain version, repeatable, on the tensor-core route."""
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(e * c + d + f)
+    x = _bf16(rng, (e, c, d)).to(card, torch.bfloat16)
+    w = _bf16(rng, (e, d, f), 1.0 / np.sqrt(d)).to(card, torch.bfloat16)
+    before = gmmc.route_counts()
+    got = gmm.moe_gmm(x, w)
+    again = gmmc.moe_gmm_cuda(x, w)
+    torch.cuda.synchronize()
+    after = gmmc.route_counts()
+    assert after["bf16_mma"] == before["bf16_mma"] + 2
+    assert after["f32_simt"] == before["f32_simt"]
+    _close(got, gmm.moe_gmm_plain(x, w), torch.bfloat16)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("operand", ["x", "w"])
+def test_moe_gmm_bf16_operand_off_16_byte_alignment(card, operand):
+    """An operand 2 bytes past a 16-byte boundary fills shared memory by
+    element loads instead of cp.async; the result is the same function."""
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    ops = {"x": _bf16(rng, (3, 40, 64)).to(card, torch.bfloat16),
+           "w": _bf16(rng, (3, 64, 96), 0.125).to(card, torch.bfloat16)}
+    t = ops[operand]
+    flat = torch.empty(t.numel() + 1, dtype=torch.bfloat16, device=card)
+    shifted = flat[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.data_ptr() % 16 == 2 and shifted.is_contiguous()
+    want = gmm.moe_gmm_plain(ops["x"], ops["w"])
+    ops[operand] = shifted
+    got = gmmc.moe_gmm_cuda(ops["x"], ops["w"])
+    _close(got, want, torch.bfloat16)
+    assert torch.equal(got, gmmc.moe_gmm_cuda(ops["x"], ops["w"]))
+
+
+def test_float32_takes_the_simt_kernels(card):
+    """float32 stays on the CUDA-core kernels of both modules."""
+    from repro_torch.kernels import flash_attention_cuda as fac
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+
+    q = torch.zeros((1, 70, 4, 64), device=card)
+    kv = torch.zeros((1, 70, 2, 64), device=card)
+    x, w = torch.zeros((2, 33, 64), device=card), torch.zeros((2, 64, 48), device=card)
+    before = (fac.route_counts(), gmmc.route_counts())
+    fac.flash_attention_cuda(q, kv, kv)
+    gmmc.moe_gmm_cuda(x, w)
+    torch.cuda.synchronize()
+    for mod, was in zip((fac, gmmc), before):
+        now = mod.route_counts()
+        assert now["f32_simt"] == was["f32_simt"] + 1
+        assert now["bf16_mma"] == was["bf16_mma"]
 
 
 def test_lm_wrappers_check_their_inputs(card):

@@ -13,7 +13,20 @@ the dispatch).  Tolerances:
     bfloat16 step (2^-8 relative) of outputs of magnitude < 2; the
     reference's model attention also rounds its probabilities to
     bfloat16 before the weighted sum, which the kernel does not.
+
+The card's bfloat16 kernel rounds its probabilities to bfloat16 before
+P·V (the tensor cores take bf16 operands).  `_bf16_route_emulation`
+repeats that kernel's arithmetic in torch, and is held within
+`DESIGN_TOL` = 5e-3 × max|·| of the plain version and of the reference's
+Pallas kernel, both evaluated in float32 on the same bfloat16 values: the
+design's two roundings (P and the output, each 2^-9 relative) use a
+quarter of the card's 2e-2 bfloat16 tolerance at most.  Row by row
+(each query row's max |err| over its own max |plain|) the emulation stays
+within `ROW_TOL`, the card's row gate, which a key tile lost from the
+late rows fails.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -35,6 +48,8 @@ from repro_torch.models.layers import Params  # noqa: E402
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
+DESIGN_TOL = 5e-3
+ROW_TOL = 1.6e-2
 
 
 def _qkv(b, s, h, kvh, hd, seed, skv=None):
@@ -174,3 +189,92 @@ def test_kernel_arguments_are_checked():
     q, k, v = _t(*_qkv(1, 8, 3, 2, 16, seed=0))
     with pytest.raises(ValueError, match="multiple of kvh"):
         ops.flash_attention(q, k, v)
+
+
+# -- the bfloat16 kernel's arithmetic, emulated ----------------------------------
+
+def _bf16_route_emulation(q, k, v, *, causal=True, q_offset=0, keys=64):
+    """Test-only torch emulation of the card's bfloat16 tensor-core kernel
+    (``flash_fwd_bf16_mma``): bf16 Q·Kᵀ summed in float32; scale times
+    log2(e) and the -1e30 mask; the online softmax over tiles of ``keys``
+    keys in base 2; P rounded to bf16 before P·V (float32 sums); the
+    denominator from the float32 P, clamped at 1e-30; the output rounded
+    once to bf16."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, sq, kvh, h // kvh, d)
+    kf, vf = k.float(), v.float()
+    scale_log2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) \
+        * torch.tensor(math.log2(math.e), dtype=torch.float32)
+    m = torch.full((b, kvh, h // kvh, sq), fa.NEG_INF)
+    l = torch.zeros((b, kvh, h // kvh, sq))
+    acc = torch.zeros((b, kvh, h // kvh, sq, d))
+    qpos = torch.arange(sq) + q_offset
+    for t0 in range(0, skv, keys):
+        kt, vt = kf[:, t0:t0 + keys], vf[:, t0:t0 + keys]
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qf, kt) * scale_log2
+        kpos = torch.arange(t0, t0 + kt.shape[1])
+        if causal:
+            s = s.masked_fill(kpos[None, :] > qpos[:, None], fa.NEG_INF)
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(s - mx[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bgrqk,bkgd->bgrqd", p.to(torch.bfloat16).float(), vt)
+        m = mx
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(torch.bfloat16)
+
+
+def _design_close(got, want):
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got - want).max()) <= DESIGN_TOL * scale
+
+
+def _row_err(got, want):
+    """Max over query rows of the row's max |err| over its max |want|."""
+    return float((np.abs(got - want).max(-1)
+                  / np.maximum(np.abs(want).max(-1), 1e-30)).max())
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 8])
+@pytest.mark.parametrize("causal,sq,skv,q_offset", [
+    (True, 128, 128, 0), (False, 128, 128, 0), (True, 100, 100, 0),
+    (False, 70, 130, 0), (True, 37, 150, 113)])
+def test_bf16_kernel_design_stays_within_a_quarter_of_its_tolerance(
+        d, rep, causal, sq, skv, q_offset):
+    """Every head dim, GQA groups of 1, 2 and 8, causal and not, ragged
+    lengths and a query block at q_offset > 0 over a longer key sequence:
+    the emulated bfloat16 route against the plain version and, where the
+    Pallas kernel takes the shape (equal lengths that its 64-row blocks
+    divide, no offset; K/V repeated to the query heads), against it in
+    interpret mode."""
+    q, k, v = _qkv(1, sq, rep, 1, d, seed=d * rep + sq + skv, skv=skv)
+    qb, kb, vb = _t(q, k, v, dtype=torch.bfloat16)
+    got = _np(_bf16_route_emulation(qb, kb, vb, causal=causal, q_offset=q_offset))
+    exact = [a.float() for a in (qb, kb, vb)]
+    plain = _np(fa.flash_attention_plain(*exact, causal=causal, q_offset=q_offset))
+    _design_close(got, plain)
+    assert _row_err(got, plain) <= ROW_TOL
+    if sq == skv and sq % 64 == 0 and not q_offset:
+        kr, vr = (np.repeat(_np(a), rep, axis=2) for a in (kb, vb))
+        want = rops.flash_attention(*_j(_np(qb), kr, vr), causal=causal,
+                                    block_q=64, block_kv=64)
+        _design_close(got, _np(want))
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_row_gate_rejects_a_key_tile_lost_from_the_late_rows(d):
+    """The last 64 query rows of a causal 1,024-token sequence lose their
+    diagonal key tile.  Their outputs are ~1/32 of the first rows', so
+    against the whole output's scale the fault is near the 2e-2 gate;
+    row by row it is far past `ROW_TOL`."""
+    q, k, v = _qkv(1, 1024, 2, 1, d, seed=d)
+    qb, kb, vb = _t(q, k, v, dtype=torch.bfloat16)
+    want = _np(fa.flash_attention_plain(qb, kb, vb))
+    got = _np(_bf16_route_emulation(qb, kb, vb))
+    got[:, 960:] = _np(_bf16_route_emulation(qb[:, 960:], kb[:, :960], vb[:, :960],
+                                             q_offset=960))
+    assert _row_err(got, want) > ROW_TOL

@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, nothing of the reference package, and
 every entry point defaults to the card.
 
-Parses every module of ``src/repro_torch`` and ``chip_smoke.py`` and fails
-on ``import jax`` / ``from jax …`` / ``import repro`` / ``from repro.…``
-(``repro_torch`` itself is fine).  Then, with CUDA reported absent, each
+Parses every module of ``src/repro_torch``, ``chip_smoke.py`` and
+``compare_kernels.py`` and fails on ``import jax`` / ``from jax …`` /
+``import repro`` / ``from repro.…`` (``repro_torch`` itself is fine).  Then, with CUDA reported absent, each
 entry point called with its default device must raise RuntimeError
 instead of quietly running on the host.
 """
@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "compare_kernels.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -63,7 +63,8 @@ def test_port_has_the_slice_modules():
                 "kernels/ssd_scan_cuda.py", "models/ssm.py", "models/hybrid.py"):
         assert mod in names
     for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
-                "flash_attention.cu", "moe_gmm.cu", "ssd_scan.cu"):
+                "flash_attention.cu", "moe_gmm.cu", "ssd_scan.cu",
+                "mma_bf16.cuh"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
