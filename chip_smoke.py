@@ -9,7 +9,8 @@ result line:
   1. Card and build — the card's name and power limit (nvidia-smi) and
      the nvcc build of the six sources under
      ``src/repro_torch/kernels/csrc/`` (one nvcc each, started together):
-     seconds, registers and spills per kernel.
+     seconds, registers, spills and shared memory per kernel, and the
+     int8 GEMM's ``IMMA`` instructions in its SASS (none fails the run).
   2. Kernel parity on the card, each kernel against its plain torch
      version:
        * tree kernels at 32,768 rows × 20 features, on a GBDT bank (150
@@ -18,8 +19,10 @@ result line:
          bit-equal; fused predictions within the summation bound stated
          in `fused_tolerance`;
        * int8 GEMM bit-equal at m = 1, at the main path's largest FC,
-         1×1 and k×k convolution shapes, and at shapes that are not
-         multiples of the tile;
+         1×1 and k×k convolution shapes, at shapes that are not
+         multiples of the tile, on the split-k route (`SPLIT_K_SHAPES`)
+         and with A row-strided as the executor's im2col gives it, each
+         also repeatable;
        * Winograd within `WINO_TOL` of its plain version and within
          `DIRECT_TOL` of ``F.conv2d`` (TF32 off) at the four study shapes
          and at odd H and W;
@@ -47,7 +50,8 @@ result line:
          a 1,024-graph `predict_batch`, a cached `predict_e2e` and a
          256-graph `predict_batch`; every tree model must run on "cuda";
        * int8 (`op_by_op`): the same through the int8 executor, whose FC
-         and dense convolutions run the int8 GEMM kernel;
+         and dense convolutions run the int8 GEMM kernel, every one of its
+         routes taken (one pass and split k; A by cp.async and by words);
        * kernel selection: Alg. C.2 for Mali G76 rewrites the 40 graphs;
          those with a Winograd op are profiled on the float32 store (only
          the new ops are measured, through the Winograd kernel), then the
@@ -71,8 +75,8 @@ result line:
          requests; then each model's forward and one decode step under
          torch.profiler with the ssd_scan (and, for Zamba2, the flash)
          share of device time.
-  4. Times at the paths' shapes — kernel, plain version, library call
-     where one exists (``torch._int_mm``, ``F.conv2d``,
+  4. Times at the paths' shapes — kernel (with its launch plan for the
+     int8 GEMM and Winograd), plain version, library call where one exists (``torch._int_mm``, ``F.conv2d``,
      ``F.scaled_dot_product_attention``, ``torch.bmm``; none for the tree
      kernels and the SSD scan) and the bound from
      bytes at 3.35 TB/s or operations (67 TFLOP/s float32, 989 TFLOP/s
@@ -119,6 +123,8 @@ REPLACES = {"tree_gather_leaves": "src/repro/kernels/tree_gather_pallas.py:57",
             "flash_attention": "src/repro/kernels/flash_attention.py:33",
             "moe_gmm": "src/repro/kernels/moe_gmm.py:25",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:29"}
+# The int8 executor's requantize multiplier (ACT·WEIGHT/ACT), the GEMMs' scale.
+INT8_SCALE = 4.0 / 127.0 * (0.4 / 127.0) / (4.0 / 127.0)
 # Winograd against its plain version: float32 summation order only;
 # against a direct convolution: the transforms round at other places.
 WINO_TOL = 1e-5                     # × max |plain|
@@ -306,10 +312,12 @@ def check_parity(name: str, model, in_smem: bool, device, rows: int = PARITY_ROW
 
 
 def gemm_shapes(graph) -> list:
-    """(op, m, k, n) of every int8 GEMM call one forward pass of ``graph``
-    makes: each fully_connected and each convolution with one group (an
-    im2col'd k×k convolution has k = kh·kw·C; a depthwise convolution has
-    as many groups as input channels)."""
+    """(op, m, k, n, patches) of every int8 GEMM call one forward pass of
+    ``graph`` makes: each fully_connected and each convolution with one
+    group (an im2col'd k×k convolution has k = kh·kw·C; a depthwise
+    convolution has as many groups as input channels).  ``patches``: A is
+    gathered by the executor's im2col into rows aligned to 16 bytes (a
+    k×k or strided convolution), else A is the contiguous input."""
     out = []
     for node in graph.nodes:
         p = node.params_dict
@@ -317,15 +325,19 @@ def gemm_shapes(graph) -> list:
         y = graph.tensor(node.outputs[0]).shape
         groups = x[-1] if node.op_type == "dwconv2d" else p.get("groups", 1)
         if node.op_type == "fully_connected":
-            out.append((node.op_type, int(math.prod(x[:-1])), x[-1], y[-1]))
+            out.append((node.op_type, int(math.prod(x[:-1])), x[-1], y[-1], False))
         elif node.op_type in ("conv2d", "grouped_conv2d", "winograd_conv2d",
                               "dwconv2d") and groups == 1:
             kk = p.get("kernel_h", 1) * p.get("kernel_w", 1)
-            out.append((node.op_type, y[0] * y[1] * y[2], kk * x[-1], y[-1]))
+            out.append((node.op_type, y[0] * y[1] * y[2], kk * x[-1], y[-1],
+                        kk > 1 or p.get("stride", 1) > 1))
     return out
 
 
-def _int8_operands(m, k, n, device, seed):
+def _int8_operands(m, k, n, device, seed, patches=False):
+    """A, the (k, n) weight, its packed form and an int32 bias.  With
+    ``patches`` A is an (m, k) view of an (m, k rounded up to 16) buffer,
+    as the executor's im2col gives it."""
     import numpy as np
     import torch
     from repro_torch.kernels import int8_matmul as im
@@ -334,17 +346,54 @@ def _int8_operands(m, k, n, device, seed):
     a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(device)
     b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(device)
     bias = torch.from_numpy(rng.integers(-4096, 4096, n).astype(np.int32)).to(device)
+    if patches:                      # pad bytes set, as they are never read as values
+        buf = torch.full((m, -(-k // 16) * 16), 7, dtype=torch.int8, device=device)
+        buf[:, :k] = a
+        a = buf[:, :k]
     return a, b, im.pack_weight(b), bias
+
+
+def int8_route(m, k, n, a) -> str:
+    """The int8 GEMM's plan and A route for these operands, as a label."""
+    from repro_torch.kernels import int8_matmul_cuda as imc
+
+    pl = imc.plan(m, n, k)
+    return f"{pl.bm}x{pl.bn} split {pl.splits} ({pl.blocks} blocks) {imc.a_route(a)}"
+
+
+def _int8_bound(m, k, n) -> tuple:
+    return bound(m * k + k * n + 4 * n + 4 * m * n, 2 * m * n * k, PEAK_INT8_OPS_PER_S)
+
+
+def _int_mm_operands(a, b, device) -> tuple:
+    """``torch._int_mm``'s operands for A·B: zero-padded to multiples of 32,
+    the second column-major (cuBLASLt refuses many other shapes)."""
+    import torch
+
+    (m, k), n = a.shape, b.shape[1]
+    mp, kp, n_p = (-(-x // 32) * 32 for x in (m, k, n))
+    ap = torch.zeros((mp, kp), dtype=torch.int8, device=device)
+    bp = torch.zeros((n_p, kp), dtype=torch.int8, device=device)
+    ap[:m, :k] = a
+    bp[:n, :k] = b.t()
+    return ap, bp.t(), [mp, kp, n_p]
+
+
+# The int8 GEMM's split-k route at the int8 path's FC and its slowest
+# convolution, and that convolution's patches with a padded row stride.
+SPLIT_K_SHAPES = {"split_k_fc": (1, 1580, 1000), "split_k_conv": (784, 441, 38)}
 
 
 def check_int8_gemm(graphs, device) -> dict:
     """int8 GEMM vs its plain version, bit for bit, at m = 1, at the main
-    path's largest FC, 1×1 and k×k shapes, and at ragged shapes."""
+    path's largest FC, 1×1 and k×k shapes, at ragged shapes, on the
+    split-k route and with A row-strided as the executor's im2col gives
+    it; the split-k and strided cases also against a second call."""
     import torch
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import int8_matmul_cuda as imc
 
-    shapes = {s for g in graphs for s in gemm_shapes(g)}
+    shapes = {s[:4] for g in graphs for s in gemm_shapes(g)}
     fc = [s for s in shapes if s[0] == "fully_connected"]
     conv = [s for s in shapes if s[0] != "fully_connected"]
     pick = {"largest_fc": max(fc, key=lambda s: s[2] * s[3]),
@@ -353,23 +402,35 @@ def check_int8_gemm(graphs, device) -> dict:
             "largest_k": max(conv, key=lambda s: (s[2], s[1])),
             "m1": (None, 1, 63, 252), "ragged_a": (None, 130, 27, 77),
             "ragged_b": (None, 7, 1477, 13), "ragged_c": (None, 4099, 131, 65)}
-    scale = im.out_scale(4.0 / 127.0 * (0.4 / 127.0) / (4.0 / 127.0), 1.0)
+    pick.update({label: (None, *mkn) for label, mkn in SPLIT_K_SHAPES.items()})
+    pick["padded_lda"] = (None, *SPLIT_K_SHAPES["split_k_conv"])
+    scale = im.out_scale(INT8_SCALE, 1.0)
     rows = []
     for i, (label, (_, m, k, n)) in enumerate(sorted(pick.items())):
-        a, _, bt, bias = _int8_operands(m, k, n, device, seed=i)
+        a, _, bt, bias = _int8_operands(m, k, n, device, seed=i,
+                                        patches=label == "padded_lda")
         before = imc.launch_counts()["int8_matmul"]
+        routes = imc.route_counts()
         got = imc.int8_matmul_cuda(a, bt, scale, bias)
         got0 = imc.int8_matmul_cuda(a, bt, scale)
+        again = imc.int8_matmul_cuda(a, bt, scale, bias)
         torch.cuda.synchronize()
-        if imc.launch_counts()["int8_matmul"] != before + 2:
+        if imc.launch_counts()["int8_matmul"] != before + 3:
             raise AssertionError("int8_matmul launch counter did not advance")
+        route = {"split_k_fc": "split_k", "split_k_conv": "split_k",
+                 "padded_lda": "a_cp_async"}.get(label)
+        if route and imc.route_counts()[route] != routes[route] + 3:
+            raise AssertionError(f"int8 GEMM {label}: the {route} route was not taken")
         for out, b_ in ((got, bias), (got0, None)):
             want = im.int8_matmul_plain(a, bt, scale, b_)
             if not torch.equal(out, want):
                 n_bad = int((out != want).sum())
                 raise AssertionError(f"int8 GEMM {label} (m={m}, k={k}, n={n}): "
                                      f"{n_bad} outputs differ from the plain version")
-        rows.append({"shape": label, "m": m, "k": k, "n": n, "bit_equal": True})
+        if not torch.equal(got, again):
+            raise AssertionError(f"int8 GEMM {label}: a second call differs")
+        rows.append({"shape": label, "m": m, "k": k, "n": n, "bit_equal": True,
+                     "route": int8_route(m, k, n, a)})
     log("parity int8_matmul " + json.dumps(rows))
     return {"shapes": rows, "max_abs_err": 0.0}
 
@@ -540,12 +601,17 @@ def read_counts() -> dict:
 
 
 def read_routes() -> dict:
-    """Launches by route (bfloat16 tensor cores, float32 CUDA cores) of the
-    two kernels that have two, since the counts were last zeroed."""
-    from repro_torch.kernels import flash_attention_cuda, moe_gmm_cuda
+    """Launches by route since the counts were last zeroed: flash and the
+    GMM by kernel (bfloat16 tensor cores, float32 CUDA cores); the int8
+    GEMM by k route and by A route (each launch counts in both); Winograd
+    by block tile."""
+    from repro_torch.kernels import (flash_attention_cuda, int8_matmul_cuda,
+                                     moe_gmm_cuda, winograd_conv_cuda)
 
     return {"flash_attention": flash_attention_cuda.route_counts(),
-            "moe_gmm": moe_gmm_cuda.route_counts()}
+            "moe_gmm": moe_gmm_cuda.route_counts(),
+            "int8_matmul": int8_matmul_cuda.route_counts(),
+            "winograd_conv2d": winograd_conv_cuda.route_counts()}
 
 
 def run_main_path(device, setting, graphs, pop, pop2, n_train: int = 32) -> dict:
@@ -566,6 +632,7 @@ def run_main_path(device, setting, graphs, pop, pop2, n_train: int = 32) -> dict
     session.profile_suite(graphs, setting)
     profile_s = time.perf_counter() - t0
     profile_counts = read_counts()
+    profile_routes = read_routes()
 
     hub = PredictorHub()
     t0 = time.perf_counter()
@@ -639,6 +706,8 @@ def run_main_path(device, setting, graphs, pop, pop2, n_train: int = 32) -> dict
            "launches_per_predict_batch_1024": {
                k: launches1[k] - launches0[k] for k in launches1},
            "launches_while_profiling": profile_counts,
+           "routes_while_profiling": {k: profile_routes[k]
+                                      for k in ("int8_matmul", "winograd_conv2d")},
            "launches": counts, "backend_runs": runs,
            "device_fused_runs": stats["device_fused_runs"],
            "bank_uploads": res["bank_uploads"], "banks": res["banks"],
@@ -699,8 +768,11 @@ def run_selection_path(device, setting, graphs, store) -> dict:
     recs = session.profile_suite(wino, setting)
     profile_s = time.perf_counter() - t0
     counts = read_counts()
+    routes = read_routes()["winograd_conv2d"]
     if counts["winograd_conv2d"] == 0:
         raise AssertionError("the Winograd kernel was never launched")
+    if sum(routes.values()) != counts["winograd_conv2d"]:
+        raise AssertionError(f"Winograd routes {routes} for {counts['winograd_conv2d']} calls")
     wino_ms = [o.latency_s * 1e3 for r in recs for o in r.ops
                if o.op_type == "winograd_conv2d"]
     if not all(math.isfinite(v) and v > 0 for v in wino_ms):
@@ -724,7 +796,7 @@ def run_selection_path(device, setting, graphs, store) -> dict:
         log("fig8 " + json.dumps(row))
     out = {"graphs_with_winograd": len(wino), "winograd_signatures": len(new_sigs),
            "measured_ops": session.measured_ops, "profile_s": profile_s,
-           "winograd_op_ms": wino_ms, "launches": counts}
+           "winograd_op_ms": wino_ms, "launches": counts, "winograd_routes": routes}
     if session.measured_ops > len(new_sigs):
         raise AssertionError(f"profiled {session.measured_ops} ops; only the "
                              f"{len(new_sigs)} Winograd ops were new")
@@ -857,6 +929,18 @@ def log_bf16_smem() -> None:
         {d: fl.flash_attention_bf16_smem_bytes(d) for d in fac.HEAD_DIMS}))
     log("smem moe_gmm_mma_kernel by rows " + json.dumps(
         {"<=64": gl.moe_gmm_bf16_smem_bytes(64), ">64": gl.moe_gmm_bf16_smem_bytes(65)}))
+
+
+def sass_opcodes(library: str, opcode: str) -> int:
+    """Instructions named ``opcode`` (as ``IMMA.16832.S8.S8``) in the SASS
+    of a built library, by ``cuobjdump -sass`` beside nvcc."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", _build.BUILD_INFO[library]["path"]],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    return sum(1 for line in sass.splitlines()
+               if any(w.split(".")[0] == opcode for w in line.split()))
 
 
 def check_flash(device) -> dict:
@@ -1503,87 +1587,108 @@ def auto_curve(model, device) -> list:
     return points
 
 
+def int8_timed_cases(graph, device):
+    """(row, a, b, bt, bias) at each int8 GEMM of one forward pass of
+    ``graph``, A laid out as the executor gives it (`gemm_shapes`)."""
+    for i, (op, m, k, n, patches) in enumerate(gemm_shapes(graph)):
+        a, b, bt, bias = _int8_operands(m, k, n, device, seed=1000 + i, patches=patches)
+        yield {"op": op, "m": m, "k": k, "n": n, "patches": patches}, a, b, bt, bias
+
+
 def time_int8_gemm(graph, device) -> list:
     """The int8 GEMM at the shapes of one int8 forward pass of ``graph``:
-    kernel, plain version and ``torch._int_mm`` (int32 out, no scale).
-    cuBLASLt refuses many int8 shapes whose sides are multiples of 8
-    (m·k·n = 784·40·208 and 17·24·72 on this card), so the library's
-    operands are zero-padded to multiples of 32, with the weight
-    column-major, and the padded shape is reported."""
+    kernel (with its route), plain version and ``torch._int_mm`` (int32
+    out, no scale).  cuBLASLt refuses many int8 shapes whose sides are
+    multiples of 8 (m·k·n = 784·40·208 and 17·24·72 on this card), so the
+    library's operands are zero-padded to multiples of 32, with the
+    weight column-major, and the padded shape is reported."""
     import torch
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import int8_matmul_cuda as imc
 
-    scale = im.out_scale(4.0 / 127.0 * (0.4 / 127.0) / (4.0 / 127.0), 1.0)
+    scale = im.out_scale(INT8_SCALE, 1.0)
     rows = []
-    for i, (op, m, k, n) in enumerate(gemm_shapes(graph)):
-        a, b, bt, bias = _int8_operands(m, k, n, device, seed=1000 + i)
+    for row, a, b, bt, bias in int8_timed_cases(graph, device):
+        m, k, n = row["m"], row["k"], row["n"]
         if not torch.equal(imc.int8_matmul_cuda(a, bt, scale, bias),
                            im.int8_matmul_plain(a, bt, scale, bias)):
             raise AssertionError(f"int8 GEMM differs at {(m, k, n)}")
-        mp, kp, n_p = (-(-x // 32) * 32 for x in (m, k, n))
-        ap = torch.zeros((mp, kp), dtype=torch.int8, device=device)
-        bp = torch.zeros((n_p, kp), dtype=torch.int8, device=device)
-        ap[:m, :k] = a
-        bp[:n, :k] = b.t()
-        bp = bp.t()                                  # (kp, n_p), column-major
+        ap, bp, lib_shape = _int_mm_operands(a, b, device)
         kern = cuda_ms(lambda: imc.int8_matmul_cuda(a, bt, scale, bias))
         plain = cuda_ms(lambda: im.int8_matmul_plain(a, bt, scale, bias),
                         iters=3, warmup=2)
         lib = cuda_ms(lambda: torch._int_mm(ap, bp))
-        b_ms, b_by = bound(m * k + k * n + 4 * n + 4 * m * n, 2 * m * n * k,
-                           PEAK_INT8_OPS_PER_S)
-        rows.append({"op": op, "m": m, "k": k, "n": n, "max_abs_err": 0.0,
-                     "ms": kern["device"], "host_ms": kern["host"],
-                     "plain_ms": plain["device"], "library_ms": lib["device"],
-                     "library_shape": [mp, kp, n_p],
-                     "library_padded": [mp, kp, n_p] != [m, k, n],
-                     "bound_ms": b_ms, "bound_by": b_by})
-        log("time int8_matmul " + json.dumps(rows[-1]))
+        b_ms, b_by = _int8_bound(m, k, n)
+        row.update({"route": int8_route(m, k, n, a), "max_abs_err": 0.0,
+                    "ms": kern["device"], "host_ms": kern["host"],
+                    "plain_ms": plain["device"], "library_ms": lib["device"],
+                    "library_shape": lib_shape,
+                    "library_padded": lib_shape != [m, k, n],
+                    "bound_ms": b_ms, "bound_by": b_by})
+        rows.append(row)
+        log("time int8_matmul " + json.dumps(row))
     return rows
+
+
+def winograd_case(name: str, i: int, device) -> dict:
+    """Input, weights, U and tiles of one `STUDY_SHAPES` entry (seed 200 + i),
+    ``F.conv2d``'s NCHW operands, and the bound: tiles and U read once,
+    output tiles written once, against the 16 products plus 32 adds per
+    (tile, channel) in and 24 per (tile, output channel) out."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import winograd_conv as wc
+
+    c, k, hw = STUDY_SHAPES[name]
+    rng = np.random.default_rng(200 + i)
+    x = torch.from_numpy(rng.standard_normal((1, hw, hw, c)).astype(np.float32)).to(device)
+    wt = torch.from_numpy((rng.standard_normal((3, 3, c, k)) * 0.1)
+                          .astype(np.float32)).to(device)
+    u = wc.transform_weights(wt)
+    tiles = ref.extract_winograd_tiles(x).reshape(-1, 16, c).contiguous()
+    t = tiles.shape[0]
+    b_ms, b_by = bound(4 * (16 * t * c + 16 * c * k + 4 * t * k),
+                       32 * t * c * k + 32 * t * c + 24 * t * k)
+    return {"tiles": tiles, "u": u, "t": t, "c": c, "k": k,
+            "xc": x.permute(0, 3, 1, 2),
+            "w_oihw": wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def winograd_names() -> list:
+    """The selection path's shape first, then the Fig. 8 shapes."""
+    return ["nas_79x77_56"] + [n for n in STUDY_SHAPES if n != "nas_79x77_56"]
 
 
 def time_winograd(device) -> list:
     """The Winograd kernel at the selection path's shape (first row) and
-    at the Fig. 8 study shapes: kernel on (T, 16, C) tiles, plain version
-    and ``F.conv2d`` (TF32 off) on the same input."""
-    import numpy as np
+    at the Fig. 8 study shapes: kernel on (T, 16, C) tiles (with its
+    route), plain version and ``F.conv2d`` (TF32 off) on the same input."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
     from repro_torch.kernels import winograd_conv as wc
     from repro_torch.kernels import winograd_conv_cuda as wcc
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
-    names = ["nas_79x77_56"] + [n for n in STUDY_SHAPES if n != "nas_79x77_56"]
-    for i, name in enumerate(names):
-        c, k, hw = STUDY_SHAPES[name]
-        rng = np.random.default_rng(200 + i)
-        x = torch.from_numpy(rng.standard_normal((1, hw, hw, c)).astype(np.float32)).to(device)
-        wt = torch.from_numpy((rng.standard_normal((3, 3, c, k)) * 0.1)
-                              .astype(np.float32)).to(device)
-        u = wc.transform_weights(wt)
-        tiles = ref.extract_winograd_tiles(x).reshape(-1, 16, c).contiguous()
-        t = tiles.shape[0]
+    for i, name in enumerate(winograd_names()):
+        case = winograd_case(name, i, device)
+        tiles, u, t = case["tiles"], case["u"], case["t"]
         err = float((wcc.winograd_tiles_cuda(tiles, u)
                      - wc.winograd_tiles_plain(tiles, u)).abs().max())
-        xc = x.permute(0, 3, 1, 2)
-        wc_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        pl = wcc.plan(t, case["c"], case["k"])
         kern = cuda_ms(lambda: wcc.winograd_tiles_cuda(tiles, u))
         plain = cuda_ms(lambda: wc.winograd_tiles_plain(tiles, u), iters=3, warmup=2)
-        lib = cuda_ms(lambda: F.conv2d(xc, wc_oihw, padding=1))
-        # Bytes: tiles and U read once, output tiles written once.
-        # Operations: the 16 products, plus 32 adds per (tile, channel) in
-        # and 24 per (tile, output channel) out.
-        b_ms, b_by = bound(4 * (16 * t * c + 16 * c * k + 4 * t * k),
-                           32 * t * c * k + 32 * t * c + 24 * t * k)
-        rows.append({"shape": name, "tiles": t, "c": c, "k": k,
+        lib = cuda_ms(lambda: F.conv2d(case["xc"], case["w_oihw"], padding=1))
+        rows.append({"shape": name, "tiles": t, "c": case["c"], "k": case["k"],
+                     "route": f"{pl.route} ({pl.blocks} blocks, "
+                              f"{2 * -(-t // pl.t_pass)} launches)",
                      "max_abs_err": err,
                      "ms": kern["device"], "host_ms": kern["host"],
                      "plain_ms": plain["device"], "library_ms": lib["device"],
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "bound_ms": case["bound_ms"], "bound_by": case["bound_by"]})
         log("time winograd_conv2d " + json.dumps(rows[-1]))
     return rows
 
@@ -1753,6 +1858,10 @@ def main() -> int:
                 if "registers" in line or "Compiling entry" in line or "spill" in line:
                     log(f"ptxas {name}: " + line.strip())
         log_bf16_smem()
+        imma = sass_opcodes("int8_matmul", "IMMA")
+        log(f"sass int8_matmul: {imma} IMMA instructions")
+        if imma == 0:
+            raise AssertionError("the int8 GEMM is not on the s8 tensor cores")
 
         from repro_torch.core.dataset import synthetic_graphs
         from repro_torch.core.profiler import DeviceSetting
@@ -1784,6 +1893,13 @@ def main() -> int:
         main_i8 = run_main_path(device, int8, graphs, pop, pop2)
         if main_i8["summary"]["launches"]["int8_matmul"] == 0:
             raise AssertionError("the int8 GEMM was never launched on the int8 path")
+        i8_routes = main_i8["summary"]["routes_while_profiling"]["int8_matmul"]
+        i8_launches = main_i8["summary"]["launches_while_profiling"]["int8_matmul"]
+        if i8_routes["one_pass"] + i8_routes["split_k"] != i8_launches or \
+                i8_routes["a_cp_async"] + i8_routes["a_words"] != i8_launches or \
+                min(i8_routes.values()) == 0:
+            raise AssertionError(f"int8 GEMM routes {i8_routes} for {i8_launches} "
+                                 f"launches: every route should be taken")
 
         phase = "selection path"
         sel = run_selection_path(device, f32, graphs, main_f32["store"])

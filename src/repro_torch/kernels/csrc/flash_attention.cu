@@ -283,6 +283,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
     int sq, int skv, int heads, int kv_heads, int causal, int q_offset,
     float scale_log2) {
   using namespace mma_bf16;
+  using namespace ptx;
   constexpr int LD = MmaTile<D>::kLd;
   constexpr int CH = MmaTile<D>::kChunks;
   constexpr int KC = D / 16;              // k steps of Q.K^T
@@ -317,7 +318,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
     const int c = i * kMmaThreads + tid;
     const int r = c / CH, col = (c % CH) * 8;
     const bool in = q0 + r < sq;
-    cp_async_16(qs + r * LD + col, qb + (in ? (q0 + r) * q_row : 0) + col, in);
+    cp_async_16(qs + r * LD + col, qb + (in ? (q0 + r) * q_row : 0) + col, in ? 16 : 0);
   }
   cp_async_commit();
 
@@ -334,8 +335,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
       const int r = c / CH, col = (c % CH) * 8;
       const bool in = t0 + r < skv;
       const long long off = (in ? (t0 + r) * kv_row : 0) + col;
-      cp_async_16(kd + r * LD + col, kb + off, in);
-      cp_async_16(vd + r * LD + col, vb + off, in);
+      cp_async_16(kd + r * LD + col, kb + off, in ? 16 : 0);
+      cp_async_16(vd + r * LD + col, vb + off, in ? 16 : 0);
     }
   };
   load_kv(0, 0);

@@ -5,141 +5,324 @@
 //
 //   out[m, n] = __int2float_rn(sum_k a[m, k] * bt[n, k] + bias[n]) * scale
 //
-// a is (m, k) int8 row-major (activations, or the im2col patches of a
-// convolution); bt is the weight prepacked offline to (n, ldb) int8,
-// K-contiguous, ldb >= k and a multiple of 16, zero past k
-// (`repro_torch.kernels.int8_matmul.pack_weight`).  bias is an optional
-// (n,) int32 vector added to the integer sum before the scale, as the
-// reference's int8 convolution adds its int32 bias before requantizing.
-// The sum is exact in int32 and there is one float32 multiply, so the
-// output equals the plain torch version bit for bit.
+// a is (m, k) int8 with row stride lda >= k (activations, or the im2col
+// patches of a convolution, whose rows the executor pads to 16 bytes); bt
+// is the weight prepacked offline to (n, ldb) int8, K-contiguous, ldb a
+// multiple of 16 (`repro_torch.kernels.int8_matmul.pack_weight`).  bias is
+// an optional (n,) int32 vector added to the integer sum before the scale,
+// as the reference's int8 convolution adds its int32 bias before
+// requantizing.  The sum is exact in int32 and there is one float32
+// multiply, so the output equals the plain torch version bit for bit.
 //
 // What bounds it on this card.  The work is 2*m*n*k int8 operations and
-// the bytes are m*k + n*k in and 4*m*n out.  At the main path's shapes
-// (m from 1 to 12,544, k up to ~2,000, n up to a few hundred) the
-// operations at the card's int8 tensor-core rate (1,979 TOP/s dense) take
-// less time than the bytes at 3.35 TB/s, so the ideal kernel is bound by
-// bytes; this first kernel uses __dp4a on the CUDA cores (no tensor
-// cores), whose rate is far lower, so in practice it is bound by its
-// integer throughput and, at m = 1, by latency.
+// the bytes are m*k + n*k in and 4*m*n out.  At the main path's shapes (m
+// from 1 to 12,544, k from 3 to 1,580, n up to 1,580) the operations at
+// the int8 tensor-core rate (1,979 TOP/s dense) take less time than the
+// bytes at 3.35 TB/s, so the ideal kernel is bound by bytes; every one of
+// these GEMMs moves under 2 MB, so in practice each is bound by latency:
+// how many SMs it keeps busy and how long one block's k loop runs.
 //
 // Design.
-//  * Output tiles of 64 x 64 per block of 256 threads; each thread owns a
-//    4 x 4 micro-tile of int32 accumulators.
-//  * K loop in steps of 32 bytes: A and B tiles are staged in shared
-//    memory as 32-bit words of 4 consecutive K values ([word][row], padded
-//    against bank conflicts), then each thread issues 4 x 4 __dp4a per
-//    word from two 16-byte shared loads.
-//  * Any m, n and k: loads are predicated and zero-filled at the ragged
-//    edges (the Pallas kernel asserts divisibility instead).  A word is
-//    one aligned 4-byte load when the row stride and base allow it, else
-//    four byte loads.
-//  * Epilogue: int32 bias add, then __int2float_rn and __fmul_rn (round to
-//    nearest even, no contraction), written as float32.
+//  * Products on the s8 tensor cores: mma.sync m16n8k32 (mma_s8.cuh),
+//    fragments read by ldmatrix from shared rows of 48 bytes (32 of k and
+//    16 of padding, so the eight rows of one ldmatrix phase fall on eight
+//    different 16-byte bank groups).  4 warps a block.
+//  * Two block tiles (BM x BN = 64 x 32 and 16 x 32, the ones the plan
+//    picks at the main path's shapes) and a split of k over blockIdx.z,
+//    chosen per shape by `int8_matmul_cuda.plan` so that small-m and
+//    small-n shapes still launch at least one block per SM where k
+//    allows.  The output tiles are numbered along blockIdx.x (up to
+//    2^31 - 1 of them), column tile fastest, so m and n have no practical
+//    limit and neighbouring blocks share rows of A.
+//  * A 4-stage ring of 32-byte k steps, one barrier a step.  bt, and A
+//    when its rows and base are 16-byte aligned, go through 16-byte
+//    cp.async with the tail past k zero-filled by the copy itself.  Any
+//    other A is read as aligned 4-byte words (two funnel-shifted into one
+//    when lda or the base is not a multiple of 4) into registers: the
+//    prologue's three steps all at once, then one step ahead, stored
+//    after that step's products.  It still feeds the tensor cores.
+//  * Split k: the 2-8 splits of an output tile run as one thread-block
+//    cluster along blockIdx.z.  Each block leaves its int32 partial sums
+//    in its own shared memory; after a cluster barrier, rank 0 adds the
+//    others' through distributed shared memory and finishes the tile
+//    (bias and scale once, after the whole sum).  No workspace, no
+//    atomics, nothing to zero; integer sums are exact in any order.  One
+//    launch a call, whatever the route.
+//  * Epilogue: int32 bias add, then __int2float_rn and __fmul_rn (round
+//    to nearest even, no contraction), stored from the fragments, two
+//    adjacent columns as one float2 where n is even.  (Staging the tile
+//    through shared memory for row-wise stores was slower on the card.)
 //
 // The kernel allocates nothing and launches on the caller's stream; the C
 // entry point returns cudaGetLastError() of its launch.
 
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
+
+#include "mma_s8.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBM = 64;              // rows of A per block
-constexpr int kBN = 64;              // rows of bt (output columns) per block
-constexpr int kBK = 32;              // K values (bytes) per step
-constexpr int kWords = kBK / 4;      // 32-bit words per row and step
-constexpr int kPad = 4;              // words of padding per shared row
-constexpr int kThreads = 256;
-static_assert(kBM == kBN, "the staging loop fills A and B rows together");
-static_assert(kBM * kBN == kThreads * 16, "4 x 4 outputs per thread");
+constexpr int kBK = 32;              // k bytes per stage: one mma depth
+constexpr int kRow = 48;             // shared row stride in bytes
+constexpr int kStages = 4;
+constexpr int kThreads = 128;
 
-// The word of 4 consecutive int8 values of `row` starting at column `kb`
-// (kb is a multiple of 4), zero outside [0, rows) x [0, k).
-__device__ __forceinline__ int load_word(const int8_t* __restrict__ p, int row,
-                                         int rows, int kb, int k, long long ld,
-                                         bool vec) {
-  if (row >= rows || kb >= k) return 0;
-  const int8_t* src = p + row * ld + kb;
-  if (vec && kb + 4 <= k) return __ldg(reinterpret_cast<const int*>(src));
-  unsigned w = 0;
-  for (int q = 0; q < 4 && kb + q < k; ++q) {
-    w |= static_cast<unsigned>(static_cast<unsigned char>(__ldg(src + q)))
-         << (8 * q);
-  }
-  return static_cast<int>(w);
+struct Params {
+  const int8_t* a;
+  const int8_t* bt;
+  const int* bias;                   // may be null
+  float* out;
+  int m, n, k, lda, ldb;
+  int k_split;                       // k bytes per split, a multiple of kBK
+  int splits;                        // blocks of a cluster along z, at most 8
+  int a_async;                       // A rows and base 16-byte aligned
+  float scale;
+};
+
+__device__ __forceinline__ float rescale(int v, const int* bias, int col,
+                                         float scale) {
+  if (bias != nullptr) v += __ldg(bias + col);
+  return __fmul_rn(__int2float_rn(v), scale);
 }
 
-__global__ void __launch_bounds__(kThreads) int8_gemm(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
-    const int* __restrict__ bias, float* __restrict__ out, int m, int n, int k,
-    int ldb, float scale) {
-  __shared__ __align__(16) int as[kWords][kBM + kPad];
-  __shared__ __align__(16) int bs[kWords][kBN + kPad];
+template <int BM, int BN, int WARPS_M, bool A_ASYNC>
+__global__ void __launch_bounds__(kThreads) int8_gemm_mma(const Params p) {
+  constexpr int WARPS_N = kThreads / 32 / WARPS_M;
+  constexpr int WM = BM / WARPS_M;   // rows of a warp's tile
+  constexpr int WN = BN / WARPS_N;   // columns of a warp's tile
+  constexpr int MF = WM / 16;        // m16 fragments a warp
+  constexpr int NF = WN / 8;         // n8 fragments a warp
+  static_assert(WM % 16 == 0 && WN % 8 == 0, "warp tile of whole fragments");
+  constexpr int A_WORDS = BM * kBK / 4;
+  constexpr int A_WPT = (A_WORDS + kThreads - 1) / kThreads;
+
+  // The A and B rings; with k split, the same bytes then hold this
+  // block's int32 partial sums for the cluster's reduction.
+  constexpr int kRing = kStages * (BM + BN) * kRow;
+  constexpr int kAcc = MF * NF * 4;  // accumulators a thread
+  static_assert(kAcc * kThreads * 4 <= kRing, "the partial tile fits the ring");
+  __shared__ __align__(16) int8_t smem[kRing];
+  auto as = reinterpret_cast<int8_t (*)[BM][kRow]>(smem);
+  auto bs = reinterpret_cast<int8_t (*)[BN][kRow]>(smem + kStages * BM * kRow);
+
   const int tid = threadIdx.x;
-  const int tx = tid % 16;           // output columns n0 + 4*tx .. +3
-  const int ty = tid / 16;           // output rows    m0 + 4*ty .. +3
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const bool a_vec =
-      (k % 4 == 0) && (reinterpret_cast<uintptr_t>(a) % 4 == 0);
-  const bool b_vec =
-      (ldb % 4 == 0) && (reinterpret_cast<uintptr_t>(bt) % 4 == 0);
+  const int lane = tid % 32;
+  const int wm = (tid / 32) / WARPS_N;
+  const int wn = (tid / 32) % WARPS_N;
+  const int n_tiles = (p.n + BN - 1) / BN;
+  const int m0 = static_cast<int>(blockIdx.x / n_tiles) * BM;
+  const int n0 = static_cast<int>(blockIdx.x % n_tiles) * BN;
+  const int kb = blockIdx.z * p.k_split;
+  const int ke = min(p.k, kb + p.k_split);
+  const int nk = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
+  const bool a_vec4 = (p.lda % 4 == 0) &&
+                      (reinterpret_cast<uintptr_t>(p.a) % 4 == 0);
 
-  int acc[4][4];
+  // 16-byte chunks of `rows` rows of a K-contiguous operand, the bytes
+  // past ke zero-filled.
+  auto copy_tile = [&](int8_t (*dst)[kRow], const int8_t* src, int r0,
+                       int rows, int ld, int nrows, int k0) {
+    for (int c = tid; c < nrows * 2; c += kThreads) {
+      const int r = c / 2;
+      const int kc = k0 + 16 * (c % 2);
+      const int row = r0 + r;
+      const int bytes = row < rows ? max(0, min(16, ke - kc)) : 0;
+      const int8_t* s = bytes > 0 ? src + static_cast<long long>(row) * ld + kc : src;
+      ptx::cp_async_16(&dst[r][16 * (c % 2)], s, bytes);
+    }
+  };
+  // Unaligned A goes through registers: the prologue's stages are all
+  // loaded before any is stored, then the loop loads one step ahead.
+  int pre[kStages - 1][A_WPT];
+  auto fetch_a = [&](int (&buf)[A_WPT], int k0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < A_WPT; ++i) {
+      const int w = tid + i * kThreads;
+      const int row = m0 + w / 8;
+      const int kc = k0 + 4 * (w % 8);
+      unsigned v = 0;
+      if (w < A_WORDS && row < p.m && kc < ke) {
+        // The aligned word holding the first byte, and when the four bytes
+        // straddle two words (lda or the base not a multiple of 4) the
+        // next one too, if it holds a byte before ke.  Bytes past ke meet
+        // the zeros cp.async wrote into B.
+        const uintptr_t o = reinterpret_cast<uintptr_t>(p.a) +
+                            static_cast<uintptr_t>(row) * p.lda + kc;
+        const unsigned* al = reinterpret_cast<const unsigned*>(o & ~uintptr_t{3});
+        if (a_vec4) {
+          v = __ldg(al);
+        } else {
+          const int sh = static_cast<int>(o & 3);
+          const unsigned lo = __ldg(al);
+          const unsigned hi = sh != 0 && kc + 4 - sh < ke ? __ldg(al + 1) : 0u;
+          v = __funnelshift_r(lo, hi, 8 * sh);
+        }
+      }
+      buf[i] = static_cast<int>(v);
+    }
+  };
+  auto store_a = [&](const int (&buf)[A_WPT], int slot) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+    for (int i = 0; i < A_WPT; ++i) {
+      const int w = tid + i * kThreads;
+      if (w < A_WORDS) *reinterpret_cast<int*>(&as[slot][w / 8][4 * (w % 8)]) = buf[i];
+    }
+  };
+  auto load_stage = [&](int slot, int k0, int (&buf)[A_WPT]) {
+    copy_tile(bs[slot], p.bt, n0, p.n, p.ldb, BN, k0);
+    if constexpr (A_ASYNC) copy_tile(as[slot], p.a, m0, p.m, p.lda, BM, k0);
+    else fetch_a(buf, k0);
+  };
 
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    // Consecutive threads take consecutive words of one row: coalesced.
-    for (int w = tid; w < kBM * kWords; w += kThreads) {
-      const int r = w / kWords;
-      const int kw = w % kWords;
-      as[kw][r] = load_word(a, m0 + r, m, k0 + 4 * kw, k, k, a_vec);
-      bs[kw][r] = load_word(bt, n0 + r, n, k0 + 4 * kw, k, ldb, b_vec);
-    }
-    __syncthreads();
+  int acc[MF][NF][4];
 #pragma unroll
-    for (int kw = 0; kw < kWords; ++kw) {
-      const int4 av = *reinterpret_cast<const int4*>(&as[kw][4 * ty]);
-      const int4 bv = *reinterpret_cast<const int4*>(&bs[kw][4 * tx]);
-      const int ar[4] = {av.x, av.y, av.z, av.w};
-      const int br[4] = {bv.x, bv.y, bv.z, bv.w};
+  for (int i = 0; i < MF; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NF; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load_stage(s, kb + s * kBK, pre[s]);
+    ptx::cp_async_commit();
+  }
+  if constexpr (!A_ASYNC) {
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s)
+      if (s < nk) store_a(pre[s], s);
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    ptx::cp_async_wait<kStages - 2>();
+    __syncthreads();                 // step kt landed; slot (kt-1) is free
+    const int pf = kt + kStages - 1;
+    if (pf < nk) load_stage(pf % kStages, kb + pf * kBK, pre[0]);
+    ptx::cp_async_commit();
+
+    const int slot = kt % kStages;
+    uint32_t af[MF][4];
+    uint32_t bf[NF][2];
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+      ptx::ldmatrix_x4(af[i], &as[slot][wm * WM + 16 * i + lane % 16][16 * (lane / 16)]);
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      ptx::ldmatrix_x2(bf[j], &bs[slot][wn * WN + 8 * j + lane % 8][16 * ((lane / 8) % 2)]);
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+#pragma unroll
+      for (int j = 0; j < NF; ++j) mma_s8::mma_s8_16832(acc[i][j], af[i], bf[j]);
+    if (pf < nk && !A_ASYNC) store_a(pre[0], pf % kStages);
   }
 
+  // Accumulator (i, j, q) holds row g (+8 for q >= 2), column 2t + q % 2
+  // of fragment (i, j).
+  const int g = lane / 4;
+  const int t = lane % 4;
+  auto row_of = [&](int i, int q) { return m0 + wm * WM + 16 * i + g + 8 * (q / 2); };
+  auto col_of = [&](int j, int q) { return n0 + wn * WN + 8 * j + 2 * t + q % 2; };
+  if (p.splits > 1) {
+    // Split k: the splits of a tile are one cluster (blockIdx.z is the
+    // rank).  Each block leaves its partial sums in its shared memory;
+    // rank 0 adds the others' over distributed shared memory, in rank
+    // order, and finishes the tile.
+    cg::cluster_group cluster = cg::this_cluster();
+    int* part = reinterpret_cast<int*>(smem);
+    ptx::cp_async_wait<0>();
+    __syncthreads();                 // every warp is done with the ring
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + 4 * ty + i;
-    if (row >= m) continue;
+    for (int i = 0; i < MF; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + 4 * tx + j;
-      if (col >= n) continue;
-      const int v = acc[i][j] + (bias != nullptr ? __ldg(bias + col) : 0);
-      out[static_cast<long long>(row) * n + col] =
-          __fmul_rn(__int2float_rn(v), scale);
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[((i * NF + j) * 4 + q) * kThreads + tid] = acc[i][j][q];
+    cluster.sync();
+    const bool first = cluster.block_rank() == 0;
+    if (first) {
+      for (int r = 1; r < p.splits; ++r) {
+        const int* other = cluster.map_shared_rank(part, r);
+#pragma unroll
+        for (int i = 0; i < MF; ++i)
+#pragma unroll
+          for (int j = 0; j < NF; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][j][q] += other[((i * NF + j) * 4 + q) * kThreads + tid];
+      }
     }
+    cluster.sync();                  // the others' partials stay until read
+    if (!first) return;
   }
+
+  // Bias, scale, store: two adjacent columns as one float2 where aligned.
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; h += 2) {
+        const int row = row_of(i, h), col = col_of(j, h);
+        if (row >= p.m) continue;
+        float* dst = p.out + static_cast<long long>(row) * p.n + col;
+        if (p.n % 2 == 0 && col + 1 < p.n) {
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(rescale(acc[i][j][h], p.bias, col, p.scale),
+                          rescale(acc[i][j][h + 1], p.bias, col + 1, p.scale));
+        } else {
+          if (col < p.n) dst[0] = rescale(acc[i][j][h], p.bias, col, p.scale);
+          if (col + 1 < p.n) dst[1] = rescale(acc[i][j][h + 1], p.bias, col + 1, p.scale);
+        }
+      }
+}
+
+template <int BM, int BN, int WARPS_M, bool A_ASYNC>
+cudaError_t launch_as(const Params& p, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((p.m + BM - 1) / BM) * ((p.n + BN - 1) / BN), 1, p.splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = p.splits;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int8_gemm_mma<BM, BN, WARPS_M, A_ASYNC>, p);
+}
+
+template <int BM, int BN, int WARPS_M>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  return p.a_async ? launch_as<BM, BN, WARPS_M, true>(p, stream)
+                   : launch_as<BM, BN, WARPS_M, false>(p, stream);
 }
 
 }  // namespace
 
+// bm x bn is one of the two block tiles; k_split a multiple of 32 with
+// splits = ceil(k / k_split) <= 8 (one cluster a tile).  a_async: lda and
+// a are multiples of 16 bytes.
 extern "C" int int8_matmul_launch(const void* a, const void* bt,
                                   const void* bias, void* out, int m, int n,
-                                  int k, int ldb, float scale, void* stream) {
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  int8_gemm<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(bt),
-      static_cast<const int*>(bias), static_cast<float*>(out), m, n, k, ldb,
-      scale);
+                                  int k, int lda, int ldb, int bm, int bn,
+                                  int k_split, int splits, int a_async,
+                                  float scale, void* stream) {
+  if (k_split <= 0 || k_split % kBK != 0 || splits < 1 || splits > 8 ||
+      static_cast<long long>(k_split) * (splits - 1) >= (k > 0 ? k : 1) ||
+      ldb % 16 != 0 || (a_async && lda % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{static_cast<const int8_t*>(a), static_cast<const int8_t*>(bt),
+                 static_cast<const int*>(bias), static_cast<float*>(out),
+                 m, n, k, lda, ldb, k_split, splits, a_async, scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bm == 64 && bn == 32) err = launch<64, 32, 4>(p, s);
+  else if (bm == 16 && bn == 32) err = launch<16, 32, 1>(p, s);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

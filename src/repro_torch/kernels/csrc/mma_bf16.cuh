@@ -1,7 +1,7 @@
 // PTX wrappers for the bfloat16 tensor-core kernels on Hopper (sm_90a):
-// asynchronous 16-byte copies into shared memory, ldmatrix and the
-// m16n8k16 bfloat16 mma with float32 accumulators.  Included by
-// flash_attention.cu and moe_gmm.cu.
+// the m16n8k16 bfloat16 mma with float32 accumulators, and how ldmatrix
+// (ptx_copy.cuh, with the cp.async copies) fills its fragments.  Included
+// by flash_attention.cu and moe_gmm.cu.
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // (lane = 4 * g + t, g = lane / 4 in 0..7, t = lane % 4 in 0..3):
@@ -33,47 +33,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "ptx_copy.cuh"
+
 namespace mma_bf16 {
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global `src` to shared `dst` without passing through
-// registers; when !valid nothing is read and the 16 bytes are zero-filled
-// (src-size 0).  Both addresses must be 16-byte aligned.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-// Closes the group of this thread's copies issued since the last commit.
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
 
 // d += A * B on the tensor cores: A 16 x 16 bf16, B 16 x 8 bf16, d float32.
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],

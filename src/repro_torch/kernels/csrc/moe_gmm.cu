@@ -280,6 +280,7 @@ __global__ void __launch_bounds__(Tile::kThreads) moe_gmm_mma_kernel(
     __nv_bfloat16* __restrict__ out, int rows, int depth, int cols, int x_vec,
     int w_vec) {
   using namespace mma_bf16;
+  using namespace ptx;
   constexpr int BM = Tile::BM, BN = Tile::BN, BK = Tile::BK;
   constexpr int STAGES = Tile::STAGES, THREADS = Tile::kThreads;
   constexpr int MT = Tile::MT, NT = Tile::NT;
@@ -315,7 +316,7 @@ __global__ void __launch_bounds__(Tile::kThreads) moe_gmm_mma_kernel(
       if (x_vec) {
         const bool in = row < rows && kk < depth;
         cp_async_16(ad + r * LDA + col,
-                    xe + (in ? static_cast<long long>(row) * depth + kk : 0), in);
+                    xe + (in ? static_cast<long long>(row) * depth + kk : 0), in ? 16 : 0);
       } else {
         fill8(ad + r * LDA + col, xe, row, rows, kk, depth);
       }
@@ -328,7 +329,7 @@ __global__ void __launch_bounds__(Tile::kThreads) moe_gmm_mma_kernel(
       if (w_vec) {
         const bool in = kk < depth && n < cols;
         cp_async_16(bd + r * LDB + col,
-                    we + (in ? static_cast<long long>(kk) * cols + n : 0), in);
+                    we + (in ? static_cast<long long>(kk) * cols + n : 0), in ? 16 : 0);
       } else {
         fill8(bd + r * LDB + col, we, kk, depth, n, cols);
       }

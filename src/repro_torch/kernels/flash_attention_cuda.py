@@ -50,7 +50,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("flash_attention", ("flash_attention.cu",), _declare,
-                      headers=("mma_bf16.cuh",))
+                      headers=("mma_bf16.cuh", "ptx_copy.cuh"))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

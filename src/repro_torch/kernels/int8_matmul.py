@@ -29,7 +29,7 @@ from repro_torch.kernels import int8_matmul_cuda
 Tensor = torch.Tensor
 
 # The packed weight's row stride is a multiple of this many bytes, so
-# the kernel reads it as aligned 4-byte words.
+# the kernel copies its rows to shared memory with 16-byte cp.async.
 PACK_ALIGN = 16
 
 
@@ -68,7 +68,9 @@ def int8_matmul_plain(a_q: Tensor, bt: Tensor, scale: float,
 def int8_matmul_packed(a_q: Tensor, bt: Tensor, scale: float,
                        bias: Optional[Tensor] = None) -> Tensor:
     """(m, k) int8 × packed weight [+ (n,) int32 bias] → (m, n) float32,
-    on the device of ``a_q``; ``scale`` is a float32 value."""
+    on the device of ``a_q``; ``scale`` is a float32 value.  ``a_q`` may
+    be a row-strided view (unit column stride), as the executor's
+    im2col patches are."""
     if a_q.is_cuda:
         return int8_matmul_cuda.int8_matmul_cuda(a_q, bt, scale, bias)
     return int8_matmul_plain(a_q, bt, scale, bias)

@@ -45,7 +45,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("moe_gmm", ("moe_gmm.cu",), _declare,
-                      headers=("mma_bf16.cuh",))
+                      headers=("mma_bf16.cuh", "ptx_copy.cuh"))
 
 
 def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -58,6 +58,8 @@ Tensor = torch.Tensor
 ACT_SCALE = 4.0 / 127.0
 WEIGHT_SCALE = 0.4 / 127.0
 RELU6_Q = round(6.0 / ACT_SCALE)
+# Row stride unit of the im2col patches, in bytes (the GEMM's cp.async width).
+PATCH_ALIGN = 16
 
 # Unary kinds whose float round trip goes through a transcendental
 # function (see the module docstring).
@@ -159,14 +161,23 @@ def _windows(xp: Tensor, kh: int, kw: int, stride: int) -> Tensor:
 
 def _im2col(xp: Tensor, kh: int, kw: int, stride: int
             ) -> Tuple[Tensor, Tuple[int, int, int]]:
-    """(B·OH·OW, kh·kw·C) int8 patches in HWIO order, and (B, OH, OW)."""
+    """(B·OH·OW, kh·kw·C) int8 patches in HWIO order, and (B, OH, OW).
+
+    Where the patches are gathered (a k×k or strided 1×1 convolution),
+    they are written into a buffer whose rows start every `PATCH_ALIGN`
+    bytes, and the result is its (rows, kh·kw·C) view: the int8 GEMM
+    kernel copies such rows to shared memory with 16-byte ``cp.async``.
+    The pad bytes past kh·kw·C are never read as values."""
     b, hp, wp, c = xp.shape
     oh, ow = (hp - kh) // stride + 1, (wp - kw) // stride + 1
-    if kh == kw == 1:
-        cols = xp[:, ::stride, ::stride, :][:, :oh, :ow]
-        return cols.reshape(b * oh * ow, c).contiguous(), (b, oh, ow)
-    cols = _windows(xp, kh, kw, stride).permute(0, 1, 2, 4, 5, 3)
-    return cols.reshape(b * oh * ow, kh * kw * c).contiguous(), (b, oh, ow)
+    if kh == kw == 1 and stride == 1:
+        return xp[:, :oh, :ow].reshape(b * oh * ow, c).contiguous(), (b, oh, ow)
+    width = kh * kw * c
+    ld = -(-width // PATCH_ALIGN) * PATCH_ALIGN
+    cols = torch.empty((b * oh * ow, ld), dtype=xp.dtype, device=xp.device)[:, :width]
+    cols.view(b, oh, ow, kh, kw, c).copy_(
+        _windows(xp, kh, kw, stride).permute(0, 1, 2, 4, 5, 3))
+    return cols, (b, oh, ow)
 
 
 def _grouped_acc(xp: Tensor, w_q: Tensor, stride: int, groups: int) -> Tensor:

@@ -4,14 +4,22 @@ A library's file name is a hash of its sources, the headers they include
 and nvcc's flags, so an edit to a shared header builds a new library
 instead of loading a stale one from ``build/``.  Nothing here needs nvcc.
 """
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels import flash_attention_cuda, moe_gmm_cuda  # noqa: E402
+from repro_torch.kernels import (flash_attention_cuda, int8_matmul_cuda,  # noqa: E402
+                                 moe_gmm_cuda, ssd_scan_cuda, tree_gather_cuda,
+                                 winograd_conv_cuda)
 
 TENSOR_CORE_MODULES = (flash_attention_cuda, moe_gmm_cuda)
+CUDA_MODULES = (tree_gather_cuda, int8_matmul_cuda, winograd_conv_cuda,
+                flash_attention_cuda, moe_gmm_cuda, ssd_scan_cuda)
+COPY_WRAPPERS = ("smem_addr", "cp_async_16", "cp_async_4", "cp_async_commit",
+                 "cp_async_wait", "ldmatrix_x4", "ldmatrix_x4_trans", "ldmatrix_x2")
 
 
 def _library(headers=()):
@@ -47,18 +55,48 @@ def test_headers_are_not_passed_to_nvcc(csrc, monkeypatch):
 
 @pytest.mark.parametrize("module", TENSOR_CORE_MODULES, ids=lambda m: m.__name__)
 def test_tensor_core_sources_hash_the_shared_header(module):
-    assert module.LIBRARY.headers == ("mma_bf16.cuh",)
+    assert module.LIBRARY.headers == ("mma_bf16.cuh", "ptx_copy.cuh")
     src = (_build.CSRC / module.LIBRARY.sources[0]).read_text()
     assert '#include "mma_bf16.cuh"' in src
 
 
 def test_shared_header_holds_the_ptx_wrappers():
+    # The bf16 header keeps its mma and includes the copy wrappers, which
+    # live in one header for every kernel.
     src = (_build.CSRC / "mma_bf16.cuh").read_text()
-    for name in ("cp_async_16", "cp_async_commit", "cp_async_wait",
-                 "ldmatrix_x4", "ldmatrix_x4_trans", "mma_bf16_16816",
-                 "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
-                 "cp.async.cg.shared.global", ".trans"):
+    for name in ("mma_bf16_16816", '#include "ptx_copy.cuh"',
+                 "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"):
         assert name in src
+    src = (_build.CSRC / "ptx_copy.cuh").read_text()
+    for name in COPY_WRAPPERS + ("cp.async.cg.shared.global",
+                                 "cp.async.ca.shared.global", ".trans"):
+        assert name in src
+
+
+def _includes(name):
+    """The csrc headers a source or header includes, directly or not."""
+    found = set()
+    for inc in re.findall(r'#include "([^"]+)"', (_build.CSRC / name).read_text()):
+        found |= {inc} | _includes(inc)
+    return found
+
+
+@pytest.mark.parametrize("module", CUDA_MODULES, ids=lambda m: m.__name__)
+def test_every_included_header_is_hashed_into_the_library_name(module):
+    lib = module.LIBRARY
+    included = set().union(*(_includes(src) for src in lib.sources))
+    assert set(lib.headers) == included
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in _build.CSRC.iterdir()
+                                        if p.suffix in (".cu", ".cuh")))
+def test_copy_wrappers_are_defined_in_one_header(name):
+    src = (_build.CSRC / name).read_text()
+    defined = set(re.findall(r"__device__ (?:__forceinline__ )?\w+ (\w+)\(", src))
+    if name == "ptx_copy.cuh":
+        assert set(COPY_WRAPPERS) <= defined
+    else:
+        assert not defined & set(COPY_WRAPPERS)
 
 
 @pytest.mark.parametrize("module", TENSOR_CORE_MODULES, ids=lambda m: m.__name__)

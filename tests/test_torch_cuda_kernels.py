@@ -208,6 +208,150 @@ def test_winograd_wrapper_checks_its_inputs(card):
     assert wcc.winograd_tiles_cuda(tiles[:0], u).shape == (0, 4, 5)
 
 
+# The 13 GEMMs (m, k, n) of one int8 forward of the main path's held-out
+# graph (`synthetic_graphs(40, resolution=224)[32]`, chip_smoke's
+# `gemm_shapes`).
+INT8_MAIN_SHAPES = [(12544, 3, 72), (12544, 72, 19), (3136, 19, 70), (1, 70, 17),
+                    (1, 17, 70), (3136, 70, 49), (784, 441, 38), (784, 38, 201),
+                    (196, 201, 170), (196, 170, 183), (49, 183, 289),
+                    (49, 289, 1580), (1, 1580, 1000)]
+
+
+def _int8_case(card, m, k, n, seed, lda=None):
+    """A (m, k) as a view of an (m, lda) buffer when lda is given, packed
+    weight, bias and scale."""
+    from repro_torch.kernels import int8_matmul as im
+
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(card)
+    if lda is not None:
+        buf = torch.from_numpy(rng.integers(-127, 128, (m, lda)).astype(np.int8)).to(card)
+        buf[:, :k] = a
+        a = buf[:, :k]
+    b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(card)
+    bias = torch.from_numpy(rng.integers(-999, 999, n).astype(np.int32)).to(card)
+    scale = im.out_scale(4.0 / 127.0 * (0.4 / 127.0) / (4.0 / 127.0), 1.0)
+    return a, im.pack_weight(b), bias, scale
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1580, 1000), (784, 441, 38)])
+def test_int8_split_k_route_is_bit_equal(card, m, k, n):
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import int8_matmul_cuda as imc
+
+    assert imc.plan(m, n, k).splits > 1
+    a, bt, bias, scale = _int8_case(card, m, k, n, seed=k)
+    before = imc.route_counts()
+    got = imc.int8_matmul_cuda(a, bt, scale, bias)
+    again = imc.int8_matmul_cuda(a, bt, scale, bias)
+    torch.cuda.synchronize()
+    assert imc.route_counts()["split_k"] == before["split_k"] + 2
+    assert imc.route_counts()["one_pass"] == before["one_pass"]
+    assert torch.equal(got, im.int8_matmul_plain(a, bt, scale, bias))
+    assert torch.equal(got, again)     # the cluster reduction is deterministic
+
+
+@pytest.mark.parametrize("m,k,n", INT8_MAIN_SHAPES + [(7, 1477, 13), (4099, 131, 65)])
+def test_int8_row_strided_a_is_bit_equal_to_its_contiguous_copy(card, m, k, n):
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import int8_matmul_cuda as imc
+
+    lda = -(-k // 16) * 16 + 16
+    a, bt, bias, scale = _int8_case(card, m, k, n, seed=m + k, lda=lda)
+    assert a.stride() == (lda, 1)
+    # The contiguous copy starts 4 bytes past an aligned base: never the
+    # cp.async route.
+    copy = torch.empty(m * k + 4, dtype=torch.int8, device=card)[4:].view(m, k)
+    copy.copy_(a)
+    before = imc.route_counts()
+    strided = imc.int8_matmul_cuda(a, bt, scale, bias)
+    dense = imc.int8_matmul_cuda(copy, bt, scale, bias)
+    torch.cuda.synchronize()
+    after = imc.route_counts()
+    assert after["a_cp_async"] == before["a_cp_async"] + 1
+    assert after["a_words"] == before["a_words"] + 1
+    assert torch.equal(strided, dense)
+    assert torch.equal(strided, im.int8_matmul_plain(a, bt, scale, bias))
+
+
+def test_int8_wrapper_checks_the_row_stride(card):
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import int8_matmul_cuda as imc
+
+    bt = im.pack_weight(torch.zeros((8, 5), dtype=torch.int8, device=card))
+    buf = torch.zeros((6, 32), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        imc.int8_matmul_cuda(buf[:, ::4], bt, 1.0)          # column stride 4
+    with pytest.raises(ValueError, match="stride"):
+        imc.int8_matmul_cuda(buf.view(-1)[:40].as_strided((5, 8), (4, 1)), bt, 1.0)
+    with pytest.raises(ValueError, match="pack_weight"):
+        imc.int8_matmul_cuda(buf[:, :8], torch.zeros((5, 8), dtype=torch.int8,
+                                                      device=card), 1.0)
+    assert imc.int8_matmul_cuda(buf[:, :8], bt, 1.0).shape == (6, 5)
+
+
+def test_winograd_position_split_is_repeatable_at_256_channels_14x14(card):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import winograd_conv as wc
+    from repro_torch.kernels import winograd_conv_cuda as wcc
+
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((1, 14, 14, 256)).astype(np.float32)).to(card)
+    wt = torch.from_numpy((rng.standard_normal((3, 3, 256, 256)) * 0.1)
+                          .astype(np.float32)).to(card)
+    u = wc.transform_weights(wt)
+    tiles = ref.extract_winograd_tiles(x).reshape(-1, 16, 256).contiguous()
+    pl = wcc.plan(tiles.shape[0], 256, 256)
+    assert pl.blocks >= wcc.SMS
+    before = wcc.route_counts()
+    runs = [wcc.winograd_tiles_cuda(tiles, u) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert wcc.route_counts()[pl.route] == before[pl.route] + 3
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    plain = wc.winograd_tiles_plain(tiles, u)
+    assert float((runs[0] - plain).abs().max()) <= WINO_TOL * float(plain.abs().max())
+
+
+def test_winograd_past_two_to_the_twenty_tiles_runs_in_bounded_workspace(card):
+    # 1 × 2,050 × 2,050 × 1 has 1,025² = 1,050,625 tiles: more than 65,535
+    # blocks of 16 tiles hold, and three runs of the 32 MiB workspace.
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import winograd_conv as wc
+    from repro_torch.kernels import winograd_conv_cuda as wcc
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(2050)
+    x = torch.from_numpy(rng.standard_normal((1, 2050, 2050, 1)).astype(np.float32)).to(card)
+    wt = torch.from_numpy((rng.standard_normal((3, 3, 1, 1)) * 0.1)
+                          .astype(np.float32)).to(card)
+    u = wc.transform_weights(wt)
+    tiles = ref.extract_winograd_tiles(x).reshape(-1, 16, 1).contiguous()
+    t = tiles.shape[0]
+    pl = wcc.plan(t, 1, 1)
+    assert t == 1025 * 1025 > 2**20 and -(-t // pl.t_pass) == 3
+    got = wcc.winograd_tiles_cuda(tiles, u)
+    plain = wc.winograd_tiles_plain(tiles, u)
+    assert float((got - plain).abs().max()) <= WINO_TOL * float(plain.abs().max())
+    assert torch.equal(got, wcc.winograd_tiles_cuda(tiles, u))   # repeatable
+    y = wc.winograd_conv2d(x, wt)
+    direct = ref.winograd_conv_ref(x, wt)
+    assert float((y - direct).abs().max()) <= 1e-4 * float(direct.abs().max())
+
+
+def test_int8_rows_past_the_grid_y_limit_are_bit_equal(card):
+    # 65,535 row tiles of 64 rows is 4,194,240: one more row needs the
+    # output tiles on the grid's x axis.
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import int8_matmul_cuda as imc
+
+    m, k, n = 65535 * 64 + 1, 3, 5
+    pl = imc.plan(m, n, k)
+    assert -(-m // pl.bm) > 65535
+    a, bt, bias, scale = _int8_case(card, m, k, n, seed=7)
+    got = imc.int8_matmul_cuda(a, bt, scale, bias)
+    assert torch.equal(got, im.int8_matmul_plain(a, bt, scale, bias))
+
+
 @pytest.mark.parametrize("mode", ["op_by_op", "fused_groups"])
 def test_int8_executor_card_equals_host(card, mode):
     from repro_torch.core.dataset import synthetic_graphs

@@ -140,3 +140,83 @@ def test_each_source_is_its_own_hashed_library(module, name, source):
     assert p.parent == _build.BUILD_DIR and p.name.startswith(f"lib{name}_")
     src = (_build.CSRC / source).read_text()
     assert f"{name}_error_string" in src and "cudaGetLastError" in src
+
+
+# -- the CUDA kernel's launch plan (pure Python) -----------------------------
+
+# The 13 GEMMs (m, k, n) of one int8 forward of the main path's held-out
+# graph (`synthetic_graphs(40, resolution=224)[32]`, chip_smoke's
+# `gemm_shapes`), and the six slowest of them on the card before the
+# tensor-core redesign.
+MAIN_SHAPES = [(12544, 3, 72), (12544, 72, 19), (3136, 19, 70), (1, 70, 17),
+               (1, 17, 70), (3136, 70, 49), (784, 441, 38), (784, 38, 201),
+               (196, 201, 170), (196, 170, 183), (49, 183, 289), (49, 289, 1580),
+               (1, 1580, 1000)]
+SLOWEST = [(1, 1580, 1000), (784, 441, 38), (49, 289, 1580), (196, 201, 170),
+           (196, 170, 183), (49, 183, 289)]
+RAGGED = [(1, 63, 252), (130, 27, 77), (7, 1477, 13), (4099, 131, 65), (5, 1, 3),
+          (17, 33, 9), (12544, 3577, 71), (196, 9825, 391), (2, 0, 3)]
+
+
+@pytest.mark.parametrize("m,k,n", MAIN_SHAPES + RAGGED)
+def test_plan_covers_each_output_and_each_k_once(m, k, n):
+    pl = imc.plan(m, n, k)
+    assert (pl.bm, pl.bn) in imc.TILES
+    gx, gy, gz = pl.grid
+    n_tiles = -(-n // pl.bn)
+    assert (gx, gy, gz) == (-(-m // pl.bm) * n_tiles, 1, pl.splits)
+    cover = np.zeros((m, n), np.int64)
+    for x in range(gx):              # the kernel's numbering: column tile fastest
+        r, c = x // n_tiles * pl.bm, x % n_tiles * pl.bn
+        cover[r:r + pl.bm, c:c + pl.bn] += 1
+    assert (cover == 1).all()
+    # k runs: whole 32-byte mma steps, none empty, together [0, k) once.
+    assert pl.k_split > 0 and pl.k_split % imc.K_STEP == 0
+    runs = [(z * pl.k_split, min(k, (z + 1) * pl.k_split)) for z in range(gz)]
+    assert runs[0][0] == 0 and runs[-1][1] == k
+    assert all(a1 == b0 for (_, b0), (a1, _) in zip(runs, runs[1:]))
+    assert gz == 1 or all(b > a for a, b in runs)
+
+
+@pytest.mark.parametrize("m,k,n", SLOWEST)
+def test_plan_fills_the_card_at_the_slowest_main_path_shapes(m, k, n):
+    assert imc.plan(m, n, k).blocks >= imc.SMS
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1580, 1000), (784, 441, 38)])
+def test_plan_splits_k_where_the_tiles_alone_leave_the_card_idle(m, k, n):
+    pl = imc.plan(m, n, k)
+    assert pl.splits > 1
+    assert pl.grid[0] * pl.grid[1] < imc.SMS
+
+
+# CUDA's grid limits: x up to 2^31 - 1, y and z up to 65,535.
+GRID_LIMITS = (2**31 - 1, 65535, 65535)
+
+
+@pytest.mark.parametrize("m,k,n", [(65535 * 64 + 1, 3, 5), (2**24, 27, 64),
+                                   (1, 1580, 65535 * 32)])
+def test_plan_grid_stays_within_the_launch_limits(m, k, n):
+    # The output tiles go on grid x: an im2col of a large batch has
+    # millions of rows (65,535 row tiles of 64 rows is 4,194,240).
+    pl = imc.plan(m, n, k)
+    assert pl.grid[0] == -(-m // pl.bm) * -(-n // pl.bn)
+    assert all(0 < g <= lim for g, lim in zip(pl.grid, GRID_LIMITS))
+
+
+def test_route_counters_reset_with_the_launch_count():
+    imc._ROUTE_COUNTER.add("split_k")
+    imc._ROUTE_COUNTER.add("a_words")
+    imc.reset_launch_counts()
+    assert imc.route_counts() == {"one_pass": 0, "split_k": 0, "a_cp_async": 0,
+                                  "a_words": 0}
+
+
+def test_a_route_needs_aligned_rows_and_base():
+    buf = torch.zeros((4, 48), dtype=torch.int8)
+    assert imc.a_route(buf[:, :37]) == "a_cp_async"
+    assert imc.a_route(buf[:, :16].contiguous()) == "a_cp_async"
+    assert imc.a_route(buf[:, :37].contiguous()) == "a_words"
+    assert imc.a_route(buf.view(-1)[1:49].view(1, 48)) == "a_words"
+    with pytest.raises(ValueError, match="contiguous"):
+        imc.a_route(buf[:, ::2])

@@ -64,7 +64,7 @@ def test_port_has_the_slice_modules():
         assert mod in names
     for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
                 "flash_attention.cu", "moe_gmm.cu", "ssd_scan.cu",
-                "mma_bf16.cuh"):
+                "mma_bf16.cuh", "mma_s8.cuh", "ptx_copy.cuh"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
@@ -92,7 +92,7 @@ def test_cuda_kernel_source_names_both_kernels():
 
 @pytest.mark.parametrize("source,names", [
     ("int8_matmul.cu", ("src/repro/kernels/int8_matmul.py", "_int8_mm_kernel",
-                        "__dp4a", "__int2float_rn", "__fmul_rn")),
+                        "mma_s8_16832", "__int2float_rn", "__fmul_rn")),
     ("winograd_conv.cu", ("src/repro/kernels/winograd_conv.py",
                           "_winograd_kernel", "fmaf")),
     ("flash_attention.cu", ("src/repro/kernels/flash_attention.py",

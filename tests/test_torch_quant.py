@@ -333,3 +333,31 @@ def test_int8_profile_session_matches_reference_records(tmp_path):
     ref_lines = [json.loads(s) for s in open(tmp_path / "ref.jsonl")]
     assert [_schema(d) for d in lines] == [_schema(d) for d in ref_lines]
     assert len(RefStore(str(tmp_path / "port.jsonl"))) == len(ref_store)
+
+
+# -- im2col patches for the int8 GEMM kernel ---------------------------------
+
+# (kernel, stride, C): kh·kw·C and C not multiples of 16, as on the main path.
+IM2COL_CASES = [(3, 1, 9), (3, 2, 5), (7, 2, 3), (5, 1, 7), (1, 2, 19), (3, 1, 16)]
+
+
+@pytest.mark.parametrize("kern,s,c", IM2COL_CASES)
+def test_im2col_patches_are_16_byte_aligned_rows_of_the_same_values(kern, s, c):
+    rng = np.random.default_rng(kern * 10 + c)
+    x = torch.from_numpy(rng.integers(-127, 128, (2, 11, 13, c)).astype(np.int8))
+    xp = pq._pad_for(x, kern, kern, s, "SAME")
+    cols, (b, oh, ow) = pq._im2col(xp, kern, kern, s)
+    width = kern * kern * c
+    assert cols.shape == (b * oh * ow, width) and cols.stride(1) == 1
+    assert cols.stride(0) % pq.PATCH_ALIGN == 0 and cols.data_ptr() % pq.PATCH_ALIGN == 0
+    # The same values as the contiguous gather of the windows.
+    want = pq._windows(xp, kern, kern, s).permute(0, 1, 2, 4, 5, 3)
+    assert torch.equal(cols, want.reshape(b * oh * ow, width))
+
+
+@pytest.mark.parametrize("kern,s,c", IM2COL_CASES)
+def test_dense_conv2d_on_aligned_patches_equals_the_jitted_reference(kern, s, c):
+    oh, ow = _out_hw(11, kern, s, "SAME"), _out_hw(13, kern, s, "SAME")
+    _check(_one_op("conv2d", [(2, 11, 13, c)], [(2, oh, ow, 10)],
+                   {"kernel_h": kern, "kernel_w": kern, "stride": s,
+                    "groups": 1, "act": "relu", "padding": "SAME"}), seed=c)

@@ -134,3 +134,53 @@ def test_launch_counter_resets():
     wcc.LAUNCHES["winograd_conv2d"] += 1
     wcc.reset_launch_counts()
     assert wcc.launch_counts() == {"winograd_conv2d": 0}
+
+
+# -- the CUDA kernel's launch plan (pure Python) -----------------------------
+
+# (T, C, K) of the selection path's NAS op and of the three Fig. 8 shapes.
+STUDY = [(784, 79, 77), (784, 64, 64), (196, 128, 128), (49, 256, 256)]
+
+
+# Past 2^20 tiles: a 1 × 2,050 × 2,050 input has 1,025² = 1,050,625.
+LARGE = [(1025 * 1025, 1, 1), (4 * 512 * 512, 64, 64), (300000, 3, 77)]
+
+
+@pytest.mark.parametrize("t,c,k", STUDY + [(1, 3, 2), (1568, 16, 24), (30, 8, 5)]
+                         + LARGE)
+def test_plan_covers_each_tile_and_channel_once_per_position(t, c, k):
+    pl = wcc.plan(t, c, k)
+    assert (pl.bt, pl.bq) in wcc.TILES and pl.cc in wcc.CHUNKS
+    gx, gy, gz = pl.grid
+    assert gz == wcc.POSITIONS == 16
+    assert gx * pl.bt >= pl.t_pass > (gx - 1) * pl.bt
+    assert gy * pl.bq >= k > (gy - 1) * pl.bq
+    # Runs of t_pass tiles, the last one shorter, cover [0, t) once.
+    runs = [(t0, min(t, t0 + pl.t_pass)) for t0 in range(0, t, pl.t_pass)]
+    assert runs[-1][1] == t and all(b - a <= pl.t_pass for a, b in runs)
+    assert pl.route in wcc.route_counts()
+
+
+@pytest.mark.parametrize("t,c,k", STUDY + LARGE)
+def test_plan_bounds_the_workspace_and_the_grid(t, c, k):
+    pl = wcc.plan(t, c, k)
+    workspace = wcc.POSITIONS * pl.t_pass * k * 4
+    assert workspace <= wcc.WORKSPACE_BYTES
+    # The study shapes are one run each; a larger input is cut only as far
+    # as the workspace forces.
+    assert pl.t_pass == t or workspace > wcc.WORKSPACE_BYTES - wcc.POSITIONS * k * 4
+    assert pl.t_pass == t or (t, c, k) in LARGE
+    # CUDA's grid limits: x up to 2^31 - 1, y and z up to 65,535.
+    assert pl.grid[0] <= 2**31 - 1 and pl.grid[1] <= 65535
+
+
+@pytest.mark.parametrize("t,c,k", STUDY)
+def test_plan_fills_the_card_at_the_study_shapes(t, c, k):
+    assert wcc.plan(t, c, k).blocks >= wcc.SMS
+
+
+def test_route_counters_reset_with_the_launch_count():
+    route = wcc.plan(784, 64, 64).route
+    wcc._ROUTE_COUNTER.add(route)
+    wcc.reset_launch_counts()
+    assert set(wcc.route_counts().values()) == {0}
