@@ -14,10 +14,10 @@ result line:
   2. Kernel parity on the card, each kernel against its plain torch
      version:
        * tree kernels at 32,768 rows × 20 features, on a GBDT bank (150
-         stages, depth 4: the bank sits in shared memory) and on a
-         depth-14 random forest too large for shared memory.  Leaves
+         stages, depth 4: kept complete, the ``staged`` route) and on a
+         depth-14 random forest (the ``packed`` route).  Leaves
          bit-equal; fused predictions within the summation bound stated
-         in `fused_tolerance`;
+         in `fused_tolerance` and repeatable; each launch on its route;
        * int8 GEMM bit-equal at m = 1, at the main path's largest FC,
          1×1 and k×k convolution shapes, at shapes that are not
          multiples of the tile, on the split-k route (`SPLIT_K_SHAPES`)
@@ -49,6 +49,8 @@ result line:
          fused kernel, per-op MAPE through the leaves kernel), then answer
          a 1,024-graph `predict_batch`, a cached `predict_e2e` and a
          256-graph `predict_batch`; every tree model must run on "cuda";
+         the parity banks and this path together take every route of
+         the tree kernels' plan;
        * int8 (`op_by_op`): the same through the int8 executor, whose FC
          and dense convolutions run the int8 GEMM kernel, every one of its
          routes taken (one pass and split k; A by cp.async and by words);
@@ -76,7 +78,7 @@ result line:
          torch.profiler with the ssd_scan (and, for Zamba2, the flash)
          share of device time.
   4. Times at the paths' shapes — kernel (with its launch plan for the
-     int8 GEMM and Winograd), plain version, library call where one exists (``torch._int_mm``, ``F.conv2d``,
+     int8 GEMM, Winograd and the tree kernels), plain version, library call where one exists (``torch._int_mm``, ``F.conv2d``,
      ``F.scaled_dot_product_attention``, ``torch.bmm``; none for the tree
      kernels and the SSD scan) and the bound from
      bytes at 3.35 TB/s or operations (67 TFLOP/s float32, 989 TFLOP/s
@@ -206,10 +208,16 @@ def bound(bytes_moved: float, ops: float,
 
 def traffic(db, rows: int, d: int, fused: bool) -> tuple:
     """(bytes, operations) one launch needs: x read once, the output
-    written once, the bank (and mean/std) read once; one compare per
-    slot and round, one add per slot, subtract + divide per feature."""
+    written once, the bank (and mean/std) read once, in the layout the
+    launch reads (complete: `tree_gather_cuda.complete_bytes`; packed:
+    16-byte nodes, 4-byte values and roots); one compare per slot and
+    round, one add per slot, subtract + divide per feature."""
+    from repro_torch.kernels import tree_gather_cuda as tgc
+
     slots = rows * db.n_trees
-    nbytes = rows * d * 4 + db.n_nodes * 20 + db.n_trees * 4
+    bank = (tgc.complete_bytes(db.n_trees, db.depth) if db.cnodes is not None
+            else db.n_nodes * 20 + db.n_trees * 4)
+    nbytes = rows * d * 4 + bank
     ops = slots * db.depth
     if fused:
         nbytes += rows * 4 + 2 * d * 4
@@ -254,12 +262,13 @@ def parity_models(seed: int = 0):
     gbdt = GBDTPredictor(**FAST_HPARAMS["gbdt"]).fit(*_regression_data(rng, 2000))
     rf = RandomForestPredictor(n_trees=10, max_depth=14).fit(
         *_regression_data(rng, 4000))
-    return [("gbdt_150x4", gbdt, True), ("rf_10x14", rf, False)]
+    return [("gbdt_150x4", gbdt, "staged"), ("rf_10x14", rf, "packed")]
 
 
-def check_parity(name: str, model, in_smem: bool, device, rows: int = PARITY_ROWS,
+def check_parity(name: str, model, route: str, device, rows: int = PARITY_ROWS,
                  seed: int = 1) -> dict:
-    """Both kernels vs their plain versions on one bank; raises on mismatch."""
+    """Both kernels vs their plain versions on one bank, every launch on
+    ``route``; raises on mismatch."""
     import numpy as np
     import torch
     from repro_torch.kernels import tree_gather as tg
@@ -268,24 +277,28 @@ def check_parity(name: str, model, in_smem: bool, device, rows: int = PARITY_ROW
     rng = np.random.default_rng(seed)
     raw = np.abs(rng.standard_normal((rows, N_FEATURES))) * np.linspace(1, 50, N_FEATURES)
     db = model.flat().device_bank(device)
-    plan = tgc._plan(db, rows, N_FEATURES)
-    if bool(plan["bank_in_smem"]) != in_smem:
-        raise AssertionError(f"{name}: bank of {db.n_nodes} nodes expected "
-                             f"{'in' if in_smem else 'outside'} shared memory")
+    plans = {k: tgc.plan_for(db, rows, N_FEATURES, fused=k == "fused")
+             for k in ("leaves", "fused")}
+    if {p.route for p in plans.values()} != {route}:
+        raise AssertionError(f"{name}: bank of {db.n_trees} trees of depth "
+                             f"{db.depth} expected on the {route} route: {plans}")
     xs = torch.from_numpy(model.scaler.transform(raw).astype(np.float32)).to(db.device)
     xr = torch.from_numpy(raw.astype(np.float32)).to(db.device)
     mean, std = tg.to_device_scaler(model.scaler, db.device)
     kind, scale, bias = model._device_reduction()
 
-    before = tgc.launch_counts()
+    before, routes0 = tgc.launch_counts(), tgc.route_counts()
     leaves_k = tgc.gather_leaves_cuda(db, xs)
     fused_k = tgc.fused_predict_cuda(db, mean, std, scale, bias, xr, kind)
     fused_k2 = tgc.fused_predict_cuda(db, mean, std, scale, bias, xr, kind)
     torch.cuda.synchronize()
-    after = tgc.launch_counts()
+    after, routes1 = tgc.launch_counts(), tgc.route_counts()
     if after["tree_gather_leaves"] - before["tree_gather_leaves"] != 1 or \
             after["tree_predict_fused"] - before["tree_predict_fused"] != 2:
         raise AssertionError(f"{name}: launch counters did not advance: {before} → {after}")
+    routes = {k: routes1[k] - routes0[k] for k in routes1}
+    if routes[route] != 3 or sum(routes.values()) != 3:
+        raise AssertionError(f"{name}: launches by route {routes}, all 3 expected on {route}")
 
     leaves_p = tg.gather_leaves_plain(*db.bank_args, xs, depth=db.depth)
     if not torch.equal(leaves_k, leaves_p):
@@ -303,8 +316,9 @@ def check_parity(name: str, model, in_smem: bool, device, rows: int = PARITY_ROW
     if not torch.equal(fused_k, fused_k2):
         raise AssertionError(f"{name}: fused kernel is not repeatable")
     res = {"bank": name, "nodes": db.n_nodes, "trees": db.n_trees,
-           "depth": db.depth, "bank_in_smem": bool(plan["bank_in_smem"]),
-           "rows": rows, "leaves_bit_equal": True,
+           "depth": db.depth, "route": route,
+           "threads_a_row": {k: p.groups for k, p in plans.items()},
+           "routes": routes, "rows": rows, "leaves_bit_equal": True,
            "fused_max_abs_err": float(err.max()),
            "fused_max_err_over_bound": float((err / tol).max())}
     log("parity " + json.dumps(res))
@@ -601,14 +615,17 @@ def read_counts() -> dict:
 
 
 def read_routes() -> dict:
-    """Launches by route since the counts were last zeroed: flash and the
+    """Launches by route since the counts were last zeroed: both tree
+    kernels together by bank route (``staged``, ``packed``); flash and the
     GMM by kernel (bfloat16 tensor cores, float32 CUDA cores); the int8
     GEMM by k route and by A route (each launch counts in both); Winograd
     by block tile."""
     from repro_torch.kernels import (flash_attention_cuda, int8_matmul_cuda,
-                                     moe_gmm_cuda, winograd_conv_cuda)
+                                     moe_gmm_cuda, tree_gather_cuda,
+                                     winograd_conv_cuda)
 
-    return {"flash_attention": flash_attention_cuda.route_counts(),
+    return {"tree_gather": tree_gather_cuda.route_counts(),
+            "flash_attention": flash_attention_cuda.route_counts(),
             "moe_gmm": moe_gmm_cuda.route_counts(),
             "int8_matmul": int8_matmul_cuda.route_counts(),
             "winograd_conv2d": winograd_conv_cuda.route_counts()}
@@ -657,6 +674,7 @@ def run_main_path(device, setting, graphs, pop, pop2, n_train: int = 32) -> dict
     reports2 = svc.predict_batch(pop2)
     batch2_s = time.perf_counter() - t0
     counts = read_counts()
+    tree_routes = read_routes()["tree_gather"]
     stats = svc.stats()
 
     # What came out, and how it was served.
@@ -679,6 +697,10 @@ def run_main_path(device, setting, graphs, pop, pop2, n_train: int = 32) -> dict
                              f"{stats['device_fused_runs']}")
     if counts["tree_gather_leaves"] == 0:
         raise AssertionError("the leaves kernel was never launched")
+    if sum(tree_routes.values()) != counts["tree_gather_leaves"] + \
+            counts["tree_predict_fused"]:
+        raise AssertionError(f"tree launches by route {tree_routes} do not add up "
+                             f"to the launches {counts}")
     res = stats["device_residency"]
     if not res["bank_uploads"] == res["banks"] == len(bank.predictors):
         raise AssertionError(f"banks uploaded more than once: {res}")
@@ -708,7 +730,7 @@ def run_main_path(device, setting, graphs, pop, pop2, n_train: int = 32) -> dict
            "launches_while_profiling": profile_counts,
            "routes_while_profiling": {k: profile_routes[k]
                                       for k in ("int8_matmul", "winograd_conv2d")},
-           "launches": counts, "backend_runs": runs,
+           "launches": counts, "tree_routes": tree_routes, "backend_runs": runs,
            "device_fused_runs": stats["device_fused_runs"],
            "bank_uploads": res["bank_uploads"], "banks": res["banks"],
            "held_out_rel_diff_vs_host_torch": rel}
@@ -1492,9 +1514,10 @@ def _timed(op_type: str, db, rows: int, d: int, fused: bool, kernel, plain,
     # queued loop inside CUDA's launch queue while the card sleeps.
     k, p = cuda_ms(kernel), cuda_ms(plain, iters=3, warmup=2)
     b_ms, b_by = bound(*traffic(db, rows, d, fused))
+    pl = tgc.plan_for(db, rows, d, fused)
     return {"op_type": op_type, "rows": rows, "trees": db.n_trees,
-            "nodes": db.n_nodes,
-            "bank_in_smem": bool(tgc._plan(db, rows, d)["bank_in_smem"]),
+            "nodes": db.n_nodes, "route": pl.route, "threads_a_row": pl.groups,
+            "rows_on_lanes": pl.rows_on_lanes,
             "max_abs_err": err, "ms": k["device"], "host_ms": k["host"],
             "plain_ms": p["device"], "plain_host_ms": p["host"],
             "numpy_ms": host_ms(numpy_tier), "bound_ms": b_ms, "bound_by": b_by}
@@ -1873,7 +1896,7 @@ def main() -> int:
         int8 = DeviceSetting("h100_int8", "int8", "op_by_op", device="h100")
 
         phase = "parity"
-        parity = [check_parity(n, m, s, device) for n, m, s in parity_models()]
+        parity = [check_parity(n, m, r, device) for n, m, r in parity_models()]
         gemm_parity = check_int8_gemm(graphs, device)
         wino_parity = check_winograd(device)
         lut_diffs = check_int8_round_trips(device)
@@ -1886,6 +1909,13 @@ def main() -> int:
 
         phase = "main path (float32)"
         main_f32 = run_main_path(device, f32, graphs, pop, pop2)
+        tree_routes = {r: main_f32["summary"]["tree_routes"][r]
+                       + sum(p["routes"][r] for p in parity)
+                       for r in main_f32["summary"]["tree_routes"]}
+        log("tree_routes " + json.dumps(tree_routes))
+        if min(tree_routes.values()) == 0:
+            raise AssertionError(f"tree routes {tree_routes}: the parity banks and "
+                                 f"the main path should take every route")
         log("host_featurize_1024_cold_s " + json.dumps(cold_featurize_s(
             synthetic_graphs(1024, resolution=224, seed0=30_000))))
 

@@ -4,14 +4,14 @@ NVIDIA H100.
 
     git archive <parent> src/repro_torch/kernels/csrc | tar -x -C build/parent
     python3 compare_kernels.py build/parent/src/repro_torch/kernels/csrc \
-        [out.json] [--only int8_matmul,winograd_conv]
-    python3 compare_kernels.py --sweep [out.json]
+        [out.json] [--only int8_matmul,winograd_conv,tree_gather]
+    python3 compare_kernels.py --sweep [out.json] [--only tree_gather]
 
-Builds the parent's sources of the chosen kernels (default: all four,
-``flash_attention``, ``moe_gmm``, ``int8_matmul``, ``winograd_conv``)
-with this tree's nvcc flags (into ``build/``), and this tree's kernels
-through their wrappers.  At each shape `chip_smoke.py` times both outputs
-are first held to their plain version, then the two are timed parent,
+Builds the parent's sources of the chosen kernels (default: all five,
+``flash_attention``, ``moe_gmm``, ``int8_matmul``, ``winograd_conv``,
+``tree_gather``) with this tree's nvcc flags (into ``build/``), and this
+tree's kernels through their wrappers.  At each shape both outputs are
+first held to their plain version, then the two are timed parent,
 change, change, parent with `chip_smoke.cuda_ms` (device time per call):
   * flash: its ``FLASH_TIMED`` cases, within ``LM_TOL``;
   * GMM: its ``GMM_TIMED`` shapes on the input sets ``_gmm_turns`` hands
@@ -21,25 +21,42 @@ change, change, parent with `chip_smoke.cuda_ms` (device time per call):
     held-out graph (`chip_smoke.int8_timed_cases`), bit-equal; the
     change gets A as the executor lays it out (im2col rows padded to 16
     bytes), the parent a contiguous copy, as its executor gave it;
-  * Winograd: the four `STUDY_SHAPES`, within ``WINO_TOL``.
+  * Winograd: the four `STUDY_SHAPES`, within ``WINO_TOL``;
+  * tree kernels (`tree_shapes`): both kernels at `TREE_ROWS` on the two
+    banks of `chip_smoke.parity_models`, the fused kernel at the main
+    path's ten op-type row counts and the leaves kernel at its held-out
+    ones, on the GBDT bank; leaves bit-equal, fused within
+    `chip_smoke.fused_tolerance` (and the change's repeatable); then the
+    same on the ``rf`` banks the service trains on chip_smoke's profiled
+    graphs (`path_rf_models`), at the main path's rows.  The
+    parent is called with its wrapper's host work, so ``host`` ms are
+    comparable; the parent's unstaged (global) route and the launch floor
+    are timed beside it.
 The library call and the bound are those of `chip_smoke.py`.  Prints the
 card line and one JSON line per shape, and writes them all to
 ``out.json`` when it is given.
 
 ``--sweep`` times, instead, every launch plan of this tree's int8 GEMM
-(block tile × split of k) at those 13 shapes and every Winograd block
-tile × step at those four, each checked first, beside the plan that
-`int8_matmul_cuda.plan` / `winograd_conv_cuda.plan` picks: the data the
-plans' rules were read from.
+(block tile × split of k) at those 13 shapes, every Winograd block
+tile × step at those four, and every threads-a-row count and lane layout
+of the tree kernels at `tree_shapes`, each checked first, beside the plan
+that `int8_matmul_cuda.plan` / `winograd_conv_cuda.plan` /
+`tree_gather_cuda.plan` picks: the data the plans' rules were read from.
 
 The parent's C interfaces are those of the commit before the int8 and
 Winograd redesign: ``int8_matmul_launch(a, bt, bias, out, m, n, k, ldb,
 scale, stream)`` (contiguous A) and ``winograd_conv_launch(tiles, u, y,
-t, c, k, stream)``; flash's and the GMM's are this tree's.
+t, c, k, stream)``; of the commit before the tree redesign:
+``tree_gather_leaves_launch(nodes, value, roots, x, out, rows, d,
+n_nodes, n_trees, depth, rows_per_block, bank_in_smem, grid, smem_bytes,
+stream)`` and ``tree_predict_fused_launch`` likewise (with mean, std,
+scale, bias and the reduction), launched as `parent_tree_plan` plans;
+flash's and the GMM's are this tree's.
 """
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import math
 import subprocess
@@ -49,7 +66,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
-KERNELS = ("flash_attention", "moe_gmm", "int8_matmul", "winograd_conv")
+KERNELS = ("flash_attention", "moe_gmm", "int8_matmul", "winograd_conv", "tree_gather")
+# Rows timed on each tree bank of `chip_smoke.parity_models` (the main
+# path's own op-type shapes are added by `tree_shapes`).
+TREE_ROWS = {"gbdt_150x4": (5, 64, 527, 2048, 11437, 32768),
+             "rf_10x14": (2048, 32768)}
 
 
 def build_parent(csrc: Path, names) -> dict:
@@ -71,14 +92,20 @@ def build_parent(csrc: Path, names) -> dict:
         "moe_gmm": [p, p, p, i, i, i, i, i, p],
         "int8_matmul": [p, p, p, p, i, i, i, i, f, p],
         "winograd_conv": [p, p, p, i, i, i, p]}
+    z = ctypes.c_size_t
+    argtypes["tree_gather_leaves"] = [p, p, p, p, p, i, i, i, i, i, i, i, i, z, p]
+    argtypes["tree_predict_fused"] = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                      f, f, i, i, z, p]
     for name, (so, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n{err}")
         lib = ctypes.CDLL(str(so))
-        launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = argtypes[name]
-        launch.restype = i
+        for fn in (("tree_gather_leaves", "tree_predict_fused")
+                   if name == "tree_gather" else (name,)):
+            launch = getattr(lib, f"{fn}_launch")
+            launch.argtypes = argtypes[fn]
+            launch.restype = i
         libs[name] = lib
     return libs
 
@@ -271,6 +298,310 @@ def compare_winograd(cs, lib, device) -> list:
     return rows
 
 
+def parent_tree_plan(n_nodes: int, rows: int, d: int, n_sm: int) -> dict:
+    """The parent's launch plan (its ``tree_gather_cuda.launch_plan``):
+    the bank in shared memory when it fits beside a 32-row block, a
+    persistent grid."""
+    rows_per_block, optin, per_sm_bytes = 32, 232448, 233472
+    x_bytes = rows_per_block * d * 4
+    bank_bytes = n_nodes * 20
+    in_smem = bank_bytes + x_bytes <= optin
+    smem = (bank_bytes if in_smem else 0) + x_bytes
+    per_sm = max(1, min(8, per_sm_bytes // (smem + 1024)))
+    return {"bank_in_smem": int(in_smem), "smem_bytes": smem,
+            "grid": max(1, min(-(-rows // rows_per_block), n_sm * per_sm))}
+
+
+# The parent's packed node array of each bank (its `CudaBank.nodes`, which
+# it built for every bank on the card), built once by `parent_nodes`.
+_PARENT_NODES: dict = {}
+
+
+def parent_nodes(db):
+    """The (n_nodes, 4) int32 node rows the parent's kernels read for the
+    bank ``db``: `tree_gather.packed_layout`, built once a bank (as the
+    parent built it once, at upload) and kept beside the bank."""
+    from repro_torch.kernels import tree_gather as tg
+
+    if id(db) not in _PARENT_NODES:
+        _PARENT_NODES[id(db)] = (db, tg.packed_layout(*db.bank_args))
+    return _PARENT_NODES[id(db)][1]
+
+
+def parent_tree(lib, db, x, fused=None, staged=True):
+    """One launch of the parent's leaves kernel, or (``fused`` = (mean,
+    std, scale, bias, kind)) of its fused kernel, with the parent
+    wrapper's host work on every call: its argument checks, the SM count
+    asked of the CUDA runtime and its launch plan.  ``staged=False`` takes the
+    parent's global route (the bank read through L1 and L2, not staged)
+    whatever the bank's size."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels._build import check_tensor
+
+    rows, d = x.shape
+    nodes = parent_nodes(db)
+    check_tensor(x, "x", torch.float32, db.device, tuple(x.shape))
+    check_tensor(nodes, "bank.nodes", torch.int32, db.device, (db.n_nodes, 4))
+    check_tensor(db.value, "bank.value", torch.float32, db.device, (db.n_nodes,))
+    check_tensor(db.roots, "bank.roots", torch.int32, db.device, (db.n_trees,))
+    if fused is not None:
+        check_tensor(fused[0], "mean", torch.float32, db.device, (d,))
+        check_tensor(fused[1], "std", torch.float32, db.device, (d,))
+    n_sm = torch.cuda.get_device_properties(db.device).multi_processor_count
+    pl = parent_tree_plan(db.n_nodes if staged else 1 << 30, rows, d, n_sm)
+    stream = torch.cuda.current_stream().cuda_stream
+    if fused is None:
+        out = torch.empty((rows, db.n_trees), dtype=torch.float32, device=x.device)
+        err = lib.tree_gather_leaves_launch(
+            nodes.data_ptr(), db.value.data_ptr(), db.roots.data_ptr(), x.data_ptr(),
+            out.data_ptr(), rows, d, db.n_nodes, db.n_trees, db.depth, 32,
+            pl["bank_in_smem"], pl["grid"], pl["smem_bytes"], stream)
+    else:
+        mean, std, scale, bias, kind = fused
+        out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+        err = lib.tree_predict_fused_launch(
+            nodes.data_ptr(), db.value.data_ptr(), db.roots.data_ptr(), x.data_ptr(),
+            mean.data_ptr(), std.data_ptr(), out.data_ptr(), rows, d, db.n_nodes,
+            db.n_trees, db.depth, 32, pl["bank_in_smem"], float(np.float32(scale)),
+            float(np.float32(bias)), int(kind == "mean"), pl["grid"], pl["smem_bytes"],
+            stream)
+    if err:
+        raise RuntimeError(f"parent tree launch failed: {err}")
+    return out
+
+
+def tree_shapes(cs) -> list:
+    """(bank, kernel, label, rows): the fixed rows of `TREE_ROWS` for both
+    kernels, then the main path's own row counts (chip_smoke's graphs:
+    each op type the 32 training graphs give a model, with at least 5
+    rows) on the GBDT bank: the fused kernel at the 1,024-graph
+    population's rows, the leaves kernel at the 8 held-out graphs'."""
+    from repro_torch.core.dataset import synthetic_graphs
+
+    graphs = synthetic_graphs(40, resolution=224)
+    types = [t for t, x in cs.per_type_matrices(graphs[:32], _all_types(graphs), True).items()
+             if len(x) >= 5]
+    pop = cs.per_type_matrices(synthetic_graphs(1024, resolution=224, seed0=10_000),
+                               types, True)
+    held = cs.per_type_matrices(graphs[32:], types, True)
+    out = [(bank, kernel, f"rows{rows}", rows) for bank, rs in TREE_ROWS.items()
+           for rows in rs for kernel in ("tree_predict_fused", "tree_gather_leaves")]
+    out += [("gbdt_150x4", "tree_predict_fused", f"main:{t}", len(x)) for t, x in pop.items()]
+    out += [("gbdt_150x4", "tree_gather_leaves", f"held:{t}", len(x)) for t, x in held.items()]
+    return out
+
+
+def _all_types(graphs) -> list:
+    from repro_torch.core.features import graph_features
+    from repro_torch.core.fusion import fuse_graph
+
+    return sorted({t for g in graphs for t in graph_features(fuse_graph(g)[1]).matrix})
+
+
+def _tree_inputs(cs, model, rows, device, seed):
+    """Raw and standardized float32 rows of chip_smoke's parity features,
+    the scaler on the card and the model's reduction."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import tree_gather as tg
+
+    rng = np.random.default_rng(seed)
+    raw = np.abs(rng.standard_normal((rows, cs.N_FEATURES))) * np.linspace(1, 50, cs.N_FEATURES)
+    xr = torch.from_numpy(raw.astype(np.float32)).to(device)
+    xs = torch.from_numpy(model.scaler.transform(raw).astype(np.float32)).to(device)
+    mean, std = tg.to_device_scaler(model.scaler, device)
+    return xr, xs, mean, std, model._device_reduction()
+
+
+def _tree_check(cs, db, got, xr, xs, mean, std, red, fused: bool, label: str) -> float:
+    """Leaves bit-equal to the plain version, or the fused prediction within
+    `chip_smoke.fused_tolerance`; returns the max |err| (0 for leaves)."""
+    import torch
+    from repro_torch.kernels import tree_gather as tg
+
+    kind, scale, bias = red
+    if not fused:
+        if not torch.equal(got, tg.gather_leaves_plain(*db.bank_args, xs, depth=db.depth)):
+            raise AssertionError(f"tree leaves differ: {label}")
+        return 0.0
+    want = tg.fused_plain(*db.bank_args, mean, std, scale, bias, xr, depth=db.depth, kind=kind)
+    leaves = tg.gather_leaves_plain(*db.bank_args, (xr - mean) / std, depth=db.depth)
+    err = (got.double() - want.double()).abs()
+    if not bool((err <= cs.fused_tolerance(leaves, want, scale, kind)).all()):
+        raise AssertionError(f"fused tree prediction off: {label}: {float(err.max())}")
+    return float(err.max())
+
+
+def _compare_tree_shape(cs, lib, db, model, kernel, bank, label, inputs) -> dict:
+    """One shape of `compare_tree`: both outputs checked, then parent,
+    change, change, parent."""
+    import torch
+    from repro_torch.kernels import tree_gather_cuda as tgc
+
+    xr, xs, mean, std, red = inputs
+    rows, d = xs.shape
+    kind, scale, bias = red
+    fused = kernel == "tree_predict_fused"
+    if fused:
+        args = (mean, std, scale, bias, kind)
+        par = lambda: parent_tree(lib, db, xr, args)  # noqa: E731
+        chg = lambda: tgc.fused_predict_cuda(db, mean, std, scale, bias, xr, kind)  # noqa: E731
+    else:
+        par = lambda: parent_tree(lib, db, xs)  # noqa: E731
+        chg = lambda: tgc.gather_leaves_cuda(db, xs)  # noqa: E731
+    errs = {who: _tree_check(cs, db, fn(), xr, xs, mean, std, red, fused,
+                             f"{who} {kernel} {bank} {label}")
+            for who, fn in (("parent", par), ("change", chg))}
+    if fused and not torch.equal(chg(), chg()):
+        raise AssertionError(f"fused tree kernel not repeatable: {bank} {label}")
+    pl = tgc.plan_for(db, rows, d, fused)
+    n_sm = torch.cuda.get_device_properties(db.device).multi_processor_count
+    row = {"kernel": kernel, "bank": bank, "case": label, "rows": rows, "d": d,
+           "trees": db.n_trees, "depth": db.depth, "nodes": db.n_nodes,
+           "plan": {"route": pl.route, "groups": pl.groups,
+                    "rows_on_lanes": pl.rows_on_lanes,
+                    "grid": pl.grid, "smem": pl.smem_bytes},
+           "parent_plan": parent_tree_plan(db.n_nodes, rows, d, n_sm),
+           "max_abs_err": errs}
+    t = [cs.cuda_ms(fn) for fn in (par, chg, chg, par)]
+    row.update({"parent_ms": [t[0]["device"], t[3]["device"]],
+                "change_ms": [t[1]["device"], t[2]["device"]],
+                "parent_host_ms": [t[0]["host"], t[3]["host"]],
+                "change_host_ms": [t[1]["host"], t[2]["host"]]})
+    row["parent_mean_ms"] = (t[0]["device"] + t[3]["device"]) / 2
+    row["change_mean_ms"] = (t[1]["device"] + t[2]["device"]) / 2
+    row["speedup"] = row["parent_mean_ms"] / row["change_mean_ms"]
+    if db.cnodes is not None:
+        # The parent's time without staging: its global route.
+        x_in, args_in = (xr, (mean, std, scale, bias, kind)) if fused else (xs, None)
+        row["parent_unstaged_ms"] = cs.cuda_ms(
+            lambda: parent_tree(lib, db, x_in, args_in, staged=False))["device"]
+    row["bound_ms"], row["bound_by"] = cs.bound(*cs.traffic(db, rows, d, fused))
+    cs.log("compare " + json.dumps(row))
+    return row
+
+
+def path_rf_models(cs, device) -> tuple:
+    """The ``rf`` banks the service trains on chip_smoke's graphs: the 40
+    graphs profiled on the card (float32 setting of the main path), then
+    `PredictorHub.train` with the ``rf`` family (`FAST_HPARAMS`) on the 32
+    training graphs, as `LatencyService` gets them.  Returns (op type →
+    model, op type → population rows, op type → held-out rows), the rows
+    float32 features as the service stages them."""
+    from repro_torch.core.dataset import synthetic_graphs
+    from repro_torch.core.profiler import DeviceSetting, ProfileSession
+    from repro_torch.pipeline import PredictorHub, ProfileStore
+
+    graphs = synthetic_graphs(40, resolution=224)
+    setting = DeviceSetting("h100_f32", "float32", "fused_groups", device="h100")
+    store = ProfileStore()
+    ProfileSession(store=store, device=device).profile_suite(graphs, setting)
+    models = PredictorHub().train(
+        store, setting, "rf", fingerprints=[g.fingerprint() for g in graphs[:32]],
+        save=False).predictors
+    pop = cs.per_type_matrices(synthetic_graphs(1024, resolution=224, seed0=10_000),
+                               models, True)
+    held = cs.per_type_matrices(graphs[32:], models, True)
+    return models, pop, held
+
+
+def compare_tree(cs, lib, device) -> list:
+    """Both tree kernels, parent vs change in turns, at `tree_shapes`, then
+    on the service's ``rf`` banks (`path_rf_models`: the fused kernel at
+    the population's rows of each op type, the leaves kernel at the
+    held-out rows, on the op type's own features); each output checked
+    first (leaves bit-equal, fused within tolerance, the change's fused
+    also repeatable); ``host`` ms a call beside ``device``, the parent's
+    unstaged route beside its plan on the GBDT bank, and the launch floor
+    (``torch.cuda._sleep(0)`` back to back)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import tree_gather as tg
+
+    models = {name: m for name, m, _ in cs.parity_models()}
+    rows_out = []
+    for i, (bank, kernel, label, rows) in enumerate(tree_shapes(cs)):
+        model = models[bank]
+        db = model.flat().device_bank(device)
+        inputs = _tree_inputs(cs, model, rows, device, seed=700 + i)
+        rows_out.append(_compare_tree_shape(cs, lib, db, model, kernel, bank,
+                                            label, inputs))
+    rf, pop, held = path_rf_models(cs, device)
+    for prefix, kernel, mats in (("rfmain:", "tree_predict_fused", pop),
+                                 ("rfheld:", "tree_gather_leaves", held)):
+        for t, raw in mats.items():
+            model = rf[t]
+            db = model.flat().device_bank(device)
+            xr = torch.from_numpy(np.ascontiguousarray(raw, dtype=np.float32)).to(device)
+            xs = torch.from_numpy(model.scaler.transform(raw.astype(np.float64))
+                                  .astype(np.float32)).to(device)
+            mean, std = tg.to_device_scaler(model.scaler, device)
+            rows_out.append(_compare_tree_shape(
+                cs, lib, db, model, kernel, f"rf_path:{t}", f"{prefix}{t}",
+                (xr, xs, mean, std, model._device_reduction())))
+    for prefix, kernel in (("main:", "tree_predict_fused"), ("held:", "tree_gather_leaves"),
+                           ("rfmain:", "tree_predict_fused"),
+                           ("rfheld:", "tree_gather_leaves")):
+        sel = [r for r in rows_out if r["case"].startswith(prefix)]
+        total = {k: math.fsum(r[k] for r in sel)
+                 for k in ("parent_mean_ms", "change_mean_ms", "bound_ms")}
+        total["speedup"] = total["parent_mean_ms"] / total["change_mean_ms"]
+        total["shapes"] = len(sel)
+        total["slower_than_parent"] = [r["case"] for r in sel if r["speedup"] < 1]
+        cs.log(f"compare {kernel}_sum_{prefix[:-1]} " + json.dumps(total))
+    floor = cs.cuda_ms(lambda: torch.cuda._sleep(0), iters=200)
+    cs.log("compare launch_floor " + json.dumps(floor))
+    rows_out.append({"kernel": "launch_floor", "device_ms": floor["device"],
+                     "host_ms": floor["host"]})
+    return rows_out
+
+
+def sweep_tree(cs, device) -> list:
+    """Every route and threads-a-row count of the tree kernels' plan at
+    `tree_shapes`: device ms each (output checked first), beside `plan`'s
+    choice."""
+    import torch
+    from repro_torch.kernels import tree_gather_cuda as tgc
+
+    models = {name: m for name, m, _ in cs.parity_models()}
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    rows_out = []
+    for i, (bank, kernel, label, rows) in enumerate(tree_shapes(cs)):
+        model = models[bank]
+        db = model.flat().device_bank(device)
+        xr, xs, mean, std, red = _tree_inputs(cs, model, rows, device, seed=700 + i)
+        kind, scale, bias = red
+        fused = kernel == "tree_predict_fused"
+        timed = []
+        route = "staged" if db.cnodes is not None else "packed"
+        for groups, on_lanes in itertools.product(tgc.GROUPS, (False, True)):
+            try:
+                pl = tgc.make_plan(route, groups, on_lanes, db.n_trees, db.depth,
+                                   rows, xs.shape[1], n_sm)
+            except ValueError:
+                continue
+            if fused:
+                fn = lambda: tgc.launch_fused(db, mean, std, scale, bias, xr, kind, pl)  # noqa: E731
+            else:
+                fn = lambda: tgc.launch_leaves(db, xs, pl)  # noqa: E731
+            _tree_check(cs, db, fn(), xr, xs, mean, std, red, fused,
+                        f"{kernel} {bank} {label} {pl}")
+            timed.append({"route": route, "groups": groups,
+                          "rows_on_lanes": on_lanes, "grid": pl.grid,
+                          "ms": cs.cuda_ms(fn, iters=30)["device"]})
+        pl = tgc.plan_for(db, rows, xs.shape[1], fused)
+        row = {"kernel": kernel, "bank": bank, "case": label, "rows": rows,
+               "plan": next(t for t in timed
+                            if (t["groups"], t["rows_on_lanes"])
+                            == (pl.groups, pl.rows_on_lanes)),
+               "best": min(timed, key=lambda t: t["ms"]), "all": timed}
+        rows_out.append(row)
+        cs.log("sweep " + json.dumps({k: row[k] for k in
+                                      ("kernel", "bank", "case", "rows", "plan", "best")}))
+    return rows_out
+
+
 def sweep_int8(cs, device) -> list:
     """Every tile and split of k the int8 kernel takes, at the 13 path
     shapes: device ms each (bit-equal first), beside `plan`'s choice."""
@@ -369,7 +700,7 @@ def main(argv) -> int:
         return 3
     import chip_smoke as cs
     from repro_torch.kernels import (_build, flash_attention_cuda, int8_matmul_cuda,
-                                     moe_gmm_cuda, winograd_conv_cuda)
+                                     moe_gmm_cuda, tree_gather_cuda, winograd_conv_cuda)
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -377,15 +708,20 @@ def main(argv) -> int:
     card = cs.card_line()
     cs.log(f"card: {card}")
     modules = {"flash_attention": flash_attention_cuda, "moe_gmm": moe_gmm_cuda,
-               "int8_matmul": int8_matmul_cuda, "winograd_conv": winograd_conv_cuda}
+               "int8_matmul": int8_matmul_cuda, "winograd_conv": winograd_conv_cuda,
+               "tree_gather": tree_gather_cuda}
     if sweep:
-        _build.build_all([int8_matmul_cuda.LIBRARY, winograd_conv_cuda.LIBRARY])
-        rows = sweep_int8(cs, device) + sweep_winograd(cs, device)
+        sweeps = {"int8_matmul": sweep_int8, "winograd_conv": sweep_winograd,
+                  "tree_gather": sweep_tree}
+        names = [n for n in names if n in sweeps]
+        _build.build_all([modules[n].LIBRARY for n in names])
+        rows = [r for n in names for r in sweeps[n](cs, device)]
     else:
         libs = build_parent(parent_csrc, names)
         _build.build_all([modules[n].LIBRARY for n in names])
         compare = {"flash_attention": compare_flash, "moe_gmm": compare_gmm,
-                   "int8_matmul": compare_int8, "winograd_conv": compare_winograd}
+                   "int8_matmul": compare_int8, "winograd_conv": compare_winograd,
+                   "tree_gather": compare_tree}
         rows = [r for n in names for r in compare[n](cs, libs[n], device)]
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)

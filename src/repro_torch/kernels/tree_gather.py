@@ -93,6 +93,45 @@ def fused_plain(feature: Tensor, threshold: Tensor, left: Tensor,
     return torch.clamp_min(b + s * red, 0.0)
 
 
+def complete_layout(feature: Tensor, threshold: Tensor, left: Tensor,
+                    right: Tensor, value: Tensor, roots: Tensor, *,
+                    depth: int) -> Tuple[Tensor, Tensor]:
+    """The bank as complete level-order trees of ``depth`` levels, the
+    layout of the kernels' ``staged`` route.
+
+    Returns ``(nodes, leaves)``: ``nodes`` (trees · (2^depth − 1), 2) int32
+    rows of {feature, threshold bits}, tree t's internal node i at
+    ``t·(2^depth − 1) + i``, whose children are 2i + 1 (``x <= thr``) and
+    2i + 2; ``leaves`` (trees · 2^depth,) float32, tree t's leaf j at
+    ``t·2^depth + j``.  Position p holds the node that ``depth`` rounds of
+    the packed walk reach by p's path, so a leaf above the last level
+    (self-looped) fills its whole subtree: every route of the complete
+    walk ends on the value the packed walk ends on, bit for bit, for any
+    input (ties and NaN included).  Built with gathers on the arrays'
+    device; ``feature`` must already be clamped to valid indices."""
+    n_trees = roots.shape[0]
+    left, right = left.long(), right.long()
+    nid = roots.long().unsqueeze(1)                       # (trees, 1): level 0
+    feats, thrs = [], []
+    for _ in range(depth):
+        feats.append(feature[nid])
+        thrs.append(threshold[nid])
+        nid = torch.stack([left[nid], right[nid]], dim=2).reshape(n_trees, -1)
+    nodes = torch.stack([torch.cat(feats, dim=1).to(torch.int32),
+                         torch.cat(thrs, dim=1).to(torch.float32).view(torch.int32)],
+                        dim=2).reshape(-1, 2).contiguous()
+    return nodes, value[nid].to(torch.float32).reshape(-1).contiguous()
+
+
+def packed_layout(feature: Tensor, threshold: Tensor, left: Tensor,
+                  right: Tensor, value: Tensor, roots: Tensor) -> Tensor:
+    """(n_nodes, 4) int32 rows of {feature, threshold bits, left, right}:
+    the node layout of the kernels' ``packed`` route (``value`` and
+    ``roots`` are read as they are)."""
+    return torch.stack([feature, threshold.view(torch.int32), left, right],
+                       dim=1).contiguous()
+
+
 class CudaBank:
     """One `FlatEnsemble`'s arrays resident on a device (the card by
     default).
@@ -101,19 +140,24 @@ class CudaBank:
     ensemble, so the host→device transfer happens once per trained
     ensemble; retrain/bank swap drops the FlatEnsemble and this bank
     with it.  Besides the reference's five node arrays and roots, a bank
-    on the card keeps ``nodes``: (n_nodes, 4) int32 rows of {feature,
-    threshold bits, left, right}, the kernels' one-load-per-round layout,
-    packed on the device from the uploaded arrays (not a second upload).
+    on the card keeps the kernels' layouts, built on the device from the
+    uploaded arrays (not a second upload): when the trees are shallow
+    enough to be kept complete (`tree_gather_cuda.has_complete`),
+    ``cnodes`` and ``cleaves`` from `complete_layout` for the ``staged``
+    route, else ``nodes``, (n_nodes, 4) int32 rows of {feature,
+    threshold bits, left, right} for the ``packed`` route.
     """
 
     __slots__ = ("device", "n_nodes", "n_trees", "n_features", "depth",
                  "feature", "threshold", "left", "right", "value", "roots",
-                 "nodes", "nbytes", "uploads", "inputs_staged", "input_bytes",
-                 "_lock")
+                 "nodes", "cnodes", "cleaves", "nbytes", "uploads",
+                 "inputs_staged", "input_bytes", "_lock")
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
         self.nodes = None
+        self.cnodes = None
+        self.cleaves = None
         self.uploads = 0
         self.inputs_staged = 0
         self.input_bytes = 0
@@ -137,9 +181,12 @@ class CudaBank:
         (db.feature, db.threshold, db.left, db.right, db.value,
          db.roots) = (torch.from_numpy(a).to(db.device) for a in host)
         if db.device.type == "cuda":
-            db.nodes = torch.stack(
-                [db.feature, db.threshold.view(torch.int32), db.left,
-                 db.right], dim=1).contiguous()
+            from repro_torch.kernels.tree_gather_cuda import has_complete
+            if has_complete(db.n_trees, db.depth):
+                db.cnodes, db.cleaves = complete_layout(*db.bank_args,
+                                                        depth=db.depth)
+            else:
+                db.nodes = packed_layout(*db.bank_args)
         db.nbytes = sum(a.nbytes for a in host)
         db.uploads = 1
         _count(banks_built=1, bank_bytes=db.nbytes)

@@ -11,6 +11,8 @@ and IEEE standardization); fused predictions differ only by the order of
 the float32 reduction over trees, bounded per row by
 2·T·u·Σ|leaf| + 4·u·|pred| with u = 2^-24.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -43,24 +45,33 @@ def _fit(family, n_trees, depth, n, d, seed):
     ("gbdt", 1, 1, 50, 1), ("gbdt", 3, 2, 80, 7), ("gbdt", 130, 2, 200, 300),
     ("gbdt", 150, 4, 600, 4099), ("rf", 10, 14, 3000, 2048)])
 def test_kernels_match_plain_versions(card, family, n_trees, depth, n_fit, rows):
+    model, rng = _fit(family, n_trees, depth, n_fit, 6, seed=rows)
+    raw = np.abs(rng.standard_normal((rows, 6))) * np.linspace(1, 30, 6)
+    _hold_tree_kernels(card, model, raw)
+
+
+def _hold_tree_kernels(card, model, raw, route=None):
+    """Both tree kernels on ``raw`` rows: one launch each (on ``route``
+    when given), leaves bit-equal to the plain version, fused within the
+    summation bound and repeatable."""
     from repro_torch.kernels import tree_gather as tg
     from repro_torch.kernels import tree_gather_cuda as tgc
 
-    model, rng = _fit(family, n_trees, depth, n_fit, 6, seed=rows)
-    raw = np.abs(rng.standard_normal((rows, 6))) * np.linspace(1, 30, 6)
     db = model.flat().device_bank(card)
     xs = torch.from_numpy(model.scaler.transform(raw).astype(np.float32)).to(card)
     xr = torch.from_numpy(raw.astype(np.float32)).to(card)
     mean, std = tg.to_device_scaler(model.scaler, card)
     kind, scale, bias = model._device_reduction()
 
-    before = tgc.launch_counts()
+    before, routes0 = tgc.launch_counts(), tgc.route_counts()
     leaves = tgc.gather_leaves_cuda(db, xs)
     fused = tgc.fused_predict_cuda(db, mean, std, scale, bias, xr, kind)
     torch.cuda.synchronize()
-    after = tgc.launch_counts()
+    after, routes1 = tgc.launch_counts(), tgc.route_counts()
     assert after["tree_gather_leaves"] == before["tree_gather_leaves"] + 1
     assert after["tree_predict_fused"] == before["tree_predict_fused"] + 1
+    if route is not None:
+        assert routes1[route] == routes0[route] + 2
 
     assert torch.equal(leaves, tg.gather_leaves_plain(*db.bank_args, xs,
                                                       depth=db.depth))
@@ -75,6 +86,80 @@ def test_kernels_match_plain_versions(card, family, n_trees, depth, n_fit, rows)
     np.testing.assert_array_equal(
         tgc.predict_trees_cuda(model.flat(), model.scaler.transform(raw), card),
         leaves.cpu().numpy().astype(np.float64))
+
+
+@pytest.fixture(scope="module")
+def gbdt_150x4(card):
+    from repro_torch.core.dataset import FAST_HPARAMS
+    from repro_torch.core.predictors import GBDTPredictor
+
+    rng = np.random.default_rng(17)
+    x = np.abs(rng.standard_normal((800, 16))) * np.linspace(1, 30, 16)
+    y = x @ rng.random(16) + 0.1
+    return GBDTPredictor(**FAST_HPARAMS["gbdt"]).fit(x, y)
+
+
+@pytest.mark.parametrize("rows", [5, 527, 11437])
+def test_tree_kernels_at_main_path_sizes(card, gbdt_150x4, rows):
+    # The held-out scoring's smallest op type, and the 1,024-graph batch's
+    # smallest and largest (pad and conv2d), on the staged route.
+    rng = np.random.default_rng(rows)
+    raw = np.abs(rng.standard_normal((rows, 16))) * np.linspace(1, 30, 16)
+    _hold_tree_kernels(card, gbdt_150x4, raw, route="staged")
+
+
+@pytest.mark.parametrize("side", [0, 1], ids=["at", "past"])
+@pytest.mark.parametrize("edge", range(4))
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "leaves"])
+def test_tree_kernels_at_each_plan_crossover(card, gbdt_150x4, fused, edge, side):
+    # Rows at each rows-an-SM crossover of the plan's tables and one past
+    # it, where the threads a row change.
+    from repro_torch.kernels import tree_gather_cuda as tgc
+
+    n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+    table = tgc.FUSED_GROUPS if fused else tgc.LEAVES_GROUPS
+    rows = int(table[edge][0] * n_sm) + side
+    db = gbdt_150x4.flat().device_bank(card)
+    assert tgc.plan_for(db, rows, 16, fused).groups == table[edge + side][1]
+    rng = np.random.default_rng(rows)
+    raw = np.abs(rng.standard_normal((rows, 16))) * np.linspace(1, 30, 16)
+    _hold_tree_kernels(card, gbdt_150x4, raw, route="staged")
+
+
+@pytest.mark.parametrize("rows", [5, 2048])
+def test_tree_kernels_on_the_packed_route(card, rows):
+    model, rng = _fit("rf", 10, 14, 3000, 6, seed=rows)
+    assert model.flat().device_bank(card).cnodes is None
+    raw = np.abs(rng.standard_normal((rows, 6))) * np.linspace(1, 30, 6)
+    _hold_tree_kernels(card, model, raw, route="packed")
+
+
+def test_tree_bank_keeps_one_layout_and_the_other_route_raises(card, gbdt_150x4):
+    from repro_torch.kernels import tree_gather_cuda as tgc
+
+    deep, _ = _fit("rf", 10, 14, 3000, 6, seed=3)
+    for model, kept, other in ((gbdt_150x4, "staged", "packed"),
+                               (deep, "packed", "staged")):
+        db = model.flat().device_bank(card)
+        assert (db.nodes is None) == (kept == "staged")
+        assert (db.cnodes is None) == (kept == "packed")
+        x = torch.zeros((8, 16), device=card)
+        pl = dataclasses.replace(tgc.plan_for(db, 8, 16, False), route=other)
+        before = tgc.launch_counts()
+        with pytest.raises(ValueError, match=f"the {other} route"):
+            tgc.launch_leaves(db, x, pl)
+        assert tgc.launch_counts() == before
+
+
+def test_tree_complete_layout_on_the_card_equals_the_host_build(card, gbdt_150x4):
+    from repro_torch.kernels import tree_gather as tg
+
+    db = gbdt_150x4.flat().device_bank(card)
+    nodes, leaves = tg.complete_layout(*(a.cpu() for a in db.bank_args),
+                                       depth=db.depth)
+    assert torch.equal(db.cnodes.cpu(), nodes)
+    assert torch.equal(db.cleaves.cpu(), leaves)
+    assert db.cnodes.data_ptr() % 16 == 0 and db.cleaves.data_ptr() % 16 == 0
 
 
 def test_wrappers_check_their_inputs(card):

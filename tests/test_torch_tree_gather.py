@@ -228,40 +228,232 @@ def test_cuda_wrappers_reject_host_banks():
 
 def test_launch_counters_reset():
     tgc.LAUNCHES["tree_gather_leaves"] += 3
+    tgc._ROUTE_COUNTER.add("packed")
     tgc.reset_launch_counts()
     assert tgc.launch_counts() == {"tree_gather_leaves": 0,
                                    "tree_predict_fused": 0}
+    assert tgc.route_counts() == {"staged": 0, "packed": 0}
 
 
-# -- launch geometry (pure arithmetic, no card needed) --------------------------
+# -- launch plan (pure arithmetic, no card needed) ------------------------------
 
-def test_launch_plan_default_gbdt_bank_in_shared_memory():
-    # FAST_HPARAMS GBDT: 150 stages of depth <= 4 → at most 150·31 nodes.
-    plan = tgc.launch_plan(150 * 31, 32768, 20, n_sm=132)
-    assert plan["bank_in_smem"] == 1
-    assert plan["smem_bytes"] == 150 * 31 * 20 + tgc.ROWS_PER_BLOCK * 20 * 4
-    assert plan["smem_bytes"] <= tgc.SMEM_OPTIN_BYTES
-    assert 1 <= plan["grid"] <= 132 * tgc.MAX_BLOCKS_PER_SM
+H100_SMS = 132
 
 
-def test_launch_plan_deep_forest_stays_in_global_memory():
-    plan = tgc.launch_plan(10 * (2 ** 15 - 1), 32768, 20, n_sm=132)
-    assert plan["bank_in_smem"] == 0
-    assert plan["smem_bytes"] == tgc.ROWS_PER_BLOCK * 20 * 4
-    assert plan["grid"] == min(32768 // tgc.ROWS_PER_BLOCK,
-                               132 * tgc.MAX_BLOCKS_PER_SM)
+def _x_bytes(pl, d):
+    return (tgc.THREADS // pl.groups) * (d | 1) * 4 + tgc.THREADS * 4
 
 
-def test_launch_plan_grid_covers_small_batches():
-    plan = tgc.launch_plan(100, 1, 5, n_sm=132)
-    assert plan["grid"] == 1
-    plan = tgc.launch_plan(100, 33, 5, n_sm=132)
-    assert plan["grid"] == 2
+def test_plan_default_gbdt_bank_is_staged_in_shared_memory():
+    # FAST_HPARAMS GBDT: 150 stages of depth <= 4, kept complete (27,600 B).
+    assert tgc.complete_bytes(150, 4) == 150 * 15 * 8 + 150 * 16 * 4
+    assert tgc.has_complete(150, 4)
+    for fused in (True, False):
+        pl = tgc.plan(fused, 150, 4, True, 32768, 20, H100_SMS)
+        assert pl.route == "staged"
+        assert pl.smem_bytes == tgc.complete_bytes(150, 4) + _x_bytes(pl, 20)
+        assert pl.smem_bytes <= tgc.SMEM_OPTIN_BYTES
+        per_sm = min(tgc.MAX_BLOCKS_PER_SM,
+                     tgc.SMEM_PER_SM_BYTES // (pl.smem_bytes + 1024))
+        assert pl.grid == min(-(-32768 // pl.rows_per_block), H100_SMS * per_sm)
+        assert pl.rows_per_block * pl.groups == tgc.THREADS
 
 
-def test_launch_plan_rejects_rows_too_wide_for_shared_memory():
+def test_plan_deep_forest_takes_the_packed_route():
+    # RF 10 x 14: the complete layout would take 1.97 MB; the packed one stays.
+    assert not tgc.has_complete(10, 14)
+    pl = tgc.plan(True, 10, 14, False, 32768, 20, H100_SMS)
+    assert pl.route == "packed"
+    assert pl.smem_bytes == _x_bytes(pl, 20)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "leaves"])
+def test_plan_threads_a_row_at_each_crossover(fused):
+    # Just below and just above every rows-an-SM crossover of the table.
+    table = tgc.FUSED_GROUPS if fused else tgc.LEAVES_GROUPS
+    for (most, g), (_, g_next) in zip(table, table[1:]):
+        at = int(most * H100_SMS)
+        assert tgc.plan(fused, 150, 4, True, at, 20, H100_SMS).groups == g
+        assert tgc.plan(fused, 150, 4, True, at + 1, 20, H100_SMS).groups == g_next
+    assert tgc.plan(fused, 150, 4, True, 1, 20, H100_SMS).groups == table[0][1]
+    assert tgc.plan(fused, 150, 4, True, 1 << 22, 20, H100_SMS).groups == table[-1][1]
+
+
+@pytest.mark.parametrize("rows", [5, 527, 11437])
+def test_plan_puts_rows_on_lanes_only_for_the_fused_kernel(rows):
+    fused = tgc.plan(True, 150, 4, True, rows, 16, H100_SMS)
+    assert fused.rows_on_lanes == (fused.groups < 32)
+    assert not tgc.plan(False, 150, 4, True, rows, 16, H100_SMS).rows_on_lanes
+
+
+def test_plan_caps_threads_a_row_at_the_tree_count():
+    # 10 trees: at most 16 threads a row, however few the rows.
+    assert tgc.plan(False, 10, 14, False, 5, 20, H100_SMS).groups == 16
+    assert tgc.plan(True, 1, 1, True, 5, 20, H100_SMS).groups == 1
+
+
+def test_plan_grid_covers_small_batches():
+    pl = tgc.plan(True, 100, 3, True, 1, 5, H100_SMS)
+    assert pl.grid == 1
+    pl = tgc.make_plan("staged", 8, True, 100, 3, pl.rows_per_block + 1, 5, H100_SMS)
+    assert pl.rows_per_block == 32
+    pl = tgc.make_plan("staged", 8, True, 100, 3, 33, 5, H100_SMS)
+    assert pl.grid == 2
+
+
+def test_plan_widens_threads_a_row_when_rows_do_not_fit():
+    # 5,000 features: 64 rows do not fit beside the bank; fewer rows do.
+    pl = tgc.plan(True, 150, 4, True, 11437, 5000, H100_SMS)
+    assert pl.groups > tgc.plan(True, 150, 4, True, 11437, 20, H100_SMS).groups
+    assert pl.smem_bytes <= tgc.SMEM_OPTIN_BYTES
+    assert pl.smem_bytes == tgc.complete_bytes(150, 4) + _x_bytes(pl, 5000)
+
+
+def test_plan_rejects_rows_too_wide_for_shared_memory():
     with pytest.raises(ValueError, match="do not fit"):
-        tgc.launch_plan(10, 100, 4096, n_sm=132)
+        tgc.plan(True, 10, 2, True, 100, 100_000, H100_SMS)
+    with pytest.raises(ValueError, match="do not fit"):
+        tgc.make_plan("packed", 1, True, 10, 14, 100, 4096, H100_SMS)
+
+
+def test_make_plan_rejects_unknown_routes_and_group_counts():
+    with pytest.raises(ValueError, match="no launch"):
+        tgc.make_plan("direct", 8, False, 150, 4, 100, 20, H100_SMS)
+    with pytest.raises(ValueError, match="no launch"):
+        tgc.make_plan("staged", 3, False, 150, 4, 100, 20, H100_SMS)
+
+
+def test_plan_is_cached_per_shape():
+    tgc.plan.cache_clear()
+    tgc.plan(True, 150, 4, True, 527, 7, H100_SMS)
+    tgc.plan(True, 150, 4, True, 527, 7, H100_SMS)
+    assert tgc.plan.cache_info().hits == 1
+
+
+def test_has_complete_limits():
+    assert not tgc.has_complete(0, 4)
+    assert tgc.complete_bytes(1, 1) == 16 + 16          # 8 B node, 8 B leaves, aligned
+    big = max(t for t in range(1, 2000) if tgc.has_complete(t, 4))
+    assert tgc.complete_bytes(big, 4) <= tgc.COMPLETE_MAX_BYTES
+    assert tgc.complete_bytes(big + 1, 4) > tgc.COMPLETE_MAX_BYTES
+
+
+# -- the complete level-order layout (walked here by a plain reader) -------------
+
+def _walk_complete(nodes, leaves, x, *, depth, n_trees):
+    """(rows, trees) leaves of the complete layout, as the kernels' staged
+    route walks it: child 2i + 1 when ``x <= thr``, else 2i + 2."""
+    n_int = (1 << depth) - 1
+    base = torch.arange(n_trees).long() * n_int
+    i = torch.zeros((x.shape[0], n_trees), dtype=torch.long)
+    for _ in range(depth):
+        nd = nodes[base + i]
+        xv = torch.gather(x, 1, nd[..., 0].long())
+        i = 2 * i + torch.where(xv <= nd[..., 1].view(torch.float32), 1, 2)
+    return leaves[torch.arange(n_trees).long() * (n_int + 1) + i - n_int]
+
+
+def _handmade_flat():
+    """Three trees over 3 features: leaves at depths 1, 2 and 3, and a
+    single-node tree (its root is a leaf)."""
+    L = -1
+    # tree 0: root f0 <= 0.5 → leaf 1.0 | (f1 <= -1 → leaf 2.0 | (f2 <= 0 → 3 | 4))
+    # tree 1: the root alone, value 7.0
+    # tree 2: root f2 <= 0.25 → (f0 <= 0 → 5 | 6) | leaf 8.0
+    feature = [0, L, 1, L, 2, L, L, L, 2, 0, L, L, L]
+    threshold = [0.5, 0, -1.0, 0, 0.0, 0, 0, 0, 0.25, 0.0, 0, 0, 0]
+    left = [1, 1, 3, 3, 5, 5, 6, 7, 9, 10, 10, 11, 12]
+    right = [2, 1, 4, 3, 6, 5, 6, 7, 12, 11, 10, 11, 12]
+    value = [0, 1.0, 0, 2.0, 0, 3.0, 4.0, 7.0, 0, 0, 5.0, 6.0, 8.0]
+    roots = [0, 7, 8]
+    arrays = [np.array(a) for a in (feature, threshold, left, right, value, roots)]
+    return arrays, 3
+
+
+def _edge_inputs(rng, thresholds, n, d):
+    """Random rows, rows equal to the bank's thresholds, and NaN features."""
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    thr = np.asarray(thresholds, dtype=np.float32)
+    x[: n // 3] = rng.choice(thr, size=(n // 3, d))          # exact ties
+    x[n // 3: n // 3 + 5, ::2] = np.nan
+    x[-1] = np.nan
+    return x
+
+
+def _layout_vs_plain(flat, x32):
+    db = flat.device_bank("cpu")
+    nodes, leaves = tg.complete_layout(*db.bank_args, depth=db.depth)
+    assert nodes.shape == (db.n_trees * ((1 << db.depth) - 1), 2)
+    assert leaves.shape == (db.n_trees * (1 << db.depth),)
+    assert nodes.dtype == torch.int32 and leaves.dtype == torch.float32
+    x = torch.from_numpy(x32)
+    got = _walk_complete(nodes, leaves, x, depth=db.depth, n_trees=db.n_trees)
+    assert torch.equal(got, tg.gather_leaves_plain(*db.bank_args, x, depth=db.depth))
+    return got
+
+
+def test_complete_layout_150x4_gbdt_bit_equal_to_plain_and_jax():
+    ref, port, rng = _fit("gbdt", 150, 4, seed=11, n=600)
+    assert port.flat().max_depth == 4
+    x = _edge_inputs(rng, port.flat().threshold, 300, D)
+    got = _layout_vs_plain(port.flat(), x)
+    assert np.array_equal(got.numpy().astype(np.float64),
+                          predict_trees_jax(ref.flat(), x.astype(np.float64)))
+
+
+def test_complete_layout_unbalanced_and_single_node_trees():
+    arrays, depth = _handmade_flat()
+    rng = np.random.default_rng(4)
+    x = _edge_inputs(rng, arrays[1], 90, 3)
+    port = convert.flat_from_arrays(*arrays, max_depth=depth)
+    got = _layout_vs_plain(port, x)
+    from repro.core.predictors.flat import FlatEnsemble as RefFlat
+    ref = RefFlat(arrays[0].astype(np.int32), arrays[1].astype(np.float64),
+                  arrays[2].astype(np.int32), arrays[3].astype(np.int32),
+                  arrays[4].astype(np.float64), arrays[5].astype(np.int32), depth)
+    assert np.array_equal(got.numpy().astype(np.float64),
+                          predict_trees_jax(ref, x.astype(np.float64)))
+    # Hand-checked rows (ties go left; NaN goes right).
+    rows = np.array([[0.5, 0, 0], [0.6, -1.0, 0.0], [0.6, -0.5, 0.1],
+                     [0.0, 0.0, 0.25], [np.nan, np.nan, np.nan]], dtype=np.float32)
+    want = torch.tensor([[1.0, 7.0, 6.0], [2.0, 7.0, 6.0], [4.0, 7.0, 6.0],
+                         [1.0, 7.0, 5.0], [4.0, 7.0, 8.0]])
+    assert torch.equal(_layout_vs_plain(port, rows), want)
+
+
+def test_complete_layout_single_node_bank():
+    arrays = [np.array(a) for a in ([-1], [0.0], [0], [0], [3.5], [0])]
+    port = convert.flat_from_arrays(*arrays, max_depth=0)
+    got = _layout_vs_plain(port, np.zeros((4, 1), dtype=np.float32))
+    assert torch.equal(got, torch.full((4, 1), 3.5))
+
+
+def test_complete_layout_depth_14_forest():
+    ref, port, rng = _fit("rf", 3, 14, seed=21, n=3000)
+    assert port.flat().max_depth == 14
+    x = _edge_inputs(rng, port.flat().threshold, 64, D)
+    got = _layout_vs_plain(port.flat(), x)
+    assert np.array_equal(got.numpy().astype(np.float64),
+                          predict_trees_jax(ref.flat(), x.astype(np.float64)))
+
+
+def test_host_bank_keeps_no_kernel_layout():
+    # The plain versions walk the reference's five arrays; only a bank on
+    # the card builds a kernel layout.
+    _, port, _ = _fit("gbdt", 4, 2, seed=2)
+    db = port.flat().device_bank("cpu")
+    assert db.cnodes is None and db.cleaves is None and db.nodes is None
+
+
+def test_packed_layout_rows_hold_feature_threshold_bits_and_children():
+    _, port, _ = _fit("rf", 3, 6, seed=4)
+    db = port.flat().device_bank("cpu")
+    nodes = tg.packed_layout(*db.bank_args)
+    assert nodes.dtype == torch.int32 and nodes.shape == (db.n_nodes, 4)
+    assert nodes.is_contiguous()
+    assert torch.equal(nodes[:, 0], db.feature)
+    assert torch.equal(nodes[:, 1].view(torch.float32), db.threshold)
+    assert torch.equal(nodes[:, 2], db.left) and torch.equal(nodes[:, 3], db.right)
 
 
 def test_library_path_is_keyed_by_sources(monkeypatch):
