@@ -54,6 +54,22 @@ result line:
        * int8 (`op_by_op`): the same through the int8 executor, whose FC
          and dense convolutions run the int8 GEMM kernel, every one of its
          routes taken (one pass and split k; A by cp.async and by words);
+       * the real-world path: the real-world suite (37 graphs of 16
+         architectures at 224×224) profiled into the float32 store (only
+         new signatures measured); banks of all four families (lasso,
+         rf, gbdt, MLP; `FAST_HPARAMS`) trained on the 32 training graphs,
+         lasso's ISTA and the MLP on the card; `evaluate_bank` on the 8
+         held-out and the real-world graphs (tree banks through the
+         leaves kernel); e2e MAPE per family and set, reported; a lasso
+         solve at a fixed α and the MLP's forward held against the port
+         on the host (`LASSO_ALPHA`, `MLP_PREDICT_TOL`);
+       * the search path: `SearchEngine` (`SEARCH_CONFIG`, the NAS
+         example's search at 224) over one `LatencyService` on the card
+         holding both GBDT banks, budgets 0.8 × the median training e2e:
+         with the float32 budget, then with both; one `predict_batch` per
+         setting per scoring round, the fused kernel launched; a rerun
+         and a run checkpointed at generation 4 and resumed give the same
+         front; the front measured on the card (`SearchReport.verify`);
        * kernel selection: Alg. C.2 for Mali G76 rewrites the 40 graphs;
          those with a Winograd op are profiled on the float32 store (only
          the new ops are measured, through the Winograd kernel), then the
@@ -93,11 +109,14 @@ directory that does not hold ``src/repro_torch``, it exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -824,6 +843,271 @@ def run_selection_path(device, setting, graphs, store) -> dict:
                              f"{len(new_sigs)} Winograd ops were new")
     log("selection_path " + json.dumps(out))
     return {"summary": out, "study": study, "graphs": wino}
+
+
+# -- the real-world path and the search path ---------------------------------------
+
+FAMILIES = ("lasso", "rf", "gbdt", "mlp")
+# Card against host, at the CPU tests' tolerances (tests/test_torch_predictors.py):
+# the lasso solve at a fixed α within one float32 rounding of the iterate's
+# scale a step; the MLP forward within MLP_PREDICT_TOL × max |prediction|.
+LASSO_ALPHA = 1e-3
+MLP_PREDICT_TOL = 1e-5
+# The NAS example's search (examples/nas_latency_search.py) at the paper's
+# resolution; budgets 0.8 × the median measured e2e of each setting's
+# training graphs, as that example sets them.
+SEARCH_CONFIG = dict(population_size=32, generations=8, children_per_gen=24,
+                     seed=0, quality="flops", front_capacity=6, resolution=224)
+BUDGET_FRACTION = 0.8
+CHECKPOINT_GEN = 4
+
+
+def _dataset(store, setting, graphs):
+    from repro_torch.core.dataset import LatencyDataset
+    from repro_torch.pipeline import setting_key
+
+    return LatencyDataset(setting_key(setting), store.arch_records(
+        setting, fingerprints=[g.fingerprint() for g in graphs]))
+
+
+def check_lasso_and_mlp_on_host(mlp_bank, ds, device) -> dict:
+    """The largest op type's training table: a lasso solve at a fixed α
+    and the trained MLP's forward, card against the port on the host."""
+    import numpy as np
+    from repro_torch.core.predictors import LassoPredictor, load_predictor
+
+    tables = ds.op_tables()
+    op_type = max(tables, key=lambda t: len(tables[t][1]))
+    x, y = tables[op_type]
+    card = LassoPredictor(alpha=LASSO_ALPHA, device=device).fit(x, y)
+    host = LassoPredictor(alpha=LASSO_ALPHA, device="cpu").fit(x, y)
+    lasso_err = float(np.abs(card.w - host.w).max())
+    lasso_tol = card.iters * U32 * max(1.0, float(np.abs(host.w).max()))
+    if card.fit_device.type != device.type or not lasso_err <= lasso_tol:
+        raise AssertionError(f"lasso on {card.fit_device} vs host: {lasso_err} "
+                             f"> {lasso_tol}")
+    mlp = mlp_bank.predictors[op_type]
+    got = mlp.predict(x)
+    want = load_predictor(mlp.to_json(), device="cpu").predict(x)
+    mlp_err = float(np.abs(got - want).max())
+    mlp_tol = MLP_PREDICT_TOL * float(np.abs(want).max())
+    if not mlp_err <= mlp_tol:
+        raise AssertionError(f"MLP forward on {mlp.device} vs host: {mlp_err} > {mlp_tol}")
+    return {"op_type": op_type, "rows": len(y), "lasso_max_abs_err": lasso_err,
+            "lasso_tol": lasso_tol, "mlp_max_abs_err": mlp_err, "mlp_tol": mlp_tol}
+
+
+def run_realworld_path(device, setting, graphs, store, n_train: int = 32,
+                       resolution: int = 224) -> dict:
+    """Profile the real-world suite into the float32 store, train all four
+    families on the main path's 32 training graphs, and score the held-out
+    synthetic graphs and the real-world graphs with `evaluate_bank` (tree
+    banks through the leaves kernel, the MLP on the card)."""
+    import numpy as np
+    from repro_torch.core.dataset import evaluate_bank, realworld_graphs
+    from repro_torch.core.fusion import fuse_graph
+    from repro_torch.core.ir import op_signature
+    from repro_torch.core.predictors.flat import device_tier
+    from repro_torch.core.profiler import ProfileSession
+    from repro_torch.core.realworld import REALWORLD
+    from repro_torch.pipeline import PredictorHub
+
+    rw = realworld_graphs(resolution=resolution)
+    train, held = graphs[:n_train], graphs[n_train:]
+    sigs = {op_signature(e, n) for e in (fuse_graph(g)[1] for g in rw) for n in e.nodes}
+    new_sigs = {sg for sg in sigs if store.get_op(setting, sg) is None}
+    reset_counts()
+    session = ProfileSession(store=store, device=device)
+    t0 = time.perf_counter()
+    session.profile_suite(rw, setting)
+    profile_s = time.perf_counter() - t0
+    if session.measured_ops > len(new_sigs):
+        raise AssertionError(f"profiled {session.measured_ops} ops; only "
+                             f"{len(new_sigs)} real-world signatures were new")
+
+    hub = PredictorHub(device=device)
+    banks, train_s = {}, {}
+    for family in FAMILIES:
+        t0 = time.perf_counter()
+        banks[family] = hub.train(store, setting, family,
+                                  fingerprints=[g.fingerprint() for g in train])
+        train_s[family] = time.perf_counter() - t0
+    op_types = sorted(banks["gbdt"].predictors)
+    for family, bank in banks.items():
+        if sorted(bank.predictors) != op_types:
+            raise AssertionError(f"{family} bank covers {sorted(bank.predictors)}, "
+                                 f"gbdt {op_types}")
+    fit_devices = {f: sorted({str(m.fit_device) for m in banks[f].predictors.values()})
+                   for f in ("lasso", "mlp")}
+    for family, devs in fit_devices.items():
+        if {d.split(":")[0] for d in devs} != {device.type}:
+            raise AssertionError(f"{family} trained on {devs}, not {device.type}")
+    for t, m in banks["lasso"].predictors.items():
+        if (m.feature_weights < 0).any():
+            raise AssertionError(f"negative lasso feature weight for {t}")
+
+    sets = {"held_out": _dataset(store, setting, held),
+            "realworld": _dataset(store, setting, rw)}
+    if len(sets["realworld"].archs) != len(rw):
+        raise AssertionError("a real-world graph has no arch record")
+    tier = device_tier(device)
+    per_type = per_type_matrices(held + rw, op_types, f32=False)
+    reports, launches = {}, {}
+    for family, bank in banks.items():
+        trees = [m for m in bank.predictors.values() if m.tree_model() is not None]
+        for m in trees:
+            m.inference_backend = tier
+        reset_counts()
+        for name, ds in sets.items():
+            rep = evaluate_bank(ds, bank, list(range(len(ds.archs))))
+            if not np.isfinite(rep["y_pred"]).all():
+                raise AssertionError(f"{family}: non-finite e2e prediction on {name}")
+            reports[(family, name)] = rep
+        for t, x in per_type.items():
+            p = bank.predictors[t].predict(x)
+            if not (np.isfinite(p).all() and (p >= 0).all()):
+                raise AssertionError(f"{family}/{t}: prediction not finite and >= 0")
+        launches[family] = read_counts()
+        for m in trees:
+            m.inference_backend = "numpy"
+        if trees and launches[family]["tree_gather_leaves"] == 0:
+            raise AssertionError(f"{family}: the leaves kernel was never launched")
+    on_host = check_lasso_and_mlp_on_host(banks["mlp"], _dataset(store, setting, train),
+                                          device)
+
+    per_family = {}
+    for family in FAMILIES:
+        row = {"train_s": train_s[family],
+               "e2e_mape_held_out": reports[(family, "held_out")]["e2e_mape"],
+               "e2e_mape_realworld": reports[(family, "realworld")]["e2e_mape"],
+               "leaves_launches": launches[family]["tree_gather_leaves"]}
+        if family in fit_devices:
+            row["fit_device"] = fit_devices[family]
+        per_family[family] = row
+        log(f"realworld_family {family} " + json.dumps(row))
+    out = {"graphs": len(rw), "architectures": len(REALWORLD.names()),
+           "new_signatures": len(new_sigs), "measured_ops": session.measured_ops,
+           "profile_s": profile_s, "op_types": op_types, "per_family": per_family,
+           "card_vs_host": on_host}
+    log("realworld_path " + json.dumps(out))
+    return {"summary": out, "banks": banks}
+
+
+@contextlib.contextmanager
+def timed_featurization():
+    """Seconds `predict_batch` spends fusing and featurizing graphs on the
+    host (the service module's two calls, timed while the block runs)."""
+    from repro_torch.pipeline import service
+
+    spent = [0.0]
+    originals = {n: getattr(service, n) for n in ("fuse_graph", "graph_features")}
+
+    def timed(fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return call
+
+    for n, fn in originals.items():
+        setattr(service, n, timed(fn))
+    try:
+        yield spent
+    finally:
+        for n, fn in originals.items():
+            setattr(service, n, fn)
+
+
+def run_search_path(device, settings: dict, graphs, n_train: int = 32) -> dict:
+    """`SearchEngine` over one `LatencyService` on the card holding the
+    float32 and int8 GBDT banks of the main paths: with the float32
+    budget, then with both; a rerun and a checkpoint/resume of the second;
+    the front verified by measurement on the card."""
+    import numpy as np
+    from repro_torch.core.profiler import ProfileSession
+    from repro_torch.pipeline import LatencyService, PredictorHub
+    from repro_torch.search import DeviceBudget, SearchConfig, SearchEngine
+
+    hub = PredictorHub(device=device)
+    budgets = []
+    for setting, (bank, store) in settings.items():
+        hub.register(setting, "gbdt", bank)
+        e2e = [store.get_arch(setting, g.fingerprint()).e2e_s for g in graphs[:n_train]]
+        budgets.append(DeviceBudget(setting, BUDGET_FRACTION * float(np.median(e2e))))
+    primary = budgets[0].setting
+    cfg = SearchConfig(**SEARCH_CONFIG)
+
+    def service():
+        return LatencyService(hub, default_setting=primary, predictor="gbdt",
+                              device=device)
+
+    def search(bs, svc, label):
+        reset_counts()
+        with timed_featurization() as spent:
+            rep = SearchEngine(svc, bs, cfg).run()
+        counts = read_counts()
+        rounds = sum(1 for st in rep.stats if st.new_scored > 0)
+        promised = rounds * len(bs)
+        stats = svc.stats()
+        if not rep.predict_batch_calls == svc.predict_batch_calls == promised:
+            raise AssertionError(
+                f"{label}: predict_batch calls {rep.predict_batch_calls} (report), "
+                f"{svc.predict_batch_calls} (service); promised {rounds} rounds × "
+                f"{len(bs)} settings = {promised}")
+        if counts["tree_predict_fused"] == 0:
+            raise AssertionError(f"{label}: the fused kernel was never launched")
+        if counts["tree_predict_fused"] != stats["device_fused_runs"]:
+            raise AssertionError(f"{label}: fused launches {counts['tree_predict_fused']}"
+                                 f" != fused runs {stats['device_fused_runs']}")
+        if not rep.front:
+            raise AssertionError(f"{label}: empty front")
+        row = {"budgets_s": {b.key: b.budget_s for b in bs},
+               "generations": rep.generations, "wall_s": rep.wall_time_s,
+               "s_per_generation": rep.wall_time_s / rep.generations,
+               "candidates_scored": rep.candidates_scored,
+               "scoring_rounds": rounds, "predict_batch_calls": rep.predict_batch_calls,
+               "fused_launches": counts["tree_predict_fused"],
+               "fused_launches_per_round_and_setting": counts["tree_predict_fused"]
+               / promised,
+               "backend_runs": stats["backend_runs"],
+               "featurize_s": spent[0], "featurize_share": spent[0] / rep.wall_time_s,
+               "front_size": len(rep.front)}
+        log(f"search {label} " + json.dumps(row))
+        return rep, row
+
+    f32_rep, f32_row = search(budgets[:1], service(), "f32")
+    both_rep, both_row = search(budgets, service(), "both")
+    again, _ = search(budgets, service(), "rerun")
+    if again.front_json() != both_rep.front_json():
+        raise AssertionError("a rerun of the search gave another front")
+    svc = service()
+    eng = SearchEngine(svc, budgets, cfg)
+    for _ in range(CHECKPOINT_GEN):
+        eng.step()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = eng.save(os.path.join(tmp, "search.json"))
+        resumed = SearchEngine.load(path, svc).run()
+    if resumed.front_json() != both_rep.front_json():
+        raise AssertionError("a search resumed at generation "
+                             f"{CHECKPOINT_GEN} gave another front")
+
+    session = ProfileSession(device=device)
+    t0 = time.perf_counter()
+    verified = both_rep.verify(session, primary)
+    verify_s = time.perf_counter() - t0
+    if not verified["n_verified"] == len(both_rep.front) == session.measured_graphs:
+        raise AssertionError(f"verified {verified['n_verified']} of "
+                             f"{len(both_rep.front)} front members, measured "
+                             f"{session.measured_graphs} graphs")
+    out = {"f32": f32_row, "both": both_row, "rerun_equal": True,
+           "resumed_at": CHECKPOINT_GEN, "resume_equal": True,
+           "verify": {"setting": verified["setting"], "n_verified": verified["n_verified"],
+                      "mape": verified["mape"], "seconds": verify_s,
+                      "rows": verified["rows"]}}
+    log("search_path " + json.dumps(out))
+    return {"summary": out}
 
 
 # -- the LM serving path (Granite-MoE) -------------------------------------------
@@ -1930,6 +2214,17 @@ def main() -> int:
                 min(i8_routes.values()) == 0:
             raise AssertionError(f"int8 GEMM routes {i8_routes} for {i8_launches} "
                                  f"launches: every route should be taken")
+
+        phase = "real-world path"
+        t0 = time.perf_counter()
+        run_realworld_path(device, f32, graphs, main_f32["store"])
+        log(f"realworld_path_s {time.perf_counter() - t0:.1f}")
+
+        phase = "search path"
+        t0 = time.perf_counter()
+        run_search_path(device, {f32: (main_f32["bank"], main_f32["store"]),
+                                 int8: (main_i8["bank"], main_i8["store"])}, graphs)
+        log(f"search_path_s {time.perf_counter() - t0:.1f}")
 
         phase = "selection path"
         sel = run_selection_path(device, f32, graphs, main_f32["store"])

@@ -2,14 +2,14 @@
 
 The port never takes the reference's objects: these functions take what
 the reference serializes (the dicts of ``Predictor.to_json()`` and
-``PredictorBank.to_json()``), a flattened ensemble's numpy arrays, or an
-LM's parameter tree as numpy arrays, and rebuild the port's own objects
-from them.  Both packages then compute with the same values, which is
-what the parity tests rely on.
+``PredictorBank.to_json()``), a flattened ensemble's numpy arrays, an
+MLP's ``[(w, b), …]`` or an LM's parameter tree as numpy arrays, and
+rebuild the port's own objects from them.  Both packages then compute
+with the same values, which is what the parity tests rely on.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,14 +22,29 @@ from repro_torch.models.transformer import check_plain_stack
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
-def predictor_from_reference(d: Dict[str, Any]) -> Predictor:
-    """A fitted port predictor from a reference ``Predictor.to_json()`` dict."""
-    return load_predictor(d)
+def predictor_from_reference(d: Dict[str, Any],
+                             device: DeviceLike = "cuda") -> Predictor:
+    """A fitted port predictor from a reference ``Predictor.to_json()``
+    dict (a lasso or MLP predictor on ``device``)."""
+    return load_predictor(d, device)
 
 
-def bank_from_reference(d: Dict[str, Any]) -> PredictorBank:
+def bank_from_reference(d: Dict[str, Any],
+                        device: DeviceLike = "cuda") -> PredictorBank:
     """A port bank from a reference ``PredictorBank.to_json()`` dict."""
-    return PredictorBank.from_json(d)
+    return PredictorBank.from_json(d, device)
+
+
+def mlp_params_from_reference(params: Sequence[Tuple[Any, Any]],
+                              device: DeviceLike = "cuda"
+                              ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The port MLP's parameters from the reference's ``[(w, b), …]``
+    (numpy arrays, ``w`` of shape (din, dout)): float32 tensors on
+    ``device``, in the same layout."""
+    dev = resolve_device(device)
+    return [(torch.tensor(np.asarray(w), dtype=torch.float32, device=dev),
+             torch.tensor(np.asarray(b), dtype=torch.float32, device=dev))
+            for w, b in params]
 
 
 def flat_from_arrays(feature: np.ndarray, threshold: np.ndarray,

@@ -18,6 +18,7 @@ from repro_torch.core.features import featurize, graph_features
 from repro_torch.core.fusion import fuse_graph
 from repro_torch.core.ir import OpGraph
 from repro_torch.core.predictors.base import Predictor
+from repro_torch.utils.device import DeviceLike
 
 
 @dataclass
@@ -91,13 +92,16 @@ class PredictorBank:
         }
 
     @classmethod
-    def from_json(cls, d: Dict) -> "PredictorBank":
+    def from_json(cls, d: Dict, device: DeviceLike = "cuda") -> "PredictorBank":
+        """Inverse of `to_json`; device-bound predictors (lasso, MLP)
+        are rebuilt on ``device``."""
         from repro_torch.core.predictors.base import load_predictor
 
         bank = cls(setting=d["setting"], overhead=float(d["overhead"]),
                    overhead_per_kernel=float(d["overhead_per_kernel"]),
                    op_sum_scale=float(d["op_sum_scale"]))
-        bank.predictors = {t: load_predictor(p) for t, p in d["predictors"].items()}
+        bank.predictors = {t: load_predictor(p, device)
+                           for t, p in d["predictors"].items()}
         return bank.warm()
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -16,8 +17,10 @@ import numpy as np
 
 from repro_torch.core.composition import PredictorBank, estimate_overhead
 from repro_torch.core.nas_space import NASSpaceConfig, sample_dataset
-from repro_torch.core.profiler import ArchRecord
-from repro_torch.core.predictors import PREDICTORS, Predictor
+from repro_torch.core.profiler import ArchRecord, DeviceSetting, OpRecord, ProfileSession
+from repro_torch.core.realworld import build_realworld_suite
+from repro_torch.core.predictors import Predictor, build_predictor
+from repro_torch.utils.device import DeviceLike
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("repro.dataset")
@@ -104,8 +107,49 @@ class LatencyDataset:
         return np.asarray([self.archs[i].e2e_s for i in idxs])
 
 
+# ---------------------------------------------------------------------------
+# Build / cache
+# ---------------------------------------------------------------------------
+
+def build_dataset(
+    graphs,
+    setting: DeviceSetting,
+    cache_path: Optional[str] = None,
+    session: Optional[ProfileSession] = None,
+    store: Optional[Any] = None,
+    device: DeviceLike = "cuda",
+) -> LatencyDataset:
+    """Profile ``graphs`` (or load the JSON cache) into a LatencyDataset.
+
+    ``store`` (a `repro_torch.pipeline.ProfileStore`) makes profiling
+    incremental across processes: already-measured signatures are read
+    back instead of re-measured, and new measurements are persisted.
+    A new session profiles on ``device``.
+    """
+    if cache_path and os.path.exists(cache_path):
+        ds = LatencyDataset.load(cache_path)
+        if len(ds.archs) >= len(graphs):
+            log.info("loaded cached dataset %s (%d archs)", cache_path, len(ds.archs))
+            return ds
+    session = session or ProfileSession(store=store, device=device)
+    if store is not None and session.store is None:
+        session.store = store
+    t0 = time.time()
+    archs = session.profile_suite(graphs, setting)
+    log.info("profiled %d archs under %s in %.0fs",
+             len(archs), setting.name, time.time() - t0)
+    ds = LatencyDataset(setting.name, archs)
+    if cache_path:
+        ds.save(cache_path)
+    return ds
+
+
 def synthetic_graphs(n: int, resolution: int = 32, seed0: int = 0):
     return sample_dataset(n, NASSpaceConfig(resolution=resolution), seed0=seed0)
+
+
+def realworld_graphs(resolution: int = 32):
+    return build_realworld_suite(resolution=resolution)
 
 
 # ---------------------------------------------------------------------------
@@ -129,8 +173,10 @@ def fit_predictor_bank(
     min_samples: int = 5,
     seed: int = 0,
     overhead_model: str = "constant",
+    device: DeviceLike = "cuda",
 ) -> PredictorBank:
-    """Train one predictor per op type on the given architecture subset."""
+    """Train one predictor per op type on the given architecture subset
+    (device-bound families — lasso, MLP — fit on ``device``)."""
     if train_idx is None:
         train_idx = list(range(len(ds.archs)))
     hp = dict(FAST_HPARAMS.get(predictor, {}))
@@ -139,7 +185,7 @@ def fit_predictor_bank(
     for op_type, (x, y) in sorted(ds.op_tables(train_idx).items()):
         if len(y) < min_samples or x.shape[1] == 0:
             continue
-        model: Predictor = PREDICTORS.get(predictor)(seed=seed, **hp)
+        model: Predictor = build_predictor(predictor, device, seed=seed, **hp)
         try:
             model.fit(x, y)
         except Exception as e:  # pragma: no cover - robustness on tiny data
@@ -165,3 +211,33 @@ def fit_predictor_bank(
     else:
         bank.overhead = estimate_overhead(e2e, sums)
     return bank.warm()
+
+
+def evaluate_bank(
+    ds: LatencyDataset,
+    bank: PredictorBank,
+    test_idx: Sequence[int],
+) -> Dict[str, Any]:
+    """End-to-end + per-op-type MAPE on test architectures (paper Fig. 14)."""
+    from repro_torch.core.composition import mape, mape_per_type
+
+    y_true, y_pred, per_op = [], [], []
+    for i in test_idx:
+        rec = ds.archs[i]
+        pred = bank.overhead + bank.overhead_per_kernel * rec.num_kernels
+        for op in rec.ops:
+            model = bank.predictors.get(op.op_type)
+            if model is None:
+                continue
+            p = float(np.maximum(model.predict(np.asarray([op.features]))[0], 0.0))
+            pred += bank.op_sum_scale * p
+            per_op.append((op.op_type, op.latency_s, p))
+        y_true.append(rec.e2e_s)
+        y_pred.append(pred)
+    return {
+        "e2e_mape": mape(y_true, y_pred),
+        "per_op_mape": mape_per_type(per_op),
+        "n_test": len(test_idx),
+        "y_true": y_true,
+        "y_pred": y_pred,
+    }

@@ -1,12 +1,16 @@
-"""Per-operation latency predictors ported so far: RF and GBDT.
+"""Per-operation latency predictors (paper §4.2): Lasso, RF, GBDT, MLP.
 
-Lasso, MLP and the transfer layer's calibrated wrapper come in later
-slices; `load_predictor` raises NotImplementedError for them.
+Lasso fits and the MLP trains and predicts on a torch device (the card
+unless ``device="cpu"``); the tree families predict on the tier the
+serving layer picks.  The transfer layer's calibrated wrapper comes in a
+later slice; `load_predictor` raises NotImplementedError for it.
 """
 from repro_torch.core.predictors.base import (
+    NOT_YET_PORTED,
     PREDICTORS,
     Predictor,
     Standardizer,
+    build_predictor,
     cross_val_mape,
     grid_search,
     load_predictor,
@@ -14,13 +18,16 @@ from repro_torch.core.predictors.base import (
 )
 from repro_torch.core.predictors.flat import FlatEnsemble
 from repro_torch.core.predictors.gbdt import GBDTPredictor, fit_gbdt_with_cv
+from repro_torch.core.predictors.lasso import LassoPredictor
+from repro_torch.core.predictors.mlp import MLPPredictor
 from repro_torch.core.predictors.random_forest import RandomForestPredictor, fit_rf_with_cv
 
 __all__ = [
-    "PREDICTORS", "Predictor", "Standardizer", "cross_val_mape", "grid_search",
-    "load_predictor", "relative_weights", "FlatEnsemble",
-    "RandomForestPredictor", "GBDTPredictor", "fit_rf_with_cv",
-    "fit_gbdt_with_cv",
+    "NOT_YET_PORTED", "PREDICTORS", "Predictor", "Standardizer",
+    "build_predictor", "cross_val_mape", "grid_search", "load_predictor",
+    "relative_weights", "FlatEnsemble", "LassoPredictor",
+    "RandomForestPredictor", "GBDTPredictor", "MLPPredictor",
+    "fit_rf_with_cv", "fit_gbdt_with_cv",
 ]
 
 

@@ -14,11 +14,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.utils.device import DeviceLike
 from repro_torch.utils.registry import Registry
 
 PREDICTORS = Registry("predictor")
 # Families the reference serves that this package does not register yet.
-NOT_YET_PORTED = ("lasso", "mlp", "calibrated")
+NOT_YET_PORTED = ("calibrated",)
 
 
 @dataclass
@@ -52,6 +53,10 @@ class Predictor:
     """Base: fit(X, y) on raw features; predict(X) returns latency."""
 
     name = "base"
+    # True for families that fit (and, for the MLP, predict) on a torch
+    # device and so take a ``device`` argument; the tree families get
+    # theirs from the serving layer at predict time instead.
+    device_bound = False
 
     def __init__(self, **hparams: Any):
         self.hparams = dict(hparams)
@@ -138,15 +143,26 @@ class Predictor:
         }
 
 
-def load_predictor(d: Dict[str, Any]) -> "Predictor":
-    """Rebuild a fitted predictor from `Predictor.to_json` output."""
+def build_predictor(name: str, device: DeviceLike = "cuda",
+                    **config: Any) -> "Predictor":
+    """An unfitted predictor of family ``name``; ``device`` goes to the
+    families that run on a torch device (`Predictor.device_bound`)."""
+    cls = PREDICTORS.get(name)
+    if cls.device_bound:
+        config["device"] = device
+    return cls(**config)
+
+
+def load_predictor(d: Dict[str, Any], device: DeviceLike = "cuda") -> "Predictor":
+    """Rebuild a fitted predictor from `Predictor.to_json` output
+    (``device``: where a device-bound family fits and predicts)."""
     import repro_torch.core.predictors  # noqa: F401 — populate the registry
 
     if d["name"] in NOT_YET_PORTED:
         raise NotImplementedError(
             f"predictor family {d['name']!r} is not ported to repro_torch "
             f"yet; this package loads {list(PREDICTORS.names())} banks")
-    model: Predictor = PREDICTORS.get(d["name"])(**d["config"])
+    model = build_predictor(d["name"], device, **d["config"])
     model.scaler = Standardizer.from_json(d["scaler"])
     model._state_from_json(d["state"])
     return model

@@ -6,6 +6,10 @@ the paper's §4.2 flow — per-op-type fits + T_overhead estimation —
 via `repro.core.dataset.fit_predictor_bank`.  Banks round-trip to JSON
 (every predictor family serializes bit-exactly), so a trained hub can
 be shipped to a serving process that never profiles.
+
+Port notes: the hub's ``device`` (the card unless ``device="cpu"``) is
+where the device-bound families — lasso and the MLP — train, and where
+banks read from disk rebuild them; tree banks do not use it.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 from repro_torch.core.composition import PredictorBank
 from repro_torch.core.profiler import DeviceSetting
 from repro_torch.pipeline.store import ProfileStore, setting_key
+from repro_torch.utils.device import DeviceLike
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("repro.pipeline.hub")
@@ -32,11 +37,13 @@ class PredictorHub:
     """Registry of trained per-op-type predictor banks.
 
     ``root`` (optional) is a directory where banks are saved as one JSON
-    file each; `load` restores every bank found there.
+    file each; `load` restores every bank found there.  ``device`` is
+    where lasso and MLP banks train and are restored.
     """
 
-    def __init__(self, root: Optional[str] = None):
+    def __init__(self, root: Optional[str] = None, device: DeviceLike = "cuda"):
         self.root = root
+        self.device = device
         self.banks: Dict[Tuple[str, str], PredictorBank] = {}
         # Bumped on every (re)train so caches keyed on hub output —
         # LatencyService's report LRU — know to invalidate.
@@ -103,7 +110,8 @@ class PredictorHub:
             self._ds_cache[ds_key] = (store, ds)
         bank = fit_predictor_bank(ds, family, hparams=hparams,
                                   min_samples=min_samples, seed=seed,
-                                  overhead_model=overhead_model)
+                                  overhead_model=overhead_model,
+                                  device=self.device)
         key = (setting_key(setting), family)
         self._install(key, bank)
         log.info("trained %s bank for %s on %d archs (%d op types)",
@@ -165,7 +173,7 @@ class PredictorHub:
             path = os.path.join(self.root, _bank_filename(*key))
             if os.path.exists(path):
                 with open(path) as f:
-                    bank = PredictorBank.from_json(json.load(f))
+                    bank = PredictorBank.from_json(json.load(f), self.device)
                 self.banks[key] = bank
         return bank
 
@@ -229,14 +237,15 @@ class PredictorHub:
         return self.root
 
     @classmethod
-    def load(cls, root: str) -> "PredictorHub":
-        """Restore every ``bank__*.json`` under ``root``.
+    def load(cls, root: str, device: DeviceLike = "cuda") -> "PredictorHub":
+        """Restore every ``bank__*.json`` under ``root`` (lasso and MLP
+        predictors on ``device``).
 
         Non-bank and malformed JSON files are skipped with a warning
         rather than raising: a hub directory may also hold sibling
         artifacts (transfer calibration maps, notes, reports).
         """
-        hub = cls(root)
+        hub = cls(root, device)
         if os.path.isdir(root):
             for fn in sorted(os.listdir(root)):
                 if not (fn.startswith("bank__") and fn.endswith(".json")):
@@ -252,7 +261,7 @@ class PredictorHub:
                 path = os.path.join(root, fn)
                 try:
                     with open(path) as f:
-                        bank = PredictorBank.from_json(json.load(f))
+                        bank = PredictorBank.from_json(json.load(f), device)
                 except (json.JSONDecodeError, KeyError, TypeError,
                         ValueError, OSError) as e:
                     log.warning("skipping %s: not a loadable bank (%s)", fn, e)

@@ -192,7 +192,7 @@ class LatencyService:
         else:
             session.store = store
         session.profile_suite(graphs, setting)
-        hub = PredictorHub(hub_root)
+        hub = PredictorHub(hub_root, device=device)
         fps = [g.fingerprint() for g in (train_graphs if train_graphs is not None
                                          else graphs)]
         hub.train(store, setting, predictor, hparams=hparams,

@@ -60,7 +60,11 @@ def test_port_has_the_slice_modules():
                 "models/moe.py", "models/transformer.py",
                 "models/model_factory.py", "serving/__init__.py",
                 "serving/engine.py", "kernels/ssd_scan.py",
-                "kernels/ssd_scan_cuda.py", "models/ssm.py", "models/hybrid.py"):
+                "kernels/ssd_scan_cuda.py", "models/ssm.py", "models/hybrid.py",
+                "core/predictors/lasso.py", "core/predictors/mlp.py",
+                "core/realworld.py", "search/__init__.py", "search/pareto.py",
+                "search/encoding.py", "search/objectives.py",
+                "search/evolution.py"):
         assert mod in names
     for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
                 "flash_attention.cu", "moe_gmm.cu", "ssd_scan.cu",
@@ -129,8 +133,32 @@ def _graph():
     return synthetic_graphs(1, resolution=16)[0]
 
 
+def _linear():
+    rng = np.random.default_rng(0)
+    x = rng.random((40, 3))
+    return x, x.sum(1) + 1
+
+
+def _setting():
+    from repro_torch.core.profiler import DeviceSetting
+
+    return DeviceSetting("cpu_f32", "float32", "op_by_op")
+
+
+def _store():
+    """One graph profiled on the host."""
+    from repro_torch.core.profiler import ProfileSession
+    from repro_torch.pipeline import ProfileStore
+
+    store = ProfileStore()
+    ProfileSession(store=store, warmup=0, inner=1, repeats=1, e2e_inner=1,
+                   e2e_repeats=1, device="cpu").profile_graph(_graph(), _setting())
+    return store
+
+
 def _entry_points():
     from repro_torch.core.executor import GraphExecutor, build_op_fn
+    from repro_torch.core.predictors import LassoPredictor, MLPPredictor, load_predictor
     from repro_torch.core.profiler import ProfileSession
     from repro_torch.quant import build_quant_op_fn
     from repro_torch.kernels.tree_gather import CudaBank, to_device_scaler
@@ -169,6 +197,12 @@ def _entry_points():
         "hybrid ServeEngine": lambda: ServeEngine(hybrid, hybrid.init(0, device="cpu")),
         "lm_params_from_reference": lambda: lm_params_from_reference(
             {"layers": {"w": np.zeros((4, 2))}}, get_arch("qwen2-72b").reduced()),
+        "LassoPredictor": lambda: LassoPredictor(),
+        "MLPPredictor": lambda: MLPPredictor(),
+        "load_predictor(lasso)": lambda: load_predictor(
+            LassoPredictor(device="cpu").fit(*_linear()).to_json()),
+        "PredictorHub.train(mlp)": lambda: PredictorHub().train(
+            _store(), _setting(), "mlp", hparams={"max_epochs": 5}),
     }
 
 

@@ -19,7 +19,7 @@ from repro.pipeline import ProfileStore as RefStore  # noqa: E402
 from repro.transfer.synthetic import CostModelProfileSession  # noqa: E402
 
 from repro_torch.core.dataset import synthetic_graphs  # noqa: E402
-from repro_torch.core.predictors.base import load_predictor  # noqa: E402
+from repro_torch.core.predictors.base import NOT_YET_PORTED, load_predictor  # noqa: E402
 from repro_torch.core.profiler import DeviceSetting  # noqa: E402
 from repro_torch.pipeline import LatencyService, PredictorHub, ProfileStore  # noqa: E402
 
@@ -176,7 +176,7 @@ def test_build_profiles_trains_and_serves_on_the_host(tmp_path):
     assert svc.stats()["backend_runs"] == {"torch": svc.stats()["device_fused_runs"]}
 
 
-@pytest.mark.parametrize("family", ["lasso", "mlp", "calibrated"])
+@pytest.mark.parametrize("family", NOT_YET_PORTED)
 def test_unported_families_raise_clearly(family):
     with pytest.raises(NotImplementedError, match="not ported"):
         load_predictor({"name": family, "config": {}, "scaler": {}, "state": {}})

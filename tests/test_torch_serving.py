@@ -13,6 +13,7 @@ freed slot's cache is not reset, and past ``max_len`` cache writes are
 dropped while attention reads the whole cache.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -24,7 +25,11 @@ import jax  # noqa: E402
 from repro.configs import get_arch as rget  # noqa: E402
 from repro.models import build_model as rbuild  # noqa: E402
 from repro.models import transformer as rtf  # noqa: E402
+from repro.core.dataset import synthetic_graphs as ref_graphs  # noqa: E402
+from repro.core.profiler import DeviceSetting as RefSetting  # noqa: E402
+from repro.pipeline import ProfileStore as RefStore  # noqa: E402
 from repro.serving import ServeEngine as RefEngine  # noqa: E402
+from repro.transfer.synthetic import CostModelProfileSession  # noqa: E402
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import lm_params_from_reference  # noqa: E402
@@ -34,6 +39,11 @@ from repro_torch.models import build_model, transformer  # noqa: E402
 from repro_torch.pipeline import LatencyService  # noqa: E402
 from repro_torch.rpc.protocol import RPCError  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
+
+# One intra-op thread per xdist worker's share of the cores: these tests
+# run beside the reference's wall-clock profiling tests.
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TOL = 1e-5
 ARCH = "granite-moe-1b-a400m"
@@ -166,12 +176,23 @@ class _StubModel:
 
 
 @pytest.fixture(scope="module")
-def service():
-    setting = DeviceSetting("cpu_f32", "float32", "op_by_op")
-    graphs = synthetic_graphs(5, resolution=16, seed0=70)
-    svc = LatencyService.build(graphs, setting, hparams={"n_stages": 5},
-                               device="cpu")
-    return svc, setting, graphs
+def service(tmp_path_factory):
+    """A lasso bank on six size-varied graphs, as the reference's own
+    serving test trains one (`tests/test_pipeline.py`), built on a store
+    that the reference's hardware-free `CostModelProfileSession` wrote:
+    `LatencyService.build` finds every graph there and measures nothing,
+    so the predicted step does not depend on how loaded the host is."""
+    setting = ("cpu_f32", "float32", "op_by_op")
+    path = str(tmp_path_factory.mktemp("store") / "store.jsonl")
+    ref_store = RefStore(path)
+    CostModelProfileSession(store=ref_store).profile_suite(
+        ref_graphs(6, resolution=16, seed0=70), RefSetting(*setting))
+    ref_store.close()
+    graphs = synthetic_graphs(6, resolution=16, seed0=70)
+    svc = LatencyService.build(graphs, DeviceSetting(*setting), store=path,
+                               predictor="lasso", device="cpu")
+    assert svc.session.measured_graphs == 0
+    return svc, DeviceSetting(*setting), graphs
 
 
 def test_predicted_step_latency(service):
