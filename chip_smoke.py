@@ -54,6 +54,26 @@ result line:
        * int8 (`op_by_op`): the same through the int8 executor, whose FC
          and dense convolutions run the int8 GEMM kernel, every one of its
          routes taken (one pass and split k; A by cp.async and by words);
+       * the transfer path: the int8 setting onboarded as a new device
+         from K measurements (`run_transfer_path`).  A float32
+         ``op_by_op`` source is profiled on the card (40 graphs, a store
+         of its own) with a GBDT bank on the 32 training graphs; at each
+         K of `TRANSFER_BUDGETS` `TransferEngine` measures at most K
+         sampled ops through a fresh int8 `ProfileSession` on the card
+         (the int8 GEMM launched; ratio-scaled composition) and the
+         calibrated bank scores the 8 held-out graphs through the leaves
+         kernel: finite and > 0, only the ``cuda`` tier; held-out e2e MAPE
+         against the int8 main path's measurements, beside that path's
+         fully trained bank, reported.  Then one service with an
+         `Observability` bundle holds both banks: a `LatencyScorer` with
+         budgets on both settings over 64 fresh graphs (one
+         `predict_batch` per setting, the fused kernel for the source, the
+         leaves kernel for the target, the target's median budget leaves
+         some but not all feasible, one ``service.predict_batch`` span per
+         call and one ``service.kernel`` span per ``cuda`` run, none in
+         error), and the drift monitor fed by a second target session
+         measuring the held-out graphs' ops (one observation per op with a
+         predictor);
        * the real-world path: the real-world suite (37 graphs of 16
          architectures at 224×224) profiled into the float32 store (only
          new signatures measured); banks of all four families (lasso,
@@ -81,7 +101,9 @@ result line:
          4 × 1,024 tokens (24 flash and 72 GMM launches) and a 4-slot
          `ServeEngine` answering 8 requests of 16 new tokens (72 GMM
          launches per decode step), every one on the bfloat16 tensor-core
-         route; then a forward and decode steps under torch.profiler for
+         route, its steps counted in an `Observability` registry
+         (``serve_steps_total`` and the ``serve_step_duration`` count equal
+         the engine's steps); then a forward and decode steps under torch.profiler for
          the time split, the flash and GMM shares and the idle share;
        * the SSM and hybrid path: Mamba2 2.7B, then Zamba2 1.2B, at full
          width and depth from the port's own init (seed 0), each with
@@ -1110,6 +1132,203 @@ def run_search_path(device, settings: dict, graphs, n_train: int = 32) -> dict:
     return {"summary": out}
 
 
+# -- the transfer path (a second device setting from K measurements) -------------
+
+TRANSFER_BUDGETS = (16, 64)
+SCORER_GRAPHS = 64
+
+
+def run_transfer_path(device, target, graphs, oracle, n_train: int = 32,
+                      resolution: int = 224) -> dict:
+    """Onboard ``target`` (the int8 ``op_by_op`` setting, treated as a new
+    device) from K measurements on the card and serve it.
+
+    The source is a float32 ``op_by_op`` setting, profiled on the card into
+    a store of its own (its signatures are those of the unfused graph, the
+    int8 target's too) with a GBDT bank on the training graphs.  For each K
+    of `TRANSFER_BUDGETS`, `TransferEngine` samples K source ops, measures
+    them on the card through a fresh `ProfileSession` with an empty store
+    (the int8 GEMM runs) located in the training graphs (``probe_graphs``),
+    and registers a calibrated bank in a hub of its own; the held-out
+    graphs are scored with it (the leaves kernel: a calibrated tree bank
+    takes the swap path) against ``oracle``, the int8 main path, whose
+    bank was trained on fully profiled int8 data and whose measured
+    held-out e2e are the truth.  Then one `LatencyService` with an
+    `Observability` bundle holds both banks: a `LatencyScorer` with
+    budgets on both settings over `SCORER_GRAPHS` fresh graphs, its spans
+    read back; and the drift monitor fed by a second fresh target session
+    measuring the held-out graphs' ops.  Every launch count is zeroed just
+    before each step and read just after it."""
+    import numpy as np
+    from repro_torch.core.composition import mape
+    from repro_torch.core.dataset import synthetic_graphs
+    from repro_torch.core.features import graph_features
+    from repro_torch.core.ir import op_signature
+    from repro_torch.core.predictors.flat import device_tier
+    from repro_torch.core.profiler import DeviceSetting, ProfileSession
+    from repro_torch.obs import Observability, attach_session_drift
+    from repro_torch.pipeline import LatencyService, PredictorHub, ProfileStore
+    from repro_torch.pipeline.store import setting_key
+    from repro_torch.search import DeviceBudget, LatencyScorer
+    from repro_torch.transfer import TransferEngine
+
+    source = DeviceSetting("h100_f32_op", "float32", "op_by_op", device="h100")
+    train, held = graphs[:n_train], graphs[n_train:]
+    tier = device_tier(device)
+    launches = {}
+
+    reset_counts()
+    src_store = ProfileStore()
+    t0 = time.perf_counter()
+    ProfileSession(store=src_store, device=device).profile_suite(graphs, source)
+    source_profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    src_bank = PredictorHub(device=device).train(
+        src_store, source, "gbdt", fingerprints=[g.fingerprint() for g in train])
+    source_train_s = time.perf_counter() - t0
+    launches["source_profile_and_train"] = read_counts()
+
+    o_store = oracle["store"]
+    truth = [o_store.get_arch(target, g.fingerprint()).e2e_s for g in held]
+    oracle_ops = sum(len(o_store.get_arch(target, g.fingerprint()).ops) for g in train)
+    rows, hubs = [], {}
+    for k in TRANSFER_BUDGETS:
+        hub = PredictorHub(device=device)
+        hub.register(source, "gbdt", src_bank)
+        session = ProfileSession(store=ProfileStore(), device=device)
+        engine = TransferEngine(source, target, family="gbdt", seed=0,
+                                probe_graphs=train)
+        reset_counts()
+        t0 = time.perf_counter()
+        result = engine.adapt(src_store, hub, session, k)
+        adapt_s = time.perf_counter() - t0
+        measuring = read_counts()
+        if not result.n_measurements <= k or \
+                session.measured_ops + session.measured_graphs > k:
+            raise AssertionError(f"K={k}: {result.n_measurements} measurements, "
+                                 f"session {session.stats()}")
+        if result.composition != "ratio-scaled" or session.measured_graphs != 0:
+            raise AssertionError(f"K={k}: composition {result.composition}, "
+                                 f"{session.measured_graphs} graphs measured")
+        if measuring["int8_matmul"] == 0:
+            raise AssertionError(f"K={k}: the int8 GEMM was never launched while "
+                                 f"measuring the target")
+        svc = LatencyService(hub, predictor="gbdt", device=device)
+        reset_counts()
+        reports = svc.predict_batch(held, target)
+        scoring = read_counts()
+        stats = svc.stats()
+        vals = np.array([r.e2e_s for r in reports]
+                        + [p for r in reports for _, p in r.per_op])
+        if not (np.isfinite(vals).all() and min(r.e2e_s for r in reports) > 0):
+            raise AssertionError(f"K={k}: predictions not finite and > 0")
+        if set(stats["backend_runs"]) != {tier} or stats["device_fused_runs"] != 0:
+            raise AssertionError(f"K={k}: the calibrated bank ran on "
+                                 f"{stats['backend_runs']}, fused "
+                                 f"{stats['device_fused_runs']}")
+        if scoring["tree_gather_leaves"] == 0:
+            raise AssertionError(f"K={k}: the leaves kernel was never launched")
+        row = {"k": k, "result": result.to_json(), "adapt_s": adapt_s,
+               "measured_ops": session.measured_ops,
+               "measured_graphs": session.measured_graphs,
+               # Sampled from the whole source store, measured only where
+               # the probe (training) graphs hold the signature.
+               "sampled_not_in_probe_graphs": len(result.plan.records)
+               - result.n_op_measurements,
+               "e2e_mape_held_out": mape(truth, [r.e2e_s for r in reports]),
+               "oracle_e2e_mape_held_out": oracle["summary"]["e2e_mape_held_out"],
+               "oracle_trained_on_ops": oracle_ops,
+               "oracle_measured_ops": oracle["summary"]["measured_ops"],
+               "launches_while_measuring": measuring,
+               "launches_while_scoring": scoring,
+               "backend_runs": stats["backend_runs"]}
+        log("transfer " + json.dumps(row))
+        rows.append(row)
+        hubs[k] = hub
+        launches[f"adapt_k{k}"], launches[f"score_k{k}"] = measuring, scoring
+
+    # Multi-device scoring through one observed service: source + target.
+    bundle = Observability(seed=0)
+    svc = LatencyService(hubs[TRANSFER_BUDGETS[-1]], default_setting=source,
+                         predictor="gbdt", obs=bundle, device=device)
+    fresh = synthetic_graphs(SCORER_GRAPHS, resolution=resolution, seed0=40_000)
+    loose = LatencyScorer(svc, [DeviceBudget(source, 1e9), DeviceBudget(target, 1e9)])
+    reset_counts()
+    lats = loose.score(fresh)
+    scorer = read_counts()
+    launches["scorer"] = scorer
+    skeys = {setting_key(source), setting_key(target)}
+    if set(lats) != skeys or svc.predict_batch_calls != 2 or \
+            not loose.feasible_mask(lats).all():
+        raise AssertionError(f"scorer keys {sorted(lats)}, "
+                             f"{svc.predict_batch_calls} predict_batch calls")
+    t_med = float(np.median(lats[setting_key(target)]))
+    tight = LatencyScorer(svc, [DeviceBudget(source, 1e9), DeviceBudget(target, t_med)])
+    feasible = int(tight.feasible_mask(lats).sum())
+    if not 0 < feasible < SCORER_GRAPHS:
+        raise AssertionError(f"target budget at its median left {feasible} of "
+                             f"{SCORER_GRAPHS} feasible")
+    if scorer["tree_predict_fused"] == 0 or scorer["tree_gather_leaves"] == 0:
+        raise AssertionError(f"scorer launches {scorer}: the source bank takes "
+                             f"the fused kernel, the calibrated bank the leaves")
+    stats = svc.stats()
+    spans = bundle.tracer.export()
+    n_batch = sum(1 for sp in spans if sp["name"] == "service.predict_batch")
+    n_kernel = sum(1 for sp in spans if sp["name"] == "service.kernel"
+                   and sp["attrs"].get("backend") == tier)
+    errors = [sp for sp in spans if sp["status"] == "error"]
+    if n_batch != stats["predict_batch_calls"] or \
+            n_kernel != stats["backend_runs"].get(tier, 0) or errors:
+        raise AssertionError(f"spans: {n_batch} predict_batch for "
+                             f"{stats['predict_batch_calls']} calls, {n_kernel} "
+                             f"{tier} kernel spans for {stats['backend_runs']}, "
+                             f"{len(errors)} ended in error")
+
+    # The drift monitor fed by a second fresh target session on the card.
+    tbank = hubs[TRANSFER_BUDGETS[-1]].get(target, "gbdt")
+    drift_sess = ProfileSession(store=ProfileStore(), device=device)
+    attach_session_drift(drift_sess, svc, bundle.drift)
+    reset_counts()
+    with_predictor, seen = 0, set()
+    for g in held:
+        gf = graph_features(g)
+        for j, node in enumerate(g.nodes):
+            drift_sess.measure_op(g, node, target,
+                                  features=(gf.node_names(j), gf.node_features(j)))
+            sig = op_signature(g, node)
+            if sig not in seen:
+                seen.add(sig)
+                with_predictor += int(node.op_type in tbank.predictors)
+    launches["drift"] = read_counts()
+    drift = bundle.drift.snapshot()
+    if drift_sess.measured_ops != len(seen) or drift["observations"] != with_predictor:
+        raise AssertionError(f"drift observed {drift['observations']} of "
+                             f"{with_predictor} ops with a predictor "
+                             f"({drift_sess.measured_ops} measured)")
+    out = {"source": f"{source.name} ({setting_key(source)})",
+           "target": f"{target.name} ({setting_key(target)})",
+           "source_profile_s": source_profile_s, "source_train_s": source_train_s,
+           "source_measured_ops": len(src_store.op_records(source)),
+           "budgets": [{k: r[k] for k in ("k", "adapt_s", "measured_ops",
+                                           "e2e_mape_held_out")} for r in rows],
+           "oracle_e2e_mape_held_out": oracle["summary"]["e2e_mape_held_out"],
+           "oracle_trained_on_ops": oracle_ops,
+           "scorer": {"graphs": SCORER_GRAPHS, "keys": sorted(lats),
+                      "predict_batch_calls": stats["predict_batch_calls"],
+                      "target_median_s": t_med, "feasible_at_median": feasible,
+                      "backend_runs": stats["backend_runs"],
+                      "device_fused_runs": stats["device_fused_runs"],
+                      "spans_predict_batch": n_batch, "spans_kernel": n_kernel},
+           "drift": {"measured_ops": drift_sess.measured_ops,
+                     "observations": drift["observations"],
+                     "score": drift["score"],
+                     "worst_cells": bundle.drift.worst_cells(3)},
+           "launches": launches}
+    log("transfer_drift " + json.dumps(drift))
+    log("transfer_path " + json.dumps(out))
+    return {"summary": out}
+
+
 # -- the LM serving path (Granite-MoE) -------------------------------------------
 
 LM_ARCH = "granite-moe-1b-a400m"
@@ -1454,6 +1673,7 @@ def run_lm_path(device, new_tokens: int = 16) -> dict:
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
+    from repro_torch.obs import Observability
     from repro_torch.serving import ServeEngine
 
     cfg = get_arch(LM_ARCH)
@@ -1490,7 +1710,9 @@ def run_lm_path(device, new_tokens: int = 16) -> dict:
         raise AssertionError(f"bfloat16 forward off the tensor-core route: {fwd_routes}")
     del logits
 
-    engine = ServeEngine(model, params, batch_slots=4, max_len=512, device=device)
+    bundle = Observability(seed=0)
+    engine = ServeEngine(model, params, batch_slots=4, max_len=512, obs=bundle,
+                         device=device)
     prompts = _serve_prompts(cfg.vocab_size)
     for prompt in prompts:
         engine.submit(prompt, max_new_tokens=new_tokens)
@@ -1502,6 +1724,12 @@ def run_lm_path(device, new_tokens: int = 16) -> dict:
     served = {k: counts[k] - fwd[k] for k in counts}
     stats = engine.stats()
     calls = stats["steps"] + sum(len(p) - 1 for p in prompts)
+    # The step counters live in the obs registry (the reference's names).
+    obs_steps = bundle.registry.get("serve_steps_total", engine="engine0")
+    obs_hist = bundle.registry.hist_stats("serve_step_duration", engine="engine0")
+    if not obs_steps == obs_hist["count"] == stats["steps"] > 0:
+        raise AssertionError(f"serve_steps_total {obs_steps}, serve_step_duration "
+                             f"count {obs_hist['count']}, engine steps {stats['steps']}")
     if len(done) != len(prompts) or any(
             len(r.generated) != new_tokens or not all(0 <= t < cfg.vocab_size
                                                       for t in r.generated)
@@ -1525,6 +1753,8 @@ def run_lm_path(device, new_tokens: int = 16) -> dict:
            "prompt_tokens": int(sum(len(p) for p in prompts)),
            "tokens_generated": sum(len(r.generated) for r in done),
            "decode_steps": stats["steps"], "decode_step_calls": calls,
+           "obs_serve_steps_total": obs_steps,
+           "obs_serve_step_duration": {k: obs_hist[k] for k in ("count", "sum")},
            "serve_s": serve_s,
            "tokens_per_s": sum(len(r.generated) for r in done) / serve_s,
            "mean_step_ms": 1e3 * stats["measured_step_s"],
@@ -2214,6 +2444,11 @@ def main() -> int:
                 min(i8_routes.values()) == 0:
             raise AssertionError(f"int8 GEMM routes {i8_routes} for {i8_launches} "
                                  f"launches: every route should be taken")
+
+        phase = "transfer path"
+        t0 = time.perf_counter()
+        run_transfer_path(device, int8, graphs, main_i8)
+        log(f"transfer_path_s {time.perf_counter() - t0:.1f}")
 
         phase = "real-world path"
         t0 = time.perf_counter()

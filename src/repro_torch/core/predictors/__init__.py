@@ -2,11 +2,11 @@
 
 Lasso fits and the MLP trains and predicts on a torch device (the card
 unless ``device="cpu"``); the tree families predict on the tier the
-serving layer picks.  The transfer layer's calibrated wrapper comes in a
-later slice; `load_predictor` raises NotImplementedError for it.
+serving layer picks.  The transfer layer's calibrated wrapper registers
+itself from `repro_torch.transfer.calibration`, which `load_predictor`
+imports on first use.
 """
 from repro_torch.core.predictors.base import (
-    NOT_YET_PORTED,
     PREDICTORS,
     Predictor,
     Standardizer,
@@ -23,7 +23,7 @@ from repro_torch.core.predictors.mlp import MLPPredictor
 from repro_torch.core.predictors.random_forest import RandomForestPredictor, fit_rf_with_cv
 
 __all__ = [
-    "NOT_YET_PORTED", "PREDICTORS", "Predictor", "Standardizer",
+    "PREDICTORS", "Predictor", "Standardizer",
     "build_predictor", "cross_val_mape", "grid_search", "load_predictor",
     "relative_weights", "FlatEnsemble", "LassoPredictor",
     "RandomForestPredictor", "GBDTPredictor", "MLPPredictor",

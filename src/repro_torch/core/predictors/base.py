@@ -18,8 +18,6 @@ from repro_torch.utils.device import DeviceLike
 from repro_torch.utils.registry import Registry
 
 PREDICTORS = Registry("predictor")
-# Families the reference serves that this package does not register yet.
-NOT_YET_PORTED = ("calibrated",)
 
 
 @dataclass
@@ -158,10 +156,12 @@ def load_predictor(d: Dict[str, Any], device: DeviceLike = "cuda") -> "Predictor
     (``device``: where a device-bound family fits and predicts)."""
     import repro_torch.core.predictors  # noqa: F401 — populate the registry
 
-    if d["name"] in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"predictor family {d['name']!r} is not ported to repro_torch "
-            f"yet; this package loads {list(PREDICTORS.names())} banks")
+    if d["name"] not in PREDICTORS:
+        # Higher layers register extra families (the transfer layer's
+        # "calibrated" wrapper); pull them in lazily so a bank saved by
+        # that layer loads in a process that never imported it.  The
+        # module is part of this package: a failed import raises.
+        import repro_torch.transfer.calibration  # noqa: F401
     model = build_predictor(d["name"], device, **d["config"])
     model.scaler = Standardizer.from_json(d["scaler"])
     model._state_from_json(d["state"])

@@ -46,7 +46,7 @@ class DeviceSetting:
     ``device`` is a physical-device identity tag.  It defaults to empty —
     the single-device keys (`"dtype/mode"`) every store/hub was built
     with stay unchanged — and is set by the cross-device transfer layer
-    (`repro.transfer`) so banks for a *target* device coexist in one hub
+    (`repro_torch.transfer`) so banks for a *target* device coexist in one hub
     with the profiled source device's banks.
     """
 
@@ -168,7 +168,7 @@ class ProfileSession:
         # Optional hook fired once per *fresh* op measurement (cache and
         # store hits don't fire) with
         # ``(setting, op_type, (feature_names, feature_vals), latency_s)``
-        # — how `repro.obs.attach_session_drift` taps the profiler to
+        # — how `repro_torch.obs.attach_session_drift` taps the profiler to
         # feed the predicted-vs-observed drift monitor.  Hook failures
         # never poison the measurement path.
         self.on_measure = on_measure

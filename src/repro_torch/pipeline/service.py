@@ -21,7 +21,7 @@ GPU-like settings (``fused_groups``) are predicted on the fused graph,
 mirroring how they were profiled.
 
 One service can serve many devices: banks registered in the hub under
-device-tagged setting keys (`repro.transfer`'s calibrated target banks)
+device-tagged setting keys (`repro_torch.transfer`'s calibrated target banks)
 resolve through the same ``predict_e2e(graph, setting)`` call — the
 setting's key picks the bank, and reports/caches are keyed per device.
 
@@ -36,9 +36,10 @@ itself runs outside the cache lock — concurrent fresh queries for the
 Port notes (twin of the reference's ``repro.pipeline.service``): the
 service serves on ``device`` — the card unless ``device="cpu"`` — and
 its device tier is ``"cuda"`` (the fused CUDA kernel, one launch per op
-type per flush) or ``"torch"`` on the host.  Counters are plain integers
-under the service lock with the reference's names, so `stats()` has the
-same keys; there is no tracer yet.
+type per flush) or ``"torch"`` on the host.  Counters live in the
+`repro_torch.obs` registry under the reference's names, and the spans
+are the reference's; a span's ``backend`` attribute holds the port's
+tier names (``cuda``, ``torch``, ``numpy``, ``direct``).
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ from repro_torch.core.fusion import fuse_graph
 from repro_torch.core.ir import OpGraph
 from repro_torch.core.profiler import DeviceSetting, ProfileSession
 from repro_torch.kernels.tree_gather import residency_counters
+from repro_torch.obs import Observability
 from repro_torch.pipeline.hub import PredictorHub
 from repro_torch.pipeline.store import ProfileStore, setting_key
 from repro_torch.utils.device import DeviceLike, resolve_device
@@ -118,6 +120,7 @@ class LatencyService:
                  default_setting: Optional[DeviceSetting] = None,
                  predictor: str = "gbdt", cache_size: int = 1024,
                  inference_backend: str = "auto",
+                 obs: Optional[Observability] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         self.hub = hub
@@ -130,12 +133,18 @@ class LatencyService:
         # Which backend each per-type call actually took is recorded in
         # ``backend_runs`` (see `stats`).
         self.inference_backend = inference_backend
-        # Counters: plain integers guarded by ``_lock``.
-        self.predict_batch_calls = 0
-        self.cache_hits = 0
-        self.cache_misses = 0
-        self.device_fused_runs = 0
-        self.backend_runs: Dict[str, int] = {}
+        # Counters live in the obs registry (share one bundle across
+        # service/batcher/server for whole-system snapshots); the
+        # `backend_runs`/`cache_hits`/... properties below are views.
+        self.obs = obs or Observability.quiet()
+        self._oid = self.obs.instance("service")
+        reg = self.obs.registry
+        for name in ("service_predict_batch_calls_total",
+                     "service_cache_hits_total",
+                     "service_cache_misses_total",
+                     "service_device_fused_runs_total",
+                     "service_backend_runs_total"):
+            reg.counter(name)
         self._cache: "OrderedDict[Tuple[str, str, str], PredictionReport]" = OrderedDict()
         self._hub_version = hub.version
         # Guards the report cache + every counter (reentrant: _insert
@@ -148,11 +157,34 @@ class LatencyService:
         self.store: Optional[ProfileStore] = None
         self.session: Optional[ProfileSession] = None
 
-    def _tally(self, backend: str, fused: bool = False) -> None:
-        """Count one per-op-type model call on ``backend``."""
-        with self._lock:
-            self.backend_runs[backend] = self.backend_runs.get(backend, 0) + 1
-            self.device_fused_runs += int(fused)
+    # -- registry-backed counters --------------------------------------------
+    def _inc(self, name: str, value: int = 1, **labels: Any) -> None:
+        self.obs.registry.inc(name, value, service=self._oid, **labels)
+
+    def _cnt(self, name: str) -> int:
+        return int(self.obs.registry.get(name, service=self._oid))
+
+    @property
+    def predict_batch_calls(self) -> int:
+        return self._cnt("service_predict_batch_calls_total")
+
+    @property
+    def cache_hits(self) -> int:
+        return self._cnt("service_cache_hits_total")
+
+    @property
+    def cache_misses(self) -> int:
+        return self._cnt("service_cache_misses_total")
+
+    @property
+    def device_fused_runs(self) -> int:
+        return self._cnt("service_device_fused_runs_total")
+
+    @property
+    def backend_runs(self) -> Dict[str, int]:
+        vals = self.obs.registry.labeled_values(
+            "service_backend_runs_total", "backend", service=self._oid)
+        return {k: int(v) for k, v in vals.items()}
 
     # -- construction --------------------------------------------------------
     @classmethod
@@ -240,8 +272,11 @@ class LatencyService:
         # Fingerprinting mutates the graph's memo slot — do it outside
         # the lock (graphs are caller-owned; the cache/counters aren't).
         fps = [g.fingerprint() for g in graphs]
+        span = self.obs.tracer.start_span(
+            "service.predict_batch",
+            attrs={"setting": skey, "family": family, "graphs": len(graphs)})
         with self._lock:
-            self.predict_batch_calls += 1
+            self._inc("service_predict_batch_calls_total")
             if self._hub_version != self.hub.version:   # bank(s) retrained
                 self._cache.clear()
                 self._hub_version = self.hub.version
@@ -252,21 +287,29 @@ class LatencyService:
                 hit = self._cache.get(ck)
                 if hit is not None:
                     self._cache.move_to_end(ck)
-                    self.cache_hits += 1
+                    self._inc("service_cache_hits_total")
                     out[i] = replace(hit, from_cache=True)
                 else:
-                    self.cache_misses += 1
+                    self._inc("service_cache_misses_total")
                     fresh.append((i, fp, g))
+        span.set_attr("fresh", len(fresh))
         if not fresh:
+            span.end()
             return out  # type: ignore[return-value]
-        return self._predict_fresh(setting, family, skey, out, fresh,
-                                   bank_version)
+        try:
+            return self._predict_fresh(setting, family, skey, out, fresh,
+                                       bank_version, span)
+        except BaseException:
+            span.end("error")
+            raise
 
     def _predict_fresh(self, setting: DeviceSetting, family: str, skey: str,
                        out: List[Optional[PredictionReport]],
                        fresh: List[Tuple[int, str, OpGraph]],
-                       bank_version: int) -> List[PredictionReport]:
-        """The uncached tail of `predict_batch`."""
+                       bank_version: int, span: Any
+                       ) -> List[PredictionReport]:
+        """The uncached tail of `predict_batch` (split out so the span
+        around it ends exactly once on every exit path)."""
         bank, bank_epoch = self._bank(setting, family)
         # Fused-mode scenarios are profiled (and therefore predicted) on
         # the fused graph — same rewrite GraphExecutor applies.
@@ -321,6 +364,7 @@ class LatencyService:
                 if self._hub_version == bank_version:
                     self._insert((fp, skey, family), report)
             out[i] = report
+        span.end()
         return out  # type: ignore[return-value]
 
     def cache_peek(self, graph: OpGraph,
@@ -345,7 +389,7 @@ class LatencyService:
             if hit is None:
                 return None
             self._cache.move_to_end(ck)
-            self.cache_hits += 1
+            self._inc("service_cache_hits_total")
             return replace(hit, from_cache=True)
 
     def predict_multi(self, graphs: Sequence[OpGraph],
@@ -394,18 +438,28 @@ class LatencyService:
         flat_model = model.tree_model() if hasattr(model, "tree_model") \
             else None
         if flat_model is None:
-            self._tally("direct")
+            self._inc("service_backend_runs_total", backend="direct")
+            self.obs.tracer.event("service.kernel",
+                                  attrs={"op_type": op_type or "",
+                                         "backend": "direct"})
             return model.predict(host_x())
         n_rows = (len(x) if group is None
                   else sum(len(gf.matrix[op_type]) for gf in group))
         backend = resolve_backend(self.inference_backend,
                                   n_rows * flat_model.flat().n_trees,
                                   self.device)
+        span = self.obs.tracer.start_span(
+            "service.kernel", attrs={"op_type": op_type or "",
+                                     "backend": backend, "rows": n_rows})
         # Device tiers on an unwrapped tree model take the fused path:
         # standardize → traverse → reduce → clamp in one kernel launch
         # on the resident bank, fed float32 feature matrices with no
         # host float64 bounce.  No backend-knob swap is involved, so
         # concurrent flushes of the same model don't serialize here.
+        # (Calibrated wrappers still resolve device tiers — their inner
+        # traversal goes through the swap path below, on the card the
+        # leaves kernel, and benefits from bank residency, just not from
+        # fusion.)
         red_fn = getattr(model, "_device_reduction", None)
         if (backend in ("cuda", "torch") and group is not None
                 and flat_model is model
@@ -414,8 +468,15 @@ class LatencyService:
             x32 = ms[0] if len(ms) == 1 else np.concatenate(ms, axis=0)
             dev = (self.device if backend == device_tier(self.device)
                    else DEVICE_TIERS[backend])
-            preds = model.predict_on_device(x32, device=dev)
-            self._tally(backend, fused=True)
+            try:
+                preds = model.predict_on_device(x32, device=dev)
+            except BaseException:
+                span.end("error")
+                raise
+            self._inc("service_backend_runs_total", backend=backend)
+            self._inc("service_device_fused_runs_total")
+            span.set_attr("fused", True)
+            span.end()
             return preds
         # The knob is model state shared by every thread serving this
         # bank — swap, predict, and restore as one atomic section.  The
@@ -425,14 +486,19 @@ class LatencyService:
         xh = host_x()
         swap_lock = getattr(flat_model, "backend_swap_lock",
                             self._backend_lock)
-        with swap_lock:
-            prev = flat_model.inference_backend
-            flat_model.inference_backend = backend
-            try:
-                preds = model.predict(xh)
-            finally:
-                flat_model.inference_backend = prev
-        self._tally(backend)
+        try:
+            with swap_lock:
+                prev = flat_model.inference_backend
+                flat_model.inference_backend = backend
+                try:
+                    preds = model.predict(xh)
+                finally:
+                    flat_model.inference_backend = prev
+        except BaseException:
+            span.end("error")
+            raise
+        self._inc("service_backend_runs_total", backend=backend)
+        span.end()
         return preds
 
     # -- introspection -------------------------------------------------------

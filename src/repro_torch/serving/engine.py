@@ -16,10 +16,10 @@ every other slot's state and window, and a freed slot's state is not
 reset; the engine only passes the cache along.
 
 What differs from the reference: ``jax.jit(model.decode_step)`` is the
-eager call; the engine runs on ``device`` (the card unless the caller
-asks for the CPU); the step counters are a plain integer and a float sum
-(the reference's ``obs`` registry, and the drift monitor it feeds, are
-not ported yet: ROADMAP A.3).
+eager call, and the engine runs on ``device`` (the card unless the caller
+asks for the CPU).  As in the reference, each measured step is counted in
+the ``obs`` registry (``serve_steps_total``, ``serve_step_duration``) and,
+once a step latency is predicted, fed to the drift monitor.
 
 When constructed with a latency service and the op graph of one decode
 step, the engine predicts its per-step latency up front (``predict_e2e``
@@ -36,7 +36,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs import Observability
 from repro_torch.pipeline.service import PredictionReport
+from repro_torch.pipeline.store import setting_key
 from repro_torch.rpc.protocol import RPCError
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.logging import get_logger
@@ -57,6 +59,7 @@ class ServeEngine:
     def __init__(self, model, params, *, batch_slots: int = 4,
                  max_len: int = 512, greedy: bool = True, extras=None,
                  latency_service=None, step_graph=None, latency_setting=None,
+                 obs: Optional[Observability] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         self.model = model
@@ -70,16 +73,26 @@ class ServeEngine:
         self.queue: List[Request] = []
         self._step = model.decode_step
         self._uid = 0
-        self._steps = 0
-        self._step_seconds = 0.0
         self.step_report = None
         self.predicted_step_s: Optional[float] = None
         self.prediction_source: Optional[str] = None
         self._latency_service = latency_service
         self._step_graph = step_graph
         self._latency_setting = latency_setting
+        # Every measured decode step feeds the drift monitor with its
+        # observed-vs-predicted residual; counters/histograms live in the
+        # same registry a shared bundle exposes.
+        self.obs = obs or Observability.quiet()
+        self._eid = self.obs.instance("engine")
+        self.obs.registry.counter("serve_steps_total")
+        self.obs.registry.histogram("serve_step_duration")
         if latency_service is not None and step_graph is not None:
             self.refresh_step_estimate()
+
+    def _drift_key(self) -> str:
+        if self._latency_setting is not None:
+            return setting_key(self._latency_setting)
+        return "serve"
 
     def refresh_step_estimate(self) -> Optional[float]:
         """(Re)fetch the decode-step latency prediction.
@@ -119,9 +132,17 @@ class ServeEngine:
             return None
         return self.predicted_step_s * (max(prompt_len - 1, 0) + max_new_tokens)
 
+    @property
+    def _steps(self) -> int:
+        return int(self.obs.registry.get("serve_steps_total",
+                                         engine=self._eid))
+
     def stats(self) -> Dict[str, Any]:
+        # Step counters live in the obs registry; this stays a view.
+        h = self.obs.registry.hist_stats("serve_step_duration",
+                                         engine=self._eid)
         steps = self._steps
-        measured = self._step_seconds / steps if steps else None
+        measured = h["sum"] / steps if steps else None
         ratio = (measured / self.predicted_step_s
                  if measured and self.predicted_step_s else None)
         return {
@@ -179,8 +200,13 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, self.cache = self._step(self.params, self._batch_all(), self.cache)
         logits = logits.float().cpu().numpy()
-        self._step_seconds += time.perf_counter() - t0
-        self._steps += 1
+        dt = time.perf_counter() - t0
+        self.obs.registry.inc("serve_steps_total", engine=self._eid)
+        self.obs.registry.observe("serve_step_duration", dt,
+                                  engine=self._eid)
+        if self.predicted_step_s:
+            self.obs.drift.observe(self._drift_key(), "decode_step",
+                                   self.predicted_step_s, dt)
         finished = 0
         for slot, req in enumerate(self.active):
             if req is None:

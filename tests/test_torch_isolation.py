@@ -64,7 +64,12 @@ def test_port_has_the_slice_modules():
                 "core/predictors/lasso.py", "core/predictors/mlp.py",
                 "core/realworld.py", "search/__init__.py", "search/pareto.py",
                 "search/encoding.py", "search/objectives.py",
-                "search/evolution.py"):
+                "search/evolution.py", "transfer/__init__.py",
+                "transfer/calibration.py", "transfer/descriptors.py",
+                "transfer/sampler.py", "transfer/synthetic.py",
+                "transfer/engine.py", "obs/__init__.py", "obs/metrics.py",
+                "obs/tracing.py", "obs/export.py", "obs/drift.py",
+                "obs/timeline.py", "obs/alerts.py", "obs/autopilot.py"):
         assert mod in names
     for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
                 "flash_attention.cu", "moe_gmm.cu", "ssd_scan.cu",
@@ -203,7 +208,17 @@ def _entry_points():
             LassoPredictor(device="cpu").fit(*_linear()).to_json()),
         "PredictorHub.train(mlp)": lambda: PredictorHub().train(
             _store(), _setting(), "mlp", hparams={"max_epochs": 5}),
+        "load_predictor(calibrated lasso)": lambda: load_predictor(
+            _calibrated_lasso_json()),
     }
+
+
+def _calibrated_lasso_json():
+    from repro_torch.core.predictors import LassoPredictor
+    from repro_torch.transfer import CalibratedPredictor, scale_map
+
+    base = LassoPredictor(device="cpu").fit(*_linear())
+    return CalibratedPredictor.wrap(base, scale_map(2.0)).to_json()
 
 
 @pytest.mark.parametrize("name", list(_entry_points()))

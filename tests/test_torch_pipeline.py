@@ -19,7 +19,6 @@ from repro.pipeline import ProfileStore as RefStore  # noqa: E402
 from repro.transfer.synthetic import CostModelProfileSession  # noqa: E402
 
 from repro_torch.core.dataset import synthetic_graphs  # noqa: E402
-from repro_torch.core.predictors.base import NOT_YET_PORTED, load_predictor  # noqa: E402
 from repro_torch.core.profiler import DeviceSetting  # noqa: E402
 from repro_torch.pipeline import LatencyService, PredictorHub, ProfileStore  # noqa: E402
 
@@ -176,10 +175,31 @@ def test_build_profiles_trains_and_serves_on_the_host(tmp_path):
     assert svc.stats()["backend_runs"] == {"torch": svc.stats()["device_fused_runs"]}
 
 
-@pytest.mark.parametrize("family", NOT_YET_PORTED)
-def test_unported_families_raise_clearly(family):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        load_predictor({"name": family, "config": {}, "scaler": {}, "state": {}})
+def test_calibrated_bank_from_the_reference_serves_identically(trained):
+    """A transfer-calibrated bank the reference saved loads in the port's
+    hub and serves the target setting as the reference does (numpy tier)."""
+    from repro.core.composition import PredictorBank as RefBank
+    from repro.transfer import CalibratedPredictor, scale_map
+    from repro_torch.core.composition import PredictorBank
+
+    family, _, _, ref_bank, _, rg, pg = trained
+    ref_hub, hub = RefHub(), PredictorHub(device="cpu")
+    target = ("h100_sim", "float32", "fused_groups", "sim")
+    cal = RefBank(setting="sim:float32/fused_groups", overhead=2e-5,
+                  op_sum_scale=1.1, overhead_per_kernel=1e-6)
+    for t, m in ref_bank.predictors.items():
+        cal.predictors[t] = CalibratedPredictor.wrap(m, scale_map(2.5))
+    ref_hub.register(RefSetting(*target), family, cal)
+    hub.register(DeviceSetting(*target), family,
+                 PredictorBank.from_json(cal.to_json(), device="cpu"))
+    ref = RefService(ref_hub, predictor=family, inference_backend="numpy")
+    svc = LatencyService(hub, predictor=family, inference_backend="numpy",
+                         device="cpu")
+    want = ref.predict_batch(rg, RefSetting(*target))
+    got = svc.predict_batch(pg, DeviceSetting(*target))
+    assert [r.to_json() for r in got] == [r.to_json() for r in want]
+    assert svc.stats()["backend_runs"] == ref.stats()["backend_runs"] == \
+        {"numpy": len(cal.predictors)}
 
 
 def test_cuda_tier_on_a_host_service_needs_the_card(trained, monkeypatch):

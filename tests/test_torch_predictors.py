@@ -28,7 +28,7 @@ from repro.core.predictors import lasso as ref_lasso  # noqa: E402
 from repro.core.predictors import mlp as ref_mlp  # noqa: E402
 
 from repro_torch.convert import mlp_params_from_reference  # noqa: E402
-from repro_torch.core.predictors import (NOT_YET_PORTED, LassoPredictor,  # noqa: E402
+from repro_torch.core.predictors import (PREDICTORS, LassoPredictor,  # noqa: E402
                                          MLPPredictor, load_predictor,
                                          make_predictor)
 from repro_torch.core.predictors import lasso as port_lasso  # noqa: E402
@@ -260,11 +260,56 @@ def test_port_json_loads_in_the_reference(name):
         _assert_mlp_close(ref.predict(x), port.predict(x))
 
 
-def test_only_the_calibrated_family_is_unported():
-    assert NOT_YET_PORTED == ("calibrated",)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        load_predictor({"name": "calibrated", "config": {}, "scaler": {}, "state": {}},
-                       device=CPU)
+# -- the calibrated wrapper (transfer) around every base family -------------------
+
+def _ref_calibrated(name):
+    """A reference `CalibratedPredictor` around a fitted ``name`` base."""
+    from repro.transfer import CalibratedPredictor as RefCalibrated
+    from repro.transfer import fit_latency_map as ref_fit_map
+    x, y = _linear_data()
+    kw = {"mlp": {"max_epochs": 60, "hidden_layers": 2, "width": 32},
+          "gbdt": {"n_stages": 20}, "rf": {"n_trees": 4}}.get(name, {})
+    base = ref_make(name, **kw).fit(x[:250], y[:250])
+    latency_map = ref_fit_map(y[:40], np.exp(0.4) * y[:40] ** 1.05)
+    return RefCalibrated.wrap(base, latency_map), x
+
+
+@pytest.mark.parametrize("name", ["lasso", "gbdt", "rf", "mlp"])
+def test_calibrated_loads_from_the_reference_json(name):
+    ref, x = _ref_calibrated(name)
+    port = load_predictor(ref.to_json(), device=CPU)
+    assert port.name == "calibrated" and port.base.name == name
+    assert port.to_json() == ref.to_json()
+    if name == "mlp":
+        _assert_mlp_close(port.predict(x), ref.predict(x))
+    else:
+        np.testing.assert_array_equal(port.predict(x), ref.predict(x))
+        np.testing.assert_array_equal(port.predict_oracle(x), ref.predict_oracle(x))
+
+
+def test_calibrated_mlp_base_loads_on_the_host():
+    ref, x = _ref_calibrated("mlp")
+    port = load_predictor(ref.to_json(), device=CPU)
+    assert port.base.device == torch.device(CPU)
+    port.predict(x)
+    assert port.base._dev_params[0][0].device == torch.device(CPU)
+    # `wrap` hands the wrapper its base's device, so a bank round trip
+    # keeps the base on the host too.
+    from repro_torch.transfer import CalibratedPredictor
+    again = CalibratedPredictor.wrap(port.base, port.map)
+    assert again.device == torch.device(CPU)
+    assert load_predictor(again.to_json(), device=CPU).base.device == torch.device(CPU)
+
+
+def test_failed_calibration_import_raises(monkeypatch):
+    """`load_predictor` imports the transfer layer for an unknown family;
+    the module is part of the port, so a failed import is an error."""
+    import sys
+    ref, _ = _ref_calibrated("lasso")
+    monkeypatch.delitem(PREDICTORS._items, "calibrated", raising=False)
+    monkeypatch.setitem(sys.modules, "repro_torch.transfer.calibration", None)
+    with pytest.raises(ImportError):
+        load_predictor(ref.to_json(), device=CPU)
 
 
 def test_mlp_predicts_on_its_device():
