@@ -90,6 +90,28 @@ result line:
          setting per scoring round, the fused kernel launched; a rerun
          and a run checkpointed at generation 4 and resumed give the same
          front; the front measured on the card (`SearchReport.verify`);
+       * the RPC path (`run_rpc_path`): a `LatencyRPCServer` on 127.0.0.1
+         over one service on the card holding both GBDT banks
+         (`BatchPolicy()`, `MonotonicClock`); 16 `LatencyClient` threads,
+         half on each setting, send 64 fresh graphs at 224 each, one at a
+         time, cold then warm: every request answered exactly once, each
+         report within twice the fused kernel's bound of a direct
+         `predict_batch` (`report_tolerances`), only ``cuda`` flushes, the
+         warm pass answered from the cache with no flush and no launch; the
+         cold pass under torch.profiler for the device-busy share.  A
+         launch made to fail on the flush thread must come back as a typed
+         ``internal`` error, and the search path's front is served per
+         setting.  Then tests/test_autopilot.py's mid-flood rollover at full
+         width: the transfer path's float32 ``op_by_op`` source onboards a
+         synthetic target, the autopilot behind the server recalibrates its
+         drifted replay while 8 clients send 256 requests (all answered,
+         epochs within the swap), the loop steps on until it has acted and
+         stayed quiet (drift then below 1.0), and fresh graphs after the
+         swap run the
+         leaves kernel on a bank uploaded once.  Last, a seeded `FaultPlan`
+         at the flush and dispatch sites against retrying clients: all 256
+         answered, the injected tally equal to the plan's schedule, the
+         retries equal to the faults the clients saw;
        * kernel selection: Alg. C.2 for Mali G76 rewrites the 40 graphs;
          those with a Winograd op are profiled on the float32 store (only
          the new ops are measured, through the Winograd kernel), then the
@@ -139,6 +161,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -1016,13 +1039,11 @@ def run_realworld_path(device, setting, graphs, store, n_train: int = 32,
 
 
 @contextlib.contextmanager
-def timed_featurization():
-    """Seconds `predict_batch` spends fusing and featurizing graphs on the
-    host (the service module's two calls, timed while the block runs)."""
-    from repro_torch.pipeline import service
-
-    spent = [0.0]
-    originals = {n: getattr(service, n) for n in ("fuse_graph", "graph_features")}
+def timed_calls(module, *names):
+    """Seconds spent in ``module``'s functions ``names`` while the block
+    runs, from any thread (each one patched for the block)."""
+    spent, lock = [0.0], threading.Lock()
+    originals = {n: getattr(module, n) for n in names}
 
     def timed(fn):
         def call(*a, **k):
@@ -1030,16 +1051,25 @@ def timed_featurization():
             try:
                 return fn(*a, **k)
             finally:
-                spent[0] += time.perf_counter() - t0
+                with lock:
+                    spent[0] += time.perf_counter() - t0
         return call
 
     for n, fn in originals.items():
-        setattr(service, n, timed(fn))
+        setattr(module, n, timed(fn))
     try:
         yield spent
     finally:
         for n, fn in originals.items():
-            setattr(service, n, fn)
+            setattr(module, n, fn)
+
+
+def timed_featurization():
+    """Seconds `predict_batch` spends fusing and featurizing graphs on the
+    host (the service module's two calls, timed while the block runs)."""
+    from repro_torch.pipeline import service
+
+    return timed_calls(service, "fuse_graph", "graph_features")
 
 
 def run_search_path(device, settings: dict, graphs, n_train: int = 32) -> dict:
@@ -1129,7 +1159,7 @@ def run_search_path(device, settings: dict, graphs, n_train: int = 32) -> dict:
                       "mape": verified["mape"], "seconds": verify_s,
                       "rows": verified["rows"]}}
     log("search_path " + json.dumps(out))
-    return {"summary": out}
+    return {"summary": out, "report": both_rep, "budgets": budgets}
 
 
 # -- the transfer path (a second device setting from K measurements) -------------
@@ -1326,7 +1356,590 @@ def run_transfer_path(device, target, graphs, oracle, n_train: int = 32,
            "launches": launches}
     log("transfer_drift " + json.dumps(drift))
     log("transfer_path " + json.dumps(out))
-    return {"summary": out}
+    return {"summary": out, "source": source, "store": src_store, "bank": src_bank}
+
+
+# -- the RPC path (the serving layer in front of the card) -----------------------------
+
+RPC_CLIENTS = 16                    # client threads, half on each setting
+RPC_PER_CLIENT = 64                 # requests a client sends, one at a time
+FLOOD_THREADS, FLOOD_PER = 8, 32    # tests/test_autopilot.py's flood, at 32 a thread
+FLOOD_PROBE = 16                    # fresh graphs sent to the target after the swap
+# After the flood the control loop keeps stepping until it has acted and
+# then taken no action for QUIET_ROUNDS rounds (> the alert's sustain of
+# 3 plus the cooldown of 4), at most SETTLE_ROUNDS rounds.
+QUIET_ROUNDS, SETTLE_ROUNDS = 8, 96
+CHAOS_THREADS, CHAOS_PER = 8, 32
+CHAOS_SEED = 97
+# The float64 composition of a report sums its per-op predictions in the
+# same order on both sides, so e2e differs only by the per-op differences
+# (each within the fused kernel's bound) and the rounding of ~30 float64
+# adds (≤ 30 · 2^-53 of |e2e|).
+E2E_F64_SLACK = 1e-12               # × |e2e|
+
+
+def report_tolerances(bank, setting, graphs, device) -> list:
+    """Per node of each graph's executed graph: the bound on |a − b| for
+    two fused-kernel predictions of that node made in different flushes.
+    Each is within `fused_tolerance` of the plain version (only the order
+    of the sum over trees depends on the rows a launch holds), so two are
+    within twice that.  Ops without a predictor predict 0 on both sides."""
+    import numpy as np
+    import torch
+    from repro_torch.core.features import graph_features
+    from repro_torch.core.fusion import fuse_graph
+    from repro_torch.kernels import tree_gather as tg
+
+    egs = [fuse_graph(g)[1] if setting.is_gpu_like else g for g in graphs]
+    gfs = [graph_features(eg) for eg in egs]
+    tols = [np.zeros(len(eg.nodes)) for eg in egs]
+    for op_type, model in bank.predictors.items():
+        rows = [(j, gf.matrix32(op_type), gf.index[op_type])
+                for j, gf in enumerate(gfs) if op_type in gf.matrix]
+        if not rows:
+            continue
+        x = torch.from_numpy(np.concatenate([m for _, m, _ in rows])).to(device)
+        db = model.flat().device_bank(device)
+        mean, std = tg.to_device_scaler(model.scaler, device)
+        kind, scale, bias = model._device_reduction()
+        pred = tg.fused_plain(*db.bank_args, mean, std, scale, bias, x,
+                              depth=db.depth, kind=kind)
+        leaves = tg.gather_leaves_plain(*db.bank_args, (x - mean) / std, depth=db.depth)
+        tol = 2 * fused_tolerance(leaves, pred, scale, kind).cpu().numpy()
+        off = 0
+        for j, m, idx in rows:
+            tols[j][np.asarray(idx)] = tol[off:off + len(m)]
+            off += len(m)
+    return tols
+
+
+def check_reports(reports, direct, tols, op_sum_scale: float, label: str) -> float:
+    """Each report against the direct `predict_batch` of the same graph:
+    per op within its bound, e2e within their sum; returns the largest
+    e2e difference over its bound."""
+    worst = 0.0
+    for r, d, tol in zip(reports, direct, tols):
+        if r.fingerprint != d.fingerprint or [t for t, _ in r.per_op] != \
+                [t for t, _ in d.per_op]:
+            raise AssertionError(f"{label}: report for {r.graph_name} is cross-wired")
+        diff = [abs(a - b) for (_, a), (_, b) in zip(r.per_op, d.per_op)]
+        if any(x > t for x, t in zip(diff, tol)):
+            raise AssertionError(f"{label}: {r.graph_name} per-op off by {max(diff)}")
+        bound = op_sum_scale * math.fsum(tol) + E2E_F64_SLACK * abs(d.e2e_s)
+        err = abs(r.e2e_s - d.e2e_s)
+        if err > bound:
+            raise AssertionError(f"{label}: {r.graph_name} e2e off by {err} "
+                                 f"(bound {bound})")
+        worst = max(worst, err / bound if bound else 0.0)
+    return worst
+
+
+def _flood(host: str, port: int, jobs: list, retry_seed=None) -> dict:
+    """One `LatencyClient` thread per job list, each sending its
+    ``(index, graph, setting)`` requests one at a time; raises the first
+    error a thread met.  Returns the reports by index, every request's
+    latency, the clients' retries and the epochs the reports carried."""
+    from repro_torch.rpc import LatencyClient, RetryPolicy
+
+    reports, lat, errs, retries, epochs = {}, [], [], [], set()
+
+    def worker(t, todo):
+        retry = None if retry_seed is None else RetryPolicy(
+            max_attempts=12, base_delay_s=0.002, max_delay_s=0.05, deadline_s=120.0,
+            seed=retry_seed + t)
+        try:
+            with LatencyClient(host, port, timeout=120.0, retry=retry) as c:
+                for i, g, setting in todo:
+                    t0 = time.perf_counter()
+                    rep = c.predict_e2e(g, setting)
+                    lat.append(time.perf_counter() - t0)
+                    reports[i] = rep
+                    epochs.add(rep.bank_epoch)
+                retries.append(c.retries)
+        except Exception as exc:            # raised below, after the join
+            errs.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(t, todo), name=f"client-{t}")
+               for t, todo in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an RPC client thread did not finish in 600 s")
+    if errs:
+        raise errs[0]
+    return {"reports": reports, "latency_s": lat, "retries": sum(retries),
+            "epochs": epochs}
+
+
+def _quantiles(xs) -> dict:
+    import numpy as np
+
+    return {"p50": float(np.percentile(xs, 50)), "p99": float(np.percentile(xs, 99))}
+
+
+def _device_busy_ms(prof) -> float:
+    from torch.autograd import DeviceType
+
+    return math.fsum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def check_flush_thread_error(host: str, port: int, server) -> dict:
+    """A kernel launch that fails on the flush thread raises there, and the
+    flush fails its request with a typed ``internal`` error: the fused
+    kernel's plan is given 1 MiB of shared memory (the card grants at most
+    227 KiB), so its launch returns an error before anything runs."""
+    import dataclasses
+
+    from repro_torch.core.dataset import synthetic_graphs
+    from repro_torch.kernels import tree_gather_cuda as tgc
+    from repro_torch.rpc import LatencyClient, protocol
+
+    graph = synthetic_graphs(1, resolution=224, seed0=70_000)[0]
+    real = tgc.plan_for
+    failed0 = server.batcher.failed
+    err = None
+    tgc.plan_for = lambda *a, **k: dataclasses.replace(real(*a, **k), smem_bytes=1 << 20)
+    try:
+        with LatencyClient(host, port, timeout=60.0) as c:
+            try:
+                c.predict_e2e(graph)
+            except protocol.RPCError as exc:
+                err = exc
+    finally:
+        tgc.plan_for = real
+    if err is None:
+        raise AssertionError("a failing launch on the flush thread was answered")
+    if err.code != protocol.E_INTERNAL or "tree_predict_fused launch failed" not in \
+            err.message or server.batcher.failed != failed0 + 1:
+        raise AssertionError(f"flush-thread launch error surfaced as {err.code}: "
+                             f"{err.message}")
+    with LatencyClient(host, port, timeout=60.0) as c:
+        again = c.predict_e2e(graph)
+    if again.from_cache or not again.e2e_s > 0:
+        raise AssertionError("the request after the failed flush was not served")
+    return {"code": err.code, "message": err.message[:160]}
+
+
+def rpc_search_front(host: str, port: int, search) -> dict:
+    """The search path's front served through ``search_front``: per
+    setting, all of it, then the members within that setting's budget."""
+    from repro_torch.rpc import LatencyClient
+
+    members = search["report"].to_json()["front"]
+    out = {}
+    with LatencyClient(host, port, timeout=60.0) as c:
+        for b in search["budgets"]:
+            everything = c.search_front(setting=b.setting)
+            got = c.search_front(setting=b.setting, budget_s=b.budget_s)
+            want = sorted((m for m in members if m["latencies"][b.key] <= b.budget_s),
+                          key=lambda m: (-m["quality"], m["digest"]))
+            if everything["total"] != len(members) or not members or \
+                    [m["digest"] for m in got["members"]] != [m["digest"] for m in want]:
+                raise AssertionError(f"search_front {b.key}: {got['total']} members "
+                                     f"within budget, {len(want)} expected")
+            out[b.key] = {"budget_s": b.budget_s, "front": everything["total"],
+                          "within_budget": got["total"]}
+    return out
+
+
+def _rpc_service(device, banks: dict, bundle):
+    """One service on ``device`` holding each setting's GBDT bank, its
+    default the first setting."""
+    from repro_torch.pipeline import LatencyService, PredictorHub
+
+    hub = PredictorHub(device=device)
+    for setting, bank in banks.items():
+        hub.register(setting, "gbdt", bank)
+    return LatencyService(hub, default_setting=next(iter(banks)), predictor="gbdt",
+                          obs=bundle, device=device)
+
+
+def rpc_throughput(device, banks: dict, search) -> dict:
+    """16 clients, one request at a time each, half on each setting, cold
+    then warm, through a TCP server over one service on the card; then a
+    failing launch on the flush thread, and the search front per setting."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.dataset import synthetic_graphs
+    from repro_torch.core.ir import OpGraph
+    from repro_torch.core.predictors.flat import device_tier
+    from repro_torch.obs import Observability
+    from repro_torch.pipeline import LatencyService
+    from repro_torch.pipeline.store import setting_key
+    from repro_torch.rpc import BatchPolicy, LatencyRPCServer, MonotonicClock
+    from repro_torch.rpc import client as rpc_client
+    from repro_torch.rpc import server as rpc_server
+
+    settings = list(banks)
+    bundle = Observability.quiet()
+    svc = _rpc_service(device, banks, bundle)
+    flushes = []                    # (setting key, size, seconds) per predict_batch
+    real = svc.predict_batch
+
+    def timed_flush(graphs, setting=None, predictor=None):
+        t0 = time.perf_counter()
+        try:
+            return real(graphs, setting, predictor)
+        finally:
+            flushes.append((setting_key(setting or settings[0]), len(graphs),
+                            time.perf_counter() - t0))
+
+    svc.predict_batch = timed_flush
+    n = RPC_CLIENTS * RPC_PER_CLIENT
+    graphs = synthetic_graphs(n, resolution=224, seed0=40_000)
+    jobs = [[(t * RPC_PER_CLIENT + i, graphs[t * RPC_PER_CLIENT + i],
+              settings[t % len(settings)]) for i in range(RPC_PER_CLIENT)]
+            for t in range(RPC_CLIENTS)]
+    server = LatencyRPCServer(svc, policy=BatchPolicy(), clock=MonotonicClock(),
+                              obs=bundle, search_report=search["report"])
+    host, port = server.start()
+    passes = {}
+    try:
+        for label in ("cold", "warm"):
+            st0, n_flush0, fused0 = server.batcher.stats(), len(flushes), svc.device_fused_runs
+            reset_counts()
+            with contextlib.ExitStack() as stack:
+                # Host seconds inside each group of calls, from every thread
+                # (the interpreter lock serializes them, and a call waiting
+                # for it counts its wait).
+                feat = stack.enter_context(timed_featurization())
+                server_wire = stack.enter_context(timed_calls(
+                    rpc_server, "decode_request", "graph_from_wire", "encode_response"))
+                client_wire = stack.enter_context(timed_calls(
+                    rpc_client, "encode_request", "decode_response", "report_from_json"))
+                to_json = stack.enter_context(timed_calls(OpGraph, "to_json"))
+                fingerprint = stack.enter_context(timed_calls(OpGraph, "fingerprint"))
+                prof = stack.enter_context(profile(activities=[ProfilerActivity.CUDA])) \
+                    if label == "cold" else None
+                t0 = time.perf_counter()
+                out = _flood(host, port, jobs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = read_counts()
+            st = server.batcher.stats()
+            delta = {k: st[k] - st0[k] for k in ("submitted", "answered", "failed",
+                                                  "rejected", "short_circuits", "batches")}
+            mine = flushes[n_flush0:]
+            row = {"requests": n, "wall_s": wall, "requests_per_s": n / wall,
+                   "client_latency_s": _quantiles(out["latency_s"]), **delta,
+                   "launches": counts,
+                   "device_fused_runs": svc.device_fused_runs - fused0,
+                   "featurize_s": feat[0], "server_wire_s": server_wire[0],
+                   "client_wire_s": client_wire[0],
+                   "graph_to_json_s": to_json[0], "fingerprint_s": fingerprint[0],
+                   "flushes": len(mine)}
+            if mine:
+                row.update(mean_flush_size=n / len(mine),
+                           flush_size_max=max(f[1] for f in mine),
+                           flush_s=_quantiles([f[2] for f in mine]),
+                           flush_s_total=math.fsum(f[2] for f in mine),
+                           flushes_by_setting={k: sum(1 for f in mine if f[0] == k)
+                                               for k in sorted({f[0] for f in mine})},
+                           fused_launches_per_flush=counts["tree_predict_fused"] / len(mine))
+            if prof is not None:
+                busy = _device_busy_ms(prof)
+                row.update(device_busy_ms=busy, device_busy_share=busy / (wall * 1e3))
+            passes[label] = (row, out)
+            log(f"rpc {label} " + json.dumps(row))
+        cold, warm = passes["cold"][0], passes["warm"][0]
+        for label, row, short in (("cold", cold, 0), ("warm", warm, n)):
+            if not row["submitted"] == row["answered"] == n or row["failed"] or \
+                    row["rejected"] or row["short_circuits"] != short:
+                raise AssertionError(f"rpc {label}: not every request answered exactly "
+                                     f"once: {row}")
+        if cold["launches"]["tree_predict_fused"] == 0 or \
+                cold["launches"]["tree_predict_fused"] != cold["device_fused_runs"] or \
+                any(v for k, v in cold["launches"].items() if k != "tree_predict_fused"):
+            raise AssertionError(f"rpc cold: launches {cold['launches']}, fused runs "
+                                 f"{cold['device_fused_runs']}")
+        backends, tier = server.batcher.flush_backends, device_tier(device)
+        if set(backends) != {tier} or backends[tier] != cold["device_fused_runs"]:
+            raise AssertionError(f"rpc: flushes ran on {backends}")
+        if warm["batches"] or warm["flushes"] or any(warm["launches"].values()):
+            raise AssertionError(f"rpc warm: {warm['batches']} flushes, launches "
+                                 f"{warm['launches']}")
+        cold_reps, warm_reps = passes["cold"][1]["reports"], passes["warm"][1]["reports"]
+        if any(not warm_reps[i].from_cache or warm_reps[i].e2e_s != cold_reps[i].e2e_s
+               for i in range(n)):
+            raise AssertionError("rpc warm: a report was not the cold one from the cache")
+        flush_error = check_flush_thread_error(host, port, server)
+        front = rpc_search_front(host, port, search)
+    finally:
+        server.stop()
+
+    # Each report against a direct predict_batch of its setting's graphs.
+    direct_svc = LatencyService(svc.hub, default_setting=settings[0], predictor="gbdt",
+                                device=device)
+    worst = {}
+    for k, setting in enumerate(settings):
+        idx = [i for t in range(k, RPC_CLIENTS, len(settings)) for i, _, _ in jobs[t]]
+        gs = [graphs[i] for i in idx]
+        direct = direct_svc.predict_batch(gs, setting)
+        tols = report_tolerances(banks[setting], setting, gs, device)
+        worst[setting_key(setting)] = check_reports(
+            [cold_reps[i] for i in idx], direct, tols, banks[setting].op_sum_scale,
+            f"rpc {setting_key(setting)}")
+    return {"cold": cold, "warm": warm, "flush_backends": backends,
+            "e2e_err_over_bound": worst, "flush_thread_error": flush_error,
+            "search_front": front}
+
+
+def rpc_rollover(device, transfer, graphs) -> dict:
+    """tests/test_autopilot.py::TestMidFloodRollover on the card at full
+    width: the transfer path's float32 ``op_by_op`` source (its store of
+    ``graphs``, 40 at 224, and its GBDT bank) onboards a synthetic target,
+    whose drifted replay the autopilot behind the server recalibrates and
+    rolls over while 8 clients flood the target.  The reference stops
+    stepping at the first action; here the loop steps on until it has
+    acted and then stayed quiet for `QUIET_ROUNDS` rounds.  There the op
+    types the last action recalibrated must read a drift below 1.0, and
+    the score must be below the one that fired the first action.  The
+    score over every op type is reported beside its floor: the same
+    observations of the undrifted device against the bank before any
+    drift (an op type the loop does not target keeps the source bank's
+    own bias).  Then fresh graphs go to the target through the new bank."""
+    import numpy as np
+    from repro_torch.core.dataset import synthetic_graphs
+    from repro_torch.core.profiler import DeviceSetting
+    from repro_torch.obs import (AlertEngine, AlertRule, AutopilotConfig, DriftMonitor,
+                                 MetricsTimeline, Observability, RecalibrationAutopilot,
+                                 attach_session_drift)
+    from repro_torch.pipeline import LatencyService, PredictorHub
+    from repro_torch.pipeline.store import setting_key
+    from repro_torch.rpc import BatchPolicy, LatencyClient, LatencyRPCServer, ManualClock
+    from repro_torch.transfer import ReplayProfileSession, SyntheticDevice, TransferEngine
+
+    src, store = transfer["source"], transfer["store"]
+    tgt = DeviceSetting("edge_f32", "float32", "op_by_op", device="edge0")
+    edge = SyntheticDevice("edge0", seed=7, noise=0.05, curvature=0.1)
+    hub = PredictorHub(device=device)
+    hub.register(src, "gbdt", transfer["bank"])
+    TransferEngine(src, tgt, family="gbdt", seed=0).adapt(
+        store, hub, ReplayProfileSession(store, edge, src), 32)
+    clock = ManualClock()
+    bundle = Observability(clock=clock, seed=9, drift_threshold=0.5, drift_min_count=4)
+    svc = LatencyService(hub, default_setting=src, predictor="gbdt", obs=bundle,
+                         device=device)
+    tl = MetricsTimeline(clock=clock, interval=1, capacity=256)
+    tl.track("drift_score", bundle.drift.score)
+    eng = AlertEngine(tl, [AlertRule("drift", series="drift_score", threshold=1.0,
+                                     sustain=3)], obs=bundle)
+    drifted = edge.warp_shift(scale=2.4, seed_offset=3)
+    ap = RecalibrationAutopilot(bundle, eng, hub, store, src,
+                                config=AutopilotConfig(budget_k=48, cooldown=4.0, seed=0))
+    ap.register_device(tgt, lambda: ReplayProfileSession(store, drifted, src))
+    epoch0 = hub.epoch_of(tgt, "gbdt")
+    records = store.op_records(src)[:48]
+    floor = DriftMonitor(threshold=0.5, min_count=4)
+    for _ in range(QUIET_ROUNDS):
+        sess = ReplayProfileSession(store, edge, src)
+        attach_session_drift(sess, svc, floor)
+        for rec in records:
+            sess.measure_record(rec, tgt)
+    trigger = []                    # the drift score when the first action fired
+
+    def observe_round():
+        sess = ReplayProfileSession(store, drifted, src)
+        attach_session_drift(sess, svc, bundle.drift)
+        for rec in records:
+            sess.measure_record(rec, tgt)
+        clock.advance(1)
+        before = bundle.drift.score()
+        ap.step()
+        if ap.actions and not trigger:
+            trigger.append(before)
+
+    server = LatencyRPCServer(svc, obs=bundle, autopilot=ap, policy=BatchPolicy(
+        max_batch=8, max_wait_ticks=5, max_queue=1024))
+    host, port = server.start()
+    jobs = [[(t * FLOOD_PER + i, graphs[(t + i) % len(graphs)], tgt)
+             for i in range(FLOOD_PER)] for t in range(FLOOD_THREADS)]
+    rounds, result, failure = 0, {}, []
+
+    def run_flood():
+        try:
+            result.update(_flood(host, port, jobs))
+        except Exception as exc:            # raised below, after the join
+            failure.append(exc)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        flood = threading.Thread(target=run_flood, name="rpc-flood")
+        flood.start()
+        # Drive the control loop from this thread while the flood runs.
+        while flood.is_alive() and time.perf_counter() - t0 < 600:
+            observe_round()
+            rounds += 1
+        flood.join(timeout=600)
+        if flood.is_alive():
+            raise AssertionError("the mid-flood rollover's clients did not finish")
+        if failure:
+            raise failure[0]
+        flood_s = time.perf_counter() - t0
+        drift_after_flood, actions_during_flood = bundle.drift.score(), len(ap.actions)
+        quiet = 0
+        for _ in range(SETTLE_ROUNDS):
+            if ap.actions and quiet >= QUIET_ROUNDS:
+                break
+            n_actions = len(ap.actions)
+            observe_round()
+            rounds += 1
+            quiet = quiet + 1 if len(ap.actions) == n_actions else 0
+        flood_counts = read_counts()
+        with LatencyClient(host, port, timeout=60.0) as probe:
+            snap = probe.metrics()["snapshot"]
+            health = probe.health()
+            reset_counts()
+            fresh = synthetic_graphs(FLOOD_PROBE, resolution=224, seed0=60_000)
+            after = probe.predict_pipelined(fresh, tgt)
+            probe_counts = read_counts()
+    finally:
+        server.stop()
+    epoch1 = hub.epoch_of(tgt, "gbdt")
+    c = snap["counters"]
+    total = {k: int(sum(c.get(f"rpc_batcher_{k}_total", {}).values()))
+             for k in ("submitted", "answered", "failed", "rejected", "short_circuits")}
+    n = FLOOD_THREADS * FLOOD_PER
+    drift = bundle.drift.score()
+    focus = {t: bundle.drift.score(setting_key(tgt), t)
+             for t in (ap.actions[-1]["focus_op_types"] if ap.actions else ())}
+    if not ap.actions or quiet < QUIET_ROUNDS or epoch1 <= epoch0 or \
+            not max(focus.values()) < 1.0 or not drift < trigger[0]:
+        raise AssertionError(f"rollover: {len(ap.actions)} actions, {quiet} quiet rounds "
+                             f"at the end, epoch {epoch0} → {epoch1}, drift {drift} "
+                             f"(fired at {trigger}), recalibrated types {focus}: "
+                             f"{bundle.drift.worst_cells(3)}; "
+                             f"{[e['kind'] for e in ap.audit.events()]}")
+    if not all(epoch0 <= e <= epoch1 for e in result["epochs"]):
+        raise AssertionError(f"rollover: epochs {sorted(result['epochs'])} outside "
+                             f"[{epoch0}, {epoch1}]")
+    if not total["submitted"] == total["answered"] == n or total["failed"] or \
+            total["rejected"]:
+        raise AssertionError(f"rollover: requests not conserved: {total}")
+    if any(r.bank_epoch != epoch1 for r in after) or \
+            probe_counts["tree_gather_leaves"] == 0 or probe_counts["tree_predict_fused"]:
+        raise AssertionError(f"rollover: the new bank served {probe_counts}, epochs "
+                             f"{sorted({r.bank_epoch for r in after})}")
+    uploads = {}
+    for op_type, model in hub.get(tgt, "gbdt").predictors.items():
+        st = model.tree_model().device_stats()
+        if st is not None:
+            uploads[op_type] = st["uploads"]
+    if not uploads or set(uploads.values()) != {1}:
+        raise AssertionError(f"rollover: the new bank's uploads {uploads}")
+    vals = np.array([r.e2e_s for r in list(result["reports"].values()) + after])
+    if not (np.isfinite(vals).all() and vals.min() > 0):
+        raise AssertionError("rollover: predictions not finite and > 0")
+    out = {"requests": n, "flood_s": flood_s, "control_rounds": rounds,
+           "actions_during_flood": actions_during_flood,
+           "drift_after_flood": drift_after_flood,
+           "actions": [dict(a) for a in ap.actions], "epochs": [epoch0, epoch1],
+           "epochs_seen": sorted(result["epochs"]), "drift_fired_at": trigger[0],
+           "drift_score": drift, "drift_recalibrated_types": focus,
+           "drift_floor_undrifted": floor.score(),
+           "worst_cells": bundle.drift.worst_cells(3),
+           "floor_worst_cells": floor.worst_cells(3),
+           **total, "launches_during_flood": flood_counts, "probe_graphs": FLOOD_PROBE,
+           "launches_after_swap": probe_counts, "new_bank_uploads": uploads,
+           "client_latency_s": _quantiles(result["latency_s"]),
+           "health_status": health["status"],
+           "audit": [e["kind"] for e in ap.audit.events()]}
+    log("rpc_rollover " + json.dumps(out))
+    return out
+
+
+def rpc_chaos(device, banks: dict) -> dict:
+    """A seeded `FaultPlan` at the flush and dispatch sites over 256 fresh
+    requests from 8 clients with a `RetryPolicy`: every request settles
+    exactly once, the injected tally is the plan's schedule, and the
+    retries are exactly the faults the clients saw."""
+    import numpy as np
+    from repro_torch.core.dataset import synthetic_graphs
+    from repro_torch.obs import Observability
+    from repro_torch.rpc import (BatchPolicy, FaultPlan, FaultSpec, LatencyRPCServer,
+                                 protocol)
+
+    settings = list(banks)
+    bundle = Observability.quiet()
+    svc = _rpc_service(device, banks, bundle)
+    plan = FaultPlan(CHAOS_SEED, [
+        FaultSpec(site="flush", kind="error", rate=0.1, code=protocol.E_UNAVAILABLE,
+                  message="injected flush fault"),
+        FaultSpec(site="flush", kind="wedge", rate=0.1),
+        FaultSpec(site="dispatch", kind="error", rate=0.1, code=protocol.E_UNAVAILABLE,
+                  message="injected dispatch fault")])
+    server = LatencyRPCServer(svc, chaos=plan, obs=bundle, policy=BatchPolicy(
+        max_batch=8, max_wait_ticks=2, max_queue=4096))
+    host, port = server.start()
+    n = CHAOS_THREADS * CHAOS_PER
+    graphs = synthetic_graphs(n, resolution=224, seed0=50_000)
+    jobs = [[(t * CHAOS_PER + i, graphs[t * CHAOS_PER + i], settings[t % len(settings)])
+             for i in range(CHAOS_PER)] for t in range(CHAOS_THREADS)]
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = _flood(host, port, jobs, retry_seed=0)
+        wall = time.perf_counter() - t0
+        st = server.batcher.stats()
+    finally:
+        server.stop()
+    counts = read_counts()
+    injected = plan.injected()
+    schedule = {}
+    for site in ("flush", "dispatch"):
+        kinds = plan.schedule(site, plan.events(site))
+        for kind in sorted({k for k in kinds if k is not None}):
+            schedule[f"{site}/{kind}"] = kinds.count(kind)
+    reps = out["reports"]
+    if len(reps) != n or any(reps[i].fingerprint != graphs[i].fingerprint()
+                             for i in range(n)):
+        raise AssertionError(f"chaos: {len(reps)} of {n} requests answered")
+    if st["answered"] != n or st["submitted"] != st["answered"] + st["failed"] or \
+            st["queued"] or st["rejected"]:
+        raise AssertionError(f"chaos: not every request settled exactly once: {st}")
+    if injected != schedule or not injected:
+        raise AssertionError(f"chaos: injected {injected}, the plan's schedule {schedule}")
+    if st["wedged_flushes"] != injected.get("flush/wedge", 0) or \
+            out["retries"] != injected.get("dispatch/error", 0) + st["failed"]:
+        raise AssertionError(f"chaos: {out['retries']} retries for "
+                             f"{injected.get('dispatch/error', 0)} dispatch faults and "
+                             f"{st['failed']} failed requests; wedged "
+                             f"{st['wedged_flushes']}")
+    vals = np.array([r.e2e_s for r in reps.values()])
+    if not (np.isfinite(vals).all() and vals.min() > 0) or counts["tree_predict_fused"] == 0:
+        raise AssertionError(f"chaos: predictions or launches wrong: {counts}")
+    row = {"requests": n, "wall_s": wall, "seed": CHAOS_SEED, "injected": injected,
+           "events": {s: plan.events(s) for s in ("flush", "dispatch")},
+           "retries": out["retries"], "submitted": st["submitted"],
+           "answered": st["answered"], "failed": st["failed"],
+           "wedged_flushes": st["wedged_flushes"], "batches": st["batches"],
+           "flush_backends": st["flush_backends"], "launches": counts,
+           "client_latency_s": _quantiles(out["latency_s"])}
+    log("rpc_chaos " + json.dumps(row))
+    return row
+
+
+def run_rpc_path(device, banks: dict, transfer, search, graphs) -> dict:
+    """The serving layer on the card: throughput (then a failing launch on
+    the flush thread and the search front), the mid-flood rollover behind
+    the autopilot, and chaos; every launch count zeroed just before each
+    step and read just after it."""
+    throughput = rpc_throughput(device, banks, search)
+    rollover = rpc_rollover(device, transfer, graphs)
+    chaos = rpc_chaos(device, banks)
+    out = {"cold_requests_per_s": throughput["cold"]["requests_per_s"],
+           "warm_requests_per_s": throughput["warm"]["requests_per_s"],
+           **{k: throughput[k] for k in ("e2e_err_over_bound", "flush_backends",
+                                         "search_front", "flush_thread_error")},
+           "rollover": {k: rollover[k] for k in ("actions", "epochs",
+                                                  "launches_after_swap")},
+           "chaos": {k: chaos[k] for k in ("injected", "retries", "failed")}}
+    log("rpc_path " + json.dumps(out))
+    return out
 
 
 # -- the LM serving path (Granite-MoE) -------------------------------------------
@@ -1414,11 +2027,13 @@ def _flash_bound(b, s, h, kvh, d, causal, dtype) -> tuple:
                  4 * d * pairs, PEAK_BF16_OPS_PER_S if bf16 else PEAK_F32_OPS_PER_S)
 
 
-def _gmm_bound(e, n, d, f) -> tuple:
-    """bfloat16 x and w read once and the output written once, against
-    2·e·rows·d·f operations at the bfloat16 tensor rate."""
-    return bound(2 * (e * n * d + e * d * f + e * n * f), 2 * e * n * d * f,
-                 PEAK_BF16_OPS_PER_S)
+def _gmm_bound(e, n, d, f, dtype) -> tuple:
+    """x and w read once and the output written once, against
+    2·e·rows·d·f operations at the type's rate (bfloat16 on the tensor
+    cores, float32 outside them)."""
+    bf16 = dtype == "bfloat16"
+    return bound((2 if bf16 else 4) * (e * n * d + e * d * f + e * n * f),
+                 2 * e * n * d * f, PEAK_BF16_OPS_PER_S if bf16 else PEAK_F32_OPS_PER_S)
 
 
 def _flash_inputs(b, s, h, kvh, d, dtype, device, seed):
@@ -2271,8 +2886,10 @@ def time_flash(device) -> list:
 GMM_COLD_SETS = 4
 # The GMM shapes `time_gmm` times, each with the input sets its launches
 # rotate over: one (L2 warm) at the serving path's four shapes, and
-# `GMM_COLD_SETS` (L2 cold) at the two decode shapes.
-GMM_TIMED = [(c, 1) for c in GMM_CASES[:4]] + [(c, GMM_COLD_SETS) for c in GMM_CASES[:2]]
+# `GMM_COLD_SETS` (L2 cold) at the two decode shapes; then the float32
+# kernel at the gate/up decode and prefill shapes (L2 warm).
+GMM_TIMED = [(c, 1) for c in GMM_CASES[:4]] + [(c, GMM_COLD_SETS) for c in GMM_CASES[:2]] \
+    + [(c, 1) for c in GMM_CASES[4:6]]
 
 
 def _gmm_turns(e, n, d, f, dtype, device, n_sets) -> tuple:
@@ -2290,9 +2907,10 @@ def time_gmm(device) -> list:
     inputs (``l2`` "warm": the decode weights stay in L2); then the two
     decode shapes with ``l2`` "cold", kernel and ``torch.bmm`` rotating
     over `GMM_COLD_SETS` input sets, so every launch reads its weights from
-    device memory, as a serving step does.  Bound: x and w read once and
-    the output written once, against 2·e·rows·d·f operations at the
-    bfloat16 tensor rate."""
+    device memory, as a serving step does; last the float32 kernel at the
+    gate/up decode and prefill shapes.  Bound: x and w read once and the
+    output written once, against 2·e·rows·d·f operations at the type's
+    rate (`_gmm_bound`)."""
     import torch
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import moe_gmm_cuda as gmmc
@@ -2307,7 +2925,7 @@ def time_gmm(device) -> list:
         plain = None if n_sets > 1 else cuda_ms(
             lambda: gmm.moe_gmm_plain(*turn()), iters=3, warmup=2)["device"]
         lib = cuda_ms(lambda: torch.bmm(*turn()))
-        b_ms, b_by = _gmm_bound(e, n, d, f)
+        b_ms, b_by = _gmm_bound(e, n, d, f, dtype)
         cold = n_sets > 1
         rows.append({"case": label + ("_cold" if cold else ""), "shape": [e, n, d, f],
                      "dtype": dtype, "l2": "cold" if cold else "warm", "sets": n_sets,
@@ -2447,7 +3065,7 @@ def main() -> int:
 
         phase = "transfer path"
         t0 = time.perf_counter()
-        run_transfer_path(device, int8, graphs, main_i8)
+        transfer = run_transfer_path(device, int8, graphs, main_i8)
         log(f"transfer_path_s {time.perf_counter() - t0:.1f}")
 
         phase = "real-world path"
@@ -2457,9 +3075,16 @@ def main() -> int:
 
         phase = "search path"
         t0 = time.perf_counter()
-        run_search_path(device, {f32: (main_f32["bank"], main_f32["store"]),
-                                 int8: (main_i8["bank"], main_i8["store"])}, graphs)
+        search = run_search_path(device, {f32: (main_f32["bank"], main_f32["store"]),
+                                          int8: (main_i8["bank"], main_i8["store"])},
+                                 graphs)
         log(f"search_path_s {time.perf_counter() - t0:.1f}")
+
+        phase = "RPC path"
+        t0 = time.perf_counter()
+        run_rpc_path(device, {f32: main_f32["bank"], int8: main_i8["bank"]}, transfer,
+                     search, graphs)
+        log(f"rpc_path_s {time.perf_counter() - t0:.1f}")
 
         phase = "selection path"
         sel = run_selection_path(device, f32, graphs, main_f32["store"])
@@ -2501,7 +3126,8 @@ def main() -> int:
                  wino_parity["max_abs_err"]),
                 ("flash_attention", flash_rows[:1], lm["launches"],
                  flash_parity["max_abs_err"]),
-                ("moe_gmm", [r for r in gmm_rows if r["l2"] == "warm"],
+                ("moe_gmm", [r for r in gmm_rows
+                             if r["l2"] == "warm" and r["dtype"] == "bfloat16"],
                  lm["launches"], gmm_parity["max_abs_err"])):
             entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name]}

@@ -65,7 +65,8 @@
 //    the plain version and the reference's jax and Pallas tiers exactly.
 //
 // The kernels allocate nothing and launch on the caller's stream; each C
-// entry point returns cudaGetLastError() of its launch.
+// entry point returns cudaGetLastError() of its launch, or the error of the
+// shared-memory opt-in that refused it.
 
 #include <cuda_runtime.h>
 
@@ -282,7 +283,12 @@ template <bool kFused, int kRoute>
 cudaError_t launch(const Args& a, int grid, int smem_bytes, void* stream) {
   static int granted[kMaxDevices] = {};
   const cudaError_t err = opt_in(tree_kernel<kFused, kRoute>, granted, smem_bytes);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) {
+    // The runtime also keeps a refused attribute as this thread's last
+    // error: clear it, or the next launch's cudaGetLastError() reports it.
+    cudaGetLastError();
+    return err;
+  }
   tree_kernel<kFused, kRoute><<<grid, kThreads, smem_bytes,
                                 static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();

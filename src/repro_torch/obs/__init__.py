@@ -19,11 +19,10 @@ in the hot path.  Passing ONE bundle to every layer is what makes the
 ``metrics`` RPC endpoint's snapshot account for the whole system.
 
 Port notes (copy of ``repro.obs``): metric names, span names and the
-Prometheus exposition are the reference's, letter for letter.  Of the
-components above, the port has `LatencyService` and `ServeEngine`; the
-RPC batcher, server and client are not ported yet (ROADMAP A.4), and
-`METRIC_HELP` keeps their ``rpc_*`` entries so the exposition stays
-byte-identical.
+Prometheus exposition are the reference's, letter for letter, and every
+component above has its port (`repro_torch.rpc`, `repro_torch.pipeline`,
+`repro_torch.serving`), so the ``rpc_*`` HELP entries name metrics the
+port emits.
 """
 from __future__ import annotations
 

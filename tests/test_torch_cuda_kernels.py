@@ -202,6 +202,61 @@ def test_service_serves_on_the_card(card):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "leaves"])
+def test_tree_launch_refused_by_its_plan_does_not_fail_the_next(card, gbdt_150x4, fused):
+    """A plan asking for more shared memory than the card grants (1 MiB)
+    makes the launch raise; the next launch on the same thread runs, since
+    the refused opt-in's error is cleared."""
+    from repro_torch.kernels import tree_gather as tg
+    from repro_torch.kernels import tree_gather_cuda as tgc
+
+    rng = np.random.default_rng(3)
+    raw = np.abs(rng.standard_normal((527, 16))) * np.linspace(1, 30, 16)
+    db = gbdt_150x4.flat().device_bank(card)
+    xr = torch.from_numpy(raw.astype(np.float32)).to(card)
+    mean, std = tg.to_device_scaler(gbdt_150x4.scaler, card)
+    kind, scale, bias = gbdt_150x4._device_reduction()
+    xs = (xr - mean) / std
+    pl = tgc.plan_for(db, len(raw), 16, fused)
+    bad = dataclasses.replace(pl, smem_bytes=1 << 20)
+    name = "tree_predict_fused" if fused else "tree_gather_leaves"
+    run = ((lambda p: tgc.launch_fused(db, mean, std, scale, bias, xr, kind, p))
+           if fused else (lambda p: tgc.launch_leaves(db, xs, p)))
+    with pytest.raises(RuntimeError, match=f"{name} launch failed"):
+        run(bad)
+    got = run(pl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, run(pl))
+    if not fused:
+        assert torch.equal(got, tg.gather_leaves_plain(*db.bank_args, xs, depth=db.depth))
+
+
+def test_rpc_flushes_launch_on_the_batcher_thread(card):
+    """Predicts sent over a socket flush on the batcher's daemon thread,
+    whose launches run the fused kernel on the card."""
+    from repro_torch.core.dataset import synthetic_graphs
+    from repro_torch.core.profiler import DeviceSetting
+    from repro_torch.kernels import tree_gather_cuda as tgc
+    from repro_torch.pipeline import LatencyService
+    from repro_torch.rpc import LatencyClient, LatencyRPCServer
+
+    setting = DeviceSetting("h100_f32", "float32", "fused_groups", device="h100")
+    graphs = synthetic_graphs(6, resolution=32)
+    svc = LatencyService.build(graphs, setting, hparams={"n_stages": 10}, device=card)
+    server = LatencyRPCServer(svc)
+    host, port = server.start()
+    before = tgc.launch_counts()["tree_predict_fused"]
+    try:
+        with LatencyClient(host, port, timeout=60.0) as c:
+            got = c.predict_pipelined(synthetic_graphs(8, resolution=32, seed0=900))
+        st = server.batcher.stats()
+    finally:
+        server.stop()
+    assert len(got) == 8 and all(r.e2e_s > 0 for r in got)
+    assert set(st["flush_backends"]) == {"cuda"} and st["answered"] == 8
+    assert tgc.launch_counts()["tree_predict_fused"] > before
+
+
 # -- int8 GEMM and Winograd ------------------------------------------------------
 
 @pytest.mark.parametrize("m,k,n", [(1, 63, 252), (1, 1477, 1000), (64, 128, 64),

@@ -53,7 +53,9 @@ def test_port_has_the_slice_modules():
                 "convert.py", "configs/__init__.py", "configs/base.py",
                 "configs/registry.py", "configs/paper_nas.py",
                 "configs/granite_moe_1b.py", "configs/qwen2_72b.py",
-                "rpc/__init__.py", "rpc/protocol.py",
+                "rpc/__init__.py", "rpc/protocol.py", "rpc/batcher.py",
+                "rpc/chaos.py", "rpc/client.py", "rpc/resilience.py",
+                "rpc/server.py",
                 "kernels/flash_attention.py", "kernels/flash_attention_cuda.py",
                 "kernels/moe_gmm.py", "kernels/moe_gmm_cuda.py",
                 "models/__init__.py", "models/layers.py", "models/attention.py",
@@ -171,6 +173,7 @@ def _entry_points():
     from repro_torch.convert import lm_params_from_reference
     from repro_torch.models import build_model
     from repro_torch.pipeline import LatencyService, PredictorHub
+    from repro_torch.rpc import LatencyRPCServer
     from repro_torch.serving import ServeEngine
     from repro_torch.utils.device import resolve_device
 
@@ -188,6 +191,7 @@ def _entry_points():
         "CudaBank": lambda: CudaBank.from_flat(_tiny_gbdt()[0].flat()),
         "to_device_scaler": lambda: to_device_scaler(_tiny_gbdt()[0].scaler),
         "LatencyService": lambda: LatencyService(PredictorHub()),
+        "LatencyRPCServer": lambda: LatencyRPCServer(LatencyService(PredictorHub())),
         "predict_on_device": lambda: _tiny_gbdt()[0].predict_on_device(
             _tiny_gbdt()[1].astype(np.float32)),
         "predict_trees_cuda_tier": lambda: _tiny_gbdt()[0].flat().predict_trees(

@@ -140,24 +140,23 @@ def _string_literals(root, skip):
     return out
 
 
-def test_metric_help_orphans_are_the_unported_rpc_layer():
-    """Every curated HELP entry names a metric the port emits, except the
-    RPC layer's ``rpc_*`` metrics (not ported yet, ROADMAP A.4; the
-    reference's batcher builds most of their names with f-strings) and the
-    other entries the reference never emits either.  The map's own file is
-    left out of the scan: its keys would match themselves."""
+def test_metric_help_orphans_equal_reference():
+    """Every curated HELP entry is emitted by the port exactly where the
+    reference emits it: the same literal scan of both trees finds the same
+    orphans (names both packages build with f-strings, as the batcher does
+    for most ``rpc_batcher_*`` counters, or never emit).  The map's own
+    file is left out of the scan: its keys would match themselves."""
     port_src = os.path.join(ROOT, "src", "repro_torch")
     ref_src = os.path.join(ROOT, "src", "repro")
     port = _string_literals(port_src, os.path.join(port_src, "obs", "export.py"))
     ref = _string_literals(ref_src, os.path.join(ref_src, "obs", "export.py"))
     names = set(obs.METRIC_HELP) - {"repro_scrape_timestamp_seconds"}
     orphans = {n for n in names if n not in port}
-    still_to_come = {n for n in names if n.startswith("rpc_")}
-    never_emitted = {n for n in names - still_to_come if n not in ref}
-    assert orphans == still_to_come | never_emitted
-    assert still_to_come and len(never_emitted) < len(names - still_to_come)
-    assert {"serve_steps_total", "serve_step_duration",
-            "service_backend_runs_total"} <= names - orphans
+    assert orphans == {n for n in names if n not in ref}
+    assert len(orphans) < len(names)
+    assert {"serve_steps_total", "serve_step_duration", "service_backend_runs_total",
+            "rpc_batcher_queue_depth", "rpc_batcher_flush_duration",
+            "rpc_client_requests_total", "rpc_client_retries_total"} <= names - orphans
 
 
 # -- tracing and the flight recorder --------------------------------------------------
