@@ -74,6 +74,25 @@ result line:
          error), and the drift monitor fed by a second target session
          measuring the held-out graphs' ops (one observation per op with a
          predictor);
+       * the paper method path (`run_paper_method_path`), over the
+         transfer path's float32 ``op_by_op`` store and the int8 main
+         path's store: the 40 graphs profiled under ``whole_jit`` in
+         float32 and int8 (ops served from those stores, e2e through one
+         CUDA-graph replay); each graph's ``whole_jit`` outputs against
+         ``op_by_op`` within tests/test_torch_executor.py's bound
+         (bit-equality reported), the kernels' launch counts equal to
+         captured × replays (the int8 GEMM in every int8 graph), e2e of
+         ``op_by_op`` (sync per op), ``fused_groups`` and ``whole_jit``,
+         capture time, the graph's kernel nodes against its ops and the
+         phase's peak memory; the Fig. 8 Winograd graphs held the same
+         way.  Then each op type's measured latency over its H100
+         roofline label (`core/cost_model.py`; float32 at 67 TFLOP/s) and
+         `graph_cost` against measured e2e; then the paper's §3.1.1
+         multi-worker model over the float32 store's op latencies
+         (speedup at 1–4 workers, equal against weighted split for a
+         fast and a slow worker, a `StragglerMonitor` seeded from the
+         float32 GBDT bank's predictions): a model composing one card's
+         measurements, not a measurement of several workers;
        * the real-world path: the real-world suite (37 graphs of 16
          architectures at 224×224) profiled into the float32 store (only
          new signatures measured); banks of all four families (lasso,
@@ -164,6 +183,7 @@ import tempfile
 import threading
 import time
 import traceback
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1357,6 +1377,345 @@ def run_transfer_path(device, target, graphs, oracle, n_train: int = 32,
     log("transfer_drift " + json.dumps(drift))
     log("transfer_path " + json.dumps(out))
     return {"summary": out, "source": source, "store": src_store, "bank": src_bank}
+
+
+# -- the paper method path (whole-graph mode, roofline labels, multi-worker) --------
+
+WHOLE_RTOL, WHOLE_ATOL = 1e-5, 1e-6  # tests/test_torch_executor.py's `_close_graph`
+WORKER_COUNTS = (1, 2, 3, 4)
+FAST_SLOW = (1.0, 0.4)               # bench_multicore's heterogeneous pair
+STRAGGLER_GROUPS, STRAGGLER_SLOWDOWN, MICROBATCHES = 4, 1.6, 16
+CU_GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                       4: "graph", 5: "empty"}
+
+
+def _spread(xs) -> dict:
+    """Median and quartiles."""
+    import numpy as np
+
+    return {"q1": float(np.percentile(xs, 25)), "median": float(np.median(xs)),
+            "q3": float(np.percentile(xs, 75)), "n": len(xs)}
+
+
+def graph_node_counts(cuda_graph) -> dict:
+    """Nodes of a captured `torch.cuda.CUDAGraph` (kept as a template) by
+    type, read through the driver API (cuGraphGetNodes, cuGraphNodeGetType)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle = ctypes.c_void_p(cuda_graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    out = {"total": n.value}
+    kind = ctypes.c_int(0)
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise AssertionError("cuGraphNodeGetType failed")
+        name = CU_GRAPH_NODE_TYPES.get(kind.value, f"type{kind.value}")
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _close_outputs(got, want) -> tuple:
+    """(bit-equal, within the CPU test's bound): |got − want| ≤ RTOL·|want|
+    + ATOL·max(1, max|want|) element by element, per output."""
+    import torch
+
+    equal, close = True, True
+    for o, w in zip(got, want):
+        if o.shape != w.shape or o.dtype != w.dtype:
+            return False, False
+        equal &= bool(torch.equal(o, w))
+        w64, o64 = w.double(), o.double()
+        scale = max(1.0, float(w64.abs().max()))
+        close &= bool(((o64 - w64).abs()
+                       <= WHOLE_RTOL * w64.abs() + WHOLE_ATOL * scale).all())
+    return equal, close
+
+
+def _whole_vs_eager(g, dtype, device, fn_cache, timed: bool) -> dict:
+    """One graph through ``whole_jit`` against ``op_by_op`` on the same
+    inputs: the outputs compared, the graph's captured launches counted at
+    each replay (the counts read before and after the replays), and, when
+    ``timed``, e2e of the three modes as the profiler times it."""
+    import torch
+    from repro_torch.core.executor import GraphExecutor
+    from repro_torch.utils.timing import time_callable
+
+    ex_op = GraphExecutor(g, "op_by_op", dtype, fn_cache=fn_cache, device=device)
+    ex_wj = GraphExecutor(g, "whole_jit", dtype, fn_cache=fn_cache, device=device)
+    ins = ex_op.example_inputs()
+    want = ex_op(*ins, sync_per_op=True)
+    t0 = time.perf_counter()
+    got = ex_wj(*ins)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    equal, close = _close_outputs(got, want)
+    (whole,) = ex_wj.whole_graphs.values()
+    captured = whole.kernel_launches()
+    before, r0 = read_counts(), whole.replays
+    e2e = {"whole_jit": time_callable(lambda *a: ex_wj(*a), ins, warmup=1,
+                                      inner=2, repeats=3)}
+    replays = whole.replays - r0
+    counts = {k: n - before[k] for k, n in read_counts().items()}
+    want_counts = {k: captured.get(k, 0) * replays for k in counts}
+    if counts != want_counts:
+        raise AssertionError(f"{g.name} ({dtype}): {counts} launches in "
+                             f"{replays} replays, captured {captured}")
+    if timed:
+        ex_fg = GraphExecutor(g, "fused_groups", dtype, fn_cache=fn_cache,
+                              device=device)
+        e2e["op_by_op"] = time_callable(lambda *a: ex_op(*a, sync_per_op=True),
+                                        ins, warmup=1, inner=2, repeats=3)
+        e2e["fused_groups"] = time_callable(lambda *a: ex_fg(*a), ins,
+                                            warmup=1, inner=2, repeats=3)
+    return {"graph": g.name, "ops": len(g.nodes), "equal": equal, "close": close,
+            "captured": captured, "replays": replays, "capture_s": whole.capture_s,
+            "first_call_s": first_call_s, "nodes": graph_node_counts(whole.graph),
+            "e2e_s": e2e, "graph_ref": weakref.ref(whole.graph)}
+
+
+def run_whole_graph_mode(device, settings: dict, graphs) -> dict:
+    """Part 1: the 40 graphs profiled under ``whole_jit`` in float32 and
+    int8 (ops served from the stores that hold them, e2e through one
+    CUDA-graph replay), then each graph's ``whole_jit`` outputs against
+    ``op_by_op`` with launch counts gated at captured × replays, e2e of the
+    three modes, and the selection path's Winograd graphs held the same
+    way."""
+    import torch
+    from repro_torch.core.profiler import DeviceSetting, ProfileSession
+    from repro_torch.pipeline.store import setting_key
+
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    for dtype, (op_setting, store) in settings.items():
+        whole = DeviceSetting(f"h100_{'f32' if dtype == 'float32' else dtype}_whole",
+                              dtype, "whole_jit", device="h100")
+        session = ProfileSession(store=store, device=device, fn_cache_size=4096)
+        before = read_counts()
+        t0 = time.perf_counter()
+        recs = session.profile_suite(graphs, whole)
+        profile_s = time.perf_counter() - t0
+        profiling = {k: n - before[k] for k, n in read_counts().items()}
+        e2e_prof = [r.e2e_s for r in recs]
+        if session.measured_graphs != len(graphs) or session.measured_ops != 0:
+            raise AssertionError(f"{dtype} whole_jit profile: {session.stats()} "
+                                 f"(ops are served from the {op_setting.name} store)")
+        if not all(math.isfinite(e) and e > 0 for e in e2e_prof) or \
+                any(r.num_kernels != len(g.nodes) for r, g in zip(recs, graphs)) or \
+                store.get_arch(whole, graphs[0].fingerprint()) is None:
+            raise AssertionError(f"{dtype} whole_jit records wrong")
+        if dtype == "int8" and profiling["int8_matmul"] == 0:
+            raise AssertionError("the int8 GEMM was never launched while "
+                                 "profiling int8 whole_jit")
+        rows = [_whole_vs_eager(g, dtype, device, session.fn_cache, True)
+                for g in graphs]
+        measured = {"measured_graphs": session.measured_graphs,
+                    "measured_ops": session.measured_ops}
+        del session                 # its built ops and their weights
+        if not all(r["close"] for r in rows):
+            bad = [r["graph"] for r in rows if not r["close"]]
+            raise AssertionError(f"{dtype}: whole_jit outside the bound of "
+                                 f"op_by_op on {bad}")
+        if dtype == "int8" and not all(r["captured"].get("int8_matmul", 0) > 0
+                                       for r in rows):
+            raise AssertionError("an int8 graph captured no int8 GEMM launch")
+        # Each graph goes with its executor when `_whole_vs_eager` returns.
+        alive = sum(r.pop("graph_ref")() is not None for r in rows)
+        if alive:
+            raise AssertionError(f"{dtype}: {alive} captured graphs outlived "
+                                 f"their executors")
+        kernel_nodes = [r["nodes"].get("kernel", 0) for r in rows]
+        summary = {
+            "setting": f"{whole.name} ({setting_key(whole)})",
+            "profile_s": profile_s, **measured,
+            "launches_while_profiling": profiling,
+            "bit_equal_graphs": sum(r["equal"] for r in rows),
+            "within_bound_graphs": sum(r["close"] for r in rows), "graphs": len(rows),
+            "graphs_alive_after": alive,
+            "memory_mib_after": torch.cuda.memory_allocated() / 2**20,
+            "captured_launches": {k: sum(r["captured"].get(k, 0) for r in rows)
+                                  for k in sorted({k for r in rows for k in r["captured"]})},
+            "replays": sum(r["replays"] for r in rows),
+            "e2e_ms": {m: _spread([1e3 * r["e2e_s"][m] for r in rows])
+                       for m in ("op_by_op", "fused_groups", "whole_jit")},
+            "e2e_ms_profiled_whole_jit": _spread([1e3 * e for e in e2e_prof]),
+            "op_by_op_over_whole_jit": _spread(
+                [r["e2e_s"]["op_by_op"] / r["e2e_s"]["whole_jit"] for r in rows]),
+            "fused_groups_over_whole_jit": _spread(
+                [r["e2e_s"]["fused_groups"] / r["e2e_s"]["whole_jit"] for r in rows]),
+            "capture_ms": _spread([1e3 * r["capture_s"] for r in rows]),
+            "ops": _spread([r["ops"] for r in rows]),
+            "kernel_nodes": _spread(kernel_nodes),
+            "kernel_nodes_over_ops": _spread(
+                [n / r["ops"] for n, r in zip(kernel_nodes, rows)]),
+            "other_nodes": {k: sum(r["nodes"].get(k, 0) for r in rows)
+                            for k in sorted({k for r in rows for k in r["nodes"]})
+                            if k not in ("kernel", "total")}}
+        log(f"whole_jit {dtype} " + json.dumps(summary))
+        out[dtype] = summary
+    wino = []
+    for name, (c_in, c_out, hw) in STUDY_SHAPES.items():
+        r = _whole_vs_eager(_conv_graph(c_in, c_out, hw, winograd=True), "float32",
+                            device, None, False)
+        r.pop("graph_ref")
+        if not r["close"] or r["captured"].get("winograd_conv2d") != 1:
+            raise AssertionError(f"Winograd graph {name} under whole_jit: {r}")
+        wino.append({"name": name, "equal": r["equal"], "captured": r["captured"],
+                     "replays": r["replays"], "nodes": r["nodes"],
+                     "e2e_ms": 1e3 * r["e2e_s"]["whole_jit"]})
+    log("whole_jit winograd " + json.dumps(wino))
+    torch.cuda.synchronize()
+    out["winograd"] = wino
+    out["peak_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["memory_mib_before_after"] = [mem0 / 2**20,
+                                      torch.cuda.memory_allocated() / 2**20]
+    log("whole_jit_memory " + json.dumps({k: out[k] for k in
+                                          ("peak_memory_mib",
+                                           "memory_mib_before_after")}))
+    return out
+
+
+def run_roofline_labels(settings: dict, graphs) -> dict:
+    """Part 2: measured op latency over its H100 roofline label, by op type
+    and setting, and `graph_cost` against the measured ``op_by_op`` e2e.
+    float32 labels take 67 TFLOP/s (TF32 is off); int8 the s8 tensor-core
+    rate.  The measured floor of the float32 store is printed beside the
+    cost model's per-kernel overhead."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import cost_model
+    from repro_torch.core.ir import op_signature
+    from repro_torch.core.selection import get_device
+
+    h100 = get_device("h100")
+    devices = {"float32": dataclasses.replace(h100, peak_flops=PEAK_F32_OPS_PER_S),
+               "int8": h100}
+    out = {}
+    for dtype, (setting, store) in settings.items():
+        dev = devices[dtype]
+        by_type = {}
+        for g in graphs:
+            for node in g.nodes:
+                rec = store.get_op(setting, op_signature(g, node))
+                label = cost_model.op_cost(g, node, dev, dtype=dtype)
+                t = by_type.setdefault(node.op_type, {"ratio": [], "label_us": [],
+                                                      "measured_us": [],
+                                                      "compute": 0, "memory": 0})
+                t["ratio"].append(rec.latency_s / label.total_s)
+                t["label_us"].append(1e6 * label.total_s)
+                t["measured_us"].append(1e6 * rec.latency_s)
+                t[label.bound] += 1
+        rows = {k: {"measured_over_label": float(np.median(v["ratio"])),
+                    "label_us": float(np.median(v["label_us"])),
+                    "measured_us": float(np.median(v["measured_us"])),
+                    "bound": "compute" if v["compute"] > v["memory"] else "memory",
+                    "compute_bound_ops": v["compute"], "memory_bound_ops": v["memory"]}
+                for k, v in sorted(by_type.items())}
+        e2e = [store.get_arch(setting, g.fingerprint()).e2e_s for g in graphs]
+        cost = [cost_model.graph_cost(g, dev, dtype=dtype)["latency_s"] for g in graphs]
+        # The floor: the least op latency the profiler read, over the op
+        # types that launch a kernel (a split returns views of its input).
+        floors = {}
+        for r in store.op_records(setting):
+            floors[r.op_type] = min(floors.get(r.op_type, math.inf), r.latency_s)
+        floor = min(v for k, v in floors.items() if k != "split")
+        summary = {"setting": setting.name, "device": dev.name,
+                   "peak_flops": dev.peak_int8_flops if dtype == "int8" else dev.peak_flops,
+                   "hbm_bw": dev.hbm_bw,
+                   "kernel_overhead_s": cost_model.kernel_overhead(dev),
+                   "measured_floor_s": floor, "floor_s_by_type": floors,
+                   "note": "labels count 2 bytes a parameter (the reference's "
+                           "count) and derate peaks by 0.85",
+                   "by_type": rows,
+                   "e2e_over_graph_cost": _spread([m / c for m, c in zip(e2e, cost)]),
+                   "graph_cost_ms": _spread([1e3 * c for c in cost]),
+                   "e2e_ms": _spread([1e3 * m for m in e2e])}
+        if not all(math.isfinite(r["measured_over_label"]) and r["measured_over_label"] > 0
+                   for r in rows.values()):
+            raise AssertionError(f"{dtype} roofline ratios not finite and > 0")
+        log(f"roofline {dtype} " + json.dumps(summary))
+        out[dtype] = summary
+    return out
+
+
+def run_multiworker(device, source, store, bank, graphs, sync_overhead: float) -> dict:
+    """Part 3: the paper's §3.1.1 model composing the float32 ``op_by_op``
+    store's single-card op latencies (bench_multicore's recipe) and a
+    `StragglerMonitor` seeded from the float32 GBDT bank's predicted e2e
+    (bench_heterogeneity's), with ``sync_overhead`` the per-kernel floor
+    measured on the card.  One card: a model, not a measurement of
+    several workers."""
+    import numpy as np
+    from repro_torch.core.distributed_model import (Worker, graph_latency_multiworker,
+                                                    speedup_curve)
+    from repro_torch.distributed import StragglerMonitor
+    from repro_torch.pipeline import LatencyService, PredictorHub
+
+    ops = [[(o.op_type, o.latency_s) for o in store.get_arch(source, g.fingerprint()).ops]
+           for g in graphs]
+    curves = [speedup_curve(o, WORKER_COUNTS, sync_overhead=sync_overhead) for o in ops]
+    fast, slow = FAST_SLOW
+    pair = [Worker("fast", fast, sync_overhead), Worker("slow", slow, sync_overhead)]
+    alone = [graph_latency_multiworker(o, [Worker("fast", fast)]) for o in ops]
+    equal = [graph_latency_multiworker(o, pair, policy="equal") for o in ops]
+    weighted = [graph_latency_multiworker(o, pair, policy="weighted") for o in ops]
+
+    hub = PredictorHub(device=device)
+    hub.register(source, "gbdt", bank)
+    reports = LatencyService(hub, predictor="gbdt", device=device).predict_batch(
+        graphs, source)
+    base = float(np.median([r.e2e_s for r in reports]))
+    predicted = [base] * (STRAGGLER_GROUPS - 1) + [STRAGGLER_SLOWDOWN * base]
+    mon = StragglerMonitor(n_groups=STRAGGLER_GROUPS)
+    mon.seed_from_predictions(predicted)
+    plan = mon.microbatch_plan(MICROBATCHES)
+    speedup = mon.predicted_speedup(MICROBATCHES)
+    if mon.degraded_groups() != [STRAGGLER_GROUPS - 1] or sum(plan) != MICROBATCHES \
+            or plan[-1] >= plan[0] or not speedup > 1.0:
+        raise AssertionError(f"straggler plan {plan}, degraded "
+                             f"{mon.degraded_groups()}, speedup {speedup}")
+    out = {"model": "the paper's §3.1.1 model composing single-card measurements "
+                    "(one card: not a measurement of several workers)",
+           "sync_overhead_s": sync_overhead, "graphs": len(ops),
+           "speedup": {k: _spread([c[k] for c in curves]) for k in WORKER_COUNTS},
+           "equal_split_over_fast_alone": _spread([e / a for e, a in zip(equal, alone)]),
+           "weighted_split_over_fast_alone": _spread(
+               [w / a for w, a in zip(weighted, alone)]),
+           "straggler": {"predicted_e2e_s": predicted, "degraded": mon.degraded_groups(),
+                         "microbatches": plan, "equal_over_weighted": speedup}}
+    log("multiworker " + json.dumps(out))
+    return out
+
+
+def run_paper_method_path(device, transfer: dict, int8, main_i8: dict, graphs) -> dict:
+    """The paper's whole-graph mode, roofline labels and multi-worker
+    composition on the card, over the transfer path's float32 ``op_by_op``
+    store and the int8 main path's store."""
+    settings = {"float32": (transfer["source"], transfer["store"]),
+                "int8": (int8, main_i8["store"])}
+    reset_counts()
+    whole = run_whole_graph_mode(device, settings, graphs)
+    roofline = run_roofline_labels(settings, graphs)
+    multi = run_multiworker(device, transfer["source"], transfer["store"],
+                            transfer["bank"], graphs,
+                            roofline["float32"]["measured_floor_s"])
+    launches = read_counts()
+    log("paper_method_path " + json.dumps({"launches": launches}))
+    if launches["int8_matmul"] == 0 or launches["winograd_conv2d"] == 0 or \
+            launches["tree_predict_fused"] == 0:
+        raise AssertionError(f"paper method path launches {launches}")
+    return {"whole_jit": whole, "roofline": roofline, "multiworker": multi,
+            "launches": launches}
 
 
 # -- the RPC path (the serving layer in front of the card) -----------------------------
@@ -2969,6 +3328,32 @@ def time_ssd_scan(device) -> list:
     return rows
 
 
+def time_device_guard(device, iters: int = 20000) -> dict:
+    """Host µs of selecting the operands' card at a launch, both ways, with
+    the card already current: the wrappers pass ``t.get_device()`` to the C
+    entry point, which compares it with cudaGetDevice (not timed here);
+    the alternative was a ``torch.cuda.device`` guard around the launch."""
+    import torch
+
+    t = torch.empty(1, device=device)
+
+    def loop(kind: str) -> float:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            if kind == "guard":
+                with torch.cuda.device(device):
+                    pass
+            elif kind == "index":
+                t.get_device()
+        return (time.perf_counter() - t0) / iters * 1e6
+
+    loop("guard")
+    empty = min(loop("empty") for _ in range(3))
+    return {"get_device_us": min(loop("index") for _ in range(3)) - empty,
+            "torch_cuda_device_guard_us": min(loop("guard") for _ in range(3)) - empty,
+            "empty_loop_us": empty}
+
+
 def summarize(rows: list, launches: int, parity_err: float) -> dict:
     tot = {k: math.fsum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
     ops_bound = any(r["bound_by"] == "operations" for r in rows)
@@ -3068,6 +3453,11 @@ def main() -> int:
         transfer = run_transfer_path(device, int8, graphs, main_i8)
         log(f"transfer_path_s {time.perf_counter() - t0:.1f}")
 
+        phase = "paper method path"
+        t0 = time.perf_counter()
+        run_paper_method_path(device, transfer, int8, main_i8, graphs)
+        log(f"paper_method_path_s {time.perf_counter() - t0:.1f}")
+
         phase = "real-world path"
         t0 = time.perf_counter()
         run_realworld_path(device, f32, graphs, main_f32["store"])
@@ -3096,6 +3486,7 @@ def main() -> int:
         ssm = run_ssm_path(device)
 
         phase = "times"
+        log("device_guard " + json.dumps(time_device_guard(device)))
         timed = time_kernels(main_f32["bank"], main_f32["held"], pop, device)
         preds = main_f32["bank"].predictors
         curve = auto_curve(preds.get("conv2d") or next(iter(preds.values())),

@@ -51,7 +51,8 @@ t, c, k, stream)``; of the commit before the tree redesign:
 n_nodes, n_trees, depth, rows_per_block, bank_in_smem, grid, smem_bytes,
 stream)`` and ``tree_predict_fused_launch`` likewise (with mean, std,
 scale, bias and the reduction), launched as `parent_tree_plan` plans;
-flash's and the GMM's are this tree's.
+flash's and the GMM's are this tree's (the operands' card index before
+the stream).
 """
 from __future__ import annotations
 
@@ -88,8 +89,8 @@ def build_parent(csrc: Path, names) -> dict:
     libs = {}
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {
-        "flash_attention": [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p],
-        "moe_gmm": [p, p, p, i, i, i, i, i, p],
+        "flash_attention": [p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p],
+        "moe_gmm": [p, p, p, i, i, i, i, i, i, p],
         "int8_matmul": [p, p, p, p, i, i, i, i, f, p],
         "winograd_conv": [p, p, p, i, i, i, p]}
     z = ctypes.c_size_t
@@ -118,7 +119,7 @@ def parent_flash(lib, q, k, v, causal):
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1],
         h, k.shape[2], d, 1 if q.dtype == torch.bfloat16 else 0, int(causal), 0,
-        1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+        1.0 / math.sqrt(d), q.get_device(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"parent flash_attention launch failed: {err}")
     return out
@@ -131,7 +132,7 @@ def parent_gmm(lib, x, w):
     out = torch.empty((e, c, w.shape[2]), dtype=x.dtype, device=x.device)
     err = lib.moe_gmm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d,
                              w.shape[2], 1 if x.dtype == torch.bfloat16 else 0,
-                             torch.cuda.current_stream().cuda_stream)
+                             x.get_device(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"parent moe_gmm launch failed: {err}")
     return out

@@ -10,7 +10,13 @@ The twin of the reference executor (``repro.core.executor``).  Modes:
                        count == kernel count).  Eager torch still issues
                        the group's elementwise tail as separate launches
                        after the convolution (its bias rides in the conv).
-  * ``whole_jit``    — not ported yet (a CUDA graph in a later slice).
+  * ``whole_jit``    — the whole op sequence as one unit (the reference
+                       jits it into one XLA executable, "upper bound").
+                       On the card: one CUDA graph of the ``op_by_op``
+                       program, captured per input signature and replayed,
+                       so the host dispatches nothing between ops; there
+                       is no fusion across ops (XLA's would).  On the
+                       host: the op functions run in one call.
 
 ``dtype="int8"`` builds its ops with `repro_torch.quant.int8`: the int8
 GEMM kernel carries fully-connected and dense convolution ops.  The
@@ -35,7 +41,9 @@ copies), then uploaded once per built op.
 from __future__ import annotations
 
 import hashlib
-from functools import partial
+import time
+from dataclasses import dataclass
+from functools import lru_cache, partial
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,6 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.fusion import fuse_graph
 from repro_torch.core.ir import OpGraph, OpNode, op_signature
+from repro_torch.kernels import _build
 from repro_torch.kernels.ops import winograd_conv2d
 from repro_torch.kernels.winograd_conv import transform_weights
 from repro_torch.utils.device import DeviceLike, resolve_device
@@ -411,14 +420,61 @@ def op_builder(dtype: str) -> Callable[..., Tuple[Callable, List[int]]]:
 # Graph executors
 # ---------------------------------------------------------------------------
 
+# Eager runs on a side stream before a capture: cuDNN picks its algorithms,
+# libraries load and the allocator's pools grow outside the graph.
+CAPTURE_WARMUP = 2
+
+
+@lru_cache(maxsize=None)
+def _capture_stream(index: int) -> "torch.cuda.Stream":
+    """The one side stream of every ``whole_jit`` warm-up and capture on
+    card ``index``: torch keeps a cuBLAS workspace for each stream a
+    matmul has run on, so a fresh stream a capture would add one."""
+    return torch.cuda.Stream(torch.device("cuda", index))
+
+
+@dataclass
+class WholeGraph:
+    """One captured CUDA graph of a ``whole_jit`` executor: its static input
+    and output buffers, the launches its capture recorded
+    (`repro_torch.kernels._build.Launches`), its replays and the seconds
+    the warm-up and capture took."""
+
+    graph: Any                      # torch.cuda.CUDAGraph
+    inputs: List[Tensor]
+    outputs: Tuple[Tensor, ...]
+    launches: _build.Launches
+    capture_s: float
+    replays: int = 0
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """Launches of the port's kernels recorded in the graph, by kernel
+        (one replay runs each of them this many times)."""
+        out: Dict[str, int] = {}
+        for counter, name, n in self.launches:
+            if not counter.routes:
+                out[name] = out.get(name, 0) + n
+        return out
+
+
 class GraphExecutor:
     """Execute an OpGraph on ``device`` (the card unless told otherwise).
 
     ``fn_cache`` (optional, signature-keyed) shares built per-op
     callables across executors — valid for *timing* (latency depends on
     the op config, not its weights), not for numerics.  ``dtype='int8'``
-    uses the integer-arithmetic path (`repro_torch.quant`).  ``whole_jit``
-    is not ported and raises NotImplementedError.
+    uses the integer-arithmetic path (`repro_torch.quant`).
+
+    ``whole_jit`` on the card captures, at the first call with a given
+    input signature (shapes, dtypes), one `torch.cuda.CUDAGraph` of the
+    ``op_by_op`` sequence into static buffers (`WholeGraph`, in
+    ``whole_graphs``), after `CAPTURE_WARMUP` eager runs on a side stream.
+    Every call copies its inputs into the static buffers, replays the
+    graph and returns clones of the static outputs, so a later call
+    overwrites nothing returned earlier.  A capture that fails raises;
+    nothing runs eagerly in its place.  Each graph holds its own memory
+    pool, released with the executor.  The kernels' launch counts count
+    a captured launch once per replay, not at capture.
     """
 
     def __init__(self, graph: OpGraph, mode: str = "op_by_op",
@@ -429,13 +485,12 @@ class GraphExecutor:
             raise ValueError(f"unknown executor mode {mode!r}")
         if dtype not in ("float32", "int8"):
             raise ValueError(f"unknown executor dtype {dtype!r}")
-        if mode == "whole_jit":
-            raise NotImplementedError("whole_jit is not ported to torch yet")
         self.device = resolve_device(device)
         self.graph = graph
         self.mode = mode
         self.dtype = dtype
         self.fn_cache = fn_cache
+        self.whole_graphs: Dict[tuple, WholeGraph] = {}
         self._build()
 
     def _build(self) -> None:
@@ -473,9 +528,16 @@ class GraphExecutor:
         ``sync_per_op=True`` blocks after every op — TFLite-CPU-interpreter
         semantics (ops strictly sequential).  False leaves the CUDA stream
         free to queue launches ahead — the GPU-command-queue analogue.
+        ``whole_jit`` ignores it, as the reference does.
         """
+        if self.mode == "whole_jit":
+            if self.device.type == "cuda":
+                return self._replay(inputs)
+            return self._run(inputs, sync=False)
+        return self._run(inputs, sync=sync_per_op and self.device.type == "cuda")
+
+    def _run(self, inputs: Sequence[Tensor], sync: bool) -> Tuple[Tensor, ...]:
         g = self.exec_graph
-        sync = sync_per_op and self.device.type == "cuda"
         env: Dict[int, Tensor] = dict(zip(g.input_ids, inputs))
         for node, fn, in_ids in self.op_fns:
             outs = fn(*[env[t] for t in in_ids])
@@ -487,5 +549,43 @@ class GraphExecutor:
                 env[tid] = o
         return tuple(env[t] for t in g.output_ids)
 
+    def _replay(self, inputs: Sequence[Tensor]) -> Tuple[Tensor, ...]:
+        key = tuple((tuple(x.shape), x.dtype) for x in inputs)
+        with torch.cuda.device(self.device):
+            whole = self.whole_graphs.get(key)
+            if whole is None:
+                whole = self.whole_graphs[key] = self._capture(inputs)
+            for buf, x in zip(whole.inputs, inputs):
+                buf.copy_(x)
+            whole.graph.replay()
+            _build.add_launches(whole.launches)
+            whole.replays += 1
+            return tuple(o.clone() for o in whole.outputs)
+
+    def _capture(self, inputs: Sequence[Tensor]) -> WholeGraph:
+        """Warm up on a side stream, then capture the op sequence into one
+        CUDA graph (kept as a template too: ``raw_cuda_graph()``)."""
+        t0 = time.perf_counter()
+        static_in = [x.detach().clone() for x in inputs]
+        side = _capture_stream(self.device.index)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP):
+                self._run(static_in, sync=False)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        launches: _build.Launches = []
+        try:
+            with _build.capturing_launches(launches):
+                with torch.cuda.graph(graph, stream=side):
+                    static_out = self._run(static_in, sync=False)
+            graph.instantiate()
+        except Exception as e:
+            raise RuntimeError(f"whole_jit: capturing {self.graph.name!r} as one "
+                               f"CUDA graph failed: {e}") from e
+        torch.cuda.synchronize(self.device)
+        return WholeGraph(graph, static_in, static_out, launches,
+                          time.perf_counter() - t0)
+
     def kernel_count(self) -> int:
-        return len(self.op_fns)
+        return 1 if self.mode == "whole_jit" else len(self.op_fns)

@@ -13,7 +13,7 @@ Two frontends produce `OpGraph`s:
 Two backends consume them:
   * `repro.core.executor` — turns graphs into jitted JAX callables for
     wall-clock profiling on the CPU device;
-  * `repro.core.cost_model` — analytical TPU-v5e roofline costs.
+  * `repro_torch.core.cost_model` — analytical roofline costs (H100 by default).
 """
 from __future__ import annotations
 

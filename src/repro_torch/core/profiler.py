@@ -14,10 +14,12 @@ A `ProfileSession` measures
 
 Device settings play the role of the paper's 72 scenarios:
   dtype ∈ {float32, int8}  ×  executor mode ∈ {op_by_op (CPU-like),
-  fused_groups (GPU-delegate-like)}  ×  simulated worker profiles
-  (multi-core composition happens in `distributed_model`, from these
-  single-worker measurements — same structure as the paper's per-core
-  measurements).
+  fused_groups (GPU-delegate-like), whole_jit (the whole graph as one
+  unit: one CUDA-graph replay on the card)}  ×  simulated worker
+  profiles (multi-core composition happens in `distributed_model`, from
+  these single-worker measurements — same structure as the paper's
+  per-core measurements).  Under ``whole_jit`` ops are still measured one
+  by one; only the end-to-end time runs through the captured graph.
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ class DeviceSetting:
 
     name: str
     dtype: str = "float32"         # float32 | int8
-    mode: str = "op_by_op"         # op_by_op (CPU) | fused_groups (GPU-like)
+    mode: str = "op_by_op"         # op_by_op (CPU) | fused_groups (GPU-like) | whole_jit
     device: str = ""               # physical-device tag ("" = the local device)
 
     def __post_init__(self) -> None:

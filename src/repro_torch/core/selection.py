@@ -9,7 +9,9 @@ line-by-line, and the reference extends the same mechanism to a TPU-v5e
 profile that selects among its kernels (flash-attention vs naive
 attention, int8 vs bf16 matmul, fused MoE GMM vs per-expert loop,
 Winograd vs direct conv) from matrix-unit alignment.  The profiles'
-fields are copied as data.
+fields are copied as data.  The port adds one profile of its own, the
+H100 (``"h100"``), which runs Alg. C.2's generic rules and selects no
+Winograd kernel.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ GPU_MALI = "mali"             # e.g. Mali G76 (Exynos 9820)
 GPU_POWERVR = "powervr"       # e.g. PowerVR GE8320 (Helio P35)
 TPU_V5E = "tpu_v5e"
 CPU_XLA = "cpu_xla"           # the reference's CPU device
+GPU_H100 = "h100"             # the port's card (NVIDIA H100 SXM)
 
 
 @dataclass(frozen=True)
@@ -67,6 +70,19 @@ DEVICE_PROFILES: Dict[str, DeviceProfile] = {
         "cpu_xla", CPU_XLA,
         peak_flops=50e9, hbm_bw=10e9, link_bw=1e9,
         cores=1, freq_ghz=2.2,
+        supports_winograd=False,
+    ),
+    # The port's card: NVIDIA H100 80GB HBM3 at its 700.00 W power limit
+    # (nvidia-smi --query-gpu=name,power.limit).  Published dense rates:
+    # bfloat16 on the tensor cores (the field's convention for peak_flops;
+    # float32 outside them is 67e12), int8 on the tensor cores, HBM3.
+    # supports_winograd=False: the paper's Fig. 8 study on this card found
+    # the direct convolution faster than the port's Winograd kernel at all
+    # three ResNet shapes (chip_smoke.py `fig8` lines; PERF.md).
+    "h100": DeviceProfile(
+        "h100", GPU_H100,
+        peak_flops=989e12, peak_int8_flops=1979e12,
+        hbm_bw=3.35e12,
         supports_winograd=False,
     ),
 }

@@ -9,11 +9,13 @@ with ctypes.  Nothing is built or loaded at import time.
 Every source exports ``<name>_error_string(int)`` beside its launch
 functions, and every launch function returns ``cudaGetLastError()`` of
 its launch; `CudaLibrary.raise_on` turns a non-zero code into an error.
-`LaunchCounter` holds a module's launch counts, and `check_tensor` is
-the wrappers' argument check.
+`LaunchCounter` holds a module's launch counts (`capturing_launches` and
+`add_launches` move launches recorded by a CUDA-graph capture to the
+graph's replays), and `check_tensor` is the wrappers' argument check.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -149,15 +151,18 @@ def build_all(libraries: Sequence[CudaLibrary]) -> Dict[str, Dict[str, Any]]:
 
 class LaunchCounter:
     """Launches per kernel of one module: a wrapper calls `add` where it
-    launches its kernel, and nowhere else."""
+    launches its kernel, and nowhere else.  ``routes=True`` marks a
+    module's second counter, which counts the same launches by route."""
 
-    def __init__(self, *names: str):
+    def __init__(self, *names: str, routes: bool = False):
         self.counts: Dict[str, int] = {n: 0 for n in names}
+        self.routes = routes
         self._lock = threading.Lock()
+        _COUNTERS.append(self)
 
-    def add(self, name: str) -> None:
+    def add(self, name: str, n: int = 1) -> None:
         with self._lock:
-            self.counts[name] += 1
+            self.counts[name] += n
 
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
@@ -167,6 +172,38 @@ class LaunchCounter:
         with self._lock:
             for k in self.counts:
                 self.counts[k] = 0
+
+
+# Every LaunchCounter made, in the order the modules made them.
+_COUNTERS: List[LaunchCounter] = []
+
+# (counter, kernel or route name, launches): what a CUDA-graph capture
+# recorded, added to the counters at each replay.
+Launches = List[Tuple[LaunchCounter, str, int]]
+
+
+@contextlib.contextmanager
+def capturing_launches(captured: Launches) -> Iterator[None]:
+    """Launches made inside the block are recorded by a CUDA-graph capture,
+    not run: when the block ends (also by an error) they are taken back out
+    of every counter and listed in ``captured``, and `add_launches` counts
+    them once for each replay of the graph.  Launches made meanwhile by
+    another thread would be listed too."""
+    before = [c.snapshot() for c in _COUNTERS]
+    try:
+        yield
+    finally:
+        for c, was in zip(list(_COUNTERS), before):
+            for name, n in c.snapshot().items():
+                if n != was[name]:
+                    c.add(name, was[name] - n)
+                    captured.append((c, name, n - was[name]))
+
+
+def add_launches(captured: Launches, times: int = 1) -> None:
+    """Count a captured graph's launches ``times`` more times (its replays)."""
+    for c, name, n in captured:
+        c.add(name, n * times)
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

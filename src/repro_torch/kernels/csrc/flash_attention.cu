@@ -75,7 +75,8 @@
 //    are zero-filled and masked (the Pallas kernel asserts divisibility).
 //  * expf, fmaf and IEEE division: no fast-math intrinsics.
 //
-// The kernels allocate nothing and launch on the caller's stream; the C
+// The kernels allocate nothing and launch on the caller's stream and
+// card (host_launch.cuh's DeviceGuard); the C
 // entry point returns cudaGetLastError() of its launch (or the error of
 // raising the bfloat16 kernel's dynamic shared-memory limit).
 
@@ -84,6 +85,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "host_launch.cuh"
 
 namespace {
 
@@ -481,10 +483,11 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
                int sq, int skv, int heads, int kv_heads, int causal,
                int q_offset, float scale, cudaStream_t stream) {
   constexpr int kSmem = MmaTile<D>::kSmemBytes;
-  // Once per instance: allow more than the default 48 KB of dynamic
-  // shared memory.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_bf16_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  // More than the default 48 KB of dynamic shared memory: granted once per
+  // instance and card (host_launch.cuh).
+  static int granted[host_launch::kMaxDevices] = {};
+  const cudaError_t attr =
+      host_launch::opt_in(flash_fwd_bf16_mma<D>, granted, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(b * heads, (sq + kMmaRows - 1) / kMmaRows);
   const float log2e = 1.4426950408889634f;
@@ -524,7 +527,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int sq,
                                       int skv, int heads, int kv_heads, int d,
                                       int dtype, int causal, int q_offset,
-                                      float scale, void* stream) {
+                                      float scale, int device, void* stream) {
+  const host_launch::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return launch_d<float>(d, q, k, v, o, b, sq, skv, heads, kv_heads, causal,

@@ -53,7 +53,8 @@
 //    adjacent columns as one float2 where n is even.  (Staging the tile
 //    through shared memory for row-wise stores was slower on the card.)
 //
-// The kernel allocates nothing and launches on the caller's stream; the C
+// The kernel allocates nothing and launches on the caller's stream and
+// card (host_launch.cuh's DeviceGuard); the C
 // entry point returns cudaGetLastError() of its launch.
 
 #include <cuda_runtime.h>
@@ -61,6 +62,7 @@
 #include <stdint.h>
 
 #include "mma_s8.cuh"
+#include "host_launch.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -309,7 +311,9 @@ extern "C" int int8_matmul_launch(const void* a, const void* bt,
                                   const void* bias, void* out, int m, int n,
                                   int k, int lda, int ldb, int bm, int bn,
                                   int k_split, int splits, int a_async,
-                                  float scale, void* stream) {
+                                  float scale, int device, void* stream) {
+  const host_launch::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (k_split <= 0 || k_split % kBK != 0 || splits < 1 || splits > 8 ||
       static_cast<long long>(k_split) * (splits - 1) >= (k > 0 ? k : 1) ||
       ldb % 16 != 0 || (a_async && lda % 16 != 0))

@@ -60,7 +60,8 @@
 //    aligned) load element by element, zero-filled, and stores are masked
 //    (the Pallas kernel asserts divisibility).
 //
-// The kernels allocate nothing and launch on the caller's stream; the C
+// The kernels allocate nothing and launch on the caller's stream and
+// card (host_launch.cuh's DeviceGuard); the C
 // entry point returns cudaGetLastError() of its launch (or the error of
 // raising the bfloat16 kernel's dynamic shared-memory limit).
 
@@ -69,6 +70,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "host_launch.cuh"
 
 namespace {
 
@@ -400,11 +402,11 @@ __global__ void __launch_bounds__(Tile::kThreads) moe_gmm_mma_kernel(
 template <class Tile>
 int launch_mma_tile(const void* x, const void* w, void* out, int experts,
                     int rows, int depth, int cols, cudaStream_t stream) {
-  // Once per instance: allow more than the default 48 KB of dynamic
-  // shared memory.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      moe_gmm_mma_kernel<Tile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile::kSmemBytes);
+  // More than the default 48 KB of dynamic shared memory: granted once per
+  // instance and card (host_launch.cuh).
+  static int granted[host_launch::kMaxDevices] = {};
+  const cudaError_t attr =
+      host_launch::opt_in(moe_gmm_mma_kernel<Tile>, granted, Tile::kSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((cols + Tile::BN - 1) / Tile::BN,
                   (rows + Tile::BM - 1) / Tile::BM, experts);
@@ -434,7 +436,9 @@ int mma_smem_bytes(int rows) {
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
 extern "C" int moe_gmm_launch(const void* x, const void* w, void* out,
                               int experts, int rows, int depth, int cols,
-                              int dtype, void* stream) {
+                              int dtype, int device, void* stream) {
+  const host_launch::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(x, w, out, experts, rows, depth, cols, s);
   if (dtype == 1) return launch_mma(x, w, out, experts, rows, depth, cols, s);

@@ -37,12 +37,15 @@
 // not aligned to its vector, takes the scalar kernel (one element a
 // thread), and the last block masks its tail.
 //
-// The kernel allocates nothing and launches on the caller's stream; the C
+// The kernel allocates nothing and launches on the caller's stream and
+// card (host_launch.cuh's DeviceGuard); the C
 // entry point returns cudaGetLastError() of its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "host_launch.cuh"
 
 namespace {
 
@@ -213,7 +216,10 @@ int launch_decay(const void* s, const void* decay, void* h_prev, void* h_final,
 // s_dtype, d_dtype: 0 = float32, 1 = bfloat16.  bh = B*H, pn = P*N.
 extern "C" int ssd_scan_launch(const void* s, const void* decay, void* h_prev,
                                void* h_final, int nc, long long bh, long long pn,
-                               int s_dtype, int d_dtype, void* stream) {
+                               int s_dtype, int d_dtype, int device,
+                               void* stream) {
+  const host_launch::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nc < 0 || bh < 0 || pn < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (s_dtype == 0) {

@@ -64,13 +64,15 @@
 //    contraction; build without --use_fast_math).  The leaves then match
 //    the plain version and the reference's jax and Pallas tiers exactly.
 //
-// The kernels allocate nothing and launch on the caller's stream; each C
+// The kernels allocate nothing and launch on the caller's stream and
+// card (host_launch.cuh's DeviceGuard); each C
 // entry point returns cudaGetLastError() of its launch, or the error of the
 // shared-memory opt-in that refused it.
 
 #include <cuda_runtime.h>
 
 #include "ptx_copy.cuh"
+#include "host_launch.cuh"
 
 namespace {
 
@@ -260,35 +262,12 @@ __global__ void __launch_bounds__(kThreads) tree_kernel(const Args a) {
   }
 }
 
-// Dynamic shared memory above 48 KB needs an opt-in per kernel and per
-// card; it is made once per instance and card for the largest size asked
-// so far, not on every launch.
-constexpr int kMaxDevices = 64;
-
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int* granted, int smem_bytes) {
-  if (smem_bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem_bytes <= granted[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
-  if (err == cudaSuccess) granted[dev] = smem_bytes;
-  return err;
-}
-
 template <bool kFused, int kRoute>
 cudaError_t launch(const Args& a, int grid, int smem_bytes, void* stream) {
-  static int granted[kMaxDevices] = {};
-  const cudaError_t err = opt_in(tree_kernel<kFused, kRoute>, granted, smem_bytes);
-  if (err != cudaSuccess) {
-    // The runtime also keeps a refused attribute as this thread's last
-    // error: clear it, or the next launch's cudaGetLastError() reports it.
-    cudaGetLastError();
-    return err;
-  }
+  static int granted[host_launch::kMaxDevices] = {};
+  const cudaError_t err =
+      host_launch::opt_in(tree_kernel<kFused, kRoute>, granted, smem_bytes);
+  if (err != cudaSuccess) return err;
   tree_kernel<kFused, kRoute><<<grid, kThreads, smem_bytes,
                                 static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
@@ -331,7 +310,10 @@ Args make_args(const void* b0, const void* b1, const void* b2, const void* x,
 extern "C" int tree_gather_leaves_launch(
     int route, const void* b0, const void* b1, const void* b2, const void* x,
     void* out, int rows, int d, int n_trees, int depth, int log_groups,
-    int rows_on_lanes, int x_stride, int grid, int smem_bytes, void* stream) {
+    int rows_on_lanes, int x_stride, int grid, int smem_bytes, int device,
+    void* stream) {
+  const host_launch::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   Args a = make_args(b0, b1, b2, x, rows, d, n_trees, depth, log_groups,
                      rows_on_lanes, x_stride);
   a.out = static_cast<float*>(out);
@@ -343,7 +325,9 @@ extern "C" int tree_predict_fused_launch(
     const void* mean, const void* stdv, void* out, int rows, int d,
     int n_trees, int depth, int log_groups, int rows_on_lanes, int x_stride,
     float scale, float bias, int mean_reduce, int grid, int smem_bytes,
-    void* stream) {
+    int device, void* stream) {
+  const host_launch::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   Args a = make_args(b0, b1, b2, x, rows, d, n_trees, depth, log_groups,
                      rows_on_lanes, x_stride);
   a.mean = static_cast<const float*>(mean);

@@ -61,13 +61,15 @@
 //    inputs agree bit for bit.  Only the order of the float32 sums
 //    differs from the plain version.
 //
-// The kernels allocate nothing and launch on the caller's stream; the C
+// The kernels allocate nothing and launch on the caller's stream and
+// card (host_launch.cuh's DeviceGuard); the C
 // entry point returns cudaGetLastError() of its launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "ptx_copy.cuh"
+#include "host_launch.cuh"
 
 namespace {
 
@@ -244,7 +246,10 @@ void launch_products(const float* tiles, const float* u, float* mws, int t_total
 // of t_pass tiles in turn: 2 * ceil(t_total / t_pass) launches.
 extern "C" int winograd_conv_launch(const void* tiles, const void* u, void* y,
                                     void* mws, int t_total, int t_pass, int c,
-                                    int k, int bt, int bq, int cc, void* stream) {
+                                    int k, int bt, int bq, int cc, int device,
+                                    void* stream) {
+  const host_launch::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   void (*products)(const float*, const float*, float*, int, int, int, cudaStream_t);
 #define TILE_SET(BT, BQ, CC)                                          \
   if (bt == BT && bq == BQ && cc == CC) {                             \

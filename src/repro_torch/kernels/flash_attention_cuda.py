@@ -7,9 +7,12 @@ contiguous and 16-byte aligned, all float32 or all bfloat16, d in
 tensor-core kernel (`flash_fwd_bf16_mma`), float32 the CUDA-core one
 (`flash_fwd`); there is no fallback between them.  The wrapper checks
 device, dtype, contiguity and shape, allocates the output, launches on
-torch's current stream and raises if the C entry point reports a CUDA
-error.  It adds one to ``LAUNCHES["flash_attention"]`` (every launch)
-and to ``route_counts()[route]`` (the kernel's route, `ROUTES`) where it
+the operand's card (the C entry point takes its index and makes it
+current, so a launch from any thread reaches the card its tensors are
+on) and on torch's current stream of that card and raises if the C entry
+point reports a CUDA error.  It adds one to
+``LAUNCHES["flash_attention"]`` (every launch) and to
+``route_counts()[route]`` (the kernel's route, `ROUTES`) where it
 launches, and nowhere else.  CPU tensors never reach this module.
 """
 from __future__ import annotations
@@ -26,7 +29,7 @@ from repro_torch.kernels._build import check_tensor as _check
 # dtype → (code of the C entry point, route of the kernel it launches).
 ROUTES = {torch.float32: (0, "f32_simt"), torch.bfloat16: (1, "bf16_mma")}
 _COUNTER = LaunchCounter("flash_attention")
-_ROUTE_COUNTER = LaunchCounter(*(r for _, r in ROUTES.values()))
+_ROUTE_COUNTER = LaunchCounter(*(r for _, r in ROUTES.values()), routes=True)
 LAUNCHES: Dict[str, int] = _COUNTER.counts
 launch_counts = _COUNTER.snapshot
 route_counts = _ROUTE_COUNTER.snapshot
@@ -43,14 +46,14 @@ def reset_launch_counts() -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                           i, i, f, p]
+                                           i, i, f, i, p]
     lib.flash_attention_launch.restype = i
     lib.flash_attention_bf16_smem_bytes.argtypes = [i]
     lib.flash_attention_bf16_smem_bytes.restype = i
 
 
 LIBRARY = CudaLibrary("flash_attention", ("flash_attention.cu",), _declare,
-                      headers=("mma_bf16.cuh", "ptx_copy.cuh"))
+                      headers=("mma_bf16.cuh", "ptx_copy.cuh", "host_launch.cuh"))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -83,11 +86,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("attention over an empty key sequence")
     lib = LIBRARY.load()
     code, route = ROUTES[q.dtype]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, sq, skv, h, kvh, d, code, int(causal), int(q_offset),
-        1.0 / math.sqrt(d), stream)
+        1.0 / math.sqrt(d), q.get_device(),
+        torch.cuda.current_stream(q.device).cuda_stream)
     LIBRARY.raise_on(err, "flash_attention")
     _COUNTER.add("flash_attention")
     _ROUTE_COUNTER.add(route)

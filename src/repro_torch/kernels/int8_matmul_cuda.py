@@ -13,12 +13,14 @@ split of k runs as thread-block clusters that reduce in their own shared
 memory, so it needs no workspace.
 
 The wrapper checks device, dtype, strides and shape, allocates the
-output, launches on torch's current stream and raises if the C entry
-point reports a CUDA error.  It adds one to ``LAUNCHES["int8_matmul"]``
-where it launches the kernel, and nowhere else; ``route_counts()`` counts
-the same launches twice, once by k route (``one_pass`` or ``split_k``)
-and once by how A reaches shared memory (``a_cp_async`` or
-``a_words``).  CPU tensors never reach this module.
+output, launches on the operand's card (the C entry point takes its
+index and makes it current, so a launch from any thread reaches the card
+its tensors are on) and on torch's current stream of that card and
+raises if the C entry point reports a CUDA error.  It adds one to
+``LAUNCHES["int8_matmul"]`` where it launches the kernel, and nowhere
+else; ``route_counts()`` counts the same launches twice, once by k route
+(``one_pass`` or ``split_k``) and once by how A reaches shared memory
+(``a_cp_async`` or ``a_words``).  CPU tensors never reach this module.
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ RESIDENT = 5
 ALIGN = 16                           # bytes: the cp.async route's row and base alignment
 
 _COUNTER = LaunchCounter("int8_matmul")
-_ROUTE_COUNTER = LaunchCounter("one_pass", "split_k", "a_cp_async", "a_words")
+_ROUTE_COUNTER = LaunchCounter("one_pass", "split_k", "a_cp_async", "a_words",
+                               routes=True)
 LAUNCHES: Dict[str, int] = _COUNTER.counts
 launch_counts = _COUNTER.snapshot
 route_counts = _ROUTE_COUNTER.snapshot
@@ -113,12 +116,12 @@ def plan(m: int, n: int, k: int) -> Plan:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.int8_matmul_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-                                       f, p]
+                                       f, i, p]
     lib.int8_matmul_launch.restype = i
 
 
 LIBRARY = CudaLibrary("int8_matmul", ("int8_matmul.cu",), _declare,
-                      headers=("mma_s8.cuh", "ptx_copy.cuh"))
+                      headers=("mma_s8.cuh", "ptx_copy.cuh", "host_launch.cuh"))
 
 
 def _row_stride(a_q: torch.Tensor) -> int:
@@ -187,7 +190,7 @@ def launch(a_q: torch.Tensor, bt: torch.Tensor, scale: float,
         a_q.data_ptr(), bt.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         m, n, k, lda, bt.shape[1], pl.bm, pl.bn, pl.k_split,
-        pl.splits, int(route == "a_cp_async"), float(scale),
+        pl.splits, int(route == "a_cp_async"), float(scale), a_q.get_device(),
         torch.cuda.current_stream(a_q.device).cuda_stream)
     LIBRARY.raise_on(err, "int8_matmul")
     _COUNTER.add("int8_matmul")

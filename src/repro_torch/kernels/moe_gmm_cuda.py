@@ -6,11 +6,13 @@ the kernel: bfloat16 launches the tensor-core kernel
 (`moe_gmm_mma_kernel`, its tile chosen from c), float32 the CUDA-core one
 (`moe_gmm_kernel`); there is no fallback between them.  The wrapper
 checks device, dtype, contiguity and shape, allocates the output,
-launches on torch's current stream and raises if the C entry point
-reports a CUDA error.  It adds one to ``LAUNCHES["moe_gmm"]`` (every
-launch) and to ``route_counts()[route]`` (the kernel's route, `ROUTES`)
-where it launches, and nowhere else.  CPU tensors never reach this
-module.
+launches on the operand's card (the C entry point takes its index and
+makes it current, so a launch from any thread reaches the card its
+tensors are on) and on torch's current stream of that card and raises if
+the C entry point reports a CUDA error.  It adds one to
+``LAUNCHES["moe_gmm"]`` (every launch) and to ``route_counts()[route]``
+(the kernel's route, `ROUTES`) where it launches, and nowhere else.  CPU
+tensors never reach this module.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.kernels._build import check_tensor as _check
 # dtype → (code of the C entry point, route of the kernel it launches).
 ROUTES = {torch.float32: (0, "f32_simt"), torch.bfloat16: (1, "bf16_mma")}
 _COUNTER = LaunchCounter("moe_gmm")
-_ROUTE_COUNTER = LaunchCounter(*(r for _, r in ROUTES.values()))
+_ROUTE_COUNTER = LaunchCounter(*(r for _, r in ROUTES.values()), routes=True)
 LAUNCHES: Dict[str, int] = _COUNTER.counts
 launch_counts = _COUNTER.snapshot
 route_counts = _ROUTE_COUNTER.snapshot
@@ -38,14 +40,14 @@ def reset_launch_counts() -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.moe_gmm_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.moe_gmm_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.moe_gmm_launch.restype = i
     lib.moe_gmm_bf16_smem_bytes.argtypes = [i]
     lib.moe_gmm_bf16_smem_bytes.restype = i
 
 
 LIBRARY = CudaLibrary("moe_gmm", ("moe_gmm.cu",), _declare,
-                      headers=("mma_bf16.cuh", "ptx_copy.cuh"))
+                      headers=("mma_bf16.cuh", "ptx_copy.cuh", "host_launch.cuh"))
 
 
 def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -64,9 +66,9 @@ def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     lib = LIBRARY.load()
     code, route = ROUTES[x.dtype]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.moe_gmm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                             e, c, d, f, code, stream)
+                             e, c, d, f, code, x.get_device(),
+                             torch.cuda.current_stream(x.device).cuda_stream)
     LIBRARY.raise_on(err, "moe_gmm")
     _COUNTER.add("moe_gmm")
     _ROUTE_COUNTER.add(route)

@@ -3,11 +3,13 @@
 ``ssd_scan_cuda(s_chunk, decay)`` → (h_prev (nc, b, h, p, n), h_final
 (b, h, p, n)) in s_chunk's type, on the card: s_chunk (nc, b, h, p, n)
 float32 or bfloat16, decay (nc, b, h) float32 or bfloat16, both
-contiguous on one card.  The wrapper checks device, dtype, contiguity and
-shape, allocates the outputs, launches on torch's current stream and
-raises if the C entry point reports a CUDA error.  It adds one to
-``LAUNCHES["ssd_scan"]`` where it launches the kernel, and nowhere else.
-CPU tensors never reach this module.
+contiguous on one card.  The wrapper checks device, dtype, contiguity
+and shape, allocates the outputs, launches on the operand's card (the C
+entry point takes its index and makes it current, so a launch from any
+thread reaches the card its tensors are on) and on torch's current
+stream of that card and raises if the C entry point reports a CUDA
+error.  It adds one to ``LAUNCHES["ssd_scan"]`` where it launches the
+kernel, and nowhere else.  CPU tensors never reach this module.
 """
 from __future__ import annotations
 
@@ -29,11 +31,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_scan_launch.argtypes = [p, p, p, p, i, ll, ll, i, i, p]
+    lib.ssd_scan_launch.argtypes = [p, p, p, p, i, ll, ll, i, i, i, p]
     lib.ssd_scan_launch.restype = i
 
 
-LIBRARY = CudaLibrary("ssd_scan", ("ssd_scan.cu",), _declare)
+LIBRARY = CudaLibrary("ssd_scan", ("ssd_scan.cu",), _declare,
+                      headers=("host_launch.cuh",))
 
 
 def ssd_scan_cuda(s_chunk: torch.Tensor, decay: torch.Tensor
@@ -57,11 +60,11 @@ def ssd_scan_cuda(s_chunk: torch.Tensor, decay: torch.Tensor
     if h_final.numel() == 0:
         return h_prev, h_final
     lib = LIBRARY.load()
-    stream = torch.cuda.current_stream(s_chunk.device).cuda_stream
     err = lib.ssd_scan_launch(s_chunk.data_ptr(), decay.data_ptr(),
                               h_prev.data_ptr(), h_final.data_ptr(), nc, b * h,
                               p * n, _DTYPES[s_chunk.dtype], _DTYPES[decay.dtype],
-                              stream)
+                              s_chunk.get_device(),
+                              torch.cuda.current_stream(s_chunk.device).cuda_stream)
     LIBRARY.raise_on(err, "ssd_scan")
     _COUNTER.add("ssd_scan")
     return h_prev, h_final

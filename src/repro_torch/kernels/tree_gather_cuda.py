@@ -22,9 +22,11 @@ The library is built at first use by `repro_torch.kernels._build`
 flags) and loaded with ctypes.  Nothing is built or loaded at import time.
 
 Every wrapper checks device, dtype, contiguity and shape, allocates the
-output itself, launches on torch's current stream and raises if the C
-entry point reports a CUDA error.  A wrapper adds one to its entry in
-`LAUNCHES` where it launches its kernel, and nowhere else;
+output itself, launches on the operand's card (the C entry point takes
+its index and makes it current, so a launch from any thread reaches the
+card its tensors are on) and on torch's current stream of that card and
+raises if the C entry point reports a CUDA error.  A wrapper adds one to
+its entry in `LAUNCHES` where it launches its kernel, and nowhere else;
 ``route_counts()`` counts the same launches by route.  CPU tensors never
 reach this module: `repro_torch.kernels.tree_gather` sends a host bank
 to the plain torch versions and a CUDA bank here.
@@ -66,7 +68,7 @@ LEAVES_GROUPS = ((1.0, 128), (8.0, 32), (20.0, 16), (100.0, 8), (float("inf"), 4
 
 # Launches per kernel and per route; `reset_launch_counts` zeroes both.
 _COUNTER = LaunchCounter("tree_gather_leaves", "tree_predict_fused")
-_ROUTE_COUNTER = LaunchCounter(*ROUTES)
+_ROUTE_COUNTER = LaunchCounter(*ROUTES, routes=True)
 LAUNCHES: Dict[str, int] = _COUNTER.counts
 launch_counts = _COUNTER.snapshot
 route_counts = _ROUTE_COUNTER.snapshot
@@ -80,15 +82,15 @@ def reset_launch_counts() -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tree_gather_leaves_launch.argtypes = [
-        i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.tree_gather_leaves_launch.restype = i
     lib.tree_predict_fused_launch.argtypes = [
-        i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, i, i, i, p]
+        i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, i, i, i, i, p]
     lib.tree_predict_fused_launch.restype = i
 
 
 LIBRARY = CudaLibrary("tree_gather", ("tree_gather.cu",), _declare,
-                      headers=("ptx_copy.cuh",))
+                      headers=("ptx_copy.cuh", "host_launch.cuh"))
 
 
 # -- launch plan ----------------------------------------------------------------
@@ -250,8 +252,8 @@ def launch_leaves(bank, x: torch.Tensor, pl: Plan) -> torch.Tensor:
     err = lib.tree_gather_leaves_launch(
         ROUTES.index(pl.route), b0, b1, b2, x.data_ptr(), out.data_ptr(),
         rows, d, bank.n_trees, bank.depth, pl.log_groups, int(pl.rows_on_lanes),
-        pl.x_stride, pl.grid, pl.smem_bytes,
-        torch.cuda.current_stream(bank.device).cuda_stream)
+        pl.x_stride, pl.grid, pl.smem_bytes, x.get_device(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     LIBRARY.raise_on(err, "tree_gather_leaves")
     _COUNTER.add("tree_gather_leaves")
     _ROUTE_COUNTER.add(pl.route)
@@ -288,7 +290,8 @@ def launch_fused(bank, mean: torch.Tensor, std: torch.Tensor, scale: float,
         std.data_ptr(), out.data_ptr(), rows, d, bank.n_trees, bank.depth,
         pl.log_groups, int(pl.rows_on_lanes), pl.x_stride,
         float(np.float32(scale)), float(np.float32(bias)), int(kind == "mean"),
-        pl.grid, pl.smem_bytes, torch.cuda.current_stream(bank.device).cuda_stream)
+        pl.grid, pl.smem_bytes, x.get_device(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     LIBRARY.raise_on(err, "tree_predict_fused")
     _COUNTER.add("tree_predict_fused")
     _ROUTE_COUNTER.add(pl.route)

@@ -12,11 +12,14 @@ tile of the first launch and the run length (pure Python, so the CPU
 tests hold it).
 
 The wrapper checks device, dtype, contiguity and shape, allocates the
-output, launches on torch's current stream and raises if the C entry
-point reports a CUDA error.  It adds one to ``LAUNCHES["winograd_conv2d"]``
-per call where it launches the kernels, and nowhere else;
-``route_counts()`` counts the same calls by block tile and step
-(``t16_q128_c16`` … ``t16_q64_c32``).  CPU tensors never reach this module.
+output, launches on the operand's card (the C entry point takes its
+index and makes it current, so a launch from any thread reaches the card
+its tensors are on) and on torch's current stream of that card and
+raises if the C entry point reports a CUDA error.  It adds one to
+``LAUNCHES["winograd_conv2d"]`` per call where it launches the kernels,
+and nowhere else; ``route_counts()`` counts the same calls by block tile
+and step (``t16_q128_c16`` … ``t16_q64_c32``).  CPU tensors never reach
+this module.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ WORKSPACE_BYTES = 32 << 20
 
 _COUNTER = LaunchCounter("winograd_conv2d")
 _ROUTE_COUNTER = LaunchCounter(*(f"t{bt}_q{bq}_c{cc}" for bt, bq in TILES
-                                 for cc in CHUNKS))
+                                 for cc in CHUNKS), routes=True)
 LAUNCHES: Dict[str, int] = _COUNTER.counts
 launch_counts = _COUNTER.snapshot
 route_counts = _ROUTE_COUNTER.snapshot
@@ -94,12 +97,12 @@ def plan(t: int, c: int, k: int) -> Plan:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.winograd_conv_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.winograd_conv_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.winograd_conv_launch.restype = i
 
 
 LIBRARY = CudaLibrary("winograd_conv", ("winograd_conv.cu",), _declare,
-                      headers=("ptx_copy.cuh",))
+                      headers=("ptx_copy.cuh", "host_launch.cuh"))
 
 
 def winograd_tiles_cuda(tiles: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -126,10 +129,10 @@ def launch(tiles: torch.Tensor, u: torch.Tensor, pl: Plan) -> torch.Tensor:
     lib = LIBRARY.load()
     mws = torch.empty((POSITIONS, min(t, pl.t_pass), k), dtype=torch.float32,
                       device=tiles.device)
-    stream = torch.cuda.current_stream(tiles.device).cuda_stream
-    err = lib.winograd_conv_launch(tiles.data_ptr(), u.data_ptr(), out.data_ptr(),
-                                   mws.data_ptr(), t, pl.t_pass, c, k, pl.bt, pl.bq,
-                                   pl.cc, stream)
+    err = lib.winograd_conv_launch(
+        tiles.data_ptr(), u.data_ptr(), out.data_ptr(), mws.data_ptr(), t,
+        pl.t_pass, c, k, pl.bt, pl.bq, pl.cc, tiles.get_device(),
+        torch.cuda.current_stream(tiles.device).cuda_stream)
     LIBRARY.raise_on(err, "winograd_conv2d")
     _COUNTER.add("winograd_conv2d")
     _ROUTE_COUNTER.add(pl.route)

@@ -14,7 +14,7 @@ type.
 
 A sliding window or a logit softcap (gemma2 only) is not in the kernel
 yet: on the host such calls take the reference's einsum attention, on
-the card they raise NotImplementedError (ROADMAP A.1).  ``decode_attention``
+the card they raise NotImplementedError (ROADMAP A.3).  ``decode_attention``
 stays plain torch einsums, as the reference computes it outside any
 kernel.  GQA never repeats K/V: query head i reads kv head i // (h / kvh).
 """
@@ -32,7 +32,7 @@ Tensor = torch.Tensor
 
 NEG_INF = -2.0e38
 UNPORTED_MASKS = ("a sliding window or a logit softcap is not in the CUDA "
-                  "flash kernel yet (ROADMAP A.1: window and softcap in the "
+                  "flash kernel yet (ROADMAP A.3: window and softcap in the "
                   "flash kernel, with the gemma2 local/global stack)")
 
 

@@ -11,7 +11,7 @@ families the port has: ``dense`` and ``moe`` (the plain decoder stack),
 
 The reference's ``input_specs`` (shape stand-ins for its dry-run) has no
 use without a tracer and is left out.  Families ``encdec`` and ``vlm``
-raise NotImplementedError (ROADMAP A.1).
+raise NotImplementedError (ROADMAP A.3).
 """
 from __future__ import annotations
 
@@ -30,8 +30,8 @@ from repro_torch.utils.device import DeviceLike, resolve_device
 Tensor = torch.Tensor
 
 UNPORTED_FAMILIES = {
-    "encdec": "the encoder-decoder family (ROADMAP A.1: encdec)",
-    "vlm": "the VLM family (ROADMAP A.1: VLM cross-attention)",
+    "encdec": "the encoder-decoder family (ROADMAP A.3: encdec)",
+    "vlm": "the VLM family (ROADMAP A.3: VLM cross-attention)",
 }
 
 

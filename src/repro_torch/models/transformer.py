@@ -14,7 +14,7 @@ What differs from the reference, and why:
     same K/V tensors and a new ``len``.
 
 The gemma2 local/global stack and the VLM cross-attention stack raise
-NotImplementedError (ROADMAP A.1): they need window and softcap masks in
+NotImplementedError (ROADMAP A.3): they need window and softcap masks in
 the flash kernel, and cross-attention over vision embeddings.
 """
 from __future__ import annotations
@@ -56,11 +56,11 @@ def check_plain_stack(cfg) -> None:
     if cfg.alt_local_global:
         raise NotImplementedError(
             f"{cfg.name}: the gemma2 local/global stack is not ported "
-            f"(ROADMAP A.1: window and softcap in the flash kernel)")
+            f"(ROADMAP A.3: window and softcap in the flash kernel)")
     if cfg.cross_attn_every:
         raise NotImplementedError(
             f"{cfg.name}: the VLM cross-attention stack is not ported "
-            f"(ROADMAP A.1: VLM cross-attention)")
+            f"(ROADMAP A.3: VLM cross-attention)")
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,7 @@ def test_headers_are_not_passed_to_nvcc(csrc, monkeypatch):
 
 @pytest.mark.parametrize("module", TENSOR_CORE_MODULES, ids=lambda m: m.__name__)
 def test_tensor_core_sources_hash_the_shared_header(module):
-    assert module.LIBRARY.headers == ("mma_bf16.cuh", "ptx_copy.cuh")
+    assert module.LIBRARY.headers == ("mma_bf16.cuh", "ptx_copy.cuh", "host_launch.cuh")
     src = (_build.CSRC / module.LIBRARY.sources[0]).read_text()
     assert '#include "mma_bf16.cuh"' in src
 
@@ -108,3 +108,42 @@ def test_routes_are_chosen_by_dtype_and_reset_with_the_launch_count(module):
     module.reset_launch_counts()
     assert module.route_counts() == {"bf16_mma": 0, "f32_simt": 0}
     assert set(module.launch_counts().values()) == {0}
+
+
+# -- launches recorded by a CUDA-graph capture count at each replay ---------------
+
+def test_captured_launches_move_from_the_capture_to_the_replays():
+    kernels = _build.LaunchCounter("k")
+    routes = _build.LaunchCounter("a", "b", routes=True)
+    kernels.add("k")                          # a launch before the capture ran
+    captured = []
+    with _build.capturing_launches(captured):
+        kernels.add("k")
+        kernels.add("k")
+        routes.add("b")
+    assert kernels.snapshot() == {"k": 1} and routes.snapshot() == {"a": 0, "b": 0}
+    assert sorted((c.routes, name, n) for c, name, n in captured) == [
+        (False, "k", 2), (True, "b", 1)]
+    _build.add_launches(captured)
+    _build.add_launches(captured, times=3)
+    assert kernels.snapshot() == {"k": 9} and routes.snapshot() == {"a": 0, "b": 4}
+
+
+def test_a_failed_capture_counts_nothing():
+    kernels = _build.LaunchCounter("k")
+    captured = []
+    with pytest.raises(RuntimeError):
+        with _build.capturing_launches(captured):
+            kernels.add("k")
+            raise RuntimeError("capture refused")
+    assert kernels.snapshot() == {"k": 0} and captured[0][1:] == ("k", 1)
+
+
+@pytest.mark.parametrize("module", CUDA_MODULES, ids=lambda m: m.__name__)
+def test_every_wrapper_counter_is_registered_for_captures(module):
+    counters = [module._COUNTER] + ([module._ROUTE_COUNTER]
+                                    if hasattr(module, "_ROUTE_COUNTER") else [])
+    for c in counters:
+        assert any(c is r for r in _build._COUNTERS)
+    assert not module._COUNTER.routes
+    assert all(c.routes for c in counters[1:])

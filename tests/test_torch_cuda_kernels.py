@@ -850,3 +850,149 @@ def test_reduced_ssm_on_the_card_equals_the_host_port(card, arch, over):
         b, ch = m.decode_step(host, {"token": toks[:, t:t + 1]}, ch)
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
     assert ssc.launch_counts()["ssd_scan"] == cfg.num_layers   # decode: none
+
+
+# -- the device guard: every wrapper launched from a new thread -------------------
+
+def _wrapper_calls(card, gbdt):
+    """kernel name → a call of its wrapper on operands on ``card``."""
+    from repro_torch.kernels import flash_attention_cuda as fac
+    from repro_torch.kernels import int8_matmul_cuda as imc
+    from repro_torch.kernels import moe_gmm_cuda as mgc
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+    from repro_torch.kernels import tree_gather as tg
+    from repro_torch.kernels import tree_gather_cuda as tgc
+    from repro_torch.kernels import winograd_conv_cuda as wcc
+
+    rng = np.random.default_rng(5)
+    raw = np.abs(rng.standard_normal((527, 16))) * np.linspace(1, 30, 16)
+    db = gbdt.flat().device_bank(card)
+    xr = torch.from_numpy(raw.astype(np.float32)).to(card)
+    mean, std = tg.to_device_scaler(gbdt.scaler, card)
+    kind, scale, bias = gbdt._device_reduction()
+    xs = (xr - mean) / std
+    a, bt, ibias, iscale = _int8_case(card, 784, 441, 38, seed=5)
+    tiles = torch.from_numpy(rng.standard_normal((196, 16, 64)).astype(np.float32)).to(card)
+    u = torch.from_numpy(rng.standard_normal((16, 64, 64)).astype(np.float32)).to(card)
+    bf16 = torch.bfloat16
+    q = _bf16(rng, (1, 128, 4, 64)).to(card, bf16)
+    k, v = (_bf16(rng, (1, 128, 2, 64)).to(card, bf16) for _ in range(2))
+    x, w = _bf16(rng, (4, 32, 64)).to(card, bf16), _bf16(rng, (4, 64, 32)).to(card, bf16)
+    s, d = _ssd_inputs((4, 1, 3, 8, 16), card, torch.float32, torch.float32, 5)
+    return {
+        "tree_gather_leaves": lambda: tgc.gather_leaves_cuda(db, xs),
+        "tree_predict_fused": lambda: tgc.fused_predict_cuda(db, mean, std, scale,
+                                                             bias, xr, kind),
+        "int8_matmul": lambda: imc.int8_matmul_cuda(a, bt, iscale, ibias),
+        "winograd_conv2d": lambda: wcc.winograd_tiles_cuda(tiles, u),
+        "flash_attention": lambda: fac.flash_attention_cuda(q, k, v, causal=True),
+        "moe_gmm": lambda: mgc.moe_gmm_cuda(x, w),
+        "ssd_scan": lambda: ssc.ssd_scan_cuda(s, d),
+    }
+
+
+KERNEL_NAMES = ("tree_gather_leaves", "tree_predict_fused", "int8_matmul",
+                "winograd_conv2d", "flash_attention", "moe_gmm", "ssd_scan")
+
+
+def _kernel_counts():
+    from repro_torch.kernels import (flash_attention_cuda, int8_matmul_cuda,
+                                     moe_gmm_cuda, ssd_scan_cuda, tree_gather_cuda,
+                                     winograd_conv_cuda)
+
+    out = {}
+    for m in (tree_gather_cuda, int8_matmul_cuda, winograd_conv_cuda,
+              flash_attention_cuda, moe_gmm_cuda, ssd_scan_cuda):
+        out.update(m.launch_counts())
+    return out
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
+def test_wrapper_launched_from_a_new_thread(card, gbdt_150x4, name):
+    """On one card this shows the guard does no harm (the result and the
+    count are those of a launch from the main thread), not that it picks a
+    second card."""
+    import threading
+
+    call = _wrapper_calls(card, gbdt_150x4)[name]
+    want = call()
+    torch.cuda.synchronize()
+    before = _kernel_counts()
+    box = {}
+
+    def run():
+        try:
+            box["out"] = call()
+            torch.cuda.synchronize()
+        except BaseException as e:          # re-raised on the main thread
+            box["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and "error" not in box, box.get("error")
+    after = _kernel_counts()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: int(k == name) for k in after}
+    got = box["out"]
+    for g, w_ in zip(got if isinstance(got, tuple) else (got,),
+                     want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w_)
+
+
+# -- whole-graph mode: one CUDA-graph replay ---------------------------------------
+
+WHOLE_RTOL, WHOLE_ATOL = 1e-5, 1e-6     # tests/test_torch_executor.py's bound
+
+
+def _within(got, want):
+    w64, g64 = want.double(), got.double()
+    scale = max(1.0, float(w64.abs().max()))
+    return bool(((g64 - w64).abs() <= WHOLE_RTOL * w64.abs() + WHOLE_ATOL * scale).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_whole_graph_replay_equals_eager(card, dtype):
+    from repro_torch.core.dataset import synthetic_graphs
+    from repro_torch.core.executor import GraphExecutor
+
+    g = synthetic_graphs(2, resolution=64)[1]
+    eager = GraphExecutor(g, "op_by_op", dtype, device=card)
+    whole = GraphExecutor(g, "whole_jit", dtype, device=card)
+    ins, ins2 = eager.example_inputs(), eager.example_inputs(seed=7)
+    want, want2 = eager(*ins, sync_per_op=True), eager(*ins2, sync_per_op=True)
+    first = whole(*ins)
+    (wg,) = whole.whole_graphs.values()
+    captured = wg.kernel_launches()
+    if dtype == "int8":
+        assert captured["int8_matmul"] > 0
+    before = _kernel_counts()
+    second = whole(*ins2)
+    again = [whole(*ins) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = _kernel_counts()
+    assert wg.replays == 4 and whole.kernel_count() == 1
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: 3 * captured.get(k, 0) for k in after}
+    # A later call overwrites nothing returned earlier.
+    for got, ref in [(first, want), (second, want2)] + [(a, want) for a in again]:
+        for o, w_ in zip(got, ref):
+            assert o.dtype == w_.dtype and _within(o, w_)
+
+
+def test_whole_graph_capture_failure_raises(card):
+    """An op that copies to the host cannot be captured: the executor
+    raises and keeps no graph.  (Last in the file: it is the one test here
+    that aborts a stream capture.)"""
+    from repro_torch.core.dataset import synthetic_graphs
+    from repro_torch.core.executor import GraphExecutor
+
+    g = synthetic_graphs(1, resolution=32)[0]
+    whole = GraphExecutor(g, "whole_jit", "int8", device=card)
+    node, fn, ids = whole.op_fns[0]
+    whole.op_fns[0] = (node, lambda *xs: fn(*xs).cpu().to(card), ids)
+    ins = whole.example_inputs()
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="whole_jit: capturing"):
+        whole(*ins)
+    assert whole.whole_graphs == {}

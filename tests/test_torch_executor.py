@@ -306,11 +306,88 @@ def test_fused_groups_is_one_callable_per_fusion_group():
     assert shrunk > 0
 
 
-@pytest.mark.parametrize("mode,dtype", [("whole_jit", "float32")])
-def test_not_yet_ported_modes_raise(mode, dtype):
-    g = synthetic_graphs(1, resolution=16)[0]
-    with pytest.raises(NotImplementedError):
-        pex.GraphExecutor(g, mode=mode, dtype=dtype, device="cpu")
+# -- whole_jit: the reference jits the whole graph; on the host the port runs
+# the op functions in one call (on the card: one CUDA-graph replay, held in
+# tests/test_torch_cuda_kernels.py) ------------------------------------------------
+
+def _whole_pair(dtype, idx):
+    ref_g = ref_graphs(3, resolution=16)[idx]
+    g = synthetic_graphs(3, resolution=16)[idx]
+    return (rex.GraphExecutor(ref_g, mode="whole_jit", dtype=dtype),
+            pex.GraphExecutor(g, mode="whole_jit", dtype=dtype, device="cpu"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("idx", [0, 1, 2])
+def test_whole_jit_matches_reference(dtype, idx):
+    # XLA fuses across ops under the reference's whole-graph jit, so float32
+    # sums differ in order: the `_close_graph` bound.  int8 outputs are
+    # integers, which that bound holds exactly.
+    rex_, pex_ = _whole_pair(dtype, idx)
+    assert pex_.kernel_count() == rex_.kernel_count() == 1
+    ins_ref = rex_.example_inputs()
+    ins = pex_.example_inputs()
+    for a, b in zip(ins_ref, ins):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    want = rex_(*ins_ref)
+    got = pex_(*ins)
+    assert len(got) == len(want)
+    for o, w in zip(got, want):
+        assert tuple(o.shape) == tuple(w.shape)
+        assert o.numpy().dtype == np.asarray(w).dtype
+        _close_graph(o.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("idx", [0, 1, 2])
+def test_whole_jit_equals_op_by_op(dtype, idx):
+    g = synthetic_graphs(3, resolution=16)[idx]
+    whole = pex.GraphExecutor(g, mode="whole_jit", dtype=dtype, device="cpu")
+    ops = pex.GraphExecutor(g, mode="op_by_op", dtype=dtype, device="cpu")
+    assert whole.exec_graph is g and len(whole.op_fns) == ops.kernel_count()
+    assert whole.kernel_count() == 1
+    ins = ops.example_inputs()
+    first = whole(*ins, sync_per_op=True)
+    for got, want in zip(first, ops(*ins, sync_per_op=True)):
+        assert torch.equal(got, want)
+    again = whole(*ins)
+    assert all(torch.equal(a, b) and a is not b for a, b in zip(first, again))
+    assert whole.whole_graphs == {}         # captures only on the card
+
+
+def test_profile_session_whole_jit_matches_reference_records(tmp_path):
+    # The reference measures each op alone and times e2e through the whole
+    # graph: same keys, signatures, features and kernel counts here.
+    kw = dict(warmup=1, inner=1, repeats=1, e2e_inner=1, e2e_repeats=1)
+    ref_set = RefSetting("h100_f32_whole", "float32", "whole_jit", device="h100")
+    setting = DeviceSetting("h100_f32_whole", "float32", "whole_jit", device="h100")
+    ref_store = RefStore(str(tmp_path / "ref.jsonl"))
+    store = ProfileStore(str(tmp_path / "port.jsonl"))
+    ref_recs = RefSession(store=ref_store, **kw).profile_suite(
+        ref_graphs(2, resolution=16), ref_set)
+    session = ProfileSession(store=store, device="cpu", **kw)
+    recs = session.profile_suite(synthetic_graphs(2, resolution=16), setting)
+    ref_store.close()
+    store.close()
+    assert session.measured_graphs == 2 and session.measured_ops > 0
+    for r, p in zip(ref_recs, recs):
+        assert (p.name, p.num_ops, p.num_kernels) == (r.name, r.num_ops,
+                                                      r.num_kernels)
+        assert [(o.signature, o.op_type, o.features, o.fused) for o in p.ops] == \
+            [(o.signature, o.op_type, o.features, o.fused) for o in r.ops]
+        assert all(o.latency_s > 0 for o in p.ops) and p.e2e_s > 0
+    import json
+    lines = [json.loads(s) for s in open(tmp_path / "port.jsonl")]
+    ref_lines = [json.loads(s) for s in open(tmp_path / "ref.jsonl")]
+    keys = [(d["kind"], d.get("axis"), d.get("setting")) for d in lines]
+    assert keys == [(d["kind"], d.get("axis"), d.get("setting")) for d in ref_lines]
+    assert {d["setting"] for d in lines if d["kind"] == "arch"} == \
+        {"h100:float32/whole_jit"}
+    assert {d["axis"] for d in lines if d["kind"] == "op"} == {"h100:float32"}
+    # Stores cross over: each package reads the other's whole_jit records.
+    back = ProfileStore(str(tmp_path / "ref.jsonl"))
+    for g, r in zip(synthetic_graphs(2, resolution=16), ref_recs):
+        assert back.get_arch(setting, g.fingerprint()).e2e_s == r.e2e_s
 
 
 # -- timing -----------------------------------------------------------------------

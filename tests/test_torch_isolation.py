@@ -71,11 +71,13 @@ def test_port_has_the_slice_modules():
                 "transfer/sampler.py", "transfer/synthetic.py",
                 "transfer/engine.py", "obs/__init__.py", "obs/metrics.py",
                 "obs/tracing.py", "obs/export.py", "obs/drift.py",
-                "obs/timeline.py", "obs/alerts.py", "obs/autopilot.py"):
+                "obs/timeline.py", "obs/alerts.py", "obs/autopilot.py",
+                "core/distributed_model.py", "core/cost_model.py",
+                "distributed/__init__.py", "distributed/straggler.py"):
         assert mod in names
     for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
                 "flash_attention.cu", "moe_gmm.cu", "ssd_scan.cu",
-                "mma_bf16.cuh", "mma_s8.cuh", "ptx_copy.cuh"):
+                "mma_bf16.cuh", "mma_s8.cuh", "ptx_copy.cuh", "host_launch.cuh"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
@@ -186,6 +188,9 @@ def _entry_points():
         "GraphExecutor": lambda: GraphExecutor(_graph()),
         "build_op_fn": lambda: build_op_fn(_graph(), _graph().nodes[0]),
         "int8_GraphExecutor": lambda: GraphExecutor(_graph(), dtype="int8"),
+        "whole_jit GraphExecutor": lambda: GraphExecutor(_graph(), mode="whole_jit"),
+        "int8 whole_jit GraphExecutor": lambda: GraphExecutor(
+            _graph(), mode="whole_jit", dtype="int8"),
         "build_quant_op_fn": lambda: build_quant_op_fn(_graph(), _graph().nodes[0]),
         "ProfileSession": lambda: ProfileSession(),
         "CudaBank": lambda: CudaBank.from_flat(_tiny_gbdt()[0].flat()),
