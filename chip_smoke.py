@@ -30,10 +30,16 @@ result line:
          host, and the int8 executor on 2 graphs at 224×224, card against
          host: exact, unless a transcendental kind differs on the card;
        * flash attention (`FLASH_CASES`: the Granite forward's shape,
-         float32, non-causal, ragged s, d = 128, and the Zamba2 forward's
-         MHA shape) and the MoE GMM (`GMM_CASES`: the
-         decode and prefill shapes, float32, ragged) within `LM_TOL`,
-         bfloat16 flash also row by row within `FLASH_ROW_TOL`;
+         float32, non-causal, ragged s, d = 128, the Zamba2 forward's
+         MHA shape, and the LM zoo's: gemma2's local (window 4,096) and
+         global layers with the softcap of 50 at 6,144 tokens, a ragged
+         window of 100 in both types, the VLM's and Whisper's
+         cross-attention (sq != skv) and Whisper's encoder) and the MoE
+         GMM (`GMM_CASES`: the decode and prefill shapes, float32,
+         ragged) within `LM_TOL`, bfloat16 flash also row by row within
+         `FLASH_ROW_TOL`; each softcap case's q is scaled so that the
+         plain version without the softcap, or with it after the log2(e)
+         fold, fails those gates (gated);
          bfloat16 on the tensor-core kernels and float32 on the CUDA-core
          ones (each wrapper's per-route count);
          reduced Granite-MoE and Qwen2 in float32 on the card against the
@@ -155,7 +161,20 @@ result line:
          4-slot `ServeEngine` answering 8 (Mamba2) or 4 (Zamba2)
          requests; then each model's forward and one decode step under
          torch.profiler with the ssd_scan (and, for Zamba2, the flash)
-         share of device time.
+         share of device time;
+       * the LM zoo path (`run_lm_zoo_path`): gemma2-27b (12 of 46 layers),
+         llama-3.2-vision-90b (10 of 100: 2 groups, gates at `ZOO_GATE`)
+         and whisper-large-v3 (full depth) at full width from the port's
+         own init, one after another, each printed with its ``reduced``
+         depth and peak memory: the reduced model in float32 on the card
+         against the host (`HOST_TOL`); decode against forward at 128
+         tokens (and the reduced gemma2 at 160, past its window of 64);
+         `Model.forward` (gemma2 1 × 6,144 tokens, the VLM 1 × 2,048 over
+         1,600 vision embeddings, Whisper 2 × 1,500 frames and 2 × 448
+         tokens) with 12 / 10 / 96 flash launches, all on the bfloat16
+         tensor-core route; a 4-slot `ServeEngine` answering 8 requests
+         (0 / 2 / 32 flash launches a decode step); then a profiled
+         forward and decode step (device time, flash share, idle share).
   4. Times at the paths' shapes — kernel (with its launch plan for the
      int8 GEMM, Winograd and the tree kernels), plain version, library call where one exists (``torch._int_mm``, ``F.conv2d``,
      ``F.scaled_dot_product_attention``, ``torch.bmm``; none for the tree
@@ -185,6 +204,7 @@ import time
 import traceback
 import weakref
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -2324,16 +2344,57 @@ CONSISTENCY_TOL = 2e-2
 # The full-width LM on the card against the port on the host, reduced size.
 HOST_TOL = 1e-4
 FORWARD_SHAPE = (4, 1024)           # (batch, tokens) of the timed forward
-FLASH_CASES = [                     # (label, b, s, h, kvh, d, causal, dtype)
+
+
+class FlashCase(NamedTuple):
+    """q (b, s, h, d) over k, v (b, skv or s, kvh, d)."""
+    label: str
+    b: int
+    s: int
+    h: int
+    kvh: int
+    d: int
+    causal: bool
+    dtype: str
+    skv: int = 0                    # 0: s keys
+    window: int = 0
+    softcap: float = 0.0
+    q_scale: float = 1.0            # q's standard deviation (k and v: 1)
+
+    @property
+    def keys(self) -> int:
+        return self.skv or self.s
+
+
+FLASH_CASES = [FlashCase(*c) for c in (
     ("forward", 4, 1024, 16, 8, 64, True, "bfloat16"),
     ("forward_f32", 4, 1024, 16, 8, 64, True, "float32"),
     ("non_causal", 2, 512, 16, 8, 64, False, "bfloat16"),
     ("ragged", 2, 1000, 16, 8, 64, True, "bfloat16"),
     ("ragged_f32", 1, 1000, 16, 8, 64, True, "float32"),
     ("d128_one_kv_head", 1, 333, 8, 1, 128, True, "float32"),
-    ("zamba2_forward", 2, 4096, 32, 32, 64, True, "bfloat16")]
-# The flash cases `time_flash` times: both forwards' shapes.
-FLASH_TIMED = ("forward", "forward_f32", "zamba2_forward")
+    ("zamba2_forward", 2, 4096, 32, 32, 64, True, "bfloat16"),
+    # The LM zoo's attention calls (`run_lm_zoo_path`): gemma2's local and
+    # global layers at its forward's 6,144 tokens (window 4,096, softcap
+    # 50), a window of 100 (not a multiple of the 64-key tile: late rows of
+    # a query tile start on wholly hidden key tiles) on both routes, the
+    # VLM's cross-attention over 1,600 vision embeddings, Whisper's
+    # encoder and its decode step's cross-attention over 1,500 frames.
+    # gemma2's q has standard deviation 8, so its scores (sd 8) reach the
+    # softcap's bend: a kernel without the softcap, or with it applied
+    # after the log2(e) fold, moves the output well past the tolerances
+    # (`check_flash` gates that for every softcap case).
+    ("gemma2_local", 1, 6144, 32, 16, 128, True, "bfloat16", 0, 4096, 50.0, 8.0),
+    ("gemma2_global", 1, 6144, 32, 16, 128, True, "bfloat16", 0, 0, 50.0, 8.0),
+    ("window_ragged_f32", 1, 1000, 8, 4, 64, True, "float32", 0, 100, 5.0),
+    ("window_ragged", 2, 1000, 16, 8, 64, True, "bfloat16", 0, 100, 0.0),
+    ("vlm_cross", 2, 2048, 64, 8, 128, False, "bfloat16", 1600),
+    ("whisper_encoder", 2, 1500, 20, 20, 64, False, "bfloat16"),
+    ("whisper_cross_decode", 4, 1, 20, 20, 64, False, "bfloat16", 1500))]
+# The flash cases `time_flash` times: the Granite, Zamba2 and zoo forwards'
+# shapes.
+FLASH_TIMED = ("forward", "forward_f32", "zamba2_forward", "gemma2_local",
+               "gemma2_global", "whisper_encoder", "vlm_cross")
 GMM_CASES = [                       # (label, e, rows, d, f, dtype)
     ("decode", 32, 32, 1024, 512, "bfloat16"),
     ("decode_down", 32, 32, 512, 1024, "bfloat16"),
@@ -2377,12 +2438,24 @@ def _row_check(label, got, want, tol) -> float:
     return rel
 
 
-def _flash_bound(b, s, h, kvh, d, causal, dtype) -> tuple:
+def flash_pairs(s: int, skv: int, causal: bool, window: int = 0) -> int:
+    """(query, key) pairs of one head that the causal mask and the window
+    keep (the kernel's q_offset is 0 on these paths)."""
+    import numpy as np
+
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full(s, skv - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(s, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _flash_bound(b, s, h, kvh, d, causal, dtype, skv=0, window=0) -> tuple:
     """q, k, v read once and o written once, against 4·d operations for
-    each (query, key) pair the causal mask keeps, at the type's rate."""
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    each (query, key) pair the masks keep, at the type's rate."""
+    skv = skv or s
+    pairs = b * h * flash_pairs(s, skv, causal, window)
     bf16 = dtype == "bfloat16"
-    return bound((2 if bf16 else 4) * (2 * b * s * h * d + 2 * b * s * kvh * d),
+    return bound((2 if bf16 else 4) * (2 * b * s * h * d + 2 * b * skv * kvh * d),
                  4 * d * pairs, PEAK_BF16_OPS_PER_S if bf16 else PEAK_F32_OPS_PER_S)
 
 
@@ -2395,10 +2468,14 @@ def _gmm_bound(e, n, d, f, dtype) -> tuple:
                  2 * e * n * d * f, PEAK_BF16_OPS_PER_S if bf16 else PEAK_F32_OPS_PER_S)
 
 
-def _flash_inputs(b, s, h, kvh, d, dtype, device, seed):
-    return (_randn((b, s, h, d), seed, device, dtype),
-            _randn((b, s, kvh, d), seed + 1, device, dtype),
-            _randn((b, s, kvh, d), seed + 2, device, dtype))
+def _flash_inputs(b, s, h, kvh, d, dtype, device, seed, skv=0, q_scale=1.0):
+    return (_randn((b, s, h, d), seed, device, dtype, q_scale),
+            _randn((b, skv or s, kvh, d), seed + 1, device, dtype),
+            _randn((b, skv or s, kvh, d), seed + 2, device, dtype))
+
+
+def _flash_kw(c: FlashCase) -> dict:
+    return {"causal": c.causal, "window": c.window, "softcap": c.softcap}
 
 
 def _gmm_inputs(e, rows, d, f, dtype, device, seed):
@@ -2442,34 +2519,64 @@ def sass_opcodes(library: str, opcode: str) -> int:
                if any(w.split(".")[0] == opcode for w in line.split()))
 
 
+def softcap_sensitivity(c: FlashCase, q, k, v, want) -> dict:
+    """The plain version without the softcap, and with it applied after
+    the bfloat16 kernel's log2(e) fold (a softcap of cap·ln 2 in natural
+    units), against ``want``: each must fail the case's gates, so that a
+    kernel making either mistake could not pass them.  Raises if one
+    would pass."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for key, cap in (("softcap_off", 0.0), ("softcap_after_fold", c.softcap * math.log(2))):
+        wrong = fa.flash_attention_plain(q, k, v, causal=c.causal, window=c.window,
+                                         softcap=cap).float()
+        w = want.float()
+        rel = float((wrong - w).abs().max() / w.abs().max())
+        row = float(((wrong - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)).max())
+        caught = rel > LM_TOL[c.dtype] or (c.dtype == "bfloat16" and row > FLASH_ROW_TOL)
+        if not caught:
+            raise AssertionError(f"flash {c.label}: {key} moves the output by {rel} "
+                                 f"(a row by {row}), inside the gates")
+        out[key] = {"err_over_max": rel, "row_err_over_max": row}
+        del wrong
+    return out
+
+
 def check_flash(device) -> dict:
     """Flash kernel vs its plain version at the Granite forward's shape and
     around it (float32, non-causal, ragged s, d = 128 with one kv head),
-    and at the Zamba2 forward's (32 heads MHA over 4,096 tokens)."""
+    at the Zamba2 forward's (32 heads MHA over 4,096 tokens) and at the LM
+    zoo's (window, softcap, cross-attention with sq != skv)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_cuda as fac
 
     rows, worst = [], 0.0
-    for i, (label, b, s, h, kvh, d, causal, dtype) in enumerate(FLASH_CASES):
-        q, k, v = _flash_inputs(b, s, h, kvh, d, dtype, device, seed=300 + 3 * i)
+    for i, c in enumerate(FLASH_CASES):
+        label, dtype, kw = c.label, c.dtype, _flash_kw(c)
+        q, k, v = _flash_inputs(c.b, c.s, c.h, c.kvh, c.d, dtype, device,
+                                seed=300 + 3 * i, skv=c.skv, q_scale=c.q_scale)
         before = fac.launch_counts()["flash_attention"]
         routes = fac.route_counts()
-        got = fac.flash_attention_cuda(q, k, v, causal=causal)
-        again = fac.flash_attention_cuda(q, k, v, causal=causal)
+        got = fac.flash_attention_cuda(q, k, v, **kw)
+        again = fac.flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
         if fac.launch_counts()["flash_attention"] != before + 2:
             raise AssertionError("flash_attention launch counter did not advance")
         _check_route(f"flash {label}", fac, routes, q.dtype, 2)
-        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, **kw)
         err, rel = _rel_check(f"flash {label}", got, want, LM_TOL[dtype])
-        row = {"case": label, "shape": [b, s, h, kvh, d], "causal": causal,
+        row = {"case": label, "shape": [c.b, c.s, c.h, c.kvh, c.d], "skv": c.keys,
+               "causal": c.causal, "window": c.window, "softcap": c.softcap,
                "dtype": dtype, "max_abs_err": err, "err_over_max": rel,
                "tol": LM_TOL[dtype]}
         if dtype == "bfloat16":
             row["row_err_over_max"] = _row_check(f"flash {label}", got, want,
                                                  FLASH_ROW_TOL)
             row["row_tol"] = FLASH_ROW_TOL
+        if c.softcap:
+            row.update(softcap_sensitivity(c, q, k, v, want))
         if not torch.equal(got, again):
             raise AssertionError("flash kernel is not repeatable")
         del q, k, v, got, again, want
@@ -2507,32 +2614,39 @@ def check_gmm(device) -> dict:
     return {"cases": rows, "max_abs_err": worst}
 
 
-def check_lm_on_host(device) -> dict:
-    """Reduced Granite-MoE and Qwen2 in float32: forward and four decode
-    steps on the card, through both kernels, against the port on the host."""
+def check_lm_on_host(device, archs=(LM_ARCH, "qwen2-72b"), seq: int = 100) -> dict:
+    """Reduced LMs in float32 (a VLM's gates at 0.7, so its cross-attention
+    counts): forward on 2 × ``seq`` tokens and four decode steps on the
+    card, through the kernels, against the port on the host."""
     import dataclasses
 
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.models import build_model, transformer
+    from repro_torch.models import build_model, encdec
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    for arch in (LM_ARCH, "qwen2-72b"):
+    for arch in archs:
         cfg = dataclasses.replace(get_arch(arch).reduced(), compute_dtype="float32")
         m = build_model(cfg)
-        host = m.init(3, device="cpu")
-        card = m.init(3, device="cpu").to(device)
+        host = _set_gates(m.init(3, device="cpu"), cfg, 0.7)
+        card = _set_gates(m.init(3, device="cpu"), cfg, 0.7).to(device)
         toks = torch.from_numpy(np.random.default_rng(5).integers(
-            0, cfg.vocab_size, (2, 100)))
-        errs = [float((m.forward(card, {"tokens": toks.to(device)}).cpu()
-                       - m.forward(host, {"tokens": toks})).abs().max())]
-        cd = transformer.init_cache(cfg, 2, 16, "float32", device=device)
-        ch = transformer.init_cache(cfg, 2, 16, "float32", device="cpu")
+            0, cfg.vocab_size, (2, seq)))
+        ex_h = _zoo_inputs(cfg, 2, "cpu", seed=6)
+        ex_c = {k: v.to(device) for k, v in ex_h.items()}
+        errs = [float((m.forward(card, {"tokens": toks.to(device), **ex_c}).cpu()
+                       - m.forward(host, {"tokens": toks, **ex_h})).abs().max())]
+        if cfg.family == "encdec":
+            ex_h = {"memory": encdec.encode(host, ex_h["frames"], cfg)}
+            ex_c = {"memory": encdec.encode(card, ex_c["frames"], cfg)}
+        cd = lm_cache(cfg, 2, 16, "float32", device)
+        ch = lm_cache(cfg, 2, 16, "float32", "cpu")
         for t in range(4):
-            a, cd = m.decode_step(card, {"token": toks[:, t:t + 1].to(device)}, cd)
-            b, ch = m.decode_step(host, {"token": toks[:, t:t + 1]}, ch)
+            a, cd = m.decode_step(card, {"token": toks[:, t:t + 1].to(device), **ex_c},
+                                  cd)
+            b, ch = m.decode_step(host, {"token": toks[:, t:t + 1], **ex_h}, ch)
             errs.append(float((a.cpu() - b).abs().max()))
         if not max(errs) <= HOST_TOL:
             raise AssertionError(f"{cfg.name}: card vs host port {max(errs)}")
@@ -2541,41 +2655,58 @@ def check_lm_on_host(device) -> dict:
     return out
 
 
-def check_prefill_decode(cfg, params, device, seq: int = 128) -> dict:
-    """Forward on (1, seq) tokens against feeding them one by one through
-    `decode_step`: the last position's logits.
+def lm_cache(cfg, batch: int, max_len: int, dtype: str, device):
+    """A decoder's or Whisper's decode cache in ``dtype``."""
+    from repro_torch.models import encdec, transformer
 
-    Gated in float32 compute with a float32 cache and a capacity factor of
-    e/k, which drops nothing: at the configured 1.25 the forward drops an
-    expert's latest tokens once its queue is full, while a one-token decode
-    step never drops, so the two paths differ by design.  The served
-    configuration (bfloat16, 1.25, bfloat16 cache) is read, not gated:
-    there a near-tie in top-k routing can go either way in the two paths."""
+    if cfg.family == "encdec":
+        return encdec.init_encdec_cache(cfg, batch, max_len, dtype, device=device)
+    return transformer.init_cache(cfg, batch, max_len, dtype, device=device)
+
+
+def check_prefill_decode(cfg, params, device, seq: int = 128, extras=None,
+                         tag: str = "prefill_decode") -> dict:
+    """Forward on (1, seq) tokens against feeding them one by one through
+    `decode_step`: the last position's logits.  ``extras(c)`` gives the
+    forward's and the decode steps' other inputs under config ``c`` (the
+    VLM's vision embeddings, Whisper's frames and the memory its encoder
+    makes of them in ``c``'s compute type).
+
+    Gated in float32 compute with a float32 cache and, for a MoE, a
+    capacity factor of e/k, which drops nothing: at the configured 1.25
+    the forward drops an expert's latest tokens once its queue is full,
+    while a one-token decode step never drops, so the two paths differ by
+    design.  The served configuration (bfloat16, 1.25, bfloat16 cache) is
+    read, not gated: there a near-tie in top-k routing can go either way
+    in the two paths."""
     import dataclasses
 
     import numpy as np
     import torch
-    from repro_torch.models import build_model, transformer
+    from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, seq))).to(device)
-    out = {}
-    f32 = dataclasses.replace(cfg, compute_dtype="float32",
-                              capacity_factor=cfg.num_experts / cfg.top_k)
+    out = {"tokens": seq}
+    over = {"capacity_factor": cfg.num_experts / cfg.top_k} if cfg.num_experts else {}
+    f32 = dataclasses.replace(cfg, compute_dtype="float32", **over)
     for label, c, cache_dtype in (("float32_no_drop", f32, "float32"),
                                   ("served_bfloat16", cfg, "bfloat16")):
         m = build_model(c)
-        full = m.forward(params, {"tokens": toks})[:, -1]
-        cache = transformer.init_cache(c, 1, seq + 32, cache_dtype, device=device)
+        fwd_extra, step_extra = extras(c) if extras else ({}, {})
+        full = m.forward(params, {"tokens": toks, **fwd_extra})[:, -1]
+        cache = lm_cache(c, 1, seq + 32, cache_dtype, device)
         for t in range(seq):
-            logits, cache = m.decode_step(params, {"token": toks[:, t:t + 1]}, cache)
+            logits, cache = m.decode_step(
+                params, {"token": toks[:, t:t + 1], **step_extra}, cache)
         out[label] = float((logits - full).abs().max())
         out[label + "_logit_max"] = float(full.abs().max())
+        del cache, fwd_extra, step_extra
     if not out["float32_no_drop"] <= CONSISTENCY_TOL:
-        raise AssertionError(f"decode vs forward: {out['float32_no_drop']} "
+        raise AssertionError(f"{cfg.name} decode vs forward: {out['float32_no_drop']} "
                              f"(> {CONSISTENCY_TOL})")
-    log("prefill_decode " + json.dumps(out))
+    log(tag + " " + json.dumps({"arch": cfg.name, **out}))
     return out
 
 
@@ -2588,9 +2719,10 @@ def _serve_prompts(vocab: int, n: int = 8, seed: int = 0) -> list:
 
 
 def profile_lm(model, params, tokens, device, steps: int = 3, tag: str = "lm_profile",
-               kernels: tuple = ()) -> dict:
-    """Where the LM path's time goes: one forward on ``tokens`` and
-    ``steps`` decode steps of 4 slots, each under torch.profiler (CUPTI):
+               kernels: tuple = (), forward_extra=None, decode_extra=None) -> dict:
+    """Where the LM path's time goes: one forward on ``tokens`` (with
+    ``forward_extra`` in its batch) and ``steps`` decode steps of 4 slots
+    (with ``decode_extra``), each under torch.profiler (CUPTI):
     wall ms, device-busy ms (the sum of the kernels' and copies' device
     intervals), launches and the device's idle share, with the kernels
     that took the most device time and, for each name stem in
@@ -2605,10 +2737,12 @@ def profile_lm(model, params, tokens, device, steps: int = 3, tag: str = "lm_pro
 
     def decode():
         nonlocal cache
-        _, cache = model.decode_step(params, {"token": token}, cache)
+        _, cache = model.decode_step(params, {"token": token, **(decode_extra or {})},
+                                     cache)
 
     out = {}
-    for label, fn, n in (("forward", lambda: model.forward(params, {"tokens": tokens}), 1),
+    batch = {"tokens": tokens, **(forward_extra or {})}
+    for label, fn, n in (("forward", lambda: model.forward(params, batch), 1),
                          ("decode_step", decode, steps)):
         fn()
         torch.cuda.synchronize()
@@ -2991,6 +3125,219 @@ def run_ssm_path(device, new_tokens: int = 16) -> dict:
     return out
 
 
+# -- the rest of the LM zoo (gemma2, the VLM, Whisper) ------------------------------
+
+# Each model at full width (d_model, heads, head_dim, d_ff, vocab as
+# configured) and the depth that fits on one 80 GB card in float32
+# parameters plus their cached bfloat16 copies; depth is the only cut.
+#   arch → (layer counts replaced, forward batch, forward tokens)
+ZOO = {
+    # 12 of 46 layers (6 local/global pairs): 7.97 B parameters, 47.8 GB.
+    # 6,144 tokens: the local layers' window of 4,096 masks keys for the
+    # last 2,048 rows.
+    "gemma2-27b": ({"num_layers": 12}, 1, 6144),
+    # 2 of 20 groups (8 self- and 2 cross-attention layers of 100): 9.25 B
+    # parameters, 55.5 GB; 2,048 tokens over 1,600 vision embeddings.
+    "llama-3.2-vision-90b": ({"num_layers": 10}, 1, 2048),
+    # Full depth (32 encoder and 32 decoder layers), 1,500 frames and the
+    # decoder's 448 tokens.
+    "whisper-large-v3": ({}, 2, 448),
+}
+# The VLM's gates start at zero (as the reference's), which would hide a
+# wrong cross-attention: the card's runs set them to this value.
+ZOO_GATE = 1.0
+# The reduced gemma2 (window 64) at 160 tokens: decode against forward
+# where the window masks keys.
+ZOO_WINDOW_SEQ = 160
+
+
+def _set_gates(params, cfg, value: float):
+    import torch
+
+    if cfg.cross_attn_every:
+        with torch.no_grad():
+            for cp in params["cross_layers"]:
+                cp["gate"].fill_(value)
+    return params
+
+
+def _zoo_inputs(cfg, b: int, device, seed: int) -> dict:
+    """The stub frontend's output in the compute type: vision embeddings
+    (b, vision_seq, d_model) or audio frames (b, encoder_seq, d_model)."""
+    import torch
+
+    dt = getattr(torch, cfg.compute_dtype)
+    if cfg.family == "vlm":
+        return {"vision_embeds": _randn((b, cfg.vision_seq, cfg.d_model), seed,
+                                        device, "float32").to(dt)}
+    if cfg.family == "encdec":
+        return {"frames": _randn((b, cfg.encoder_seq, cfg.d_model), seed, device,
+                                 "float32").to(dt)}
+    return {}
+
+
+def _zoo_extras(params, cfg, b: int, device, seed: int):
+    """``extras(c)`` for `check_prefill_decode`: the forward's and the
+    decode steps' frontend inputs under config ``c``."""
+    from repro_torch.models import encdec
+
+    def extras(c):
+        fwd = _zoo_inputs(c, b, device, seed)
+        if c.family == "encdec":
+            return fwd, {"memory": encdec.encode(params, fwd["frames"], c)}
+        return fwd, dict(fwd)
+    return extras
+
+
+def _cache_lens(cache) -> int:
+    if "len" in cache:
+        return int(cache["len"].max())
+    return max(int(kv["len"].max()) for kv in cache.values())
+
+
+def _zoo_flash_calls(cfg) -> tuple:
+    """Flash launches of one forward and of one decode step."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers, cfg.num_layers
+    if cfg.family == "vlm":
+        return cfg.num_layers, cfg.num_layers // cfg.cross_attn_every
+    return cfg.num_layers, 0
+
+
+def run_lm_zoo_path(device, new_tokens: int = 16) -> dict:
+    """gemma2-27b, llama-3.2-vision-90b and whisper-large-v3 at full width
+    (depth cut as `ZOO` says) from the port's own init (seed 0; float32
+    parameters, bfloat16 compute; the VLM's gates at `ZOO_GATE`).  For
+    each: the reduced model on the card against the host at
+    `ZOO_WINDOW_SEQ` tokens (`check_lm_on_host`); decode against forward at 128 tokens
+    (`check_prefill_decode`, float32 gated), for gemma2 also the reduced
+    model at `ZOO_WINDOW_SEQ` tokens; then, with every launch count zeroed
+    just before and read just after, `Model.forward` (every flash launch
+    on the bfloat16 tensor-core route, counted per attention call) and a
+    4-slot `ServeEngine` answering 8 requests of ``new_tokens`` (the flash
+    launches of each decode step counted); then a profiled forward and
+    decode step (`profile_lm`, not counted).  Each model is freed before
+    the next is built."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, encdec
+    from repro_torch.serving import ServeEngine
+
+    out, launches = {}, {}
+    for arch, (cut, b, s) in ZOO.items():
+        t_model = time.perf_counter()
+        full = get_arch(arch)
+        (host_err,) = check_lm_on_host(device, (arch,), ZOO_WINDOW_SEQ).values()
+        cfg = dataclasses.replace(full, **cut)
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        params = _set_gates(model.init(0, device=device), cfg, ZOO_GATE)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        consistency = {"full": check_prefill_decode(
+            cfg, params, device, extras=_zoo_extras(params, cfg, 1, device, seed=2),
+            tag="zoo_prefill_decode")}
+        if cfg.alt_local_global:
+            small = full.reduced()
+            consistency["reduced_window"] = check_prefill_decode(
+                small, build_model(small).init(1, device=device), device,
+                seq=ZOO_WINDOW_SEQ, tag="zoo_prefill_decode")
+        fwd_extra = _zoo_inputs(cfg, b, device, seed=3)
+        # Warm-up (not counted): the bfloat16 weight copies and cuBLAS handles.
+        model.forward(params, {"tokens": torch.zeros((b, 16), dtype=torch.long,
+                                                      device=device), **fwd_extra})
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (b, s))).to(device)
+        torch.cuda.synchronize()
+        per_fwd, per_step = _zoo_flash_calls(cfg)
+
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = model.forward(params, {"tokens": tokens, **fwd_extra})
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        fwd = read_counts()
+        fwd_routes = read_routes()["flash_attention"]
+        if logits.shape != (b, s, cfg.vocab_size) or logits.dtype != torch.float32 \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch} forward logits {logits.dtype} "
+                                 f"{tuple(logits.shape)}")
+        if fwd["flash_attention"] != per_fwd or fwd["moe_gmm"] or fwd["ssd_scan"]:
+            raise AssertionError(f"{arch} forward launches {fwd}, expected "
+                                 f"{per_fwd} flash")
+        if fwd_routes["bf16_mma"] != per_fwd:
+            raise AssertionError(f"{arch} forward off the tensor-core route: "
+                                 f"{fwd_routes}")
+        del logits
+
+        serve_extra = _zoo_inputs(cfg, 4, device, seed=4)
+        if cfg.family == "encdec":
+            serve_extra = {"memory": encdec.encode(params, serve_extra["frames"], cfg)}
+        torch.cuda.synchronize()
+        before = read_counts()
+        engine = ServeEngine(model, params, batch_slots=4, max_len=512,
+                             extras=serve_extra, device=device)
+        prompts = _serve_prompts(cfg.vocab_size)
+        for prompt in prompts:
+            engine.submit(prompt, max_new_tokens=new_tokens)
+        t0 = time.perf_counter()
+        done = engine.run(max_steps=1000)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = read_counts()
+        served = {k: counts[k] - before[k] for k in counts}
+        stats = engine.stats()
+        calls = stats["steps"] + sum(len(p) - 1 for p in prompts)
+        if len(done) != len(prompts) or any(
+                len(r.generated) != new_tokens or not all(0 <= t < cfg.vocab_size
+                                                          for t in r.generated)
+                for r in done):
+            raise AssertionError(f"{arch}: {len(done)} of {len(prompts)} requests "
+                                 f"answered")
+        if served["flash_attention"] != per_step * calls:
+            raise AssertionError(f"{arch}: {served['flash_attention']} flash launches "
+                                 f"in {calls} decode steps, expected {per_step} a step")
+        if read_routes()["flash_attention"]["bf16_mma"] != counts["flash_attention"]:
+            raise AssertionError(f"{arch} serving off the tensor-core route")
+        if _cache_lens(engine.cache) >= engine.max_len:
+            raise AssertionError("the engine ran past max_len")
+        del engine
+        breakdown = profile_lm(model, params, tokens, device, steps=1,
+                               tag="zoo_profile", kernels=("flash_fwd",),
+                               forward_extra=fwd_extra, decode_extra=serve_extra)
+        generated = sum(len(r.generated) for r in done)
+        reduced = {k: f"{v} of {getattr(full, k)}" for k, v in cut.items()}
+        out[arch] = {
+            "arch": cfg.name, "reduced": reduced or "none", "params": n_params,
+            "init_s": init_s, "card_vs_host_reduced_f32_max_abs_err": host_err,
+            "forward_tokens": [b, s], "forward_s": forward_s,
+            "forward_flash_launches": fwd["flash_attention"],
+            "requests": len(prompts), "requests_finished": len(done),
+            "prompt_tokens": int(sum(len(p) for p in prompts)),
+            "tokens_generated": generated, "decode_steps": stats["steps"],
+            "decode_step_calls": calls, "serve_s": serve_s,
+            "tokens_per_s": generated / serve_s,
+            "mean_step_ms": 1e3 * stats["measured_step_s"],
+            "flash_launches_per_decode_step": served["flash_attention"] / calls,
+            "launches": counts, "prefill_decode": consistency, "profile": breakdown,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+            "model_s": time.perf_counter() - t_model}
+        log("lm_zoo_path " + json.dumps(out[arch]))
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        del model, params, tokens, fwd_extra, serve_extra
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def _timed(op_type: str, db, rows: int, d: int, fused: bool, kernel, plain,
@@ -3204,39 +3551,104 @@ def time_winograd(device) -> list:
     return rows
 
 
+def time_flex_attention(c: FlashCase, q, k, v, device) -> dict:
+    """One ``torch.nn.attention.flex_attention`` call (compiled, the
+    softcap as a tanh ``score_mod``, the causal mask and the window as a
+    block mask) on the case's inputs: the library call that computes the
+    kernel's function with a softcap.  Its error against the plain
+    version is reported beside its time.  Timed only, used nowhere in the
+    port; where this torch cannot compile it, the error is reported and
+    the time is null."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    # Inductor's and Triton's caches go under the repo's ignored build/.
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(_build.BUILD_DIR / sub))
+    cap, window = c.softcap, c.window
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return torch.tanh(score / cap) * cap
+
+    def mask_mod(b, h, q_idx, kv_idx):     # the softcap cases are causal
+        keep = q_idx >= kv_idx
+        return keep & (q_idx - kv_idx < window) if window else keep
+
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        block_mask = create_block_mask(mask_mod, None, None, c.s, c.keys, device=device)
+        flex = torch.compile(flex_attention, dynamic=False)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def call():
+            return flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
+                        enable_gqa=True)
+
+        err = float((call().transpose(1, 2).float() - fa.flash_attention_plain(
+            q, k, v, **_flash_kw(c)).float()).abs().max())
+        ms = cuda_ms(call)["device"]
+    except Exception as e:          # a library's limits, not the port's
+        log(f"flex_attention {c.label}: could not run ({type(e).__name__}: {e})")
+        return {"flex_ms": None, "flex_max_abs_err": None,
+                "flex_error": f"{type(e).__name__}: {e}"[:300]}
+    return {"flex_ms": ms, "flex_max_abs_err": err}
+
+
 def time_flash(device) -> list:
     """The flash kernel at the Granite forward's shape (b = 4, s = 1,024,
-    16 query and 8 kv heads, d = 64, causal, bfloat16 and float32) and at
-    the Zamba2 forward's (b = 2, s = 4,096, 32 heads MHA, bfloat16):
-    kernel, plain version and ``F.scaled_dot_product_attention`` on the
-    same input.  Bound:
-    q, k, v read once and o written once, against 4·d operations for each
-    (query, key) pair the causal mask keeps, at the bfloat16 tensor rate."""
+    16 query and 8 kv heads, d = 64, causal, bfloat16 and float32), at the
+    Zamba2 forward's (b = 2, s = 4,096, 32 heads MHA, bfloat16) and at the
+    LM zoo's (gemma2's local and global layers, the VLM's cross-attention,
+    Whisper's encoder): kernel, plain version and one
+    ``F.scaled_dot_product_attention`` call on the same input.  SDPA has
+    no softcap: for gemma2's cases it computes another function (no
+    softcap; the local case with a boolean window mask), labelled
+    ``library_fn``; beside it ``flex_ms`` times the same function through
+    flex_attention (`time_flex_attention`).  Bound: q, k, v read once and o written once, against
+    4·d operations for each (query, key) pair the masks keep, at the
+    type's rate."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_cuda as fac
 
     rows = []
-    for label, b, s, h, kvh, d, causal, dtype in (
-            c for c in FLASH_CASES if c[0] in FLASH_TIMED):
-        q, k, v = _flash_inputs(b, s, h, kvh, d, dtype, device, seed=500)
-        err = float((fac.flash_attention_cuda(q, k, v, causal=causal).float()
-                     - fa.flash_attention_plain(q, k, v, causal=causal).float())
+    for c in (c for c in FLASH_CASES if c.label in FLASH_TIMED):
+        kw = _flash_kw(c)
+        q, k, v = _flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device, seed=500,
+                                skv=c.skv, q_scale=c.q_scale)
+        err = float((fac.flash_attention_cuda(q, k, v, **kw).float()
+                     - fa.flash_attention_plain(q, k, v, **kw).float())
                     .abs().max())
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        kern = cuda_ms(lambda: fac.flash_attention_cuda(q, k, v, causal=causal))
-        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+        kern = cuda_ms(lambda: fac.flash_attention_cuda(q, k, v, **kw))
+        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                         iters=3, warmup=2)
+        mask, library_fn = None, "same function"
+        if c.window:
+            mask = ~fa.hidden_keys(c.s, c.keys, causal=c.causal, q_offset=0,
+                                   window=c.window, device=device)
+        if c.softcap:
+            library_fn = ("not the same function: no softcap"
+                          + (", window as a boolean mask" if c.window else ""))
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True))
-        b_ms, b_by = _flash_bound(b, s, h, kvh, d, causal, dtype)
-        rows.append({"case": label, "shape": [b, s, h, kvh, d], "dtype": dtype,
-                     "causal": causal, "max_abs_err": err,
-                     "ms": kern["device"], "host_ms": kern["host"],
+            qt, kt, vt, attn_mask=mask, is_causal=c.causal and mask is None,
+            enable_gqa=True))
+        b_ms, b_by = _flash_bound(c.b, c.s, c.h, c.kvh, c.d, c.causal, c.dtype,
+                                  c.skv, c.window)
+        rows.append({"case": c.label, "shape": [c.b, c.s, c.h, c.kvh, c.d],
+                     "skv": c.keys, "dtype": c.dtype, "causal": c.causal,
+                     "window": c.window, "softcap": c.softcap, "q_scale": c.q_scale,
+                     "max_abs_err": err, "ms": kern["device"], "host_ms": kern["host"],
                      "plain_ms": plain["device"], "library_ms": lib["device"],
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "library_fn": library_fn, "bound_ms": b_ms, "bound_by": b_by})
+        if c.softcap:
+            rows[-1].update(time_flex_attention(c, q, k, v, device))
         log("time flash_attention " + json.dumps(rows[-1]))
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3485,6 +3897,11 @@ def main() -> int:
         phase = "SSM and hybrid LM path"
         ssm = run_ssm_path(device)
 
+        phase = "LM zoo path"
+        t0 = time.perf_counter()
+        zoo = run_lm_zoo_path(device)
+        log(f"lm_zoo_path_s {time.perf_counter() - t0:.1f}")
+
         phase = "times"
         log("device_guard " + json.dumps(time_device_guard(device)))
         timed = time_kernels(main_f32["bank"], main_f32["held"], pop, device)
@@ -3515,7 +3932,9 @@ def main() -> int:
                  gemm_parity["max_abs_err"]),
                 ("winograd_conv2d", wino_rows[:1], sel["summary"]["launches"],
                  wino_parity["max_abs_err"]),
-                ("flash_attention", flash_rows[:1], lm["launches"],
+                ("flash_attention", flash_rows[:1],
+                 {"flash_attention": lm["launches"]["flash_attention"]
+                  + zoo["launches"]["flash_attention"]},
                  flash_parity["max_abs_err"]),
                 ("moe_gmm", [r for r in gmm_rows
                              if r["l2"] == "warm" and r["dtype"] == "bfloat16"],

@@ -13,7 +13,8 @@ Builds the parent's sources of the chosen kernels (default: all five,
 tree's kernels through their wrappers.  At each shape both outputs are
 first held to their plain version, then the two are timed parent,
 change, change, parent with `chip_smoke.cuda_ms` (device time per call):
-  * flash: its ``FLASH_TIMED`` cases, within ``LM_TOL``;
+  * flash: its ``FLASH_TIMED`` cases without a window, a softcap or
+    sq != skv (the parent's function), within ``LM_TOL``;
   * GMM: its ``GMM_TIMED`` shapes on the input sets ``_gmm_turns`` hands
     out (the four serving shapes, and the two decode shapes with a cold
     L2), within ``LM_TOL``;
@@ -51,8 +52,10 @@ t, c, k, stream)``; of the commit before the tree redesign:
 n_nodes, n_trees, depth, rows_per_block, bank_in_smem, grid, smem_bytes,
 stream)`` and ``tree_predict_fused_launch`` likewise (with mean, std,
 scale, bias and the reduction), launched as `parent_tree_plan` plans;
-flash's and the GMM's are this tree's (the operands' card index before
-the stream).
+the GMM's is this tree's (the operands' card index before the stream),
+and flash's that of the commit before the window and the softcap
+(``flash_attention_launch`` without ``window`` and ``softcap``; the
+change is called with both 0).
 """
 from __future__ import annotations
 
@@ -125,6 +128,11 @@ def parent_flash(lib, q, k, v, causal):
     return out
 
 
+def change_flash(fac, q, k, v, causal):
+    """This tree's kernel at the parent's function: no window, no softcap."""
+    return fac.flash_attention_cuda(q, k, v, causal=causal, window=0, softcap=0.0)
+
+
 def parent_gmm(lib, x, w):
     import torch
 
@@ -153,19 +161,20 @@ def compare_flash(cs, lib, device) -> list:
     from repro_torch.kernels import flash_attention_cuda as fac
 
     rows = []
-    for label, b, s, h, kvh, d, causal, dtype in (
-            c for c in cs.FLASH_CASES if c[0] in cs.FLASH_TIMED):
+    for label, b, s, h, kvh, d, causal, dtype, *_ in (
+            c for c in cs.FLASH_CASES if c.label in cs.FLASH_TIMED
+            and not c.skv and not c.window and not c.softcap):
         q, k, v = cs._flash_inputs(b, s, h, kvh, d, dtype, device, seed=500)
         want = fa.flash_attention_plain(q, k, v, causal=causal)
         errs = {}
         for who, fn in (("parent", lambda: parent_flash(lib, q, k, v, causal)),
-                        ("change", lambda: fac.flash_attention_cuda(q, k, v, causal=causal))):
+                        ("change", lambda: change_flash(fac, q, k, v, causal))):
             errs[who] = cs._rel_check(f"{who} flash {label}", fn(), want,
                                       cs.LM_TOL[dtype])[1]
         row = {"kernel": "flash_attention", "case": label, "shape": [b, s, h, kvh, d],
                "dtype": dtype, "err_over_max": errs}
         row.update(in_turns(cs, lambda: parent_flash(lib, q, k, v, causal),
-                            lambda: fac.flash_attention_cuda(q, k, v, causal=causal)))
+                            lambda: change_flash(fac, q, k, v, causal)))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row["library_ms"] = cs.cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))["device"]

@@ -18,7 +18,7 @@ from repro_torch.core.composition import PredictorBank
 from repro_torch.core.predictors.base import Predictor, load_predictor
 from repro_torch.core.predictors.flat import FlatEnsemble
 from repro_torch.models.layers import Params
-from repro_torch.models.transformer import check_plain_stack
+from repro_torch.models.transformer import decoder_stacks
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -68,6 +68,13 @@ def lm_params_from_reference(tree: Dict[str, Any], cfg,
     reference stacks its layers on leading axes; the port holds one
     module per layer, so those axes are unstacked:
       * decoder (dense, moe) and ssm: ``layers`` on (num_layers,);
+      * gemma2 (``alt_local_global``): ``local_layers`` and
+        ``global_layers`` on (num_layers / 2,);
+      * VLM (``cross_attn_every``): ``self_layers`` on (n_groups, n_self),
+        unstacked group-major into n_groups·n_self modules, and
+        ``cross_layers`` on (n_groups,);
+      * encdec: ``enc_layers`` on (encoder_layers,), ``dec_layers`` on
+        (num_layers,);
       * hybrid: ``mamba_groups`` on (n_groups, k), unstacked group-major
         into n_groups·k modules; ``tail_mamba`` on (rem,), present only
         when ``num_layers % shared_attn_every``; ``shared_attn`` is one
@@ -75,7 +82,6 @@ def lm_params_from_reference(tree: Dict[str, Any], cfg,
     Each stack's leading shape is checked against ``cfg``.  Values are
     copied in their dtypes onto ``device``.
     """
-    check_plain_stack(cfg)
     dev = resolve_device(device)
     if cfg.family == "hybrid":
         every = cfg.shared_attn_every
@@ -85,8 +91,10 @@ def lm_params_from_reference(tree: Dict[str, Any], cfg,
             stacks["tail_mamba"] = (rem,)
         if "tail_mamba" in tree and not rem:
             raise ValueError(f"tree has tail_mamba, {cfg.name} has no tail group")
+    elif cfg.family == "encdec":
+        stacks = {"enc_layers": (cfg.encoder_layers,), "dec_layers": (cfg.num_layers,)}
     else:
-        stacks = {"layers": (cfg.num_layers,)}
+        stacks = decoder_stacks(cfg)
     out = {k: _tensors(v, dev) for k, v in tree.items() if k not in stacks}
     for name, lead in stacks.items():
         if name not in tree:

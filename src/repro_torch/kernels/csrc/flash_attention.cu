@@ -4,10 +4,15 @@
 // src/repro/kernels/flash_attention.py (entry `flash_attention`).
 //
 //   o[b, i, h, :] = sum_j softmax_j(s_ij) * v[b, j, h / rep, :],
-//   s_ij = (q[b, i, h, :] . k[b, j, h / rep, :]) * scale,  rep = H / KVH,
+//   s_ij = cap((q[b, i, h, :] . k[b, j, h / rep, :]) * scale),  rep = H / KVH,
+//   cap(x) = softcap * tanh(x / softcap)  (x itself when softcap = 0),
 //
-// with s_ij = -1e30 where causal masking hides key j from query i
-// (j > i + q_offset) and for keys past the sequence.  q is (b, sq, H, D),
+// with s_ij = -1e30 where a mask hides key j from query i and for keys
+// past the sequence: the causal mask (j > i + q_offset) and, when
+// window > 0, the sliding window (j <= i + q_offset - window, causal or
+// not), after the softcap, as the reference's model attention
+// (src/repro/models/attention.py, naive_attention) computes them; the
+// Pallas kernel itself knows only the causal mask.  q is (b, sq, H, D),
 // k and v (b, skv, KVH, D), o (b, sq, H, D), all contiguous, 16-byte
 // aligned, and all float32 or all bfloat16.  Query head h reads kv head
 // h / rep, so grouped-query attention needs no repeated K/V; the TPU
@@ -21,10 +26,11 @@
 //    reduced-precision tensor-core shortcut: the port holds this route to
 //    1e-5 of its plain version).
 //
-// What bounds it on this card.  The work is 4*b*H*sq*skv*D operations
-// (halved by causal masking) against (2*b*sq*H + 2*b*skv*KVH)*D elements
-// moved, so at the LM paths' shapes (D = 64, s = 1024 or 4096) it is bound
-// by operations: 8.6 GFLOP a launch at Granite's b = 4, H = 16, s = 1024,
+// What bounds it on this card.  The work is 4*D operations for each
+// (query, key) pair the masks keep (4*b*H*sq*skv*D unmasked, about half
+// under the causal mask, at most w keys a row under a window of w) against
+// (2*b*sq*H + 2*b*skv*KVH)*D elements moved, so at the LM paths' shapes
+// (D = 64, s = 1024 or 4096) it is bound by operations: 8.6 GFLOP a launch at Granite's b = 4, H = 16, s = 1024,
 // 8.7 us at the tensor cores' 989 TFLOP/s bf16, and 0.139 ms at Zamba2's
 // b = 2, H = 32, s = 4096.  Float32 has only the CUDA cores (67 TFLOP/s),
 // a floor some 15x higher.
@@ -39,8 +45,8 @@
 //    fall in distinct banks.  Keys past skv are zero-filled and masked.
 //  * S = Q.K^T by mma.sync m16n8k16 (bf16 in, float32 accumulators).
 //    Then, in registers: the scale (times log2(e), so exp2f gives the
-//    exponentials), the -1e30 mask (only on tiles that cross the diagonal
-//    or the end of the keys) and the online softmax; a row's max and sum
+//    exponentials), the -1e30 mask (only on tiles that cross the diagonal,
+//    the window's lower edge or the end of the keys) and the online softmax; a row's max and sum
 //    are spread over the four lanes of a quad and take two
 //    __shfl_xor_sync each.
 //  * O += P.V by mma: P is rounded to bf16 in registers and reused as the
@@ -56,6 +62,18 @@
 //  * Causal: key tiles wholly above the block's last query are never
 //    loaded.  Query tiles are issued heaviest first (grid y reversed), so
 //    the long causal rows do not trail at the end of the launch.
+//  * Window: the key loop starts at the tile holding the block's first
+//    row's first visible key, max(0, q0 + q_offset - window + 1); tiles
+//    that reach below the block's last row's window are masked element by
+//    element.  A late row of the block can find its first tiles wholly
+//    hidden: its running max stays -1e30 and each hidden key adds
+//    p = exp2(0) = 1 to its sums, until its first visible key brings a real
+//    max m and the rescale by exp2(-1e30 - m) = 0 clears them.  So no tile
+//    skips the rescale.  A row that sees no key at all never gets that
+//    rescale; the wrapper refuses such a call.
+//  * Softcap: cap(s * scale) in float32 with tanhf (no approximate tanh),
+//    then the log2(e) factor; without a softcap the two factors stay
+//    folded into one multiply.
 //  * Shared memory is (64 + 4 * 64) rows of D + 8 bf16: 46 KB at D = 64,
 //    87 KB at D = 128, taken as dynamic shared memory.
 //
@@ -70,7 +88,9 @@
 //    the accumulator are rescaled once per tile.
 //  * Causal: key tiles wholly above the block's last query are never
 //    loaded (the `pl.when` skip of flash_attention.py:46-48); inside the
-//    diagonal tile keys are masked per row.
+//    diagonal tile keys are masked per row.  A window starts the key loop
+//    at the tile of the block's first visible key, as in the bfloat16
+//    kernel, and masks per row; the softcap is applied with tanhf.
 //  * Any sq and skv: rows past sq compute and are not stored, keys past skv
 //    are zero-filled and masked (the Pallas kernel asserts divisibility).
 //  * expf, fmaf and IEEE division: no fast-math intrinsics.
@@ -121,7 +141,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, int sq, int skv, int heads, int kv_heads, int causal,
-    int q_offset, float scale) {
+    int q_offset, int window, float softcap, float scale) {
   constexpr int G = Tile<D>::kLanes;
   constexpr int BQ = Tile<D>::kRows;
   constexpr int BKV = Tile<D>::kKeys;
@@ -156,12 +176,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(
 
   int kv_end = skv;
   if (causal) kv_end = min(skv, max(0, q0 + BQ + q_offset));
+  int kv_begin = 0;
+  if (window > 0) kv_begin = max(0, q0 + q_offset - window + 1) / BKV * BKV;
   const T* kb = k + static_cast<long long>(bi) * skv * kv_row +
                 static_cast<long long>(kvi) * D;
   const T* vb = v + static_cast<long long>(bi) * skv * kv_row +
                 static_cast<long long>(kvi) * D;
 
-  for (int t0 = 0; t0 < kv_end; t0 += BKV) {
+  for (int t0 = kv_begin; t0 < kv_end; t0 += BKV) {
     __syncthreads();                  // the previous tile has been read
     // 16-byte loads, all of a thread's issued before the first is used.
 #pragma unroll
@@ -204,8 +226,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
       }
       const int key = t0 + j;
-      const bool seen = key < skv && (!causal || key <= qpos);
-      s[j] = seen ? dot * scale : kNegInf;
+      const bool seen = key < skv && (!causal || key <= qpos) &&
+                        (window <= 0 || key > qpos - window);
+      float sc = dot * scale;
+      if (softcap > 0.f) sc = tanhf(sc / softcap) * softcap;
+      s[j] = seen ? sc : kNegInf;
       m_tile = fmaxf(m_tile, s[j]);
     }
     const float m_new = fmaxf(m, m_tile);
@@ -241,24 +266,25 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int skv, int heads, int kv_heads, int causal, int q_offset,
-           float scale, cudaStream_t stream) {
+           int window, float softcap, float scale, cudaStream_t stream) {
   const dim3 grid((sq + Tile<D>::kRows - 1) / Tile<D>::kRows, b * heads);
   flash_fwd<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, skv, heads, kv_heads,
-      causal, q_offset, scale);
+      causal, q_offset, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o,
              int b, int sq, int skv, int heads, int kv_heads, int causal,
-             int q_offset, float scale, cudaStream_t stream) {
+             int q_offset, int window, float softcap, float scale,
+             cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -268,6 +294,7 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 constexpr int kMmaRows = 64;          // query rows a block: 16 per warp
 constexpr int kMmaKeys = 64;          // keys a K/V tile
 constexpr int kMmaThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct MmaTile {
@@ -283,7 +310,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     int sq, int skv, int heads, int kv_heads, int causal, int q_offset,
-    float scale_log2) {
+    int window, float softcap, float scale) {
   using namespace mma_bf16;
   using namespace ptx;
   constexpr int LD = MmaTile<D>::kLd;
@@ -326,7 +353,13 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
 
   int kv_end = skv;
   if (causal) kv_end = min(skv, q0 + kMmaRows + q_offset);
-  const int n_tiles = (kv_end + kMmaKeys - 1) / kMmaKeys;
+  int kv_begin = 0;
+  if (window > 0) kv_begin = max(0, q0 + q_offset - window + 1);
+  const int tile_begin = kv_begin / kMmaKeys;
+  const int tile_end = (kv_end + kMmaKeys - 1) / kMmaKeys;
+  // Keys at or below this one are hidden from the block's last row.
+  const int window_edge = window > 0 ? q0 + kMmaRows - 1 + q_offset - window : -1;
+  const float scale_log2 = scale * kLog2e;
   auto load_kv = [&](int tile, int stage) {
     const int t0 = tile * kMmaKeys;
     __nv_bfloat16* kd = ks + stage * kMmaKeys * LD;
@@ -341,7 +374,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
       cp_async_16(vd + r * LD + col, vb + off, in ? 16 : 0);
     }
   };
-  load_kv(0, 0);
+  if (tile_begin < tile_end) load_kv(tile_begin, tile_begin & 1);
   cp_async_commit();
   cp_async_wait<1>();                     // the Q tile has landed
   __syncthreads();
@@ -362,8 +395,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
   float l[2] = {0.f, 0.f};                // this lane's part of the sum
   const int row0 = q0 + warp * 16 + g;
 
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) load_kv(it + 1, (it + 1) & 1);
+  for (int it = tile_begin; it < tile_end; ++it) {
+    if (it + 1 < tile_end) load_kv(it + 1, (it + 1) & 1);
     cp_async_commit();
     cp_async_wait<1>();                   // tile `it` has landed
     __syncthreads();
@@ -390,15 +423,20 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
 
     const int t0 = it * kMmaKeys;
     const bool edge = t0 + kMmaKeys > skv ||
-                      (causal && t0 + kMmaKeys - 1 > q0 + q_offset);
+                      (causal && t0 + kMmaKeys - 1 > q0 + q_offset) ||
+                      t0 <= window_edge;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = t0 + nb * 8 + 2 * t + (e & 1);
         const int row = row0 + (e >> 1) * 8;
-        const bool hidden = key >= skv || (causal && key > row + q_offset);
-        s[nb][e] = edge && hidden ? kNegInf : s[nb][e] * scale_log2;
+        const bool hidden = key >= skv || (causal && key > row + q_offset) ||
+                            (window > 0 && key <= row + q_offset - window);
+        const float x = softcap > 0.f
+            ? tanhf(s[nb][e] * scale / softcap) * softcap * kLog2e
+            : s[nb][e] * scale_log2;
+        s[nb][e] = edge && hidden ? kNegInf : x;
       }
     }
 #pragma unroll
@@ -481,7 +519,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
                int sq, int skv, int heads, int kv_heads, int causal,
-               int q_offset, float scale, cudaStream_t stream) {
+               int q_offset, int window, float softcap, float scale,
+               cudaStream_t stream) {
   constexpr int kSmem = MmaTile<D>::kSmemBytes;
   // More than the default 48 KB of dynamic shared memory: granted once per
   // instance and card (host_launch.cuh).
@@ -490,22 +529,22 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
       host_launch::opt_in(flash_fwd_bf16_mma<D>, granted, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(b * heads, (sq + kMmaRows - 1) / kMmaRows);
-  const float log2e = 1.4426950408889634f;
   flash_fwd_bf16_mma<D><<<grid, kMmaThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      skv, heads, kv_heads, causal, q_offset, scale * log2e);
+      skv, heads, kv_heads, causal, q_offset, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_mma_d(int d, const void* q, const void* k, const void* v, void* o,
                  int b, int sq, int skv, int heads, int kv_heads, int causal,
-                 int q_offset, float scale, cudaStream_t stream) {
+                 int q_offset, int window, float softcap, float scale,
+                 cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_mma<16>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, scale, stream);
-    case 32: return launch_mma<32>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, scale, stream);
-    case 64: return launch_mma<64>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, scale, stream);
-    case 128: return launch_mma<128>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, scale, stream);
+    case 16: return launch_mma<16>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 32: return launch_mma<32>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 64: return launch_mma<64>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 128: return launch_mma<128>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -527,17 +566,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int sq,
                                       int skv, int heads, int kv_heads, int d,
                                       int dtype, int causal, int q_offset,
-                                      float scale, int device, void* stream) {
+                                      int window, float softcap, float scale,
+                                      int device, void* stream) {
   const host_launch::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return launch_d<float>(d, q, k, v, o, b, sq, skv, heads, kv_heads, causal,
-                           q_offset, scale, s);
+                           q_offset, window, softcap, scale, s);
   }
   if (dtype == 1) {
     return launch_mma_d(d, q, k, v, o, b, sq, skv, heads, kv_heads, causal,
-                        q_offset, scale, s);
+                        q_offset, window, softcap, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,15 @@
 """CUDA flash attention: build, bind, launch (``csrc/flash_attention.cu``).
 
-``flash_attention_cuda(q, k, v, causal, q_offset)`` → (b, sq, h, d) in
-q's type, on the card: q (b, sq, h, d), k and v (b, skv, kvh, d),
-contiguous and 16-byte aligned, all float32 or all bfloat16, d in
-`HEAD_DIMS`.  The type picks the kernel: bfloat16 launches the
-tensor-core kernel (`flash_fwd_bf16_mma`), float32 the CUDA-core one
-(`flash_fwd`); there is no fallback between them.  The wrapper checks
+``flash_attention_cuda(q, k, v, causal, q_offset, window, softcap)`` →
+(b, sq, h, d) in q's type, on the card: q (b, sq, h, d), k and v
+(b, skv, kvh, d), contiguous and 16-byte aligned, all float32 or all
+bfloat16, d in `HEAD_DIMS`; the masks and the softcap are those of
+`repro_torch.kernels.flash_attention`.  The kernels skip the key tiles a
+window hides, so a query row that sees no key at all (``sq + q_offset -
+window >= skv``) is refused: its plain result averages all of V.  The
+type picks the kernel: bfloat16 launches the tensor-core kernel
+(`flash_fwd_bf16_mma`), float32 the CUDA-core one (`flash_fwd`); there
+is no fallback between them.  The wrapper checks
 device, dtype, contiguity and shape, allocates the output, launches on
 the operand's card (the C entry point takes its index and makes it
 current, so a launch from any thread reaches the card its tensors are
@@ -46,7 +50,7 @@ def reset_launch_counts() -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                           i, i, f, i, p]
+                                           i, i, i, f, f, i, p]
     lib.flash_attention_launch.restype = i
     lib.flash_attention_bf16_smem_bytes.argtypes = [i]
     lib.flash_attention_bf16_smem_bytes.restype = i
@@ -56,8 +60,17 @@ LIBRARY = CudaLibrary("flash_attention", ("flash_attention.cu",), _declare,
                       headers=("mma_bf16.cuh", "ptx_copy.cuh", "host_launch.cuh"))
 
 
+def check_masks(window: int, softcap: float) -> None:
+    """The window and softcap rule of both the kernel and its plain
+    version."""
+    if window < 0 or not 0 <= softcap < math.inf:
+        raise ValueError(f"window must be >= 0 and softcap finite and >= 0 "
+                         f"(got {window}, {softcap})")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                         causal: bool = True, q_offset: int = 0, window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
     """q (b, sq, h, d), k and v (b, skv, kvh, d) → (b, sq, h, d)."""
     if q.dtype not in ROUTES:
         raise TypeError(f"q must be float32 or bfloat16 (got {q.dtype})")
@@ -75,6 +88,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0 (got {q_offset})")
+    check_masks(window, softcap)
+    if window and sq + q_offset - window >= skv:
+        raise ValueError(f"a window of {window} hides every key from the last "
+                         f"query rows (sq {sq}, q_offset {q_offset}, skv {skv})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
@@ -88,8 +105,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code, route = ROUTES[q.dtype]
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, skv, h, kvh, d, code, int(causal), int(q_offset),
-        1.0 / math.sqrt(d), q.get_device(),
+        b, sq, skv, h, kvh, d, code, int(causal), int(q_offset), int(window),
+        float(softcap), 1.0 / math.sqrt(d), q.get_device(),
         torch.cuda.current_stream(q.device).cuda_stream)
     LIBRARY.raise_on(err, "flash_attention")
     _COUNTER.add("flash_attention")

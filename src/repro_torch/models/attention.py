@@ -1,22 +1,21 @@
-"""Attention: GQA + RoPE (+ sliding window and softcap on the host); the
-prefill paths and the decode path (twin of ``repro.models.attention``).
+"""Attention: GQA + RoPE + sliding window + softcap; the prefill paths,
+cross-attention and the decode path (twin of ``repro.models.attention``).
 
-``naive_attention`` and ``chunked_attention`` compute one function, the
-flash kernel's (`repro_torch.kernels.ops.flash_attention`): on a CUDA
-tensor they launch the hand-written kernel, on a CPU tensor its plain
-version.  Chunking query rows, as the reference's ``chunked_attention``
-does to bound its memory, changes no row's arithmetic, so the kernel
-serves both.  In float32, and on the host in either type, the
-probabilities stay float32 up to the weighted sum of V, as in the TPU
-kernel.  The card's bfloat16 kernel rounds them to bfloat16 first (the
-tensor cores' operand type), as the reference rounds them to the compute
-type.
+``naive_attention``, ``chunked_attention`` and ``cross_attention``
+compute one function, the flash kernel's
+(`repro_torch.kernels.ops.flash_attention`), with the reference's causal
+mask, sliding window and logit softcap: on a CUDA tensor they launch the
+hand-written kernel, on a CPU tensor its plain version.  Chunking query
+rows, as the reference's ``chunked_attention`` does to bound its memory,
+changes no row's arithmetic, so the kernel serves both.  In float32, and
+on the host in either type, the probabilities stay float32 up to the
+weighted sum of V, as in the TPU kernel.  The card's bfloat16 kernel
+rounds them to bfloat16 first (the tensor cores' operand type), as the
+reference rounds them to the compute type.
 
-A sliding window or a logit softcap (gemma2 only) is not in the kernel
-yet: on the host such calls take the reference's einsum attention, on
-the card they raise NotImplementedError (ROADMAP A.3).  ``decode_attention``
-stays plain torch einsums, as the reference computes it outside any
-kernel.  GQA never repeats K/V: query head i reads kv head i // (h / kvh).
+``decode_attention`` stays plain torch einsums (`_attend`), as the
+reference computes it outside any kernel.  GQA never repeats K/V: query
+head i reads kv head i // (h / kvh).
 """
 from __future__ import annotations
 
@@ -31,9 +30,6 @@ from repro_torch.models.layers import Params, apply_rope, dense, dense_init, sof
 Tensor = torch.Tensor
 
 NEG_INF = -2.0e38
-UNPORTED_MASKS = ("a sliding window or a logit softcap is not in the CUDA "
-                  "flash kernel yet (ROADMAP A.3: window and softcap in the "
-                  "flash kernel, with the gemma2 local/global stack)")
 
 
 def attention_init(gen: torch.Generator, cfg) -> Dict[str, Dict[str, Tensor]]:
@@ -84,19 +80,8 @@ def naive_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int = 0, logit_softcap: float = 0.0,
                     q_offset: int = 0) -> Tensor:
     """q (b, sq, h, d) over k, v (b, skv, kvh, d) → (b, sq, h, d)."""
-    if not window and not logit_softcap:
-        return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
-    if q.is_cuda:
-        raise NotImplementedError(UNPORTED_MASKS)
-    sq, skv = q.shape[1], k.shape[1]
-    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    valid = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        valid &= kpos <= qpos
-    if window:
-        valid &= kpos > qpos - window
-    return _attend(q, k, v, valid, logit_softcap)
+    return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               window=window, softcap=logit_softcap)
 
 
 def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
@@ -124,3 +109,29 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, *,
         valid &= kpos > n - 1 - window
     return _attend(q, k_cache, v_cache, valid[:, None, None, None, :],
                    logit_softcap)
+
+
+def cross_attention_init(gen: torch.Generator, cfg) -> Dict[str, Dict[str, Tensor]]:
+    """q from the d_model-wide queries, k and v from a d_model-wide memory
+    (the VLM's vision embeddings, Whisper's encoder output)."""
+    d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "q": dense_init(gen, d, h * hd, cfg.param_dtype),
+        "k": dense_init(gen, d, kvh * hd, cfg.param_dtype),
+        "v": dense_init(gen, d, kvh * hd, cfg.param_dtype),
+        "o": dense_init(gen, h * hd, d, cfg.param_dtype),
+    }
+
+
+def cross_attention(p: Params, x: Tensor, memory: Tensor, cfg,
+                    dtype: torch.dtype) -> Tensor:
+    """Encoder-decoder / VLM cross-attention (no mask, no RoPE): x
+    (b, sq, d) over memory (b, skv, d), through the flash kernel, with
+    every product in ``dtype``."""
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _split_heads(dense(p["q"], x, dtype), h, hd)
+    k = _split_heads(dense(p["k"], memory, dtype), kvh, hd)
+    v = _split_heads(dense(p["v"], memory, dtype), kvh, hd)
+    out = naive_attention(q, k, v, causal=False)
+    out = out.reshape(x.shape[:-1] + (h * hd,))
+    return dense(p["o"], out, dtype)

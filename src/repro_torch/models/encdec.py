@@ -1,0 +1,181 @@
+"""Whisper-style encoder–decoder backbone [arXiv:2212.04356] (twin of
+``repro.models.encdec``).
+
+The audio frontend (mel → conv) is a stub, as in the reference: the
+encoder takes precomputed frame embeddings (b, encoder_seq, d_model).
+Pre-norm layers with GELU MLPs with biases, sinusoidal encoder positions,
+learned decoder positions, and MHA (kv_heads == heads).
+
+The reference's behaviour is kept where it departs from Whisper:
+  * the norms are `rms_norm`, not LayerNorm;
+  * ``qkv_project`` applies RoPE in the encoder's self-attention and the
+    decoder's, on top of the sinusoidal and learned positions;
+  * the decode cache is bfloat16 whatever the compute type
+    (`init_encdec_cache`'s default);
+  * a decoder position past the learned table reads NaN (``jnp.take``'s
+    fill mode).
+
+Every prefill attention goes through the flash kernel: the encoder's
+non-causal self-attention, the decoder's causal one and the
+cross-attention over the encoder's memory, in `decode_step` too (one
+query row over the memory).  The decode step's self-attention reads the
+cache with plain einsums (`decode_attention`), as the reference does.
+Layers are a Python loop over per-layer `Params`; the reference's scan,
+remat and sharding constraints have no counterpart on one device.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models.attention import (
+    attention_init,
+    chunked_attention,
+    cross_attention,
+    cross_attention_init,
+    decode_attention,
+    qkv_project,
+)
+from repro_torch.models.layers import (
+    Params,
+    dense,
+    dtype_of,
+    embed,
+    embed_init,
+    mlp_gelu,
+    mlp_gelu_init,
+    norm_init,
+    rms_norm,
+    sinusoidal_positions,
+    torch_dtype,
+    unembed,
+)
+from repro_torch.models.transformer import _scatter_cache, kv_cache, layer_cache
+
+Tensor = torch.Tensor
+
+MAX_DECODER_POSITIONS = 32768  # covers the assignment's prefill/decode_32k
+
+
+def enc_layer_init(gen: torch.Generator, cfg) -> Dict[str, Any]:
+    return {
+        "attn_norm": norm_init(cfg.d_model, cfg.param_dtype, gen.device),
+        "attn": attention_init(gen, cfg),
+        "mlp_norm": norm_init(cfg.d_model, cfg.param_dtype, gen.device),
+        "mlp": mlp_gelu_init(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype),
+    }
+
+
+def dec_layer_init(gen: torch.Generator, cfg) -> Dict[str, Any]:
+    return {
+        "attn_norm": norm_init(cfg.d_model, cfg.param_dtype, gen.device),
+        "attn": attention_init(gen, cfg),
+        "xattn_norm": norm_init(cfg.d_model, cfg.param_dtype, gen.device),
+        "xattn": cross_attention_init(gen, cfg),
+        "mlp_norm": norm_init(cfg.d_model, cfg.param_dtype, gen.device),
+        "mlp": mlp_gelu_init(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype),
+    }
+
+
+def init_encdec(gen: torch.Generator, cfg) -> Params:
+    """The port's own init, drawn from ``gen`` on its device."""
+    n_pos = MAX_DECODER_POSITIONS if cfg.vocab_size > 1024 else 512
+    pos = torch.empty((n_pos, cfg.d_model), dtype=torch_dtype(cfg.param_dtype),
+                      device=gen.device)
+    return Params({
+        "enc_layers": [enc_layer_init(gen, cfg) for _ in range(cfg.encoder_layers)],
+        "enc_norm": norm_init(cfg.d_model, cfg.param_dtype, gen.device),
+        "dec_embed": embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.param_dtype),
+        "dec_pos": pos.normal_(generator=gen) * 0.01,
+        "dec_layers": [dec_layer_init(gen, cfg) for _ in range(cfg.num_layers)],
+        "dec_norm": norm_init(cfg.d_model, cfg.param_dtype, gen.device),
+    })
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_table(seq: int, dim: int, device: torch.device) -> Tensor:
+    # Made once per shape and device: a host-to-card copy in every call
+    # would wait for the card's queue to drain.
+    return torch.as_tensor(sinusoidal_positions(seq, dim), device=device)
+
+
+def _mlp_block(lp: Params, x: Tensor, cfg) -> Tensor:
+    h = rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
+    return x + mlp_gelu(lp["mlp"], h, "gelu", dtype_of(cfg))
+
+
+def encode(params: Params, frames: Tensor, cfg) -> Tensor:
+    """frames: (b, enc_seq, d_model) stub frontend output → encoder memory."""
+    dt = dtype_of(cfg)
+    b, s, d = frames.shape
+    x = frames.to(dt) + _sinusoid_table(s, d, frames.device).to(dt)
+    positions = torch.arange(s, device=frames.device).expand(b, s)
+    for lp in params["enc_layers"]:
+        h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        q, k, v = qkv_project(lp["attn"], h, cfg, positions, dt)
+        o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
+        o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
+        x = x + dense(lp["attn"]["o"], o, dt)
+        x = _mlp_block(lp, x, cfg)
+    return rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def decode_train(params: Params, tokens: Tensor, memory: Tensor, cfg) -> Tensor:
+    """Teacher-forced decoder: tokens (b, s) + memory → logits float32."""
+    dt = dtype_of(cfg)
+    b, s = tokens.shape
+    x = embed(params["dec_embed"], tokens, dt)
+    x = x + params.cast("dec_pos", dt)[:s]
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for lp in params["dec_layers"]:
+        h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        q, k, v = qkv_project(lp["attn"], h, cfg, positions, dt)
+        o = chunked_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk)
+        o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
+        x = x + dense(lp["attn"]["o"], o, dt)
+        h = rms_norm(lp["xattn_norm"], x, cfg.norm_eps)
+        x = x + cross_attention(lp["xattn"], h, memory, cfg, dt)
+        x = _mlp_block(lp, x, cfg)
+    x = rms_norm(params["dec_norm"], x, cfg.norm_eps)
+    return unembed(params["dec_embed"], x).float()
+
+
+def init_encdec_cache(cfg, batch: int, max_len: int, dtype: str = "bfloat16",
+                      device="cuda") -> Dict[str, Tensor]:
+    """The decoder's self-attention cache, stacked on (num_layers,)."""
+    return kv_cache(cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                    cfg.head_dim, torch_dtype(dtype), device)
+
+
+def _decoder_position(params: Params, pos: Tensor, dt: torch.dtype) -> Tensor:
+    """Rows ``pos`` (b,) of the learned positions; NaN past the table."""
+    table = params.cast("dec_pos", dt)
+    n = table.shape[0]
+    rows = table[pos.long().clamp(max=n - 1)]
+    return rows.masked_fill((pos >= n)[:, None], float("nan"))
+
+
+def decode_step(params: Params, token: Tensor, cache: Dict[str, Tensor],
+                memory: Tensor, cfg) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Single-token decode with self-attn KV cache + live cross-attn."""
+    dt = dtype_of(cfg)
+    x = embed(params["dec_embed"], token, dt)
+    x = x + _decoder_position(params, cache["len"][0], dt)[:, None, :]
+    for i, lp in enumerate(params["dec_layers"]):
+        kc = layer_cache(cache, i)
+        h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        q, k_new, v_new = qkv_project(lp["attn"], h, cfg, kc["len"].reshape(-1, 1), dt)
+        idx = kc["len"].reshape(-1)
+        k_cache = _scatter_cache(kc["k"], k_new, idx)
+        v_cache = _scatter_cache(kc["v"], v_new, idx)
+        o = decode_attention(q, k_cache, v_cache, cache_len=idx + 1)
+        o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
+        x = x + dense(lp["attn"]["o"], o, dt)
+        h = rms_norm(lp["xattn_norm"], x, cfg.norm_eps)
+        x = x + cross_attention(lp["xattn"], h, memory, cfg, dt)
+        x = _mlp_block(lp, x, cfg)
+    x = rms_norm(params["dec_norm"], x, cfg.norm_eps)
+    logits = unembed(params["dec_embed"], x[:, 0]).float()
+    return logits, {"k": cache["k"], "v": cache["v"], "len": cache["len"] + 1}

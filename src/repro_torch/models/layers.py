@@ -201,3 +201,13 @@ def softcap(x: Tensor, cap: float) -> Tensor:
     if not cap:
         return x
     return torch.tanh(x / cap) * cap
+
+
+def sinusoidal_positions(seq: int, dim: int) -> np.ndarray:
+    """Whisper-style sinusoidal position embeddings."""
+    pos = np.arange(seq)[:, None]
+    div = np.exp(-np.log(10000.0) * np.arange(0, dim, 2) / dim)
+    out = np.zeros((seq, dim), np.float32)
+    out[:, 0::2] = np.sin(pos * div)
+    out[:, 1::2] = np.cos(pos * div)
+    return out

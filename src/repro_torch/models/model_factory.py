@@ -1,6 +1,7 @@
-"""Uniform model API (twin of ``repro.models.model_factory``), for the
-families the port has: ``dense`` and ``moe`` (the plain decoder stack),
-``ssm`` (Mamba2) and ``hybrid`` (Zamba2).
+"""Uniform model API over every architecture family (twin of
+``repro.models.model_factory``): ``dense``, ``moe`` and ``vlm`` (the
+decoder stacks of `transformer`, gemma2's local/global pairs among the
+dense), ``ssm`` (Mamba2), ``hybrid`` (Zamba2) and ``encdec`` (Whisper).
 
 `build_model(cfg)` returns a `Model` with:
   * init(seed, device="cuda") → params         (the port's own init)
@@ -9,9 +10,13 @@ families the port has: ``dense`` and ``moe`` (the plain decoder stack),
   * init_cache(batch, max_len, device="cuda") → cache
   * decode_step(params, batch, cache) → (logits, cache)   (serve step body)
 
-The reference's ``input_specs`` (shape stand-ins for its dry-run) has no
-use without a tracer and is left out.  Families ``encdec`` and ``vlm``
-raise NotImplementedError (ROADMAP A.3).
+Batches carry the modality frontends' stub outputs, as the reference's:
+the VLM's ``vision_embeds`` (b, vision_seq, d_model) in ``forward``,
+``loss`` and ``decode_step``; Whisper's ``frames`` (b, encoder_seq,
+d_model) in ``forward`` and ``loss`` and the encoder's ``memory``
+(`encdec.encode`) in ``decode_step``.  The reference's ``input_specs``
+(shape stand-ins for its dry-run) has no use without a tracer and is left
+out.
 """
 from __future__ import annotations
 
@@ -21,19 +26,13 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.layers import (
     Params, dtype_of, embed, embed_init, norm_init, rms_norm, unembed,
 )
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
-
-UNPORTED_FAMILIES = {
-    "encdec": "the encoder-decoder family (ROADMAP A.3: encdec)",
-    "vlm": "the VLM family (ROADMAP A.3: VLM cross-attention)",
-}
-
 
 def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
     """Mean token NLL. logits: (..., vocab) float32; labels: (...) integer."""
@@ -54,15 +53,14 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return _build_decoder(cfg)
     if cfg.family == "ssm":
         return _build_ssm(cfg)
     if cfg.family == "hybrid":
         return _build_hybrid(cfg)
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: {UNPORTED_FAMILIES[cfg.family]} "
-                                  f"is not ported yet")
+    if cfg.family == "encdec":
+        return _build_encdec(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -80,17 +78,17 @@ def _nll_loss(forward):
 
 
 def _build_decoder(cfg: ArchConfig) -> Model:
-    transformer.check_plain_stack(cfg)
-
     def init(seed: int, device: DeviceLike = "cuda") -> Params:
         return transformer.init_decoder(_generator(seed, device), cfg)
 
     def forward(params, batch):
-        logits, _ = transformer.decoder_forward(params, batch["tokens"], cfg)
+        logits, _ = transformer.decoder_forward(
+            params, batch["tokens"], cfg, vision_embeds=batch.get("vision_embeds"))
         return logits
 
     def loss(params, batch):
-        logits, aux = transformer.decoder_forward(params, batch["tokens"], cfg)
+        logits, aux = transformer.decoder_forward(
+            params, batch["tokens"], cfg, vision_embeds=batch.get("vision_embeds"))
         nll = cross_entropy(logits, batch["labels"])
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
@@ -99,7 +97,8 @@ def _build_decoder(cfg: ArchConfig) -> Model:
                                       device=resolve_device(device))
 
     def decode_step(params, batch, cache):
-        return transformer.decode_step(params, batch["token"], cache, cfg)
+        return transformer.decode_step(params, batch["token"], cache, cfg,
+                                       vision_embeds=batch.get("vision_embeds"))
 
     return Model(cfg, init, loss, forward, init_cache, decode_step)
 
@@ -158,5 +157,27 @@ def _build_hybrid(cfg: ArchConfig) -> Model:
 
     def decode_step(params, batch, cache):
         return hybrid.hybrid_decode_step(params, batch["token"], cache, cfg)
+
+    return Model(cfg, init, _nll_loss(forward), forward, init_cache, decode_step)
+
+
+# ---------------------------------------------------------------------------
+# encdec — Whisper
+# ---------------------------------------------------------------------------
+
+def _build_encdec(cfg: ArchConfig) -> Model:
+    def init(seed: int, device: DeviceLike = "cuda") -> Params:
+        return encdec.init_encdec(_generator(seed, device), cfg)
+
+    def forward(params, batch):
+        memory = encdec.encode(params, batch["frames"], cfg)
+        return encdec.decode_train(params, batch["tokens"], memory, cfg)
+
+    def init_cache(batch: int, max_len: int, device: DeviceLike = "cuda"):
+        return encdec.init_encdec_cache(cfg, batch, max_len,
+                                        device=resolve_device(device))
+
+    def decode_step(params, batch, cache):
+        return encdec.decode_step(params, batch["token"], cache, batch["memory"], cfg)
 
     return Model(cfg, init, _nll_loss(forward), forward, init_cache, decode_step)

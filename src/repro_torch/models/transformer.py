@@ -1,9 +1,25 @@
-"""Decoder-only transformer LM, the plain layer stack of the dense and MoE
-families (twin of ``repro.models.transformer``).
+"""Decoder-only transformer LM: the dense, MoE, gemma2 (local/global) and
+VLM (gated cross-attention) stacks (twin of ``repro.models.transformer``).
+
+Variants, as in the reference:
+  * dense GQA and MoE: one stack of L layers, ``params["layers"]``;
+  * gemma2: L/2 (local, global) layer pairs, ``params["local_layers"]`` and
+    ``params["global_layers"]``; local layers attend through the sliding
+    window ``cfg.sliding_window``, global ones without it; softcaps and
+    the embedding scale come from the config;
+  * VLM (llama-3.2-vision): L / ``cross_attn_every`` groups, each of
+    ``cross_attn_every − 1`` self-attention layers (``params["self_layers"]``,
+    group-major) then one gated cross-attention layer
+    (``params["cross_layers"]``: norm → cross-attention over the vision
+    embeddings → ``x + tanh(gate) · xa``).  The gate starts at zero, as
+    in the reference, so a fresh model's cross-attention adds nothing.
+
+`decoder_stacks` and `layer_order` hold the layout of each variant; init,
+forward, cache, decode step and `repro_torch.convert` read it there.
 
 What differs from the reference, and why:
   * its ``lax.scan`` over stacked layer weights is a Python loop over the
-    per-layer `Params` modules of ``params["layers"]``;
+    per-layer `Params` modules;
   * ``jax.checkpoint`` (remat) saves memory for training's backward pass
     and has no counterpart at inference;
   * ``constrain_seq``, ``gather_layer``, ``pin_layer_stack`` and
@@ -11,21 +27,22 @@ What differs from the reference, and why:
     on one device without a mesh, so they are left out;
   * `decode_step` writes the new token's K/V into the cache in place
     (the reference returns new arrays); the cache it returns holds the
-    same K/V tensors and a new ``len``.
-
-The gemma2 local/global stack and the VLM cross-attention stack raise
-NotImplementedError (ROADMAP A.3): they need window and softcap masks in
-the flash kernel, and cross-attention over vision embeddings.
+    same K/V tensors and a new ``len``.  Each stack's cache stays stacked
+    on a leading layer axis, as the reference's, and a layer reads its own
+    entry of it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import math
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
 from repro_torch.models.attention import (
     attention_init,
     chunked_attention,
+    cross_attention,
+    cross_attention_init,
     decode_attention,
     naive_attention,
     qkv_project,
@@ -49,18 +66,6 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import moe_ffn, moe_init
 
 Tensor = torch.Tensor
-
-
-def check_plain_stack(cfg) -> None:
-    """Raise for the layer stacks the port does not have yet."""
-    if cfg.alt_local_global:
-        raise NotImplementedError(
-            f"{cfg.name}: the gemma2 local/global stack is not ported "
-            f"(ROADMAP A.3: window and softcap in the flash kernel)")
-    if cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: the VLM cross-attention stack is not ported "
-            f"(ROADMAP A.3: VLM cross-attention)")
 
 
 # ---------------------------------------------------------------------------
@@ -145,14 +150,64 @@ def _scatter_cache(cache: Tensor, new: Tensor, idx: Tensor) -> Tensor:
 # Whole decoder
 # ---------------------------------------------------------------------------
 
+def _cross_layer_init(gen: torch.Generator, cfg) -> Dict[str, Any]:
+    return {"norm": norm_init(cfg.d_model, cfg.param_dtype, gen.device),
+            "xattn": cross_attention_init(gen, cfg),
+            "gate": torch.zeros((1,), dtype=torch_dtype(cfg.param_dtype),
+                                device=gen.device)}
+
+
+def decoder_stacks(cfg) -> Dict[str, Tuple[int, ...]]:
+    """The decoder's layer stacks: name → the reference's leading
+    (stacked) shape.  The port holds one module per entry, unstacked in
+    row-major order (the VLM's ``self_layers`` group-major)."""
+    if cfg.alt_local_global:
+        if cfg.num_layers % 2:
+            raise ValueError(f"{cfg.name}: local/global pairs need an even "
+                             f"num_layers (got {cfg.num_layers})")
+        return {"local_layers": (cfg.num_layers // 2,),
+                "global_layers": (cfg.num_layers // 2,)}
+    if cfg.cross_attn_every:
+        n_groups = cfg.num_layers // cfg.cross_attn_every
+        return {"self_layers": (n_groups, cfg.cross_attn_every - 1),
+                "cross_layers": (n_groups,)}
+    return {"layers": (cfg.num_layers,)}
+
+
+def layer_order(cfg) -> Iterator[Tuple[str, int, int]]:
+    """The decoder's layers in the order they run, as (stack, index in the
+    stack, sliding window): gemma2's (local, global) pairs, the VLM's
+    groups of self layers each closed by its cross layer, or one plain
+    stack."""
+    if cfg.alt_local_global:
+        for i in range(cfg.num_layers // 2):
+            yield "local_layers", i, cfg.sliding_window
+            yield "global_layers", i, 0
+    elif cfg.cross_attn_every:
+        n_groups, n_self = decoder_stacks(cfg)["self_layers"]
+        for g in range(n_groups):
+            for j in range(n_self):
+                yield "self_layers", g * n_self + j, 0
+            yield "cross_layers", g, 0
+    else:
+        for i in range(cfg.num_layers):
+            yield "layers", i, cfg.sliding_window
+
+
+# Each self-attention stack's entry in the K/V cache (the reference's names).
+CACHE_OF_STACK = {"layers": "layers", "local_layers": "local",
+                  "global_layers": "global", "self_layers": "self"}
+
+
 def init_decoder(gen: torch.Generator, cfg) -> Params:
     """The port's own init, drawn from ``gen`` on its device."""
-    check_plain_stack(cfg)
     p: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.param_dtype),
         "final_norm": norm_init(cfg.d_model, cfg.param_dtype, gen.device),
-        "layers": [layer_init(gen, cfg) for _ in range(cfg.num_layers)],
     }
+    for name, lead in decoder_stacks(cfg).items():
+        init = _cross_layer_init if name == "cross_layers" else layer_init
+        p[name] = [init(gen, cfg) for _ in range(math.prod(lead))]
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.param_dtype)
     return Params(p)
@@ -162,16 +217,35 @@ def _head(params: Params, cfg) -> Params:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
-def decoder_forward(params: Params, tokens: Tensor, cfg) -> Tuple[Tensor, Tensor]:
-    """tokens: (b, s) integer → (logits (b, s, vocab) float32, moe aux loss)."""
+def _gated_cross(cp: Params, x: Tensor, vision_embeds: Optional[Tensor], cfg
+                 ) -> Tensor:
+    """One VLM cross-attention layer: x + tanh(gate) · xattn(norm(x))."""
+    if vision_embeds is None:
+        raise ValueError(f"{cfg.name}: the cross-attention layers need "
+                         f"vision_embeds")
+    dt = dtype_of(cfg)
+    h = rms_norm(cp["norm"], x, cfg.norm_eps)
+    xa = cross_attention(cp["xattn"], h, vision_embeds, cfg, dt)
+    return x + torch.tanh(cp["gate"]).to(dt) * xa
+
+
+def decoder_forward(params: Params, tokens: Tensor, cfg, *,
+                    vision_embeds: Optional[Tensor] = None
+                    ) -> Tuple[Tensor, Tensor]:
+    """tokens: (b, s) integer → (logits (b, s, vocab) float32, moe aux loss).
+    The VLM's ``vision_embeds`` are (b, vision_seq, d_model)."""
     dt = dtype_of(cfg)
     b, s = tokens.shape
     x = embed(params["embed"], tokens, dt, scale=cfg.scale_embed)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for lp in params["layers"]:
-        x, a = layer_forward(lp, x, cfg, positions, window=cfg.sliding_window)
-        aux = aux + a
+    for stack, i, window in layer_order(cfg):
+        lp = params[stack][i]
+        if stack == "cross_layers":
+            x = _gated_cross(lp, x, vision_embeds, cfg)
+        else:
+            x, a = layer_forward(lp, x, cfg, positions, window=window)
+            aux = aux + a
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(_head(params, cfg), x)
     return softcap(logits.float(), cfg.final_logit_softcap), aux
@@ -181,31 +255,48 @@ def decoder_forward(params: Params, tokens: Tensor, cfg) -> Tuple[Tensor, Tensor
 # KV cache + decode step
 # ---------------------------------------------------------------------------
 
+def kv_cache(n_layers: int, batch: int, max_len: int, kv_heads: int,
+             head_dim: int, dtype: torch.dtype, device) -> Dict[str, Tensor]:
+    """One stack's K/V cache: {'k', 'v': (n, b, max_len, kvh, hd), 'len': (n, b)}."""
+    shape = (n_layers, batch, max_len, kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": torch.zeros((n_layers, batch), dtype=torch.int32, device=device)}
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype: str = "bfloat16",
                device="cuda") -> Dict[str, Dict[str, Tensor]]:
-    n, kvh, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    dt = torch_dtype(dtype)
-    return {"layers": {
-        "k": torch.zeros((n, batch, max_len, kvh, hd), dtype=dt, device=device),
-        "v": torch.zeros((n, batch, max_len, kvh, hd), dtype=dt, device=device),
-        "len": torch.zeros((n, batch), dtype=torch.int32, device=device),
-    }}
+    def kv(n):
+        return kv_cache(n, batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+                        torch_dtype(dtype), device)
+
+    return {CACHE_OF_STACK[name]: kv(math.prod(lead))
+            for name, lead in decoder_stacks(cfg).items() if name != "cross_layers"}
 
 
-def decode_step(params: Params, token: Tensor, cache: Dict[str, Any], cfg
+def layer_cache(kv: Dict[str, Tensor], i: int) -> Dict[str, Tensor]:
+    """Layer i's entry of a stacked cache (views: writes reach the stack)."""
+    return {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"][i]}
+
+
+def decode_step(params: Params, token: Tensor, cache: Dict[str, Any], cfg, *,
+                vision_embeds: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Dict[str, Any]]:
     """token: (b, 1) → (logits (b, vocab) float32, updated cache)."""
     dt = dtype_of(cfg)
     x = embed(params["embed"], token, dt, scale=cfg.scale_embed)
-    kv = cache["layers"]
-    for i, lp in enumerate(params["layers"]):
-        x, _ = layer_decode(lp, x, cfg,
-                            {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"][i]},
-                            window=cfg.sliding_window)
+    for stack, i, window in layer_order(cfg):
+        lp = params[stack][i]
+        if stack == "cross_layers":
+            x = _gated_cross(lp, x, vision_embeds, cfg)
+        else:
+            x, _ = layer_decode(lp, x, cfg, layer_cache(cache[CACHE_OF_STACK[stack]], i),
+                                window=window)
+    new_cache = {name: _bump(kv) for name, kv in cache.items()}
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(_head(params, cfg), x[:, 0])
     logits = softcap(logits.float(), cfg.final_logit_softcap)
-    return logits, {"layers": _bump(kv)}
+    return logits, new_cache
 
 
 def _bump(kvc: Dict[str, Tensor]) -> Dict[str, Tensor]:

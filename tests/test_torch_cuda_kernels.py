@@ -695,15 +695,121 @@ def test_lm_wrappers_check_their_inputs(card):
                                  kv[..., :48].contiguous())
     with pytest.raises(ValueError, match="shape"):
         fac.flash_attention_cuda(q, kv, kv[:, :4].contiguous())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.naive_attention(q, kv, kv, window=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.chunked_attention(q, kv, kv, logit_softcap=5.0)
+    with pytest.raises(ValueError, match="softcap"):
+        attention.naive_attention(q, kv, kv, window=-1)
+    with pytest.raises(ValueError, match="softcap"):
+        attention.chunked_attention(q, kv, kv, logit_softcap=float("inf"))
+    with pytest.raises(ValueError, match="hides every key"):
+        fac.flash_attention_cuda(q, kv, kv, causal=False, window=4, q_offset=20)
     x = torch.zeros((2, 4, 8), device=card)
     with pytest.raises(TypeError):
         gmmc.moe_gmm_cuda(x, torch.zeros((2, 8, 3), device=card, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="lie on"):
         gmmc.moe_gmm_cuda(x, torch.zeros((2, 8, 3)))
+
+
+# (b, sq, skv, h, kvh, d, causal, q_offset, window, softcap): gemma2's
+# local and global layers (reduced heads), a window (8, 100) that is not a
+# multiple of the 64-key tile, so the late rows of a query tile start on
+# wholly hidden key tiles, a window under a query block at q_offset > 0,
+# the VLM's and Whisper's cross-attention (sq != skv, non-causal) and a
+# non-causal window.
+FLASH_MASK_CASES = [
+    (1, 700, 700, 4, 2, 128, True, 0, 256, 50.0),
+    (1, 700, 700, 4, 2, 128, True, 0, 0, 50.0),
+    (2, 1000, 1000, 4, 2, 64, True, 0, 100, 5.0),
+    (1, 300, 300, 2, 1, 64, True, 0, 8, 0.0),
+    (1, 77, 333, 8, 2, 32, True, 256, 100, 0.0),
+    (2, 130, 70, 8, 1, 128, False, 0, 0, 0.0),
+    (4, 1, 300, 4, 4, 64, False, 0, 0, 0.0),
+    (1, 160, 160, 4, 4, 16, False, 0, 40, 5.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,q_offset,window,cap", FLASH_MASK_CASES)
+def test_flash_window_and_softcap_within_tolerance_of_plain(
+        card, dtype, b, sq, skv, h, kvh, d, causal, q_offset, window, cap):
+    """Window, softcap and sq != skv on both routes: within the type's
+    tolerance of the plain version (bfloat16 also row by row, where a late
+    row's uncleared hidden tile shows), repeatable, one launch each on the
+    type's route."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    rng = np.random.default_rng(sq + skv + window + d)
+    q = (3 * _bf16(rng, (b, sq, h, d))).to(card, dtype)
+    k, v = (_bf16(rng, (b, skv, kvh, d)).to(card, dtype) for _ in range(2))
+    kw = dict(causal=causal, q_offset=q_offset, window=window, softcap=cap)
+    before = fac.route_counts()
+    got = fa.flash_attention(q, k, v, **kw)
+    again = fac.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    route = fac.ROUTES[dtype][1]
+    after = fac.route_counts()
+    assert {r: after[r] - before[r] for r in after} == \
+        {r: 2 if r == route else 0 for r in after}
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        _rows_close(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "llama-3.2-vision-90b",
+                                  "whisper-large-v3"])
+def test_reduced_zoo_on_the_card_equals_the_host_port(card, arch):
+    """gemma2 (window 64, 160 tokens), the VLM (gates 0.7) and Whisper in
+    float32: forward and four decode steps on the card, every attention
+    call but decode's self-attention through the flash kernel, against
+    the port on the host."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention_cuda as fac
+    from repro_torch.models import build_model, encdec, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(arch).reduced(), compute_dtype="float32")
+    m = build_model(cfg)
+
+    def init():
+        p = m.init(3, device="cpu")
+        with torch.no_grad():
+            for cp in p["cross_layers"] if cfg.cross_attn_every else ():
+                cp["gate"].fill_(0.7)
+        return p
+
+    dev, host = init().to(card), init()
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 160)).astype(np.int64))
+    extra = {}
+    if cfg.family == "vlm":
+        extra["vision_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.vision_seq, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        extra["frames"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    fac.reset_launch_counts()
+    got = m.forward(dev, {"tokens": toks.to(card),
+                          **{k: v.to(card) for k, v in extra.items()}})
+    torch.cuda.synchronize()
+    calls = {"dense": cfg.num_layers, "vlm": cfg.num_layers,
+             "encdec": cfg.encoder_layers + 2 * cfg.num_layers}[cfg.family]
+    assert fac.launch_counts()["flash_attention"] == calls
+    want = m.forward(host, {"tokens": toks, **extra})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+    if cfg.family == "encdec":
+        ex_d = {"memory": encdec.encode(dev, extra["frames"].to(card), cfg)}
+        ex_h = {"memory": encdec.encode(host, extra["frames"], cfg)}
+        cd = encdec.init_encdec_cache(cfg, 2, 16, "float32", device=card)
+        ch = encdec.init_encdec_cache(cfg, 2, 16, "float32", device="cpu")
+    else:
+        ex_d = {k: v.to(card) for k, v in extra.items()}
+        ex_h = extra
+        cd = transformer.init_cache(cfg, 2, 16, "float32", device=card)
+        ch = transformer.init_cache(cfg, 2, 16, "float32", device="cpu")
+    for t in range(4):
+        a, cd = m.decode_step(dev, {"token": toks[:, t:t + 1].to(card), **ex_d}, cd)
+        b, ch = m.decode_step(host, {"token": toks[:, t:t + 1], **ex_h}, ch)
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-72b"])

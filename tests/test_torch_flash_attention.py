@@ -193,37 +193,54 @@ def test_kernel_arguments_are_checked():
 
 # -- the bfloat16 kernel's arithmetic, emulated ----------------------------------
 
-def _bf16_route_emulation(q, k, v, *, causal=True, q_offset=0, keys=64):
+def _bf16_route_emulation(q, k, v, *, causal=True, q_offset=0, window=0,
+                          softcap=0.0, keys=64, rows=64, clear_hidden=True):
     """Test-only torch emulation of the card's bfloat16 tensor-core kernel
-    (``flash_fwd_bf16_mma``): bf16 Q·Kᵀ summed in float32; scale times
-    log2(e) and the -1e30 mask; the online softmax over tiles of ``keys``
-    keys in base 2; P rounded to bf16 before P·V (float32 sums); the
-    denominator from the float32 P, clamped at 1e-30; the output rounded
-    once to bf16."""
+    (``flash_fwd_bf16_mma``), one block of ``rows`` query rows at a time:
+    bf16 Q·Kᵀ summed in float32; the scale times log2(e) (or, with a
+    softcap, softcap·tanh(s·scale / softcap) then log2(e)) and the -1e30
+    mask; the key loop from the tile of the block's first visible key
+    (``max(0, q0 + q_offset - window + 1)``) to its causal end; the online
+    softmax over tiles of ``keys`` keys in base 2; P rounded to bf16
+    before P·V (float32 sums); the denominator from the float32 P, clamped
+    at 1e-30; the output rounded once to bf16.  ``clear_hidden=False``
+    emulates a fault: a row whose tiles so far were wholly hidden keeps
+    their p = 1 sums (no rescale at its first visible key)."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, sq, kvh, h // kvh, d)
     kf, vf = k.float(), v.float()
-    scale_log2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) \
-        * torch.tensor(math.log2(math.e), dtype=torch.float32)
-    m = torch.full((b, kvh, h // kvh, sq), fa.NEG_INF)
-    l = torch.zeros((b, kvh, h // kvh, sq))
-    acc = torch.zeros((b, kvh, h // kvh, sq, d))
-    qpos = torch.arange(sq) + q_offset
-    for t0 in range(0, skv, keys):
-        kt, vt = kf[:, t0:t0 + keys], vf[:, t0:t0 + keys]
-        s = torch.einsum("bqgrd,bkgd->bgrqk", qf, kt) * scale_log2
-        kpos = torch.arange(t0, t0 + kt.shape[1])
-        if causal:
-            s = s.masked_fill(kpos[None, :] > qpos[:, None], fa.NEG_INF)
-        mx = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp2(m - mx)
-        p = torch.exp2(s - mx[..., None])
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bgrqk,bkgd->bgrqd", p.to(torch.bfloat16).float(), vt)
-        m = mx
-    out = acc / l.clamp_min(1e-30)[..., None]
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    out = torch.zeros((b, kvh, h // kvh, sq, d))
+    for q0 in range(0, sq, rows):
+        qb = qf[:, q0:q0 + rows]
+        n = qb.shape[1]
+        m = torch.full((b, kvh, h // kvh, n), fa.NEG_INF)
+        l = torch.zeros((b, kvh, h // kvh, n))
+        acc = torch.zeros((b, kvh, h // kvh, n, d))
+        begin = max(0, q0 + q_offset - window + 1) // keys * keys if window else 0
+        end = min(skv, q0 + rows + q_offset) if causal else skv
+        for t0 in range(begin, end, keys):
+            kt, vt = kf[:, t0:t0 + keys], vf[:, t0:t0 + keys]
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qb, kt)
+            if softcap:
+                s = torch.tanh(s * scale / softcap) * softcap * log2e
+            else:
+                s = s * (scale * log2e)
+            s = s.masked_fill(fa.hidden_keys(n, kt.shape[1], causal=causal,
+                                             q_offset=q_offset + q0 - t0,
+                                             window=window), fa.NEG_INF)
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - mx)
+            if not clear_hidden:
+                alpha = torch.where(m <= fa.NEG_INF, torch.ones_like(alpha), alpha)
+            p = torch.exp2(s - mx[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bgrqk,bkgd->bgrqd", p.to(torch.bfloat16).float(), vt)
+            m = mx
+        out[:, :, :, q0:q0 + n] = acc / l.clamp_min(1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(torch.bfloat16)
 
 
@@ -278,3 +295,105 @@ def test_row_gate_rejects_a_key_tile_lost_from_the_late_rows(d):
     got[:, 960:] = _np(_bf16_route_emulation(qb[:, 960:], kb[:, :960], vb[:, :960],
                                              q_offset=960))
     assert _row_err(got, want) > ROW_TOL
+
+
+# -- window and softcap: the reference's model attention -------------------------
+
+# The masks and the softcap against the reference's naive and chunked
+# attention (the function the kernel takes over): float32, 1e-5.
+MODEL_F32_TOL = 1e-5
+# (sq, skv, q_offset, h, kvh): equal lengths with GQA, and a query block
+# at q_offset > 0 over a longer key sequence with one kv head.
+MASK_SHAPES = [(160, 160, 0, 4, 2), (96, 160, 64, 4, 1)]
+
+
+@pytest.mark.parametrize("window", [0, 8, 100])
+@pytest.mark.parametrize("cap", [0.0, 5.0, 50.0])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv,q_offset,h,kvh", MASK_SHAPES)
+def test_masks_and_softcap_match_reference_model_attention(window, cap, causal,
+                                                           sq, skv, q_offset, h, kvh):
+    """The plain version, and the port's naive and chunked attention, over
+    the grid of windows, softcaps and causal masks, against the
+    reference's naive attention and its chunked attention with a
+    q_chunk of 64 (its scan path).  Queries are scaled by 3 so that the
+    softcap of 5 bends the scores."""
+    q, k, v = _qkv(2, sq, h, kvh, 32, seed=sq + window + int(cap) + causal, skv=skv)
+    q = 3 * q
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset=q_offset)
+    want = rattn.naive_attention(*_j(q, k, v), **kw)
+    chunked = rattn.chunked_attention(*_j(q, k, v), q_chunk=64, **kw)
+    np.testing.assert_allclose(_np(chunked), _np(want), rtol=MODEL_F32_TOL,
+                               atol=MODEL_F32_TOL)
+    got = [fa.flash_attention_plain(*_t(q, k, v), causal=causal, window=window,
+                                    softcap=cap, q_offset=q_offset),
+           attn.naive_attention(*_t(q, k, v), **kw),
+           attn.chunked_attention(*_t(q, k, v), q_chunk=64, **kw)]
+    for g in got:
+        np.testing.assert_allclose(_np(g), _np(want), rtol=MODEL_F32_TOL,
+                                   atol=MODEL_F32_TOL)
+
+
+@pytest.mark.parametrize("window,cap", [(8, 0.0), (100, 5.0), (0, 50.0)])
+def test_masks_and_softcap_match_reference_model_attention_bf16(window, cap):
+    q, k, v = _qkv(1, 160, 4, 2, 32, seed=window + int(cap))
+    kw = dict(window=window, logit_softcap=cap)
+    want = rattn.chunked_attention(*_j(q, k, v, dtype=jnp.bfloat16), q_chunk=64, **kw)
+    got = attn.chunked_attention(*_t(q, k, v, dtype=torch.bfloat16), **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_a_row_that_sees_no_key_averages_v_as_the_reference():
+    """Non-causal, window 4, q_offset 20 over 8 keys: every key is masked
+    from every row, and the reference's softmax over equal masked scores
+    averages V; so does the plain version."""
+    q, k, v = _qkv(1, 8, 2, 2, 16, seed=1)
+    want = rattn.naive_attention(*_j(q, k, v), causal=False, window=4, q_offset=20)
+    got = fa.flash_attention_plain(*_t(q, k, v), causal=False, window=4, q_offset=20)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(_np(got)[0, 0], v.mean(axis=1)[0], rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("window,cap", [(-1, 0.0), (0, -1.0), (0, float("inf")),
+                                        (0, float("nan"))])
+def test_bad_window_or_softcap_is_refused(window, cap):
+    q, k, v = _t(*_qkv(1, 8, 2, 2, 16, seed=0))
+    with pytest.raises(ValueError, match="softcap"):
+        ops.flash_attention(q, k, v, window=window, softcap=cap)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal,sq,skv,q_offset,window,cap", [
+    (True, 1000, 1000, 0, 100, 5.0), (True, 300, 300, 0, 8, 0.0),
+    (True, 200, 200, 0, 64, 50.0), (False, 130, 200, 0, 0, 5.0),
+    (False, 160, 160, 0, 40, 0.0), (True, 77, 333, 256, 100, 0.0)])
+def test_bf16_kernel_design_with_window_and_softcap(d, causal, sq, skv, q_offset,
+                                                    window, cap):
+    """The emulated bfloat16 route with the window's tile skip and the
+    softcap, within a quarter of the card's tolerance of the plain
+    version and within the row gate.  A window of 100 or 8 (not multiples
+    of the 64-key tile) leaves the late rows of a query tile with first
+    key tiles wholly hidden: their p = 1 sums must be cleared by the
+    rescale at their first visible key."""
+    q, k, v = _qkv(1, sq, 4, 2, d, seed=d + sq + window, skv=skv)
+    qb, kb, vb = _t(3 * q, k, v, dtype=torch.bfloat16)
+    kw = dict(causal=causal, q_offset=q_offset, window=window, softcap=cap)
+    got = _np(_bf16_route_emulation(qb, kb, vb, **kw))
+    plain = _np(fa.flash_attention_plain(*[a.float() for a in (qb, kb, vb)], **kw))
+    _design_close(got, plain)
+    assert _row_err(got, plain) <= ROW_TOL
+
+
+def test_row_gate_rejects_hidden_sums_left_uncleared():
+    """A kernel that let a wholly hidden first tile's p = 1 sums stand (no
+    rescale at the row's first visible key) fails the row gate: a window
+    of 8 over 300 tokens, where each query tile's late rows start on a
+    hidden key tile."""
+    q, k, v = _qkv(1, 300, 2, 1, 64, seed=3)
+    qb, kb, vb = _t(q, k, v, dtype=torch.bfloat16)
+    want = _np(fa.flash_attention_plain(*[a.float() for a in (qb, kb, vb)], window=8))
+    assert _row_err(_np(_bf16_route_emulation(qb, kb, vb, window=8)), want) <= ROW_TOL
+    bad = _np(_bf16_route_emulation(qb, kb, vb, window=8, clear_hidden=False))
+    assert _row_err(bad, want) > ROW_TOL

@@ -61,7 +61,7 @@ def test_port_has_the_slice_modules():
                 "models/__init__.py", "models/layers.py", "models/attention.py",
                 "models/moe.py", "models/transformer.py",
                 "models/model_factory.py", "serving/__init__.py",
-                "serving/engine.py", "kernels/ssd_scan.py",
+                "serving/engine.py", "kernels/ssd_scan.py", "models/encdec.py",
                 "kernels/ssd_scan_cuda.py", "models/ssm.py", "models/hybrid.py",
                 "core/predictors/lasso.py", "core/predictors/mlp.py",
                 "core/realworld.py", "search/__init__.py", "search/pareto.py",
@@ -182,6 +182,8 @@ def _entry_points():
     lm = build_model(get_arch("qwen2-72b").reduced())
     ssm = build_model(get_arch("mamba2-2.7b").reduced())
     hybrid = build_model(get_arch("zamba2-1.2b").reduced())
+    zoo = {arch: build_model(get_arch(arch).reduced()) for arch in
+           ("gemma2-27b", "llama-3.2-vision-90b", "whisper-large-v3")}
 
     return {
         "resolve_device": lambda: resolve_device(),
@@ -209,6 +211,9 @@ def _entry_points():
         "hybrid Model.init": lambda: hybrid.init(0),
         "hybrid Model.init_cache": lambda: hybrid.init_cache(1, 8),
         "hybrid ServeEngine": lambda: ServeEngine(hybrid, hybrid.init(0, device="cpu")),
+        **{f"{arch} Model.init": (lambda m=m: m.init(0)) for arch, m in zoo.items()},
+        **{f"{arch} Model.init_cache": (lambda m=m: m.init_cache(1, 8))
+           for arch, m in zoo.items()},
         "lm_params_from_reference": lambda: lm_params_from_reference(
             {"layers": {"w": np.zeros((4, 2))}}, get_arch("qwen2-72b").reduced()),
         "LassoPredictor": lambda: LassoPredictor(),

@@ -209,10 +209,3 @@ def test_scatter_cache_drops_writes_past_the_end():
     new = torch.ones((2, 1, 1, 2))
     transformer._scatter_cache(cache, new, torch.tensor([1, 4]))
     assert cache[0, 1].sum() == 2 and cache[1].sum() == 0 and cache[0].sum() == 2
-
-
-@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-90b",
-                                  "gemma2-27b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_arch(arch).reduced())
