@@ -7,7 +7,7 @@ Phases; each one fails the run on error, and a failed run prints no
 result line:
 
   1. Card and build — the card's name and power limit (nvidia-smi) and
-     the nvcc build of the six sources under
+     the nvcc build of the seven sources under
      ``src/repro_torch/kernels/csrc/`` (one nvcc each, started together):
      seconds, registers, spills and shared memory per kernel, and the
      int8 GEMM's ``IMMA`` instructions in its SASS (none fails the run).
@@ -40,6 +40,13 @@ result line:
          `FLASH_ROW_TOL`; each softcap case's q is scaled so that the
          plain version without the softcap, or with it after the log2(e)
          fold, fails those gates (gated);
+         the flash backward kernel (dq, dk, dv) against
+         `flash_attention_backward_plain` at `FLASH_BWD_CASES` (the
+         forward's log-sum-exp within `LSE_TOL` of its plain version, its
+         output bit-equal to the inference forward's) and the GMM's
+         autograd at `GMM_BWD_CASES` against the plain version's, within
+         `LM_TOL`, bfloat16 flash rows within `FLASH_ROW_TOL` of their
+         floored max (`FLASH_BWD_ROW_FLOOR`);
          bfloat16 on the tensor-core kernels and float32 on the CUDA-core
          ones (each wrapper's per-route count);
          reduced Granite-MoE and Qwen2 in float32 on the card against the
@@ -127,7 +134,9 @@ result line:
          launch made to fail on the flush thread must come back as a typed
          ``internal`` error, and the search path's front is served per
          setting.  Then tests/test_autopilot.py's mid-flood rollover at full
-         width: the transfer path's float32 ``op_by_op`` source onboards a
+         width: a float32 ``op_by_op`` source profiled by its seeded cost
+         model (not the card's timings, whose noise the drift gate would
+         read) with a GBDT bank trained on the card onboards a
          synthetic target, the autopilot behind the server recalibrates its
          drifted replay while 8 clients send 256 requests (all answered,
          epochs within the swap), the loop steps on until it has acted and
@@ -174,11 +183,28 @@ result line:
          tokens) with 12 / 10 / 96 flash launches, all on the bfloat16
          tensor-core route; a 4-slot `ServeEngine` answering 8 requests
          (0 / 2 / 32 flash launches a decode step); then a profiled
-         forward and decode step (device time, flash share, idle share).
+         forward and decode step (device time, flash share, idle share);
+       * the LM training path (`run_lm_train_path`): granite-moe-1b-a400m
+         at full width and depth (1.33 B parameters, float32 parameters
+         and AdamW state, bfloat16 compute, remat) trained 8 steps on
+         `SyntheticLMData(seed=0)` batches of 4 × 1,024 tokens: finite
+         losses and grad norms, the last quarter's mean loss below the
+         first step's, launches a step gated (flash forward 48, backward
+         24, GMM 144 + 144, all on the tensor-core routes), no plain
+         version called; step ms, tokens/s, peak memory and a profiled
+         step (device busy, idle share, top kernels).  Then Granite at 2
+         of 24 layers in float32: one train step on the card against the
+         host (`HOST_TOL`, AdamW's noise-normalized elements excepted,
+         `NOISE_SHARE`), microbatches=2 against the halves' mean gradient,
+         two compressed steps, a checkpoint at step 2 restored bit for
+         bit into a fresh state and continued beside the uninterrupted
+         run; and a Mamba2 loss with a gradient, which must raise (the
+         SSD scan has no backward yet).
   4. Times at the paths' shapes — kernel (with its launch plan for the
      int8 GEMM, Winograd and the tree kernels), plain version, library call where one exists (``torch._int_mm``, ``F.conv2d``,
      ``F.scaled_dot_product_attention``, ``torch.bmm``; none for the tree
-     kernels and the SSD scan) and the bound from
+     kernels and the SSD scan; SDPA's backward for the flash backward,
+     ``torch.bmm`` for the GMM's two backward products) and the bound from
      bytes at 3.35 TB/s or operations (67 TFLOP/s float32, 989 TFLOP/s
      bfloat16 and 1,979 TOP/s int8 on the tensor cores); the GMM's decode
      shapes also with a cold L2 (weights rotated over 4 sets); for the tree
@@ -220,6 +246,7 @@ SOURCES = {"tree_gather_leaves": CSRC + "tree_gather.cu",
            "int8_matmul": CSRC + "int8_matmul.cu",
            "winograd_conv2d": CSRC + "winograd_conv.cu",
            "flash_attention": CSRC + "flash_attention.cu",
+           "flash_attention_backward": CSRC + "flash_attention_bwd.cu",
            "moe_gmm": CSRC + "moe_gmm.cu",
            "ssd_scan": CSRC + "ssd_scan.cu"}
 REPLACES = {"tree_gather_leaves": "src/repro/kernels/tree_gather_pallas.py:57",
@@ -227,6 +254,8 @@ REPLACES = {"tree_gather_leaves": "src/repro/kernels/tree_gather_pallas.py:57",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:27",
             "winograd_conv2d": "src/repro/kernels/winograd_conv.py:58",
             "flash_attention": "src/repro/kernels/flash_attention.py:33",
+            # No Pallas kernel: XLA's gradient of the reference's attention.
+            "flash_attention_backward": "src/repro/models/attention.py:61",
             "moe_gmm": "src/repro/kernels/moe_gmm.py:25",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:29"}
 # The int8 executor's requantize multiplier (ACT·WEIGHT/ACT), the GEMMs' scale.
@@ -2066,16 +2095,23 @@ def rpc_throughput(device, banks: dict, search) -> dict:
             "search_front": front}
 
 
-def rpc_rollover(device, transfer, graphs) -> dict:
+def rpc_rollover(device, graphs) -> dict:
     """tests/test_autopilot.py::TestMidFloodRollover on the card at full
-    width: the transfer path's float32 ``op_by_op`` source (its store of
-    ``graphs``, 40 at 224, and its GBDT bank) onboards a synthetic target,
-    whose drifted replay the autopilot behind the server recalibrates and
-    rolls over while 8 clients flood the target.  The reference stops
-    stepping at the first action; here the loop steps on until it has
-    acted and then stayed quiet for `QUIET_ROUNDS` rounds.  There the op
-    types the last action recalibrated must read a drift below 1.0, and
-    the score must be below the one that fired the first action.  The
+    width: a float32 ``op_by_op`` source profiled, as there, by the seeded
+    `CostModelProfileSession` over ``graphs`` (40 at 224), with a GBDT bank
+    trained on the card, onboards a synthetic target, whose drifted replay
+    the autopilot behind the server recalibrates and rolls over while 8
+    clients flood the target.  The source is not the card's own timings:
+    a timed store gives each op type's drift cell the bank's error on a
+    few records, which varies from run to run (the one ``pool_avg`` record
+    read 0.19 to 0.95 of the threshold on the undrifted device in seven
+    runs, and 1.02 after its recalibration in an eighth), so the gate
+    below would read the card's timing noise and not the control loop.
+    The reference stops stepping at the first action; here the loop steps
+    on until it has acted and then stayed quiet for `QUIET_ROUNDS` rounds.
+    There the op types the last action recalibrated must read a drift
+    below 1.0, and the score must be below the one that fired the first
+    action.  The
     score over every op type is reported beside its floor: the same
     observations of the undrifted device against the bank before any
     drift (an op type the loop does not target keeps the source bank's
@@ -2086,16 +2122,19 @@ def rpc_rollover(device, transfer, graphs) -> dict:
     from repro_torch.obs import (AlertEngine, AlertRule, AutopilotConfig, DriftMonitor,
                                  MetricsTimeline, Observability, RecalibrationAutopilot,
                                  attach_session_drift)
-    from repro_torch.pipeline import LatencyService, PredictorHub
+    from repro_torch.pipeline import LatencyService, PredictorHub, ProfileStore
     from repro_torch.pipeline.store import setting_key
     from repro_torch.rpc import BatchPolicy, LatencyClient, LatencyRPCServer, ManualClock
-    from repro_torch.transfer import ReplayProfileSession, SyntheticDevice, TransferEngine
+    from repro_torch.transfer import (CostModelProfileSession, ReplayProfileSession,
+                                      SyntheticDevice, TransferEngine)
 
-    src, store = transfer["source"], transfer["store"]
+    src = DeviceSetting("model_f32", "float32", "op_by_op", device="costmodel")
     tgt = DeviceSetting("edge_f32", "float32", "op_by_op", device="edge0")
     edge = SyntheticDevice("edge0", seed=7, noise=0.05, curvature=0.1)
+    store = ProfileStore()
+    CostModelProfileSession(store=store, seed=1).profile_suite(graphs, src)
     hub = PredictorHub(device=device)
-    hub.register(src, "gbdt", transfer["bank"])
+    hub.train(store, src, "gbdt")
     TransferEngine(src, tgt, family="gbdt", seed=0).adapt(
         store, hub, ReplayProfileSession(store, edge, src), 32)
     clock = ManualClock()
@@ -2302,13 +2341,13 @@ def rpc_chaos(device, banks: dict) -> dict:
     return row
 
 
-def run_rpc_path(device, banks: dict, transfer, search, graphs) -> dict:
+def run_rpc_path(device, banks: dict, search, graphs) -> dict:
     """The serving layer on the card: throughput (then a failing launch on
     the flush thread and the search front), the mid-flood rollover behind
     the autopilot, and chaos; every launch count zeroed just before each
     step and read just after it."""
     throughput = rpc_throughput(device, banks, search)
-    rollover = rpc_rollover(device, transfer, graphs)
+    rollover = rpc_rollover(device, graphs)
     chaos = rpc_chaos(device, banks)
     out = {"cold_requests_per_s": throughput["cold"]["requests_per_s"],
            "warm_requests_per_s": throughput["warm"]["requests_per_s"],
@@ -2503,6 +2542,9 @@ def log_bf16_smem() -> None:
     fl, gl = fac.LIBRARY.load(), gmmc.LIBRARY.load()
     log("smem flash_fwd_bf16_mma by head dim " + json.dumps(
         {d: fl.flash_attention_bf16_smem_bytes(d) for d in fac.HEAD_DIMS}))
+    bl = fac.BWD_LIBRARY.load()
+    log("smem flash_bwd_dq / flash_bwd_dkdv by head dim " + json.dumps(
+        {d: bl.flash_attention_bwd_smem_bytes(d) for d in fac.HEAD_DIMS}))
     log("smem moe_gmm_mma_kernel by rows " + json.dumps(
         {"<=64": gl.moe_gmm_bf16_smem_bytes(64), ">64": gl.moe_gmm_bf16_smem_bytes(65)}))
 
@@ -2611,6 +2653,124 @@ def check_gmm(device) -> dict:
         rows.append({"case": label, "shape": [e, n, d, f], "dtype": dtype,
                      "max_abs_err": err, "err_over_max": rel, "tol": LM_TOL[dtype]})
     log("parity moe_gmm " + json.dumps(rows))
+    return {"cases": rows, "max_abs_err": worst}
+
+
+# The flash backward's cases: `FLASH_CASES` without window or softcap (the
+# backward does not take them) and with more than one query row.
+FLASH_BWD_CASES = ("forward", "forward_f32", "non_causal", "ragged", "ragged_f32",
+                   "d128_one_kv_head", "vlm_cross", "whisper_encoder")
+# Row by row, bfloat16 backward: a row's scale is its max |plain|, floored
+# at this share of the whole output's max.  dq's first causal row is zero
+# in exact arithmetic (a softmax over one key has no gradient), so both
+# versions hold float32 rounding noise there and its own max would
+# compare noise with noise.  A causal dq row of n keys scales as
+# 1/sqrt(n), 1/32 of the first rows' at 1,024 keys, well above the floor,
+# so a fault in the late key or query tiles still moves its row past
+# `FLASH_ROW_TOL`.
+FLASH_BWD_ROW_FLOOR = 2.0 ** -8
+# The flash forward's log-sum-exp against its plain version, max |err|
+# over max(1, max |plain|): float32 sums of the same products.
+LSE_TOL = 1e-5
+# The GMM's backward: `GMM_CASES` at the prefill (training) shapes and the
+# ragged ones; Granite's training call is "prefill": 4 × 320 rows an
+# expert at 4 × 1,024 tokens.
+GMM_BWD_CASES = ("prefill", "prefill_down", "prefill_f32", "ragged", "ragged_f32")
+
+
+def _bwd_row_check(label, got, want, tol) -> float:
+    """`_row_check` with each row's scale floored at `FLASH_BWD_ROW_FLOOR`
+    of the whole output's max."""
+    g, w = got.float(), want.float()
+    scale = w.abs().amax(-1).clamp_min(FLASH_BWD_ROW_FLOOR * float(w.abs().max()))
+    rel = float(((g - w).abs().amax(-1) / scale).max())
+    if not rel <= tol:
+        raise AssertionError(f"{label}: a row {rel} × its (floored) max off its "
+                             f"plain version (> {tol})")
+    return rel
+
+
+def check_flash_backward(device) -> dict:
+    """The flash backward kernel against `flash_attention_backward_plain`
+    at `FLASH_BWD_CASES`, from the same q, k, v, dO (numpy seeds) and the
+    kernel forward's own output and log-sum-exp: dq, dk and dv each within
+    `LM_TOL` of max |plain|, bfloat16 also row by row within
+    `FLASH_ROW_TOL` (`_bwd_row_check`), repeatable, one launch a call.
+    The forward with the log-sum-exp gives the output bit-equal to the
+    inference forward (null log-sum-exp), and its log-sum-exp is within
+    `LSE_TOL` of `flash_lse_plain`."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    rows, worst = [], 0.0
+    for i, c in enumerate(x for x in FLASH_CASES if x.label in FLASH_BWD_CASES):
+        q, k, v = _flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device,
+                                seed=900 + 4 * i, skv=c.skv)
+        do = _randn((c.b, c.s, c.h, c.d), 903 + 4 * i, device, c.dtype)
+        plain_o = fac.flash_attention_cuda(q, k, v, causal=c.causal)
+        o, lse = fac.flash_attention_cuda(q, k, v, causal=c.causal, return_lse=True)
+        if not torch.equal(o, plain_o):
+            raise AssertionError(f"flash {c.label}: the forward with the log-sum-exp "
+                                 f"differs from the inference forward")
+        want_lse = fa.flash_lse_plain(q, k, causal=c.causal)
+        lse_err = float((lse - want_lse).abs().max()) / max(1.0, float(want_lse.abs().max()))
+        if not lse_err <= LSE_TOL:
+            raise AssertionError(f"flash {c.label}: log-sum-exp {lse_err} off (> {LSE_TOL})")
+        before = fac.launch_counts()["flash_attention_backward"]
+        got = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, causal=c.causal)
+        again = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, causal=c.causal)
+        torch.cuda.synchronize()
+        if fac.launch_counts()["flash_attention_backward"] != before + 2:
+            raise AssertionError("flash_attention_backward launch counter did not advance")
+        want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal=c.causal)
+        row = {"case": c.label, "shape": [c.b, c.s, c.h, c.kvh, c.d], "skv": c.keys,
+               "causal": c.causal, "dtype": c.dtype, "lse_err_over_max": lse_err,
+               "tol": LM_TOL[c.dtype]}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, rel = _rel_check(f"flash backward {c.label} {name}", g, w,
+                                  LM_TOL[c.dtype])
+            row[name] = {"max_abs_err": err, "err_over_max": rel}
+            if c.dtype == "bfloat16":
+                row[name]["row_err_over_max"] = _bwd_row_check(
+                    f"flash backward {c.label} {name}", g, w, FLASH_ROW_TOL)
+            worst = max(worst, err)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash backward {c.label} is not repeatable")
+        rows.append(row)
+        del q, k, v, do, o, lse, got, again, want, plain_o
+        torch.cuda.empty_cache()
+    log("parity flash_attention_backward " + json.dumps(rows))
+    return {"cases": rows, "max_abs_err": worst}
+
+
+def check_gmm_backward(device) -> dict:
+    """The GMM's autograd on the card (dX and dW through the GMM kernel)
+    against autograd of `moe_gmm_plain` on the same inputs (numpy seeds),
+    within `LM_TOL`; three launches a forward and backward."""
+    import torch
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+
+    rows, worst = [], 0.0
+    for i, (label, e, n, d, f, dtype) in enumerate(c for c in GMM_CASES
+                                                  if c[0] in GMM_BWD_CASES):
+        x, w = (t.requires_grad_() for t in _gmm_inputs(e, n, d, f, dtype, device,
+                                                        seed=950 + 3 * i))
+        dy = _randn((e, n, f), 952 + 3 * i, device, dtype)
+        before = gmmc.launch_counts()["moe_gmm"]
+        got = torch.autograd.grad(gmm.moe_gmm(x, w), (x, w), dy)
+        torch.cuda.synchronize()
+        if gmmc.launch_counts()["moe_gmm"] != before + 3:
+            raise AssertionError("the GMM's backward did not launch the GMM twice")
+        want = torch.autograd.grad(gmm.moe_gmm_plain(x, w), (x, w), dy)
+        row = {"case": label, "shape": [e, n, d, f], "dtype": dtype, "tol": LM_TOL[dtype]}
+        for name, g, r in zip(("dx", "dw"), got, want):
+            err, rel = _rel_check(f"gmm backward {label} {name}", g, r, LM_TOL[dtype])
+            row[name] = {"max_abs_err": err, "err_over_max": rel}
+            worst = max(worst, err)
+        rows.append(row)
+    log("parity moe_gmm_backward " + json.dumps(rows))
     return {"cases": rows, "max_abs_err": worst}
 
 
@@ -3338,6 +3498,381 @@ def run_lm_zoo_path(device, new_tokens: int = 16) -> dict:
     return out
 
 
+# -- the LM training path (Granite-MoE) -------------------------------------------
+
+TRAIN_SHAPE = (4, 1024)             # (batch, tokens) of a training step
+TRAIN_STEPS = 8
+TRAIN_KW = dict(base_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+# The card-against-host, microbatch and resume checks: Granite at full
+# width, 2 of 24 layers, float32 compute, batches of 2 × 128 tokens.
+HOST_TRAIN_LAYERS = 2
+HOST_TRAIN_SHAPE = (2, 128)
+# AdamW divides each element's first moment by the root of its second:
+# an element whose gradient is float32 noise (zero in exact arithmetic, as
+# a key bias's, or cancelling to near zero) takes a step of up to about
+# ±lr from the sign of that noise on either device.  Such elements may
+# differ by up to 3 × the learning rate and be at most this share of
+# them; every other element is held to `HOST_TOL`
+# (tests/test_torch_train.py holds the same rule on the host).
+NOISE_SHARE = 1e-4
+
+
+def _plain_counters():
+    """Patch the plain versions of flash attention (forward, log-sum-exp,
+    backward) and the GMM to count their calls; returns the counts and a
+    function that restores them."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+
+    names = [(fa, "flash_attention_plain"), (fa, "flash_lse_plain"),
+             (fa, "flash_attention_backward_plain"), (gmm, "moe_gmm_plain")]
+    counts = {n: 0 for _, n in names}
+    originals = [(m, n, getattr(m, n)) for m, n in names]
+
+    def counted(name, fn):
+        def call(*a, **k):
+            counts[name] += 1
+            return fn(*a, **k)
+        return call
+
+    for m, n, fn in originals:
+        setattr(m, n, counted(n, fn))
+
+    def restore():
+        for m, n, fn in originals:
+            setattr(m, n, fn)
+    return counts, restore
+
+
+def _torch_batch(batch: dict, device) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _train_profile(step_fn, state, batch, device) -> tuple:
+    """One training step under torch.profiler: wall ms, device-busy ms, idle
+    share, launches, the top kernels and the flash-backward, flash-forward
+    and GMM shares of device time; returns (profile, state after)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = math.fsum(by_name.values()) / 1e3
+    out = {"wall_ms": wall, "device_busy_ms": busy,
+           "idle_share": max(0.0, 1.0 - busy / wall),
+           "launches": sum(1 for e in prof.events() if e.name == "cudaLaunchKernel"),
+           "top_kernels_ms": [[k[:80], v / 1e3] for k, v in
+                              sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]}
+    for stem in ("flash_bwd", "flash_fwd", "moe_gmm"):
+        ms = math.fsum(v for k, v in by_name.items() if stem in k) / 1e3
+        out[stem + "_ms"] = ms
+        out[stem + "_share"] = ms / busy if busy else 0.0
+    return out, state
+
+
+def _close_states(label, got, want, lr: float) -> dict:
+    """Loss-free comparison of two train states (one moved to the host):
+    AdamW's moments within `HOST_TOL` of their largest value, the
+    parameters within `HOST_TOL` but for `NOISE_SHARE` of AdamW's
+    noise-normalized elements (each within 3 × lr)."""
+    from repro_torch.utils.tree import flatten_with_paths
+
+    out = {}
+    for name in ("mu", "nu"):
+        g, w = getattr(got.opt, name), getattr(want.opt, name)
+        scale = max(float(t.abs().max()) for t in w.values())
+        err = max(float((g[k].cpu() - w[k].cpu()).abs().max()) for k in w)
+        if not err <= HOST_TOL * scale:
+            raise AssertionError(f"{label}: AdamW {name} {err} off (> {HOST_TOL} × {scale})")
+        out[name + "_err_over_max"] = err / scale
+    gp, wp = flatten_with_paths(got.params), flatten_with_paths(want.params)
+    total = noisy = 0
+    worst = 0.0
+    for k, w in wp.items():
+        d = (gp[k].detach().cpu() - w.detach().cpu()).abs()
+        worst = max(worst, float(d.max()))
+        total += d.numel()
+        noisy += int((d > HOST_TOL).sum())
+    if worst > 3 * lr or noisy > NOISE_SHARE * total:
+        raise AssertionError(f"{label}: parameters {worst} off, {noisy} of {total} "
+                             f"elements past {HOST_TOL}")
+    out.update({"params_max_abs_err": worst, "params_past_tol": noisy,
+                "params": total})
+    return out
+
+
+def _copy_state(state, device):
+    """A train state with every tensor copied onto ``device``."""
+    from repro_torch.utils.tree import map_with_paths
+
+    return map_with_paths(lambda _, t: t.detach().to(device, copy=True), state)
+
+
+def check_train_on_host(device) -> dict:
+    """Granite at full width and `HOST_TRAIN_LAYERS` layers, float32 compute:
+    one train step (lr 3e-4 from step 0) on the card through the kernels
+    and on the host through the plain versions, from one state; then, on
+    the card, microbatches=2 against the mean of the halves' gradients,
+    two compressed steps, and a checkpoint at step 2 restored into a fresh
+    state and continued two steps beside the uninterrupted run."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import init_train_state, make_train_step
+    from repro_torch.distributed.compression import compression_error
+    from repro_torch.distributed.trainstep import train_state_for
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.utils.tree import flatten_with_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(LM_ARCH), num_layers=HOST_TRAIN_LAYERS,
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    b, s = HOST_TRAIN_SHAPE
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=1)
+    host_batch = _torch_batch(data.batch_at(0), "cpu")
+    batch = _torch_batch(data.batch_at(0), device)
+    kw = dict(base_lr=3e-4, warmup_steps=0, total_steps=10)
+    host = init_train_state(model, 0, device="cpu")
+    card = _copy_state(host, device)
+    step = make_train_step(model, **kw)
+    card, cm = step(card, batch)
+    host, hm = step(host, host_batch)
+    out = {"arch": cfg.name, "reduced": f"num_layers {HOST_TRAIN_LAYERS} of 24",
+           "compute_dtype": "float32", "tokens": [b, s]}
+    for key in ("loss", "grad_norm", "nll", "aux"):
+        rel = abs(float(cm[key]) - float(hm[key])) / max(abs(float(hm[key])), 1e-30)
+        if not rel <= HOST_TOL:
+            raise AssertionError(f"train step card vs host: {key} {rel} off (> {HOST_TOL})")
+        out[key + "_rel_err"] = rel
+    out.update(_close_states("train step card vs host", card, host, kw["base_lr"]))
+
+    # Microbatches: the accumulated gradient is the mean of the halves'.
+    fresh = _copy_state(init_train_state(model, 0, device="cpu"), device)
+    mb_state, mb_metrics = make_train_step(model, microbatches=2, **kw)(
+        _copy_state(fresh, device), batch)
+    leaves = flatten_with_paths(fresh.params)
+    want = {k: torch.zeros_like(p) for k, p in leaves.items()}
+    for half in ({k: v[:b // 2] for k, v in batch.items()},
+                 {k: v[b // 2:] for k, v in batch.items()}):
+        loss, _ = model.loss(fresh.params, half)
+        for k, g in zip(leaves, torch.autograd.grad(loss, list(leaves.values()))):
+            want[k] += g / 2
+    norm = float(global_norm(want))
+    clip = min(1.0, 1.0 / norm)
+    scale = max(float(g.abs().max()) for g in want.values())
+    mb_err = max(float((mb_state.opt.mu[k] / 0.1 / clip - g).abs().max())
+                 for k, g in want.items()) / scale
+    norm_err = abs(float(mb_metrics["grad_norm"]) - norm) / norm
+    if not (mb_err <= LM_TOL["float32"] and norm_err <= LM_TOL["float32"]):
+        raise AssertionError(f"microbatches=2: gradient {mb_err}, norm {norm_err} off "
+                             f"the halves' mean (> {LM_TOL['float32']})")
+    out["microbatch_grad_err_over_max"] = mb_err
+    out["microbatch_grad_norm_rel_err"] = norm_err
+    del mb_state
+
+    # Two compressed steps, and one round's compression error.
+    comp_state = train_state_for(_copy_state(fresh.params, device), compression=True)
+    grads = dict(zip(leaves, torch.autograd.grad(model.loss(fresh.params, batch)[0],
+                                                 list(leaves.values()))))
+    out["compression_error"] = float(compression_error(grads, comp_state.comp))
+    del grads
+    comp_step = make_train_step(model, compression=True, **kw)
+    comp_losses = []
+    for i in range(2):
+        comp_state, m = comp_step(comp_state, _torch_batch(data.batch_at(i), device))
+        comp_losses.append(float(m["loss"]))
+        if not (math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"]))):
+            raise AssertionError(f"compressed step {i}: {m}")
+    out["compressed_losses"] = comp_losses
+    del comp_state
+
+    # Checkpoint at step 2, restored into a fresh state, continued.
+    batches = [_torch_batch(data.batch_at(i), device) for i in range(4)]
+    whole, losses = _copy_state(fresh, device), []
+    for bt in batches:
+        whole, m = step(whole, bt)
+        losses.append(float(m["loss"]))
+    part = _copy_state(fresh, device)
+    for bt in batches[:2]:
+        part, _ = step(part, bt)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = CheckpointManager(tmp)
+        ckpt.save(2, part, {"arch": cfg.name})
+        ckpt.wait()
+        restored, meta = ckpt.restore(target=_copy_state(
+            init_train_state(model, 7, device="cpu"), device))
+        ckpt.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    saved, back = flatten_with_paths(part), flatten_with_paths(restored)
+    if meta["step"] != 2 or sorted(saved) != sorted(back) or not all(
+            torch.equal(saved[k], back[k]) and saved[k].device == back[k].device
+            for k in saved):
+        raise AssertionError("the restored state differs from the saved one")
+    resumed = []
+    for bt in batches[2:]:
+        restored, m = step(restored, bt)
+        resumed.append(float(m["loss"]))
+    resume_err = max(abs(a - w) / abs(w) for a, w in zip(resumed, losses[2:]))
+    if not resume_err <= HOST_TOL:
+        raise AssertionError(f"resumed losses {resumed} against {losses[2:]}")
+    out.update({"uninterrupted_losses": losses, "resumed_losses": resumed,
+                "resume_loss_rel_err": resume_err, "checkpoint_arrays": len(saved)})
+    log("train_card_vs_host " + json.dumps(out))
+    return out
+
+
+def check_no_grad_through_kernels(device) -> dict:
+    """Mamba2 does not train yet: its loss with a gradient on the card must
+    raise, not cut the graph silently (its chunked SSD forward refuses
+    autograd before the scan is reached), and the SSD scan itself, which
+    has no backward kernel, refuses an input that requires a gradient
+    (`_build.refuse_grad`).  Without a gradient both run."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed.trainstep import trainable
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    cfg = get_arch("mamba2-2.7b").reduced()
+    model = build_model(cfg)
+    params = trainable(model.init(0, device=device))
+    batch = _torch_batch(SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=64,
+                                         global_batch=2).batch_at(0), device)
+    out = {}
+    try:
+        model.loss(params, batch)
+    except RuntimeError as e:
+        out["mamba2_loss_with_grad"] = f"raised: {e}"[:200]
+    else:
+        raise AssertionError("a Mamba2 loss with a gradient ran on the card")
+    s_chunk = _randn((4, 2, 3, 8, 16), 990, device, "float32").requires_grad_()
+    decay = _randn((4, 2, 3), 991, device, "float32").abs()
+    try:
+        ops.ssd_scan(s_chunk, decay)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        out["ssd_scan_with_grad"] = f"raised: {e}"[:200]
+    else:
+        raise AssertionError("ssd_scan with a gradient launched on the card")
+    with torch.no_grad():
+        loss, _ = model.loss(params, batch)
+        ops.ssd_scan(s_chunk, decay)
+    if not math.isfinite(float(loss)):
+        raise AssertionError("Mamba2 loss without a gradient is not finite")
+    log("no_grad_guard " + json.dumps(out))
+    return out
+
+
+def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
+    """Granite-MoE trained at full width and depth from the port's own init
+    (seed 0; float32 parameters and AdamW state, bfloat16 compute, remat):
+    with every launch count zeroed just before and read just after,
+    ``steps`` `make_train_step` steps on `SyntheticLMData(seed=0)` batches
+    of 4 × 1,024 tokens; gates: finite losses and grad norms, the last
+    quarter's mean loss below the first step's, launches a step (flash
+    forward 2 a layer, backward 1, GMM 6 + 6, all bfloat16 tensor-core),
+    no plain version called.  Then one profiled step (not counted), the
+    2-layer float32 checks (`check_train_on_host`) and the guard
+    (`check_no_grad_through_kernels`)."""
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_num_params
+
+    cfg = get_arch(LM_ARCH)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = init_train_state(model, 0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b, s = TRAIN_SHAPE
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=0)
+    step_fn = make_train_step(model, **TRAIN_KW)
+    plain, restore = _plain_counters()
+    try:
+        reset_counts()
+        losses, norms, lrs, step_s = [], [], [], []
+        for i in range(steps):
+            batch = _torch_batch(data.batch_at(i), device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            norms.append(float(metrics["grad_norm"]))
+            lrs.append(float(metrics["lr"]))
+        counts, routes = read_counts(), read_routes()
+    finally:
+        restore()
+    if any(plain.values()):
+        raise AssertionError(f"plain versions called on the card's path: {plain}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite training: losses {losses}, norms {norms}")
+    last = statistics.mean(losses[-max(1, steps // 4):])
+    if not last < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    n = cfg.num_layers
+    want = {"flash_attention": 2 * n * steps, "flash_attention_backward": n * steps,
+            "moe_gmm": 12 * n * steps}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"training launches {counts}, expected {want}")
+    if routes["flash_attention"]["bf16_mma"] != want["flash_attention"] or \
+            routes["moe_gmm"]["bf16_mma"] != want["moe_gmm"]:
+        raise AssertionError(f"bfloat16 training off the tensor-core route: {routes}")
+    median_s = statistics.median(step_s[1:])
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    profiled, state = _train_profile(step_fn, state, _torch_batch(data.batch_at(steps),
+                                                                  device), device)
+    out = {"arch": cfg.name, "reduced": "none", "params": tree_num_params(state.params),
+           "init_s": init_s, "tokens": [b, s], "steps": steps, "losses": losses,
+           "grad_norms": norms, "lrs": lrs, "step_s": step_s,
+           "median_step_ms": 1e3 * median_s, "tokens_per_s": b * s / median_s,
+           "last_quarter_mean_loss": last, "launches": counts,
+           "launches_per_step": {k: v / steps for k, v in want.items()},
+           "routes": routes, "plain_calls": plain, "peak_memory_gb": peak,
+           "profile": profiled,
+           # The profiler slows the host: the device-busy time of the
+           # profiled step against the unprofiled median step.
+           "idle_share_of_median_step": max(
+               0.0, 1.0 - profiled.get("device_busy_ms", 0.0) / (1e3 * median_s))}
+    log("lm_train_path " + json.dumps(out))
+    del state, step_fn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_host"] = check_train_on_host(device)
+    out["guard"] = check_no_grad_through_kernels(device)
+    return out
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def _timed(op_type: str, db, rows: int, d: int, fused: bool, kernel, plain,
@@ -3709,6 +4244,103 @@ def time_gmm(device) -> list:
     return rows
 
 
+def _flash_bwd_bound(b, s, h, kvh, d, causal, dtype, skv=0) -> tuple:
+    """q, k, v, o, dO and the log-sum-exp read once, dq, dk, dv written
+    once, against five products of 2·d operations (S, dP, dV, dK, dQ) for
+    each (query, key) pair the mask keeps, at the type's rate."""
+    skv = skv or s
+    pairs = b * h * flash_pairs(s, skv, causal)
+    bf16 = dtype == "bfloat16"
+    size = 2 if bf16 else 4
+    moved = size * 4 * (b * s * h * d + b * skv * kvh * d) + 4 * b * h * s
+    return bound(moved, 10 * d * pairs, PEAK_BF16_OPS_PER_S if bf16 else PEAK_F32_OPS_PER_S)
+
+
+# The flash backward cases `time_flash_backward` times: the Granite
+# training call in both types.
+FLASH_BWD_TIMED = ("forward", "forward_f32")
+
+
+def time_flash_backward(device) -> list:
+    """The flash backward kernel at Granite's training call (b = 4, s =
+    1,024, 16 query and 8 kv heads, d = 64, causal), bfloat16 and float32:
+    kernel, plain version, and SDPA's backward for the same function (the
+    gradient of one ``F.scaled_dot_product_attention`` forward, GQA, TF32
+    off, through ``torch.autograd.grad`` with the graph kept) on the same
+    q, k, v and dO.  Bound: `_flash_bwd_bound`."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for c in (c for c in FLASH_CASES if c.label in FLASH_BWD_TIMED):
+        q, k, v = _flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device, seed=1000)
+        do = _randn((c.b, c.s, c.h, c.d), 1003, device, c.dtype)
+        o, lse = fac.flash_attention_cuda(q, k, v, causal=c.causal, return_lse=True)
+        got = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, causal=c.causal)
+        want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal=c.causal)
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        kern = cuda_ms(lambda: fac.flash_attention_backward_cuda(
+            q, k, v, o, lse, do, causal=c.causal))
+        plain = cuda_ms(lambda: fa.flash_attention_backward_plain(
+            q, k, v, o, lse, do, causal=c.causal), iters=3, warmup=2)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=c.causal,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2)
+        lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                  retain_graph=True))
+        lib_grads = torch.autograd.grad(out, (qt, kt, vt), dot)
+        lib_err = max(float((a.transpose(1, 2).float() - w.float()).abs().max())
+                      for a, w in zip(lib_grads, want))
+        b_ms, b_by = _flash_bwd_bound(c.b, c.s, c.h, c.kvh, c.d, c.causal, c.dtype)
+        rows.append({"case": c.label, "shape": [c.b, c.s, c.h, c.kvh, c.d],
+                     "dtype": c.dtype, "causal": c.causal, "max_abs_err": err,
+                     "ms": kern["device"], "host_ms": kern["host"],
+                     "plain_ms": plain["device"], "library_ms": lib["device"],
+                     "library_fn": "SDPA backward (same function)",
+                     "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by})
+        log("time flash_attention_backward " + json.dumps(rows[-1]))
+        del q, k, v, do, o, lse, got, want, qt, kt, vt, out, dot, lib_grads
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_gmm_backward(device) -> list:
+    """The GMM's two backward products at Granite's training shapes
+    (gate/up: x (32, 1,280, 1,024), w (32, 1,024, 512); down: d and f
+    swapped), bfloat16, each through the GMM kernel as `GroupedMatmul`
+    launches it (dX = moe_gmm(dY, wᵀ), dW = moe_gmm(xᵀ, dY), contiguous
+    transposes made outside the timed loop) against ``torch.bmm`` on the
+    same operands.  Bound: `_gmm_bound` of each product."""
+    import torch
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+
+    rows = []
+    for label, e, n, d, f, dtype in (c for c in GMM_CASES
+                                     if c[0] in ("prefill", "prefill_down")):
+        x, w = _gmm_inputs(e, n, d, f, dtype, device, seed=1100)
+        dy = _randn((e, n, f), 1102, device, dtype)
+        wt, xt = w.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous()
+        for prod, a, bb, shape in (("dx", dy, wt, (e, n, f, d)),
+                                   ("dw", xt, dy, (e, d, n, f))):
+            err = float((gmmc.moe_gmm_cuda(a, bb).float()
+                         - torch.bmm(a.float(), bb.float())).abs().max())
+            kern = cuda_ms(lambda: gmmc.moe_gmm_cuda(a, bb))
+            lib = cuda_ms(lambda: torch.bmm(a, bb))
+            b_ms, b_by = _gmm_bound(*shape, dtype)
+            rows.append({"case": f"{label}_{prod}", "shape": list(shape), "dtype": dtype,
+                         "max_abs_err": err, "ms": kern["device"],
+                         "host_ms": kern["host"], "library_ms": lib["device"],
+                         "bound_ms": b_ms, "bound_by": b_by})
+            log("time moe_gmm_backward " + json.dumps(rows[-1]))
+        del x, w, dy, wt, xt
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_ssd_scan(device) -> list:
     """The SSD scan kernel at the SSM path's two shapes (Mamba2 2.7B and
     Zamba2 1.2B forward on 2 × 4,096 tokens, float32): kernel and plain
@@ -3801,7 +4433,8 @@ def main() -> int:
         from repro_torch.kernels import _build
 
         t0 = time.perf_counter()
-        info = _build.build_all([m.LIBRARY for m in kernel_modules()])
+        info = _build.build_all([lib for m in kernel_modules()
+                                 for lib in getattr(m, "LIBRARIES", (m.LIBRARY,))])
         log(f"build: {len(info)} libraries from {csrc} in "
             f"{time.perf_counter() - t0:.2f} s wall")
         for name, b in info.items():
@@ -3831,7 +4464,9 @@ def main() -> int:
         lut_diffs = check_int8_round_trips(device)
         check_int8_executor(graphs[:2], device, lut_diffs)
         flash_parity = check_flash(device)
+        flash_bwd_parity = check_flash_backward(device)
         gmm_parity = check_gmm(device)
+        gmm_bwd_parity = check_gmm_backward(device)
         check_lm_on_host(device)
         ssd_parity = check_ssd_scan(device)
         check_ssm_on_host(device)
@@ -3884,8 +4519,8 @@ def main() -> int:
 
         phase = "RPC path"
         t0 = time.perf_counter()
-        run_rpc_path(device, {f32: main_f32["bank"], int8: main_i8["bank"]}, transfer,
-                     search, graphs)
+        run_rpc_path(device, {f32: main_f32["bank"], int8: main_i8["bank"]}, search,
+                     graphs)
         log(f"rpc_path_s {time.perf_counter() - t0:.1f}")
 
         phase = "selection path"
@@ -3902,6 +4537,11 @@ def main() -> int:
         zoo = run_lm_zoo_path(device)
         log(f"lm_zoo_path_s {time.perf_counter() - t0:.1f}")
 
+        phase = "LM training path"
+        t0 = time.perf_counter()
+        train = run_lm_train_path(device)
+        log(f"lm_train_path_s {time.perf_counter() - t0:.1f}")
+
         phase = "times"
         log("device_guard " + json.dumps(time_device_guard(device)))
         timed = time_kernels(main_f32["bank"], main_f32["held"], pop, device)
@@ -3915,7 +4555,9 @@ def main() -> int:
         gemm_rows = time_int8_gemm(main_i8["held"][0], device)
         wino_rows = time_winograd(device)
         flash_rows = time_flash(device)
+        flash_bwd_rows = time_flash_backward(device)
         gmm_rows = time_gmm(device)
+        time_gmm_backward(device)
         ssd_rows = time_ssd_scan(device)
 
         parity_err = max(p["fused_max_abs_err"] for p in parity)
@@ -3934,11 +4576,15 @@ def main() -> int:
                  wino_parity["max_abs_err"]),
                 ("flash_attention", flash_rows[:1],
                  {"flash_attention": lm["launches"]["flash_attention"]
-                  + zoo["launches"]["flash_attention"]},
+                  + zoo["launches"]["flash_attention"]
+                  + train["launches"]["flash_attention"]},
                  flash_parity["max_abs_err"]),
+                ("flash_attention_backward", flash_bwd_rows[:1], train["launches"],
+                 flash_bwd_parity["max_abs_err"]),
                 ("moe_gmm", [r for r in gmm_rows
                              if r["l2"] == "warm" and r["dtype"] == "bfloat16"],
-                 lm["launches"], gmm_parity["max_abs_err"])):
+                 {"moe_gmm": lm["launches"]["moe_gmm"] + train["launches"]["moe_gmm"]},
+                 max(gmm_parity["max_abs_err"], gmm_bwd_parity["max_abs_err"]))):
             entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name]}
             entry.update(summarize(rows, launches[name], err))

@@ -53,9 +53,10 @@ n_nodes, n_trees, depth, rows_per_block, bank_in_smem, grid, smem_bytes,
 stream)`` and ``tree_predict_fused_launch`` likewise (with mean, std,
 scale, bias and the reduction), launched as `parent_tree_plan` plans;
 the GMM's is this tree's (the operands' card index before the stream),
-and flash's that of the commit before the window and the softcap
-(``flash_attention_launch`` without ``window`` and ``softcap``; the
-change is called with both 0).
+and flash's that of the commit before the log-sum-exp output
+(``flash_attention_launch`` without ``lse``: the parent is called with
+window 0 and softcap 0, the change through its wrapper, whose inference
+launch passes a null ``lse``).
 """
 from __future__ import annotations
 
@@ -92,7 +93,7 @@ def build_parent(csrc: Path, names) -> dict:
     libs = {}
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {
-        "flash_attention": [p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p],
+        "flash_attention": [p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, i, p],
         "moe_gmm": [p, p, p, i, i, i, i, i, i, p],
         "int8_matmul": [p, p, p, p, i, i, i, i, f, p],
         "winograd_conv": [p, p, p, i, i, i, p]}
@@ -121,8 +122,8 @@ def parent_flash(lib, q, k, v, causal):
     out = torch.empty_like(q)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1],
-        h, k.shape[2], d, 1 if q.dtype == torch.bfloat16 else 0, int(causal), 0,
-        1.0 / math.sqrt(d), q.get_device(), torch.cuda.current_stream().cuda_stream)
+        h, k.shape[2], d, 1 if q.dtype == torch.bfloat16 else 0, int(causal), 0, 0,
+        0.0, 1.0 / math.sqrt(d), q.get_device(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"parent flash_attention launch failed: {err}")
     return out

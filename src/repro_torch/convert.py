@@ -122,3 +122,61 @@ def _tensors(t, dev, index=None):
         return {k: _tensors(v, dev, index) for k, v in t.items()}
     a = np.asarray(t)
     return torch.tensor(a if index is None else a[index], device=dev)
+
+
+def _plain(tree: Any) -> Any:
+    """NamedTuples (the reference's TrainState, AdamWState, …) as dicts."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    return tree
+
+
+def unflatten_paths(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{'a/b/c': x} (checkpoint keys) → nested dicts {'a': {'b': {'c': x}}}."""
+    out: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = out
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return out
+
+
+def train_state_from_reference(state_tree: Any, cfg, device: DeviceLike = "cuda"):
+    """The port's `TrainState` from a reference LM train state.
+
+    ``state_tree`` is the reference's ``TrainState`` (arrays as numpy), the
+    same as nested dicts, or the flat arrays of a checkpoint the
+    reference's ``CheckpointManager`` wrote (``restore(target=None)``,
+    keys such as ``'opt/mu/layers/attn/q/kernel'``).  The parameters go
+    through `lm_params_from_reference` (layer stacks unstacked) and become
+    trainable; AdamW's moments and the compression residual through the
+    same unstacking, keyed by the port's parameter paths; both steps
+    become 0-d int32 tensors."""
+    from repro_torch.distributed.compression import CompressionState
+    from repro_torch.distributed.trainstep import TrainState, trainable
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.utils.tree import flatten_with_paths
+
+    tree = _plain(state_tree)
+    if any("/" in k for k in tree):
+        tree = unflatten_paths(tree)
+    dev = resolve_device(device)
+
+    def moments(t: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return dict(flatten_with_paths(lm_params_from_reference(t, cfg, dev)))
+
+    def step(x) -> torch.Tensor:
+        return torch.tensor(np.asarray(x), dtype=torch.int32, device=dev)
+
+    params = trainable(lm_params_from_reference(tree["params"], cfg, dev))
+    opt = tree["opt"]
+    comp = tree.get("comp")
+    return TrainState(
+        params=params,
+        opt=AdamWState(step(opt["step"]), moments(opt["mu"]), moments(opt["nu"])),
+        comp=CompressionState(moments(comp["residual"])) if comp else None,
+        step=step(tree["step"]))

@@ -11,7 +11,9 @@ functions, and every launch function returns ``cudaGetLastError()`` of
 its launch; `CudaLibrary.raise_on` turns a non-zero code into an error.
 `LaunchCounter` holds a module's launch counts (`capturing_launches` and
 `add_launches` move launches recorded by a CUDA-graph capture to the
-graph's replays), and `check_tensor` is the wrappers' argument check.
+graph's replays), `check_tensor` is the wrappers' argument check and
+`refuse_grad` the dispatchers' refusal to cut an autograd graph at a
+kernel without a backward.
 """
 from __future__ import annotations
 
@@ -204,6 +206,20 @@ def add_launches(captured: Launches, times: int = 1) -> None:
     """Count a captured graph's launches ``times`` more times (its replays)."""
     for c, name, n in captured:
         c.add(name, n * times)
+
+
+def refuse_grad(kernel: str, later: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise if autograd would need a gradient through ``kernel``'s launch.
+
+    A ctypes launch is invisible to autograd: without this check the graph
+    would be cut there and every input below it would silently get no
+    gradient.  Kernels with a backward (flash attention, the GMM) go
+    through their `torch.autograd.Function` instead; ``later`` names the
+    slice of the port that brings this kernel's."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} on the card has no backward yet ({later}); "
+                           f"run it under torch.no_grad() or detach its inputs")
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

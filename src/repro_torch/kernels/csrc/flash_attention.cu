@@ -95,6 +95,13 @@
 //    are zero-filled and masked (the Pallas kernel asserts divisibility).
 //  * expf, fmaf and IEEE division: no fast-math intrinsics.
 //
+// Log-sum-exp.  Given a non-null `lse` (training: the autograd path of
+// kernels/flash_attention.py), each kernel also writes every row's float32
+// log-sum-exp of its scores, m + log(l) in natural-log units (the bfloat16
+// kernel's running max is in log2 units and is converted), (b, H, sq); the
+// backward kernels (flash_attention_bwd.cu) recompute P = exp(s - lse)
+// from it.  Inference passes null, and nothing else changes.
+//
 // The kernels allocate nothing and launch on the caller's stream and
 // card (host_launch.cuh's DeviceGuard); the C
 // entry point returns cudaGetLastError() of its launch (or the error of
@@ -140,8 +147,9 @@ struct Tile {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int sq, int skv, int heads, int kv_heads, int causal,
-    int q_offset, int window, float softcap, float scale) {
+    T* __restrict__ o, float* __restrict__ lse, int sq, int skv, int heads,
+    int kv_heads, int causal, int q_offset, int window, float softcap,
+    float scale) {
   constexpr int G = Tile<D>::kLanes;
   constexpr int BQ = Tile<D>::kRows;
   constexpr int BKV = Tile<D>::kKeys;
@@ -257,6 +265,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(
 
   if (!live) return;
   const float denom = fmaxf(l, 1e-30f);
+  // Every lane of the row holds the same m and l.
+  if (lse != nullptr && tid % G == 0) {
+    lse[(static_cast<long long>(bi) * heads + hi) * sq + qi] = m + logf(denom);
+  }
   T* op = o + (static_cast<long long>(bi) * sq + qi) * q_row +
           static_cast<long long>(hi) * D + seg;
 #pragma unroll
@@ -264,27 +276,28 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int skv, int heads, int kv_heads, int causal, int q_offset,
-           int window, float softcap, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int skv, int heads, int kv_heads, int causal,
+           int q_offset, int window, float softcap, float scale,
+           cudaStream_t stream) {
   const dim3 grid((sq + Tile<D>::kRows - 1) / Tile<D>::kRows, b * heads);
   flash_fwd<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, heads, kv_heads,
-      causal, q_offset, window, softcap, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, heads,
+      kv_heads, causal, q_offset, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             int b, int sq, int skv, int heads, int kv_heads, int causal,
+             float* lse, int b, int sq, int skv, int heads, int kv_heads, int causal,
              int q_offset, int window, float softcap, float scale,
              cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -295,6 +308,7 @@ constexpr int kMmaRows = 64;          // query rows a block: 16 per warp
 constexpr int kMmaKeys = 64;          // keys a K/V tile
 constexpr int kMmaThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct MmaTile {
@@ -309,8 +323,8 @@ template <int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int sq, int skv, int heads, int kv_heads, int causal, int q_offset,
-    int window, float softcap, float scale) {
+    float* __restrict__ lse, int sq, int skv, int heads, int kv_heads,
+    int causal, int q_offset, int window, float softcap, float scale) {
   using namespace mma_bf16;
   using namespace ptx;
   constexpr int LD = MmaTile<D>::kLd;
@@ -493,6 +507,17 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     denom[r] = fmaxf(sum, 1e-30f);
   }
+  // The row's log-sum-exp in natural-log units: m is in log2 units.
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < sq) {
+        lse[(static_cast<long long>(bi) * heads + hi) * sq + row] =
+            (m[r] + log2f(denom[r])) * kLn2;
+      }
+    }
+  }
   __nv_bfloat16* os = qs + warp * 16 * LD;
 #pragma unroll
   for (int db = 0; db < DB; ++db) {
@@ -517,8 +542,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
-               int sq, int skv, int heads, int kv_heads, int causal,
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int sq, int skv, int heads, int kv_heads, int causal,
                int q_offset, int window, float softcap, float scale,
                cudaStream_t stream) {
   constexpr int kSmem = MmaTile<D>::kSmemBytes;
@@ -531,20 +556,20 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid(b * heads, (sq + kMmaRows - 1) / kMmaRows);
   flash_fwd_bf16_mma<D><<<grid, kMmaThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      skv, heads, kv_heads, causal, q_offset, window, softcap, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_mma_d(int d, const void* q, const void* k, const void* v, void* o,
-                 int b, int sq, int skv, int heads, int kv_heads, int causal,
+                 float* lse, int b, int sq, int skv, int heads, int kv_heads, int causal,
                  int q_offset, int window, float softcap, float scale,
                  cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_mma<16>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
-    case 32: return launch_mma<32>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
-    case 64: return launch_mma<64>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
-    case 128: return launch_mma<128>(q, k, v, o, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 16: return launch_mma<16>(q, k, v, o, lse, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 32: return launch_mma<32>(q, k, v, o, lse, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 64: return launch_mma<64>(q, k, v, o, lse, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
+    case 128: return launch_mma<128>(q, k, v, o, lse, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -561,10 +586,14 @@ int mma_smem_bytes(int d) {
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  lse,
+// when not null, receives each row's float32 log-sum-exp of its scaled
+// (and capped) scores, (b, heads, sq), in natural-log units: what the
+// backward kernels (flash_attention_bwd.cu) recompute P from.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int b, int sq,
-                                      int skv, int heads, int kv_heads, int d,
+                                      const void* v, void* o, void* lse,
+                                      int b, int sq, int skv, int heads,
+                                      int kv_heads, int d,
                                       int dtype, int causal, int q_offset,
                                       int window, float softcap, float scale,
                                       int device, void* stream) {
@@ -572,12 +601,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_d<float>(d, q, k, v, o, b, sq, skv, heads, kv_heads, causal,
-                           q_offset, window, softcap, scale, s);
+    return launch_d<float>(d, q, k, v, o, static_cast<float*>(lse), b, sq, skv,
+                           heads, kv_heads, causal, q_offset, window, softcap,
+                           scale, s);
   }
   if (dtype == 1) {
-    return launch_mma_d(d, q, k, v, o, b, sq, skv, heads, kv_heads, causal,
-                        q_offset, window, softcap, scale, s);
+    return launch_mma_d(d, q, k, v, o, static_cast<float*>(lse), b, sq, skv,
+                        heads, kv_heads, causal, q_offset, window, softcap,
+                        scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

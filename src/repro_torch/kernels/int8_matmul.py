@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import int8_matmul_cuda
+from repro_torch.kernels._build import refuse_grad
 
 Tensor = torch.Tensor
 
@@ -72,6 +73,8 @@ def int8_matmul_packed(a_q: Tensor, bt: Tensor, scale: float,
     be a row-strided view (unit column stride), as the executor's
     im2col patches are."""
     if a_q.is_cuda:
+        refuse_grad("int8_matmul", "no training slice of the port runs it", a_q, bt,
+                    bias)
         return int8_matmul_cuda.int8_matmul_cuda(a_q, bt, scale, bias)
     return int8_matmul_plain(a_q, bt, scale, bias)
 

@@ -13,6 +13,9 @@ s_chunk's type.
 Dispatch is by the device of ``s_chunk``: a CUDA tensor launches the
 hand-written kernel (`repro_torch.kernels.ssd_scan_cuda`), a CPU tensor
 takes `ssd_scan_plain`.  There is no fallback from one to the other.
+The kernel has no backward yet: on the card, an input that requires a
+gradient raises (`_build.refuse_grad`); the plain version stays
+differentiable.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ssd_scan_cuda
+from repro_torch.kernels._build import refuse_grad
 
 Tensor = torch.Tensor
 
@@ -49,5 +53,6 @@ def ssd_scan(s_chunk: Tensor, decay: Tensor) -> Tuple[Tensor, Tensor]:
     ``s_chunk``."""
     _check_shapes(s_chunk, decay)
     if s_chunk.is_cuda:
+        refuse_grad("ssd_scan", "the SSM and hybrid training slice", s_chunk, decay)
         return ssd_scan_cuda.ssd_scan_cuda(s_chunk.contiguous(), decay.contiguous())
     return ssd_scan_plain(s_chunk, decay)

@@ -36,9 +36,13 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels._build import refuse_grad
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
+
+# Why the tree kernels refuse a gradient on the card (`_build.refuse_grad`).
+_NO_TREE_GRAD = "no training slice of the port runs it"
 
 # Lifetime counters (survive bank invalidation — `CudaBank` instances die
 # with their FlatEnsemble, these do not).  `LatencyService.stats()`
@@ -215,6 +219,7 @@ class CudaBank:
         """(rows, trees) leaf values for staged rows ``xd``."""
         if self.device.type == "cuda":
             from repro_torch.kernels.tree_gather_cuda import gather_leaves_cuda
+            refuse_grad("tree_gather_leaves", _NO_TREE_GRAD, xd)
             return gather_leaves_cuda(self, xd)
         return gather_leaves_plain(*self.bank_args, xd, depth=self.depth)
 
@@ -223,6 +228,7 @@ class CudaBank:
         """standardize → traverse → reduce → clamp: one kernel on the card."""
         if self.device.type == "cuda":
             from repro_torch.kernels.tree_gather_cuda import fused_predict_cuda
+            refuse_grad("tree_predict_fused", _NO_TREE_GRAD, mean, std, xd)
             return fused_predict_cuda(self, mean, std, scale, bias, xd, kind)
         return fused_plain(*self.bank_args, mean, std, scale, bias, xd,
                            depth=self.depth, kind=kind)

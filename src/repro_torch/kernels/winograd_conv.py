@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import winograd_conv_cuda
+from repro_torch.kernels._build import refuse_grad
 from repro_torch.kernels.ref import assemble_winograd_tiles, extract_winograd_tiles
 
 Tensor = torch.Tensor
@@ -79,6 +80,8 @@ def winograd_conv2d(x: Tensor, w: Tensor) -> Tensor:
     k = u.shape[-1]
     tiles = extract_winograd_tiles(x).reshape(-1, 16, c)
     if x.is_cuda:
+        refuse_grad("winograd_conv2d", "no training slice of the port runs it",
+                    tiles, u)
         y = winograd_conv_cuda.winograd_tiles_cuda(tiles.contiguous(), u)
     else:
         y = winograd_tiles_plain(tiles, u)

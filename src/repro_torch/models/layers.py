@@ -33,13 +33,18 @@ def dtype_of(cfg) -> torch.dtype:
 class Params(nn.Module):
     """A nested parameter tree as a module: ``p["q"]["kernel"]``,
     ``"bias" in p``.  Dicts become `Params`, lists `nn.ModuleList`s of
-    `Params`, tensors frozen parameters (the port runs inference only).
+    `Params`, tensors parameters that start frozen; training
+    (`repro_torch.distributed.init_train_state`) turns ``requires_grad``
+    on for the floating ones.
 
     `cast` hands out a leaf in another dtype.  The reference casts its
     float32 parameters to the compute type in every call
-    (``p["gate"].astype(dt)``); the cast is deterministic, so the copy is
-    made once and reused, bit-identical, until the leaf is replaced or
-    changed in place.
+    (``p["gate"].astype(dt)``).  At inference the cast is deterministic, so
+    the copy is made once and reused, bit-identical, until the leaf is
+    replaced or changed in place.  With gradients enabled and a leaf that
+    requires one, `cast` returns a fresh, differentiable ``t.to(dtype)``
+    and leaves the cache alone: a cached copy would be detached, and every
+    matrix cast to bfloat16 would get no gradient.
     """
 
     def __init__(self, tree: Dict[str, Any]):
@@ -64,6 +69,8 @@ class Params(nn.Module):
         t = self._parameters[name]
         if dtype is None or t.dtype == dtype:
             return t
+        if t.requires_grad and torch.is_grad_enabled():
+            return t.to(dtype)
         stamp = (t.data_ptr(), t.device, t._version)
         hit = self._casts.get((name, dtype))
         if hit is None or hit[0] != stamp:

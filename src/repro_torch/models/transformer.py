@@ -20,8 +20,12 @@ forward, cache, decode step and `repro_torch.convert` read it there.
 What differs from the reference, and why:
   * its ``lax.scan`` over stacked layer weights is a Python loop over the
     per-layer `Params` modules;
-  * ``jax.checkpoint`` (remat) saves memory for training's backward pass
-    and has no counterpart at inference;
+  * ``jax.checkpoint`` (remat) is `torch.utils.checkpoint.checkpoint`
+    (non-reentrant) around each layer, applied only while gradients are
+    enabled (``remat=True``, the default, as the reference's): the
+    backward recomputes a layer's forward, so a training step launches
+    each layer's kernels twice forward and once backward, and keeps only
+    the layers' inputs between the passes;
   * ``constrain_seq``, ``gather_layer``, ``pin_layer_stack`` and
     ``constrain_logits`` are sharding constraints that are the identity
     on one device without a mesh, so they are left out;
@@ -37,6 +41,7 @@ import math
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (
     attention_init,
@@ -230,21 +235,30 @@ def _gated_cross(cp: Params, x: Tensor, vision_embeds: Optional[Tensor], cfg
 
 
 def decoder_forward(params: Params, tokens: Tensor, cfg, *,
-                    vision_embeds: Optional[Tensor] = None
-                    ) -> Tuple[Tensor, Tensor]:
+                    vision_embeds: Optional[Tensor] = None,
+                    remat: bool = True) -> Tuple[Tensor, Tensor]:
     """tokens: (b, s) integer → (logits (b, s, vocab) float32, moe aux loss).
-    The VLM's ``vision_embeds`` are (b, vision_seq, d_model)."""
+    The VLM's ``vision_embeds`` are (b, vision_seq, d_model).  With
+    ``remat`` and gradients enabled, each layer runs under
+    `torch.utils.checkpoint.checkpoint`; nothing else changes."""
     dt = dtype_of(cfg)
     b, s = tokens.shape
     x = embed(params["embed"], tokens, dt, scale=cfg.scale_embed)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    remat = remat and torch.is_grad_enabled()
+
+    def run(fn, *args, **kw):
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return fn(*args, **kw)
+
     for stack, i, window in layer_order(cfg):
         lp = params[stack][i]
         if stack == "cross_layers":
-            x = _gated_cross(lp, x, vision_embeds, cfg)
+            x = run(_gated_cross, lp, x, vision_embeds, cfg)
         else:
-            x, a = layer_forward(lp, x, cfg, positions, window=window)
+            x, a = run(layer_forward, lp, x, cfg, positions, window=window)
             aux = aux + a
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(_head(params, cfg), x)

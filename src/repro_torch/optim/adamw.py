@@ -1,0 +1,91 @@
+"""AdamW with decoupled weight decay and global-norm clipping (twin of
+``repro.optim.adamw``).
+
+The same update as the reference: gradients in float32, clipped to a
+global norm of ``max_grad_norm``; β = (0.9, 0.95); bias correction at
+``step + 1`` in float32; weight decay on every leaf (the reference
+excludes none).  Moments are float32 tensors keyed by the parameters'
+paths (`repro_torch.utils.tree.flatten_with_paths`).
+
+What differs, and why: the reference returns new arrays from donated
+buffers; here `adamw_update` writes the parameters and both moments in
+place under `torch.no_grad()`, which is what the donation buys it.  The
+returned state holds the same moment tensors and a new step.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.utils.tree import flatten_with_paths
+
+Tensor = torch.Tensor
+Params = Any
+
+
+class AdamWState(NamedTuple):
+    step: Tensor                 # 0-d int32
+    mu: Dict[str, Tensor]
+    nu: Dict[str, Tensor]
+
+
+def adamw_init(params: Params) -> AdamWState:
+    flat = flatten_with_paths(params)
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
+             for k, p in flat.items()}
+    device = next(iter(flat.values())).device if flat else None
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
+                      mu=zeros, nu={k: torch.zeros_like(z) for k, z in zeros.items()})
+
+
+def global_norm(tree: Any) -> Tensor:
+    """sqrt of the sum over leaves (in path order) of each leaf's float32
+    sum of squares."""
+    leaves = [torch.sum(torch.square(x.float()))
+              for x in flatten_with_paths(tree).values()]
+    return torch.sqrt(sum(leaves))
+
+
+def clip_by_global_norm(grads: Dict[str, Tensor], max_norm: float
+                        ) -> Tuple[Dict[str, Tensor], Tensor]:
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return {k: g * scale for k, g in grads.items()}, norm
+
+
+@torch.no_grad()
+def adamw_update(
+    grads: Dict[str, Tensor],
+    state: AdamWState,
+    params: Params,
+    *,
+    lr: Tensor,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+    max_grad_norm: float = 1.0,
+) -> Tuple[Params, AdamWState, Dict[str, Tensor]]:
+    """One AdamW step: ``params`` (a `Params` module or a tree of tensors)
+    and the moments are updated in place; ``grads`` holds one tensor per
+    parameter path."""
+    flat = flatten_with_paths(params)
+    if set(grads) != set(flat):
+        raise KeyError(f"grads and params differ: "
+                       f"{sorted(set(grads) ^ set(flat))[:5]}")
+    grads, gnorm = clip_by_global_norm({k: g.float() for k, g in grads.items()},
+                                       max_grad_norm)
+    step = state.step + 1
+    stepf = step.float()
+    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
+    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
+    for k, p in flat.items():
+        g, m, v = grads[k], state.mu[k], state.nu[k]
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        p32 = p.float()
+        u = u + weight_decay * p32
+        p.copy_((p32 - lr * u).to(p.dtype))
+    return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm}

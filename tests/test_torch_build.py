@@ -81,9 +81,17 @@ def _includes(name):
     return found
 
 
-@pytest.mark.parametrize("module", CUDA_MODULES, ids=lambda m: m.__name__)
-def test_every_included_header_is_hashed_into_the_library_name(module):
-    lib = module.LIBRARY
+LIBRARIES = [lib for m in CUDA_MODULES for lib in getattr(m, "LIBRARIES", (m.LIBRARY,))]
+
+
+def test_every_source_has_a_library():
+    assert sorted(s for lib in LIBRARIES for s in lib.sources) == sorted(
+        p.name for p in _build.CSRC.glob("*.cu"))
+    assert flash_attention_cuda.BWD_LIBRARY.headers == ("host_launch.cuh",)
+
+
+@pytest.mark.parametrize("lib", LIBRARIES, ids=lambda lib: lib.name)
+def test_every_included_header_is_hashed_into_the_library_name(lib):
     included = set().union(*(_includes(src) for src in lib.sources))
     assert set(lib.headers) == included
 

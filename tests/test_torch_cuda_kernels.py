@@ -992,13 +992,17 @@ def _wrapper_calls(card, gbdt):
         "int8_matmul": lambda: imc.int8_matmul_cuda(a, bt, iscale, ibias),
         "winograd_conv2d": lambda: wcc.winograd_tiles_cuda(tiles, u),
         "flash_attention": lambda: fac.flash_attention_cuda(q, k, v, causal=True),
+        "flash_attention_backward": lambda: fac.flash_attention_backward_cuda(
+            q, k, v, *fac.flash_attention_cuda(q, k, v, causal=True, return_lse=True), q,
+            causal=True),
         "moe_gmm": lambda: mgc.moe_gmm_cuda(x, w),
         "ssd_scan": lambda: ssc.ssd_scan_cuda(s, d),
     }
 
 
 KERNEL_NAMES = ("tree_gather_leaves", "tree_predict_fused", "int8_matmul",
-                "winograd_conv2d", "flash_attention", "moe_gmm", "ssd_scan")
+                "winograd_conv2d", "flash_attention", "flash_attention_backward",
+                "moe_gmm", "ssd_scan")
 
 
 def _kernel_counts():
@@ -1038,8 +1042,10 @@ def test_wrapper_launched_from_a_new_thread(card, gbdt_150x4, name):
     t.join(timeout=120)
     assert not t.is_alive() and "error" not in box, box.get("error")
     after = _kernel_counts()
+    # The backward's call also runs the forward that hands it o and lse.
     assert {k: after[k] - before[k] for k in after} == \
-        {k: int(k == name) for k in after}
+        {k: int(k == name or (name == "flash_attention_backward"
+                               and k == "flash_attention")) for k in after}
     got = box["out"]
     for g, w_ in zip(got if isinstance(got, tuple) else (got,),
                      want if isinstance(want, tuple) else (want,)):
@@ -1102,3 +1108,150 @@ def test_whole_graph_capture_failure_raises(card):
     with pytest.raises(RuntimeError, match="whole_jit: capturing"):
         whole(*ins)
     assert whole.whole_graphs == {}
+
+
+# -- training: the flash backward kernel, the GMM's backward, the guard -----------
+
+# Row by row, bfloat16 backward: each row's max |plain| floored at 2^-8 of
+# the output's max (dq's first causal row is zero in exact arithmetic;
+# chip_smoke.py's FLASH_BWD_ROW_FLOOR says why).
+BWD_ROW_FLOOR = 2.0 ** -8
+
+
+def _bwd_rows_close(got, want):
+    g, w = got.float(), want.float()
+    scale = w.abs().amax(-1).clamp_min(BWD_ROW_FLOOR * float(w.abs().max()))
+    assert float(((g - w).abs().amax(-1) / scale).max()) <= ROW_TOL
+
+
+def _flash_bwd_inputs(card, dtype, b, sq, skv, h, kvh, d):
+    rng = np.random.default_rng(sq + skv + h + d)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card, dtype)
+            for shape in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d), (b, sq, h, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,q_offset", [
+    (2, 256, 256, 16, 8, 64, True, 0), (1, 1000, 1000, 4, 2, 64, True, 0),
+    (2, 77, 50, 4, 2, 32, False, 0), (1, 33, 33, 8, 1, 128, True, 0),
+    (1, 20, 45, 4, 4, 16, True, 25), (3, 5, 7, 2, 2, 16, False, 0)])
+def test_flash_backward_within_tolerance_of_plain(card, dtype, b, sq, skv, h, kvh, d,
+                                                   causal, q_offset):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    q, k, v, do = _flash_bwd_inputs(card, dtype, b, sq, skv, h, kvh, d)
+    kw = {"causal": causal, "q_offset": q_offset}
+    o, lse = fac.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, fac.flash_attention_cuda(q, k, v, **kw))
+    torch.testing.assert_close(lse, fa.flash_lse_plain(q, k, **kw), rtol=0,
+                               atol=1e-5 * max(1.0, float(lse.abs().max())))
+    before = fac.launch_counts()["flash_attention_backward"]
+    got = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fac.launch_counts()["flash_attention_backward"] == before + 1
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        _close(g, w, dtype)
+        if dtype == torch.bfloat16:
+            _bwd_rows_close(g, w)
+    again = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_the_card_runs_both_kernels(card, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    q, k, v, do = _flash_bwd_inputs(card, dtype, 2, 130, 130, 8, 2, 64)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fac.launch_counts()
+    out = fa.flash_attention(*ts, causal=True)
+    got = torch.autograd.grad(out, ts, do)
+    torch.cuda.synchronize()
+    after = fac.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == 1
+    assert after["flash_attention_backward"] - before["flash_attention_backward"] == 1
+    o, lse = fac.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(out.detach(), o)
+    for g, w in zip(got, fac.flash_attention_backward_cuda(q, k, v, o, lse, do)):
+        assert torch.equal(g, w)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        fa.flash_attention(*ts, causal=True, window=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", [(32, 1280, 1024, 512), (32, 1280, 512, 1024),
+                                     (3, 33, 70, 17), (5, 77, 300, 129)])
+def test_moe_gmm_backward_within_tolerance_of_plain(card, dtype, e, c, d, f):
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+
+    rng = np.random.default_rng(e + c + d + f)
+    x = torch.from_numpy(rng.standard_normal((e, c, d)).astype(np.float32)).to(card, dtype)
+    w = torch.from_numpy((rng.standard_normal((e, d, f)) / np.sqrt(d)).astype(np.float32)
+                         ).to(card, dtype)
+    dy = torch.from_numpy(rng.standard_normal((e, c, f)).astype(np.float32)).to(card, dtype)
+    x.requires_grad_()
+    w.requires_grad_()
+    before = gmmc.launch_counts()["moe_gmm"]
+    got = torch.autograd.grad(gmm.moe_gmm(x, w), (x, w), dy)
+    torch.cuda.synchronize()
+    assert gmmc.launch_counts()["moe_gmm"] == before + 3
+    for g, r in zip(got, torch.autograd.grad(gmm.moe_gmm_plain(x, w), (x, w), dy)):
+        _close(g, r, dtype)
+
+
+def test_gradient_through_a_kernel_without_backward_raises(card, gbdt_150x4):
+    """The SSD scan, Winograd and the tree kernels have no backward: a
+    gradient asked through them on the card raises instead of cutting the
+    graph.  The int8 GEMM's operands are integers, which cannot require a
+    gradient; its dispatcher refuses one all the same."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tree_gather as tg
+
+    s, d = _ssd_inputs((4, 1, 3, 8, 16), card, torch.float32, torch.float32, 5)
+    with pytest.raises(RuntimeError, match="ssd_scan on the card has no backward"):
+        ops.ssd_scan(s.requires_grad_(), d)
+    x = torch.randn(1, 8, 8, 16, device=card, requires_grad=True)
+    wt = torch.randn(3, 3, 16, 16, device=card)
+    with pytest.raises(RuntimeError, match="winograd_conv2d on the card has no backward"):
+        ops.winograd_conv2d(x, wt)
+    db = gbdt_150x4.flat().device_bank(card)
+    mean, std = tg.to_device_scaler(gbdt_150x4.scaler, card)
+    xr = torch.rand(5, mean.shape[0], device=card, requires_grad=True)
+    kind, scale, bias = gbdt_150x4._device_reduction()
+    with pytest.raises(RuntimeError, match="tree_predict_fused on the card has no backward"):
+        db.fused(mean, std, scale, bias, xr, kind)
+    with torch.no_grad():
+        ops.ssd_scan(s, d)
+        ops.winograd_conv2d(x, wt)
+
+
+def test_reduced_granite_train_step_on_the_card_equals_the_host(card):
+    """One float32 train step of reduced Granite-MoE (lr 1e-3 from step 0)
+    through the kernels on the card and the plain versions on the host,
+    from one state: loss and grad norm within 1e-4, AdamW's first moment
+    within 1e-4 of its max."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import map_with_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("granite-moe-1b-a400m").reduced(),
+                              compute_dtype="float32")
+    m = build_model(cfg)
+    host = init_train_state(m, 0, device="cpu")
+    dev = map_with_paths(lambda _, t: t.detach().to(card, copy=True), host)
+    batch = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2).batch_at(0)
+    step = make_train_step(m, base_lr=1e-3, warmup_steps=0, total_steps=10)
+    dev, dm = step(dev, {k: torch.from_numpy(v).to(card) for k, v in batch.items()})
+    host, hm = step(host, {k: torch.from_numpy(v) for k, v in batch.items()})
+    for key in ("loss", "grad_norm"):
+        assert abs(float(dm[key]) - float(hm[key])) <= 1e-4 * abs(float(hm[key]))
+    scale = max(float(t.abs().max()) for t in host.opt.mu.values())
+    for k_, t in host.opt.mu.items():
+        assert float((dev.opt.mu[k_].cpu() - t).abs().max()) <= 1e-4 * scale, k_

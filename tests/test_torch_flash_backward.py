@@ -1,0 +1,206 @@
+"""Gradients of the port's flash attention and grouped expert matmul on
+the host, against the reference's.
+
+The backward kernel on the card (``csrc/flash_attention_bwd.cu``) is held
+against `flash_attention_backward_plain` in chip_smoke.py and
+tests/test_torch_cuda_kernels.py; here that plain backward is held
+  * against ``torch.autograd`` of `flash_attention_plain`, and
+  * against ``jax.grad`` of the reference's ``naive_attention`` and
+    ``chunked_attention`` (``q_chunk`` 64, so several chunks and a padded
+    one),
+for causal and non-causal attention, sq != skv and h / kvh in {1, 2, 4},
+and `flash_attention`'s autograd path (`FlashAttention`) gives the same
+gradients.  Inputs come from a numpy seed.  Tolerance: 1e-5 of the
+largest |gradient| in float32 (the same function; only the order of
+float32 sums differs).  A window or a softcap with a gradient raises.
+
+The GMM's autograd (`GroupedMatmul`: both backward products through the
+GMM itself) is held against ``jax.grad`` of the reference's
+``moe_gmm_ref`` at 1e-5, in float32, and in bfloat16 against the same
+gradient computed from float32 copies at one bfloat16 rounding (2^-7 of
+the largest value).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ref import moe_gmm_ref  # noqa: E402
+from repro.models import attention as rattn  # noqa: E402
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
+
+TOL = 1e-5                              # × max |gradient|, float32
+
+# (b, sq, skv, h, kvh, d, causal, q_offset)
+CASES = [
+    (2, 37, 37, 4, 4, 16, True, 0),
+    (2, 37, 37, 4, 2, 16, True, 0),
+    (1, 150, 150, 4, 1, 32, True, 0),       # three query chunks of 64, padded
+    (2, 40, 29, 4, 2, 16, False, 0),        # cross-attention, sq != skv
+    (1, 130, 70, 8, 2, 32, False, 0),
+    (2, 20, 45, 4, 4, 16, True, 25),        # decode-style offset, causal
+]
+
+
+def _inputs(b, sq, skv, h, kvh, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, d)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, d)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, d)).astype(np.float32),
+            rng.standard_normal((b, sq, h, d)).astype(np.float32))
+
+
+def _check(got, want, label):
+    for name, g, w in zip("qkv", got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        assert g.shape == w.shape, (label, name)
+        err = np.abs(g - w).max() / np.abs(w).max()
+        assert err <= TOL, f"{label} d{name}: {err}"
+
+
+def _ref_grads(fn, q, k, v, do, **kw):
+    def loss(q, k, v):
+        return jnp.sum(fn(q, k, v, **kw) * do)
+    return jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(t) for t in (q, k, v)))
+
+
+def _plain_backward(q, k, v, do, causal, q_offset):
+    qt, kt, vt, dot = (torch.from_numpy(t) for t in (q, k, v, do))
+    o = fa.flash_attention_plain(qt, kt, vt, causal=causal, q_offset=q_offset)
+    lse = fa.flash_lse_plain(qt, kt, causal=causal, q_offset=q_offset)
+    return fa.flash_attention_backward_plain(qt, kt, vt, o, lse, dot, causal=causal,
+                                             q_offset=q_offset)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_plain_backward_matches_autograd_of_the_plain_forward(case):
+    b, sq, skv, h, kvh, d, causal, off = case
+    q, k, v, do = _inputs(b, sq, skv, h, kvh, d, seed=sum(case))
+    ts = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_plain(*ts, causal=causal, q_offset=off)
+    want = torch.autograd.grad(out, ts, torch.from_numpy(do))
+    _check([g.numpy() for g in _plain_backward(q, k, v, do, causal, off)],
+           [g.numpy() for g in want], "autograd")
+
+
+@pytest.mark.parametrize("impl", ["naive", "chunked"])
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_plain_backward_matches_jax_grad_of_the_reference(case, impl):
+    b, sq, skv, h, kvh, d, causal, off = case
+    q, k, v, do = _inputs(b, sq, skv, h, kvh, d, seed=sum(case) + 1)
+    kw = {"causal": causal, "q_offset": off}
+    if impl == "chunked":
+        fn, kw = rattn.chunked_attention, {**kw, "q_chunk": 64}
+    else:
+        fn = rattn.naive_attention
+    want = _ref_grads(fn, q, k, v, do, **kw)
+    _check([g.numpy() for g in _plain_backward(q, k, v, do, causal, off)], want, impl)
+
+
+@pytest.mark.parametrize("case", CASES[:4], ids=str)
+def test_flash_attention_autograd_path_gives_the_plain_gradients(case):
+    b, sq, skv, h, kvh, d, causal, off = case
+    q, k, v, do = _inputs(b, sq, skv, h, kvh, d, seed=sum(case) + 2)
+    ts = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*ts, causal=causal, q_offset=off)
+    assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+    np.testing.assert_array_equal(
+        out.detach().numpy(),
+        fa.flash_attention_plain(*(torch.from_numpy(t) for t in (q, k, v)),
+                                 causal=causal, q_offset=off).numpy())
+    got = torch.autograd.grad(out, ts, torch.from_numpy(do))
+    want = _plain_backward(q, k, v, do, causal, off)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_lse_is_the_log_sum_exp_of_the_masked_scores():
+    q, k, _, _ = _inputs(2, 33, 33, 4, 2, 16, seed=9)
+    qt, kt = torch.from_numpy(q), torch.from_numpy(k)
+    lse = fa.flash_lse_plain(qt, kt, causal=True)
+    assert lse.shape == (2, 4, 33) and lse.dtype == torch.float32
+    s = torch.einsum("bqhd,bkhd->bhqk", qt, kt.repeat_interleave(2, dim=2)) / 4.0
+    s = s.masked_fill(torch.ones(33, 33, dtype=torch.bool).triu(1), -float("inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [{"window": 8}, {"softcap": 5.0}])
+def test_window_or_softcap_with_a_gradient_raises(kw):
+    q, k, v, _ = _inputs(1, 16, 16, 2, 2, 16, seed=3)
+    ts = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    with pytest.raises(NotImplementedError, match="later slice"):
+        fa.flash_attention(*ts, causal=True, **kw)
+    with torch.no_grad():
+        fa.flash_attention(*ts, causal=True, **kw)      # forward-only is fine
+
+
+def test_no_gradient_asked_takes_the_plain_forward():
+    q, k, v, _ = _inputs(1, 16, 16, 2, 2, 16, seed=4)
+    out = fa.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)))
+    assert out.grad_fn is None
+
+
+# -- the GMM ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("e,c,d,f", [(4, 16, 32, 24), (3, 33, 70, 17), (8, 40, 16, 8)])
+def test_gmm_gradients_match_jax_grad_of_the_reference(e, c, d, f):
+    rng = np.random.default_rng(e * c + d)
+    x = rng.standard_normal((e, c, d)).astype(np.float32)
+    w = (rng.standard_normal((e, d, f)) / np.sqrt(d)).astype(np.float32)
+    dy = rng.standard_normal((e, c, f)).astype(np.float32)
+    want = jax.grad(lambda x, w: jnp.sum(moe_gmm_ref(x, w) * dy), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    y = gmm.moe_gmm(xt, wt)
+    assert "GroupedMatmul" in type(y.grad_fn).__name__
+    got = torch.autograd.grad(y, (xt, wt), torch.from_numpy(dy))
+    for g, r in zip(got, want):
+        r = np.asarray(r)
+        assert np.abs(g.numpy() - r).max() <= TOL * np.abs(r).max()
+
+
+def test_gmm_backward_products_go_through_the_gmm(monkeypatch):
+    calls = []
+    real = gmm._gmm
+
+    def counting(x, w):
+        calls.append((tuple(x.shape), tuple(w.shape)))
+        return real(x, w)
+
+    monkeypatch.setattr(gmm, "_gmm", counting)
+    x = torch.randn(3, 10, 6, requires_grad=True)
+    w = torch.randn(3, 6, 5, requires_grad=True)
+    gmm.moe_gmm(x, w).sum().backward()
+    assert calls == [((3, 10, 6), (3, 6, 5)),
+                     ((3, 10, 5), (3, 5, 6)),                 # dX = dY · wᵀ
+                     ((3, 6, 10), (3, 10, 5))]                # dW = xᵀ · dY
+    calls.clear()
+    x2 = torch.randn(3, 10, 6)
+    gmm.moe_gmm(x2, w).sum().backward()                      # only dW asked
+    assert calls == [((3, 10, 6), (3, 6, 5)), ((3, 6, 10), (3, 10, 5))]
+
+
+def test_gmm_bf16_gradients_are_in_the_compute_type():
+    """bfloat16 operands (a float32 weight cast to bfloat16, as the MoE
+    does): dX and dW come out of the GMM in bfloat16, and autograd casts
+    dW back to the float32 leaf."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((4, 24, 32)).astype(np.float32))
+    w32 = torch.from_numpy((rng.standard_normal((4, 32, 16)) / 6).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((4, 24, 16)).astype(np.float32))
+    xb = x.to(torch.bfloat16).requires_grad_()
+    w = w32.clone().requires_grad_()
+    y = gmm.moe_gmm(xb, w.to(torch.bfloat16))
+    gx, gw = torch.autograd.grad(y, (xb, w), dy.to(torch.bfloat16))
+    assert gx.dtype == torch.bfloat16 and gw.dtype == torch.float32
+    xf = xb.detach().float().requires_grad_()
+    wf = w.detach().to(torch.bfloat16).float().requires_grad_()
+    fx, fw = torch.autograd.grad(gmm.moe_gmm_plain(xf, wf), (xf, wf),
+                                 dy.to(torch.bfloat16).float())
+    for g, r in ((gx, fx), (gw, fw)):
+        assert float((g.float() - r).abs().max()) <= 2 ** -7 * float(r.abs().max())

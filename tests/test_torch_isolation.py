@@ -73,10 +73,15 @@ def test_port_has_the_slice_modules():
                 "obs/tracing.py", "obs/export.py", "obs/drift.py",
                 "obs/timeline.py", "obs/alerts.py", "obs/autopilot.py",
                 "core/distributed_model.py", "core/cost_model.py",
-                "distributed/__init__.py", "distributed/straggler.py"):
+                "distributed/__init__.py", "distributed/straggler.py",
+                "utils/tree.py", "optim/__init__.py", "optim/schedules.py",
+                "optim/adamw.py", "distributed/compression.py",
+                "data/__init__.py", "data/pipeline.py", "checkpoint/__init__.py",
+                "checkpoint/manager.py", "distributed/trainstep.py",
+                "launch/__init__.py", "launch/train.py"):
         assert mod in names
     for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
-                "flash_attention.cu", "moe_gmm.cu", "ssd_scan.cu",
+                "flash_attention.cu", "flash_attention_bwd.cu", "moe_gmm.cu", "ssd_scan.cu",
                 "mma_bf16.cuh", "mma_s8.cuh", "ptx_copy.cuh", "host_launch.cuh"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
@@ -110,6 +115,8 @@ def test_cuda_kernel_source_names_both_kernels():
                           "_winograd_kernel", "fmaf")),
     ("flash_attention.cu", ("src/repro/kernels/flash_attention.py",
                             "_flash_kernel", "expf", "__shfl_xor_sync")),
+    ("flash_attention_bwd.cu", ("src/repro/models/attention.py", "naive_attention",
+                                "expf", "fmaf", "__shfl_xor_sync")),
     ("moe_gmm.cu", ("src/repro/kernels/moe_gmm.py", "_gmm_kernel", "fmaf")),
     ("ssd_scan.cu", ("src/repro/kernels/ssd_scan.py", "_ssd_scan_kernel",
                      "__fmul_rn", "__fadd_rn"))])
@@ -172,7 +179,9 @@ def _entry_points():
     from repro_torch.quant import build_quant_op_fn
     from repro_torch.kernels.tree_gather import CudaBank, to_device_scaler
     from repro_torch.configs import get_arch
-    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.convert import lm_params_from_reference, train_state_from_reference
+    from repro_torch.distributed import init_train_state
+    from repro_torch.launch.train import main as train_main
     from repro_torch.models import build_model
     from repro_torch.pipeline import LatencyService, PredictorHub
     from repro_torch.rpc import LatencyRPCServer
@@ -214,6 +223,11 @@ def _entry_points():
         **{f"{arch} Model.init": (lambda m=m: m.init(0)) for arch, m in zoo.items()},
         **{f"{arch} Model.init_cache": (lambda m=m: m.init_cache(1, 8))
            for arch, m in zoo.items()},
+        "init_train_state": lambda: init_train_state(lm, 0),
+        "train driver": lambda: train_main(["--arch", "qwen2-72b-reduced", "--steps", "1"]),
+        "train_state_from_reference": lambda: train_state_from_reference(
+            {"params": {}, "opt": {"step": 0, "mu": {}, "nu": {}}, "step": 0},
+            get_arch("qwen2-72b").reduced()),
         "lm_params_from_reference": lambda: lm_params_from_reference(
             {"layers": {"w": np.zeros((4, 2))}}, get_arch("qwen2-72b").reduced()),
         "LassoPredictor": lambda: LassoPredictor(),

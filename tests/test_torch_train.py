@@ -1,0 +1,360 @@
+"""The port's LM training (repro_torch.distributed.trainstep,
+repro_torch.launch.train) against the reference's, on the host.
+
+Both packages start from one reference state (``init_train_state`` of
+the reference, carried over by `convert.train_state_from_reference`) and
+take the same batches (`SyntheticLMData`, bit-equal in both); the
+reference runs ``jax.jit(make_train_step(...))``, the port its
+`make_train_step` with every kernel's plain version (flash attention's
+and the GMM's backward included).  Reduced Granite-MoE and Qwen2 (dense,
+GQA, QKV bias) in float32 compute.
+
+Tolerances, and why:
+  * loss and grad norm after each of 3 steps: 1e-5 relative; with
+    ``compression=True`` the grad norm 5e-5: an element whose gradient
+    sits within a float32 rounding of a quantization midpoint rounds to
+    another int8 value in the other package, one quantum (max|g| / 127)
+    apart;
+  * AdamW's moments after each step: 1e-5 of their largest value (the
+    first moment is 0.1 × the clipped gradient after step 1, when the
+    warm-up's rate is still 0);
+  * parameters after 1 and 3 steps: 1e-5, except for the elements where
+    AdamW divides float32 noise by float32 noise.  An element whose
+    gradient is zero in exact arithmetic (a key bias: softmax ignores a
+    per-row constant) or within rounding of zero, or whose compressed
+    gradient flips as above, gets a step of up to about ±lr from the sign
+    of that noise, in either package.  Those may differ by up to 3 × the
+    summed learning rates and be at most `NOISE_FRACTION` of the elements
+    (measured: 7e-6 of them without compression, 1.2e-4 with it);
+  * bfloat16 compute against float32 compute, gradient of each leaf as a
+    relative L2 error: dense 0.15 (measured ≤ 0.075), MoE 0.6 (measured
+    ≤ 0.42, the router: bfloat16 hidden states move near-tie top-k
+    routing, and the reference's own bfloat16 logits lie 2-52% RMS from
+    its float32 ones, tests/test_torch_lm.py).  There, every floating leaf must get a
+    nonzero gradient: a cast that detached the bfloat16 copies would give
+    the experts and every dense kernel none.
+"""
+import dataclasses
+import logging
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.checkpoint import CheckpointManager as RCheckpointManager  # noqa: E402
+from repro.configs import get_arch as rget  # noqa: E402
+from repro.distributed.trainstep import init_train_state as rinit  # noqa: E402
+from repro.distributed.trainstep import make_train_step as rmake  # noqa: E402
+from repro.models import build_model as rbuild  # noqa: E402
+
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.convert import train_state_from_reference  # noqa: E402
+from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.distributed import init_train_state, make_train_step  # noqa: E402
+from repro_torch.distributed.trainstep import trainable  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.utils.tree import flatten_with_paths  # noqa: E402
+
+ARCHS = ["granite-moe-1b-a400m", "qwen2-72b"]
+TOL = 1e-5
+COMP_NORM_TOL = 5e-5
+NOISE_FRACTION = {False: 1e-4, True: 5e-4}       # by compression
+BF16_TOL = {"dense": 0.15, "moe": 0.6}
+STEP_KW = dict(base_lr=1e-3, warmup_steps=2, total_steps=10)
+SEQ, BATCH = 64, 4
+
+
+def _pair(arch, **over):
+    rcfg = dataclasses.replace(rget(arch).reduced(), compute_dtype="float32", **over)
+    cfg = dataclasses.replace(get_arch(arch).reduced(), compute_dtype="float32", **over)
+    return rcfg, cfg, rbuild(rcfg), build_model(cfg)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _batches(cfg, n, seed=0):
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=SEQ, global_batch=BATCH,
+                           seed=seed)
+    return [data.batch_at(s) for s in range(n)]
+
+
+def _rel(a, b):
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def _moments_close(port_state, ref_state, cfg):
+    ref = train_state_from_reference(_np_tree(ref_state), cfg, device="cpu").opt
+    for got, want in ((port_state.opt.mu, ref.mu), (port_state.opt.nu, ref.nu)):
+        assert sorted(got) == sorted(want)
+        scale = max(float(w.abs().max()) for w in want.values())
+        for k in want:
+            assert float((got[k] - want[k]).abs().max()) <= TOL * scale, k
+
+
+def _params_close(port_state, ref_state, cfg, lrs, compression):
+    want = flatten_with_paths(train_state_from_reference(
+        _np_tree(ref_state), cfg, device="cpu").params)
+    got = flatten_with_paths(port_state.params)
+    assert sorted(got) == sorted(want)
+    total = noisy = 0
+    for k, g in got.items():
+        d = (g - want[k]).detach().abs()
+        assert float(d.max()) <= 3 * sum(lrs), k
+        total += d.numel()
+        noisy += int((d > TOL).sum())
+    assert noisy <= NOISE_FRACTION[compression] * total, (noisy, total)
+
+
+def _run_both(arch, steps, *, microbatches=1, compression=False):
+    rcfg, cfg, rm, m = _pair(arch)
+    rs = rinit(rm, jax.random.PRNGKey(1), compression=compression)
+    ps = train_state_from_reference(_np_tree(rs), cfg, device="cpu")
+    kw = dict(STEP_KW, microbatches=microbatches, compression=compression)
+    rstep, pstep = jax.jit(rmake(rm, **kw)), make_train_step(m, **kw)
+    lrs = []
+    for b in _batches(cfg, steps):
+        rs, rmet = rstep(rs, {k: jnp.asarray(v) for k, v in b.items()})
+        ps, pmet = pstep(ps, {k: torch.from_numpy(v) for k, v in b.items()})
+        assert sorted(pmet) == sorted(rmet)
+        for key in rmet:
+            tol = COMP_NORM_TOL if compression and key == "grad_norm" else TOL
+            assert _rel(pmet[key], rmet[key]) <= tol, (key, float(pmet[key]),
+                                                        float(rmet[key]))
+        lrs.append(float(rmet["lr"]))
+        if not compression:
+            _moments_close(ps, rs, cfg)
+    assert int(ps.step) == int(rs.step) == int(ps.opt.step) == steps
+    _params_close(ps, rs, cfg, lrs, compression)
+    if compression:
+        ref_res = train_state_from_reference(_np_tree(rs), cfg, device="cpu").comp.residual
+        assert sorted(ps.comp.residual) == sorted(ref_res)
+    return ps, rs
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_steps_match_the_reference_f32(arch, steps):
+    _run_both(arch, steps)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_microbatched_steps_match_the_reference(arch):
+    _run_both(arch, 3, microbatches=2)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_compressed_steps_match_the_reference(arch):
+    _run_both(arch, 3, compression=True)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_microbatches_accumulate_the_halves_gradients(arch):
+    """microbatches=2 against the mean of the two halves' gradients taken
+    one by one, read from the first moment after one step (0.1 × the
+    clipped gradient).  For the dense model the halves' mean is the whole
+    batch's gradient, so microbatches=1 is held too; the MoE's aux loss is
+    a product of batch means and is not additive over microbatches."""
+    _, cfg, _, m = _pair(arch, **({"capacity_factor": 4.0} if "granite" in arch else {}))
+    batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1)[0].items()}
+    halves = [{k: v[i * BATCH // 2:(i + 1) * BATCH // 2] for k, v in batch.items()}
+              for i in range(2)]
+    state = init_train_state(m, 0, device="cpu")
+    _, met = make_train_step(m, microbatches=2, **STEP_KW)(state, batch)
+    assert sorted(met) == ["grad_norm", "loss", "lr"]
+    leaves = flatten_with_paths(state.params)
+    want = {k: torch.zeros_like(p) for k, p in leaves.items()}
+    losses = []
+    for h in halves:
+        loss, _ = m.loss(state.params, h)
+        losses.append(float(loss))
+        for k, g in zip(leaves, torch.autograd.grad(loss, list(leaves.values()))):
+            want[k] += g / 2
+    from repro_torch.optim.adamw import global_norm
+
+    assert _rel(met["loss"], np.mean(losses)) <= TOL
+    assert _rel(met["grad_norm"], global_norm(want)) <= TOL
+    targets = [(want, TOL)]
+    if "granite" not in arch:
+        whole = init_train_state(m, 0, device="cpu")
+        loss, _ = m.loss(whole.params, batch)
+        targets.append((dict(zip(leaves, torch.autograd.grad(
+            loss, list(flatten_with_paths(whole.params).values())))), TOL))
+    for target, tol in targets:
+        scale = max(float(g.abs().max()) for g in target.values())
+        state = init_train_state(m, 0, device="cpu")
+        state, _ = make_train_step(m, microbatches=2, **STEP_KW)(state, batch)
+        clip = min(1.0, 1.0 / float(global_norm(target)))
+        for k, g in target.items():
+            assert float((state.opt.mu[k] / 0.1 / clip - g).abs().max()) <= 2 * tol * scale, k
+
+
+def test_bf16_compute_gives_every_leaf_a_gradient():
+    """The fault this slice repairs: bfloat16 compute casts every matrix
+    through `Params.cast`; a cached, detached copy would leave the experts
+    and the dense kernels without a gradient, silently."""
+    for arch, kind in (("granite-moe-1b-a400m", "moe"), ("qwen2-72b", "dense")):
+        base = get_arch(arch).reduced()
+        over = {"capacity_factor": base.num_experts / base.top_k} if base.num_experts else {}
+        batch = {k: torch.from_numpy(v) for k, v in _batches(base, 1)[0].items()}
+        grads = {}
+        for dt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, compute_dtype=dt, **over)
+            m = build_model(cfg)
+            params = trainable(m.init(0, device="cpu"))
+            leaves = flatten_with_paths(params)
+            loss, _ = m.loss(params, batch)
+            grads[dt] = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()), allow_unused=True)))
+        for k, g in grads["bfloat16"].items():
+            f = grads["float32"][k]
+            assert g is not None, f"{arch}: {k} is cut from the graph"
+            assert g.dtype == torch.float32 and bool(torch.isfinite(g).all()), k
+            assert float(g.abs().max()) > 0, f"{arch}: no gradient for {k}"
+            assert float((g - f).norm() / f.norm()) <= BF16_TOL[kind], k
+
+
+def test_params_cast_at_inference_is_still_cached():
+    m = build_model(dataclasses.replace(get_arch("qwen2-72b").reduced(),
+                                        compute_dtype="bfloat16"))
+    p = trainable(m.init(0, device="cpu"))
+    lp = p["layers"][0]["attn"]["q"]
+    with torch.no_grad():
+        a, b = lp.cast("kernel", torch.bfloat16), lp.cast("kernel", torch.bfloat16)
+    assert a is b and not a.requires_grad
+    c = lp.cast("kernel", torch.bfloat16)
+    assert c is not a and c.requires_grad and c.grad_fn is not None
+
+
+def test_remat_recomputes_each_layer_in_the_backward(monkeypatch):
+    """With gradients, each layer runs under torch.utils.checkpoint: the
+    forward's attention and expert matmuls run twice (forward and
+    recompute) and their backward once, as the card's launch counts are
+    gated; remat changes no number."""
+    _, cfg, _, m = _pair("granite-moe-1b-a400m")
+    calls = {"fwd": 0, "bwd": 0, "gmm": 0}
+    real_f, real_b, real_g = (fa.flash_attention_plain, fa.flash_attention_backward_plain,
+                              gmm.moe_gmm_plain)
+
+    def count(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(fa, "flash_attention_plain", count("fwd", real_f))
+    monkeypatch.setattr(fa, "flash_attention_backward_plain", count("bwd", real_b))
+    monkeypatch.setattr(gmm, "moe_gmm_plain", count("gmm", real_g))
+    params = trainable(m.init(0, device="cpu"))
+    leaves = flatten_with_paths(params)
+    batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1)[0].items()}
+    from repro_torch.models import transformer
+
+    grads = {}
+    for remat in (True, False):
+        for key in calls:
+            calls[key] = 0
+        logits, aux = transformer.decoder_forward(params, batch["tokens"], cfg, remat=remat)
+        from repro_torch.models.model_factory import cross_entropy
+        loss = cross_entropy(logits, batch["labels"]) + 0.01 * aux
+        grads[remat] = torch.autograd.grad(loss, list(leaves.values()))
+        n = cfg.num_layers
+        assert calls == {"fwd": (2 if remat else 1) * n, "bwd": n,
+                         "gmm": (6 if remat else 3) * n + 6 * n}, (remat, calls)
+    for a, b in zip(grads[True], grads[False]):
+        assert torch.equal(a, b)
+
+
+def test_port_checkpoint_resume_is_bit_equal(tmp_path):
+    _, cfg, _, m = _pair("granite-moe-1b-a400m")
+    step = make_train_step(m, **STEP_KW)
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in _batches(cfg, 4)]
+    whole = init_train_state(m, 0, device="cpu")
+    for b in batches:
+        whole, _ = step(whole, b)
+    part = init_train_state(m, 0, device="cpu")
+    for b in batches[:2]:
+        part, _ = step(part, b)
+    ckpt = CheckpointManager(str(tmp_path), async_save=True)
+    ckpt.save(2, part, {"arch": cfg.name})
+    ckpt.wait()
+    restored, meta = ckpt.restore(target=init_train_state(m, 1, device="cpu"))
+    ckpt.close()
+    assert meta["step"] == 2
+    for k, t in flatten_with_paths(part).items():
+        assert torch.equal(flatten_with_paths(restored)[k], t), k
+    assert all(p.requires_grad for p in restored.params.parameters())
+    for b in batches[2:]:
+        restored, _ = step(restored, b)
+    flat = flatten_with_paths(whole)
+    for k, t in flatten_with_paths(restored).items():
+        assert torch.equal(flat[k], t), k
+
+
+@pytest.mark.parametrize("compression", [False, True])
+def test_reference_checkpoint_resumes_in_the_port(tmp_path, compression):
+    """Two steps in the reference, saved by its CheckpointManager; the
+    port restores the arrays (target=None), carries them over and takes
+    the third step beside the reference."""
+    rcfg, cfg, rm, m = _pair("qwen2-72b")
+    kw = dict(STEP_KW, compression=compression)
+    rstep = jax.jit(rmake(rm, **kw))
+    rs = rinit(rm, jax.random.PRNGKey(2), compression=compression)
+    batches = _batches(cfg, 3, seed=4)
+    lrs = []
+    for b in batches[:2]:
+        rs, met = rstep(rs, {k: jnp.asarray(v) for k, v in b.items()})
+        lrs.append(float(met["lr"]))
+    RCheckpointManager(str(tmp_path), async_save=False).save(2, rs)
+    arrays, meta = CheckpointManager(str(tmp_path), async_save=False).restore()
+    assert meta["step"] == 2 and ("comp/residual/embed/embedding" in arrays) == compression
+    ps = train_state_from_reference(arrays, cfg, device="cpu")
+    assert int(ps.step) == int(ps.opt.step) == 2
+    rs, rmet = rstep(rs, {k: jnp.asarray(v) for k, v in batches[2].items()})
+    ps, pmet = make_train_step(m, **kw)(ps, {k: torch.from_numpy(v)
+                                            for k, v in batches[2].items()})
+    lrs.append(float(rmet["lr"]))
+    for key in rmet:
+        tol = COMP_NORM_TOL if compression and key == "grad_norm" else TOL
+        assert _rel(pmet[key], rmet[key]) <= tol, key
+    _params_close(ps, rs, cfg, lrs, compression)
+
+
+def test_train_driver_runs_on_the_host_and_resumes(tmp_path, caplog):
+    from repro_torch.launch import train
+
+    args = ["--arch", "qwen2-72b-reduced", "--global-batch", "2", "--seq-len", "32",
+            "--log-every", "2", "--ckpt-every", "2", "--ckpt-dir", str(tmp_path),
+            "--device", "cpu"]
+    # The port's loggers write to their own handler and do not propagate.
+    logging.getLogger("repro").addHandler(caplog.handler)
+    try:
+        _driver_script(train, args, caplog, tmp_path)
+    finally:
+        logging.getLogger("repro").removeHandler(caplog.handler)
+
+
+def _driver_script(train, args, caplog, tmp_path):
+    with caplog.at_level(logging.INFO, logger="repro"):
+        first = train.main(args + ["--steps", "4"])
+    assert len(first) == 4 and all(np.isfinite(first))
+    assert CheckpointManager(str(tmp_path), async_save=False).all_steps() == [2, 4]
+    assert any("step 4 loss" in r.getMessage() and "tok/s" in r.getMessage()
+               for r in caplog.records)
+    with caplog.at_level(logging.INFO, logger="repro"):
+        more = train.main(args + ["--steps", "6"])
+    assert len(more) == 2
+    assert any("resumed from checkpoint step 4" in r.getMessage() for r in caplog.records)
+    # The resumed run continues the uninterrupted one: the same losses.
+    whole = train.main(args[:-4] + ["--device", "cpu", "--steps", "6"])
+    np.testing.assert_array_equal(np.asarray(more), np.asarray(whole[4:]))
+    with pytest.raises(SystemExit, match="A.5"):
+        train.main(args + ["--steps", "1", "--model-parallel", "2"])
