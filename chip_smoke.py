@@ -222,6 +222,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -749,16 +750,17 @@ def read_counts() -> dict:
 
 def read_routes() -> dict:
     """Launches by route since the counts were last zeroed: both tree
-    kernels together by bank route (``staged``, ``packed``); flash and the
-    GMM by kernel (bfloat16 tensor cores, float32 CUDA cores); the int8
-    GEMM by k route and by A route (each launch counts in both); Winograd
-    by block tile."""
+    kernels together by bank route (``staged``, ``packed``); flash (forward
+    and backward) and the GMM by kernel (bfloat16 tensor cores, float32
+    CUDA cores); the int8 GEMM by k route and by A route (each launch
+    counts in both); Winograd by block tile."""
     from repro_torch.kernels import (flash_attention_cuda, int8_matmul_cuda,
                                      moe_gmm_cuda, tree_gather_cuda,
                                      winograd_conv_cuda)
 
     return {"tree_gather": tree_gather_cuda.route_counts(),
             "flash_attention": flash_attention_cuda.route_counts(),
+            "flash_attention_backward": flash_attention_cuda.bwd_route_counts(),
             "moe_gmm": moe_gmm_cuda.route_counts(),
             "int8_matmul": int8_matmul_cuda.route_counts(),
             "winograd_conv2d": winograd_conv_cuda.route_counts()}
@@ -2399,6 +2401,7 @@ class FlashCase(NamedTuple):
     window: int = 0
     softcap: float = 0.0
     q_scale: float = 1.0            # q's standard deviation (k and v: 1)
+    q_offset: int = 0               # the causal diagonal's shift
 
     @property
     def keys(self) -> int:
@@ -2429,7 +2432,12 @@ FLASH_CASES = [FlashCase(*c) for c in (
     ("window_ragged", 2, 1000, 16, 8, 64, True, "bfloat16", 0, 100, 0.0),
     ("vlm_cross", 2, 2048, 64, 8, 128, False, "bfloat16", 1600),
     ("whisper_encoder", 2, 1500, 20, 20, 64, False, "bfloat16"),
-    ("whisper_cross_decode", 4, 1, 20, 20, 64, False, "bfloat16", 1500))]
+    ("whisper_cross_decode", 4, 1, 20, 20, 64, False, "bfloat16", 1500),
+    # Head dims the training path does not take, on the backward's
+    # bfloat16 instances too: 128, and 16 with queries that continue 128
+    # cached keys (q_offset, sq != skv).
+    ("d128_bf16", 2, 1000, 16, 4, 128, True, "bfloat16"),
+    ("d16_offset", 2, 200, 8, 2, 16, True, "bfloat16", 328, 0, 0.0, 1.0, 128))]
 # The flash cases `time_flash` times: the Granite, Zamba2 and zoo forwards'
 # shapes.
 FLASH_TIMED = ("forward", "forward_f32", "zamba2_forward", "gemma2_local",
@@ -2514,7 +2522,8 @@ def _flash_inputs(b, s, h, kvh, d, dtype, device, seed, skv=0, q_scale=1.0):
 
 
 def _flash_kw(c: FlashCase) -> dict:
-    return {"causal": c.causal, "window": c.window, "softcap": c.softcap}
+    return {"causal": c.causal, "window": c.window, "softcap": c.softcap,
+            "q_offset": c.q_offset}
 
 
 def _gmm_inputs(e, rows, d, f, dtype, device, seed):
@@ -2522,20 +2531,65 @@ def _gmm_inputs(e, rows, d, f, dtype, device, seed):
             _randn((e, d, f), seed + 1, device, dtype, 1.0 / math.sqrt(d)))
 
 
-def _check_route(label, module, before: dict, dtype, launches: int) -> None:
+def _check_route(label, module, before: dict, dtype, launches: int,
+                 counts=None) -> None:
     """The launches went to the kernel of ``dtype``'s route (bfloat16: the
-    tensor cores; float32: the CUDA cores) and to no other."""
+    tensor cores; float32: the CUDA cores) and to no other; ``counts``
+    reads them (the module's `route_counts` unless given)."""
     route = module.ROUTES[dtype][1]
-    now = module.route_counts()
+    now = (counts or module.route_counts)()
     moved = {r: now[r] - before[r] for r in now}
     if moved != {r: launches if r == route else 0 for r in now}:
         raise AssertionError(f"{label}: launches by route {moved}, expected "
                              f"{launches} on {route}")
 
 
+# The flash backward's kernels, longest name first (a stem is a prefix of
+# its bfloat16 twin's).
+FLASH_BWD_KERNELS = ("flash_bwd_dkdv_bf16_mma", "flash_bwd_dq_bf16_mma",
+                     "flash_bwd_dkdv", "flash_bwd_dq")
+
+
+def bwd_instance(mangled: str) -> str:
+    """``flash_bwd_dq_bf16_mma<64>`` or ``flash_bwd_dq<float, 64>`` for a
+    mangled backward kernel instance (a length-prefixed name, then its
+    template arguments ``I[f]Li<D>E``); the mangled name itself for any
+    other kernel."""
+    for stem in FLASH_BWD_KERNELS:
+        at = mangled.find(f"{len(stem)}{stem}I")
+        if at >= 0:
+            m = re.match(r"I(f?)Li(\d+)E", mangled[at + len(str(len(stem))) + len(stem):])
+            if m:
+                return f"{stem}<{'float, ' if m.group(1) else ''}{m.group(2)}>"
+    return mangled
+
+
+def flash_bwd_registers() -> dict:
+    """Registers and spill bytes of each flash backward instance, from the
+    build's ptxas report (`_build.ptxas_report`); raises if a bfloat16
+    instance spills, or if the library was built here and its report
+    lacks one.  Empty when the library was built by an earlier process."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    info = _build.BUILD_INFO.get(fac.BWD_LIBRARY.name, {})
+    out = {bwd_instance(k): r for k, r in _build.ptxas_report(info.get("ptxas", "")).items()}
+    if info.get("seconds", 0.0) > 0:
+        want = {f"{stem}<{d}>" for stem in FLASH_BWD_KERNELS if stem.endswith("_mma")
+                for d in fac.HEAD_DIMS}
+        if not want <= set(out):
+            raise AssertionError(f"ptxas report lacks {sorted(want - set(out))}")
+    spilled = {k: r for k, r in out.items() if k.split("<")[0].endswith("_bf16_mma")
+               and (r["spill_stores"] or r["spill_loads"])}
+    if spilled:
+        raise AssertionError(f"bfloat16 flash backward instances spill: {spilled}")
+    return out
+
+
 def log_bf16_smem() -> None:
     """Dynamic shared memory of the bfloat16 kernels' instances (ptxas
-    reports static shared memory only)."""
+    reports static shared memory only); for the flash backward also every
+    instance's registers and spills (`flash_bwd_registers`)."""
     from repro_torch.kernels import flash_attention_cuda as fac
     from repro_torch.kernels import moe_gmm_cuda as gmmc
 
@@ -2544,7 +2598,10 @@ def log_bf16_smem() -> None:
         {d: fl.flash_attention_bf16_smem_bytes(d) for d in fac.HEAD_DIMS}))
     bl = fac.BWD_LIBRARY.load()
     log("smem flash_bwd_dq / flash_bwd_dkdv by head dim " + json.dumps(
-        {d: bl.flash_attention_bwd_smem_bytes(d) for d in fac.HEAD_DIMS}))
+        {"float32": {d: bl.flash_attention_bwd_smem_bytes(d) for d in fac.HEAD_DIMS},
+         "bfloat16": {d: [bl.flash_attention_bwd_bf16_smem_bytes(d, pass_)
+                          for pass_ in (0, 1)] for d in fac.HEAD_DIMS},
+         "registers_and_spills": flash_bwd_registers()}))
     log("smem moe_gmm_mma_kernel by rows " + json.dumps(
         {"<=64": gl.moe_gmm_bf16_smem_bytes(64), ">64": gl.moe_gmm_bf16_smem_bytes(65)}))
 
@@ -2610,7 +2667,8 @@ def check_flash(device) -> dict:
         want = fa.flash_attention_plain(q, k, v, **kw)
         err, rel = _rel_check(f"flash {label}", got, want, LM_TOL[dtype])
         row = {"case": label, "shape": [c.b, c.s, c.h, c.kvh, c.d], "skv": c.keys,
-               "causal": c.causal, "window": c.window, "softcap": c.softcap,
+               "causal": c.causal, "q_offset": c.q_offset, "window": c.window,
+               "softcap": c.softcap,
                "dtype": dtype, "max_abs_err": err, "err_over_max": rel,
                "tol": LM_TOL[dtype]}
         if dtype == "bfloat16":
@@ -2657,9 +2715,11 @@ def check_gmm(device) -> dict:
 
 
 # The flash backward's cases: `FLASH_CASES` without window or softcap (the
-# backward does not take them) and with more than one query row.
+# backward does not take them) and with more than one query row; every
+# head dim on the bfloat16 route (16 with q_offset > 0, 64, 128).
 FLASH_BWD_CASES = ("forward", "forward_f32", "non_causal", "ragged", "ragged_f32",
-                   "d128_one_kv_head", "vlm_cross", "whisper_encoder")
+                   "d128_one_kv_head", "vlm_cross", "whisper_encoder", "d128_bf16",
+                   "d16_offset")
 # Row by row, bfloat16 backward: a row's scale is its max |plain|, floored
 # at this share of the whole output's max.  dq's first causal row is zero
 # in exact arithmetic (a softmax over one key has no gradient), so both
@@ -2695,10 +2755,11 @@ def check_flash_backward(device) -> dict:
     at `FLASH_BWD_CASES`, from the same q, k, v, dO (numpy seeds) and the
     kernel forward's own output and log-sum-exp: dq, dk and dv each within
     `LM_TOL` of max |plain|, bfloat16 also row by row within
-    `FLASH_ROW_TOL` (`_bwd_row_check`), repeatable, one launch a call.
-    The forward with the log-sum-exp gives the output bit-equal to the
-    inference forward (null log-sum-exp), and its log-sum-exp is within
-    `LSE_TOL` of `flash_lse_plain`."""
+    `FLASH_ROW_TOL` (`_bwd_row_check`), repeatable, one launch a call on
+    the type's route (`bwd_route_counts`).  The forward with the
+    log-sum-exp gives the output bit-equal to the inference forward (null
+    log-sum-exp), and its log-sum-exp is within `LSE_TOL` of
+    `flash_lse_plain`."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_cuda as fac
@@ -2708,24 +2769,29 @@ def check_flash_backward(device) -> dict:
         q, k, v = _flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device,
                                 seed=900 + 4 * i, skv=c.skv)
         do = _randn((c.b, c.s, c.h, c.d), 903 + 4 * i, device, c.dtype)
-        plain_o = fac.flash_attention_cuda(q, k, v, causal=c.causal)
-        o, lse = fac.flash_attention_cuda(q, k, v, causal=c.causal, return_lse=True)
+        kw = {"causal": c.causal, "q_offset": c.q_offset}
+        plain_o = fac.flash_attention_cuda(q, k, v, **kw)
+        o, lse = fac.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         if not torch.equal(o, plain_o):
             raise AssertionError(f"flash {c.label}: the forward with the log-sum-exp "
                                  f"differs from the inference forward")
-        want_lse = fa.flash_lse_plain(q, k, causal=c.causal)
+        want_lse = fa.flash_lse_plain(q, k, **kw)
         lse_err = float((lse - want_lse).abs().max()) / max(1.0, float(want_lse.abs().max()))
         if not lse_err <= LSE_TOL:
             raise AssertionError(f"flash {c.label}: log-sum-exp {lse_err} off (> {LSE_TOL})")
         before = fac.launch_counts()["flash_attention_backward"]
-        got = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, causal=c.causal)
-        again = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, causal=c.causal)
+        routes = fac.bwd_route_counts()
+        got = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+        again = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
         if fac.launch_counts()["flash_attention_backward"] != before + 2:
             raise AssertionError("flash_attention_backward launch counter did not advance")
-        want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal=c.causal)
+        _check_route(f"flash backward {c.label}", fac, routes, q.dtype, 2,
+                     fac.bwd_route_counts)
+        want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
         row = {"case": c.label, "shape": [c.b, c.s, c.h, c.kvh, c.d], "skv": c.keys,
-               "causal": c.causal, "dtype": c.dtype, "lse_err_over_max": lse_err,
+               "causal": c.causal, "q_offset": c.q_offset, "dtype": c.dtype,
+               "route": fac.ROUTES[q.dtype][1], "lse_err_over_max": lse_err,
                "tol": LM_TOL[c.dtype]}
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             err, rel = _rel_check(f"flash backward {c.label} {name}", g, w,
@@ -3515,6 +3581,10 @@ HOST_TRAIN_SHAPE = (2, 128)
 # them; every other element is held to `HOST_TOL`
 # (tests/test_torch_train.py holds the same rule on the host).
 NOISE_SHARE = 1e-4
+# The same step with the flash backward's bfloat16 route on the CUDA cores
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6), reported beside this run's.
+CUDA_CORE_BWD_STEP = {"median_step_ms": 429.1, "flash_bwd_ms": 25.9,
+                      "flash_bwd_share": 0.072}
 
 
 def _plain_counters():
@@ -3792,8 +3862,10 @@ def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
     ``steps`` `make_train_step` steps on `SyntheticLMData(seed=0)` batches
     of 4 × 1,024 tokens; gates: finite losses and grad norms, the last
     quarter's mean loss below the first step's, launches a step (flash
-    forward 2 a layer, backward 1, GMM 6 + 6, all bfloat16 tensor-core),
-    no plain version called.  Then one profiled step (not counted), the
+    forward 2 a layer, backward 1, GMM 6 + 6, all on the bfloat16
+    tensor-core routes), no plain version called.  The median step and
+    the profiled step's flash-backward ms and share are reported beside
+    `CUDA_CORE_BWD_STEP`.  Then one profiled step (not counted), the
     2-layer float32 checks (`check_train_on_host`) and the guard
     (`check_no_grad_through_kernels`)."""
     import gc
@@ -3845,8 +3917,7 @@ def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
             "moe_gmm": 12 * n * steps}
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"training launches {counts}, expected {want}")
-    if routes["flash_attention"]["bf16_mma"] != want["flash_attention"] or \
-            routes["moe_gmm"]["bf16_mma"] != want["moe_gmm"]:
+    if any(routes[k]["bf16_mma"] != want[k] for k in want):
         raise AssertionError(f"bfloat16 training off the tensor-core route: {routes}")
     median_s = statistics.median(step_s[1:])
     peak = torch.cuda.max_memory_allocated(device) / 1e9
@@ -3863,7 +3934,14 @@ def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
            # The profiler slows the host: the device-busy time of the
            # profiled step against the unprofiled median step.
            "idle_share_of_median_step": max(
-               0.0, 1.0 - profiled.get("device_busy_ms", 0.0) / (1e3 * median_s))}
+               0.0, 1.0 - profiled.get("device_busy_ms", 0.0) / (1e3 * median_s)),
+           # [this run, the CUDA-core backward's step]
+           "against_cuda_core_backward": {
+               "median_step_ms": [1e3 * median_s, CUDA_CORE_BWD_STEP["median_step_ms"]],
+               "flash_bwd_ms": [profiled.get("flash_bwd_ms"),
+                                CUDA_CORE_BWD_STEP["flash_bwd_ms"]],
+               "flash_bwd_share": [profiled.get("flash_bwd_share"),
+                                   CUDA_CORE_BWD_STEP["flash_bwd_share"]]}}
     log("lm_train_path " + json.dumps(out))
     del state, step_fn, model
     gc.collect()
@@ -4261,6 +4339,24 @@ def _flash_bwd_bound(b, s, h, kvh, d, causal, dtype, skv=0) -> tuple:
 FLASH_BWD_TIMED = ("forward", "forward_f32")
 
 
+def sdpa_backward(q, k, v, do, causal: bool) -> tuple:
+    """SDPA's backward for the flash backward's function: the gradient of
+    one ``F.scaled_dot_product_attention`` forward (GQA) of q, k, v
+    (b, s, h, d) through ``torch.autograd.grad`` with the graph kept.
+    Returns a call that recomputes it (to time) and its (dq, dk, dv) in
+    the (b, s, h, d) layout."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    return call, tuple(g.transpose(1, 2) for g in call())
+
+
 def time_flash_backward(device) -> list:
     """The flash backward kernel at Granite's training call (b = 4, s =
     1,024, 16 query and 8 kv heads, d = 64, causal), bfloat16 and float32:
@@ -4269,7 +4365,6 @@ def time_flash_backward(device) -> list:
     off, through ``torch.autograd.grad`` with the graph kept) on the same
     q, k, v and dO.  Bound: `_flash_bwd_bound`."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_cuda as fac
 
@@ -4286,24 +4381,20 @@ def time_flash_backward(device) -> list:
             q, k, v, o, lse, do, causal=c.causal))
         plain = cuda_ms(lambda: fa.flash_attention_backward_plain(
             q, k, v, o, lse, do, causal=c.causal), iters=3, warmup=2)
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=c.causal,
-                                             enable_gqa=True)
-        dot = do.transpose(1, 2)
-        lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                  retain_graph=True))
-        lib_grads = torch.autograd.grad(out, (qt, kt, vt), dot)
-        lib_err = max(float((a.transpose(1, 2).float() - w.float()).abs().max())
+        sdpa, lib_grads = sdpa_backward(q, k, v, do, c.causal)
+        lib = cuda_ms(sdpa)
+        lib_err = max(float((a.float() - w.float()).abs().max())
                       for a, w in zip(lib_grads, want))
         b_ms, b_by = _flash_bwd_bound(c.b, c.s, c.h, c.kvh, c.d, c.causal, c.dtype)
         rows.append({"case": c.label, "shape": [c.b, c.s, c.h, c.kvh, c.d],
-                     "dtype": c.dtype, "causal": c.causal, "max_abs_err": err,
+                     "dtype": c.dtype, "route": fac.ROUTES[q.dtype][1],
+                     "causal": c.causal, "max_abs_err": err,
                      "ms": kern["device"], "host_ms": kern["host"],
                      "plain_ms": plain["device"], "library_ms": lib["device"],
                      "library_fn": "SDPA backward (same function)",
                      "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by})
         log("time flash_attention_backward " + json.dumps(rows[-1]))
-        del q, k, v, do, o, lse, got, want, qt, kt, vt, out, dot, lib_grads
+        del q, k, v, do, o, lse, got, want, sdpa, lib_grads
         torch.cuda.empty_cache()
     return rows
 

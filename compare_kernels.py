@@ -7,14 +7,19 @@ NVIDIA H100.
         [out.json] [--only int8_matmul,winograd_conv,tree_gather]
     python3 compare_kernels.py --sweep [out.json] [--only tree_gather]
 
-Builds the parent's sources of the chosen kernels (default: all five,
-``flash_attention``, ``moe_gmm``, ``int8_matmul``, ``winograd_conv``,
-``tree_gather``) with this tree's nvcc flags (into ``build/``), and this
-tree's kernels through their wrappers.  At each shape both outputs are
-first held to their plain version, then the two are timed parent,
-change, change, parent with `chip_smoke.cuda_ms` (device time per call):
+Builds the parent's sources of the chosen kernels (default: all six,
+``flash_attention``, ``flash_attention_bwd``, ``moe_gmm``,
+``int8_matmul``, ``winograd_conv``, ``tree_gather``) with this tree's
+nvcc flags (into ``build/``), and this tree's kernels through their
+wrappers.  At each shape both outputs are first held to their plain
+version, then the two are timed parent, change, change, parent with
+`chip_smoke.cuda_ms` (device time per call):
   * flash: its ``FLASH_TIMED`` cases without a window, a softcap or
     sq != skv (the parent's function), within ``LM_TOL``;
+  * flash backward: ``FLASH_BWD_TIMED`` (Granite's training call,
+    bfloat16 and float32), dq, dk and dv within ``LM_TOL`` and, in
+    bfloat16, row by row within ``FLASH_ROW_TOL`` (`_bwd_row_check`),
+    with SDPA's backward (`chip_smoke.sdpa_backward`) beside them;
   * GMM: its ``GMM_TIMED`` shapes on the input sets ``_gmm_turns`` hands
     out (the four serving shapes, and the two decode shapes with a cold
     L2), within ``LM_TOL``;
@@ -52,8 +57,12 @@ t, c, k, stream)``; of the commit before the tree redesign:
 n_nodes, n_trees, depth, rows_per_block, bank_in_smem, grid, smem_bytes,
 stream)`` and ``tree_predict_fused_launch`` likewise (with mean, std,
 scale, bias and the reduction), launched as `parent_tree_plan` plans;
-the GMM's is this tree's (the operands' card index before the stream),
-and flash's that of the commit before the log-sum-exp output
+the GMM's and the flash backward's are this tree's
+(``flash_attention_bwd_launch(q, k, v, o, dout, lse, delta, dq, dk, dv,
+b, sq, skv, heads, kv_heads, d, dtype, causal, q_offset, scale, device,
+stream)``: the parent is called with the same operands and a D scratch
+of its own, the change through its wrapper), and flash's that of the
+commit before the log-sum-exp output
 (``flash_attention_launch`` without ``lse``: the parent is called with
 window 0 and softcap 0, the change through its wrapper, whose inference
 launch passes a null ``lse``).
@@ -71,7 +80,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
-KERNELS = ("flash_attention", "moe_gmm", "int8_matmul", "winograd_conv", "tree_gather")
+KERNELS = ("flash_attention", "flash_attention_bwd", "moe_gmm", "int8_matmul",
+           "winograd_conv", "tree_gather")
 # Rows timed on each tree bank of `chip_smoke.parity_models` (the main
 # path's own op-type shapes are added by `tree_shapes`).
 TREE_ROWS = {"gbdt_150x4": (5, 64, 527, 2048, 11437, 32768),
@@ -94,6 +104,7 @@ def build_parent(csrc: Path, names) -> dict:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {
         "flash_attention": [p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, i, p],
+        "flash_attention_bwd": [p] * 10 + [i] * 9 + [f, i, p],
         "moe_gmm": [p, p, p, i, i, i, i, i, i, p],
         "int8_matmul": [p, p, p, p, i, i, i, i, f, p],
         "winograd_conv": [p, p, p, i, i, i, p]}
@@ -132,6 +143,24 @@ def parent_flash(lib, q, k, v, causal):
 def change_flash(fac, q, k, v, causal):
     """This tree's kernel at the parent's function: no window, no softcap."""
     return fac.flash_attention_cuda(q, k, v, causal=causal, window=0, softcap=0.0)
+
+
+def parent_flash_bwd(lib, q, k, v, o, lse, do, causal):
+    """(dq, dk, dv) from the parent's backward entry point."""
+    import torch
+
+    b, sq, h, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, sq, k.shape[1], h, k.shape[2], d, 1 if q.dtype == torch.bfloat16 else 0,
+        int(causal), 0, 1.0 / math.sqrt(d), q.get_device(),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"parent flash_attention_bwd launch failed: {err}")
+    return dq, dk, dv
 
 
 def parent_gmm(lib, x, w):
@@ -183,6 +212,53 @@ def compare_flash(cs, lib, device) -> list:
         rows.append(row)
         cs.log("compare " + json.dumps(row))
         del q, k, v, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def compare_flash_bwd(cs, lib, device) -> list:
+    """The flash backward at ``FLASH_BWD_TIMED`` from the forward's output
+    and log-sum-exp (this tree's forward kernel): parent and change held to
+    `flash_attention_backward_plain`, then timed in turns, with SDPA's
+    backward and `chip_smoke._flash_bwd_bound` beside them."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    rows = []
+    for c in (c for c in cs.FLASH_CASES if c.label in cs.FLASH_BWD_TIMED):
+        q, k, v = cs._flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device, seed=1000)
+        do = cs._randn((c.b, c.s, c.h, c.d), 1003, device, c.dtype)
+        o, lse = fac.flash_attention_cuda(q, k, v, causal=c.causal, return_lse=True)
+        want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal=c.causal)
+
+        def parent():
+            return parent_flash_bwd(lib, q, k, v, o, lse, do, c.causal)
+
+        def change():
+            return fac.flash_attention_backward_cuda(q, k, v, o, lse, do, causal=c.causal)
+
+        errs = {}
+        for who, fn in (("parent", parent), ("change", change)):
+            errs[who] = {}
+            for name, g, w in zip(("dq", "dk", "dv"), fn(), want):
+                label = f"{who} flash backward {c.label} {name}"
+                errs[who][name] = {"err_over_max": cs._rel_check(
+                    label, g, w, cs.LM_TOL[c.dtype])[1]}
+                if c.dtype == "bfloat16":
+                    errs[who][name]["row_err_over_max"] = cs._bwd_row_check(
+                        label, g, w, cs.FLASH_ROW_TOL)
+        row = {"kernel": "flash_attention_bwd", "case": c.label,
+               "shape": [c.b, c.s, c.h, c.kvh, c.d], "dtype": c.dtype,
+               "route": fac.ROUTES[q.dtype][1], "err_over_max": errs}
+        row.update(in_turns(cs, parent, change))
+        sdpa, _ = cs.sdpa_backward(q, k, v, do, c.causal)
+        row["library_ms"] = cs.cuda_ms(sdpa)["device"]
+        row["bound_ms"], row["bound_by"] = cs._flash_bwd_bound(
+            c.b, c.s, c.h, c.kvh, c.d, c.causal, c.dtype)
+        rows.append(row)
+        cs.log("compare " + json.dumps(row))
+        del q, k, v, do, o, lse, want, sdpa
         torch.cuda.empty_cache()
     return rows
 
@@ -718,19 +794,22 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
     cs.log(f"card: {card}")
-    modules = {"flash_attention": flash_attention_cuda, "moe_gmm": moe_gmm_cuda,
-               "int8_matmul": int8_matmul_cuda, "winograd_conv": winograd_conv_cuda,
-               "tree_gather": tree_gather_cuda}
+    libraries = {"flash_attention": flash_attention_cuda.LIBRARY,
+                 "flash_attention_bwd": flash_attention_cuda.BWD_LIBRARY,
+                 "moe_gmm": moe_gmm_cuda.LIBRARY, "int8_matmul": int8_matmul_cuda.LIBRARY,
+                 "winograd_conv": winograd_conv_cuda.LIBRARY,
+                 "tree_gather": tree_gather_cuda.LIBRARY}
     if sweep:
         sweeps = {"int8_matmul": sweep_int8, "winograd_conv": sweep_winograd,
                   "tree_gather": sweep_tree}
         names = [n for n in names if n in sweeps]
-        _build.build_all([modules[n].LIBRARY for n in names])
+        _build.build_all([libraries[n] for n in names])
         rows = [r for n in names for r in sweeps[n](cs, device)]
     else:
         libs = build_parent(parent_csrc, names)
-        _build.build_all([modules[n].LIBRARY for n in names])
-        compare = {"flash_attention": compare_flash, "moe_gmm": compare_gmm,
+        _build.build_all([libraries[n] for n in names])
+        compare = {"flash_attention": compare_flash,
+                   "flash_attention_bwd": compare_flash_bwd, "moe_gmm": compare_gmm,
                    "int8_matmul": compare_int8, "winograd_conv": compare_winograd,
                    "tree_gather": compare_tree}
         rows = [r for n in names for r in compare[n](cs, libs[n], device)]

@@ -13,7 +13,8 @@ its launch; `CudaLibrary.raise_on` turns a non-zero code into an error.
 `add_launches` move launches recorded by a CUDA-graph capture to the
 graph's replays), `check_tensor` is the wrappers' argument check and
 `refuse_grad` the dispatchers' refusal to cut an autograd graph at a
-kernel without a backward.
+kernel without a backward; `ptxas_report` reads each kernel's registers
+and spills from a build's compiler report.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -149,6 +151,35 @@ def build_all(libraries: Sequence[CudaLibrary]) -> Dict[str, Dict[str, Any]]:
     for lib in libraries:
         lib.load()
     return {lib.name: BUILD_INFO[lib.name] for lib in libraries}
+
+
+def ptxas_report(text: str) -> Dict[str, Dict[str, int]]:
+    """Each kernel of nvcc's ``-Xptxas -v`` report (a `BUILD_INFO`
+    ``"ptxas"`` text): mangled entry name → {"registers", "spill_stores",
+    "spill_loads"} (bytes of spills).  Empty when the library was not built
+    in this process."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            name = m.group(1) if m.group(1) in out else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 class LaunchCounter:

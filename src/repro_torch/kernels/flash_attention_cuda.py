@@ -25,9 +25,12 @@ saves for the backward.
 → (dq, dk, dv) in q's type launches the hand-written backward
 (``csrc/flash_attention_bwd.cu``: a dq pass that also writes each row's
 D = dO·O, then a dk/dv pass over every query head of a kv head's group),
-float32 or bfloat16 on the CUDA cores, without window or softcap.  It
-adds one to ``LAUNCHES["flash_attention_backward"]`` per call (the one C
-entry point runs both passes).  CPU tensors never reach this module.
+without window or softcap.  The type picks the route as in the forward:
+bfloat16 the tensor-core kernels (`flash_bwd_dq_bf16_mma`,
+`flash_bwd_dkdv_bf16_mma`), float32 the CUDA-core ones (`flash_bwd_dq`,
+`flash_bwd_dkdv`).  It adds one to ``LAUNCHES["flash_attention_backward"]``
+and to ``bwd_route_counts()[route]`` per call (the one C entry point runs
+both passes).  CPU tensors never reach this module.
 """
 from __future__ import annotations
 
@@ -44,9 +47,12 @@ from repro_torch.kernels._build import check_tensor as _check
 ROUTES = {torch.float32: (0, "f32_simt"), torch.bfloat16: (1, "bf16_mma")}
 _COUNTER = LaunchCounter("flash_attention", "flash_attention_backward")
 _ROUTE_COUNTER = LaunchCounter(*(r for _, r in ROUTES.values()), routes=True)
+# The backward's launches by route (the same `ROUTES`).
+_BWD_ROUTE_COUNTER = LaunchCounter(*(r for _, r in ROUTES.values()), routes=True)
 LAUNCHES: Dict[str, int] = _COUNTER.counts
 launch_counts = _COUNTER.snapshot
 route_counts = _ROUTE_COUNTER.snapshot
+bwd_route_counts = _BWD_ROUTE_COUNTER.snapshot
 
 # Head dimensions the kernels are compiled for (one instance each).
 HEAD_DIMS = (16, 32, 64, 128)
@@ -55,6 +61,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 def reset_launch_counts() -> None:
     _COUNTER.reset()
     _ROUTE_COUNTER.reset()
+    _BWD_ROUTE_COUNTER.reset()
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -73,12 +80,15 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd_launch.restype = i
     lib.flash_attention_bwd_smem_bytes.argtypes = [i]
     lib.flash_attention_bwd_smem_bytes.restype = i
+    lib.flash_attention_bwd_bf16_smem_bytes.argtypes = [i, i]
+    lib.flash_attention_bwd_bf16_smem_bytes.restype = i
 
 
 LIBRARY = CudaLibrary("flash_attention", ("flash_attention.cu",), _declare,
                       headers=("mma_bf16.cuh", "ptx_copy.cuh", "host_launch.cuh"))
 BWD_LIBRARY = CudaLibrary("flash_attention_bwd", ("flash_attention_bwd.cu",),
-                          _declare_bwd, headers=("host_launch.cuh",))
+                          _declare_bwd,
+                          headers=("mma_bf16.cuh", "ptx_copy.cuh", "host_launch.cuh"))
 # Every library of the module, built together by `_build.build_all`.
 LIBRARIES = (LIBRARY, BWD_LIBRARY)
 
@@ -175,7 +185,7 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = BWD_LIBRARY.load()
-    code, _ = ROUTES[q.dtype]
+    code, route = ROUTES[q.dtype]
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -184,4 +194,5 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         torch.cuda.current_stream(q.device).cuda_stream)
     BWD_LIBRARY.raise_on(err, "flash_attention_backward")
     _COUNTER.add("flash_attention_backward")
+    _BWD_ROUTE_COUNTER.add(route)
     return dq, dk, dv

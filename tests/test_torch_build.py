@@ -87,7 +87,8 @@ LIBRARIES = [lib for m in CUDA_MODULES for lib in getattr(m, "LIBRARIES", (m.LIB
 def test_every_source_has_a_library():
     assert sorted(s for lib in LIBRARIES for s in lib.sources) == sorted(
         p.name for p in _build.CSRC.glob("*.cu"))
-    assert flash_attention_cuda.BWD_LIBRARY.headers == ("host_launch.cuh",)
+    assert flash_attention_cuda.BWD_LIBRARY.headers == (
+        "mma_bf16.cuh", "ptx_copy.cuh", "host_launch.cuh")
 
 
 @pytest.mark.parametrize("lib", LIBRARIES, ids=lambda lib: lib.name)
@@ -116,6 +117,74 @@ def test_routes_are_chosen_by_dtype_and_reset_with_the_launch_count(module):
     module.reset_launch_counts()
     assert module.route_counts() == {"bf16_mma": 0, "f32_simt": 0}
     assert set(module.launch_counts().values()) == {0}
+
+
+def test_backward_routes_are_counted_apart_and_reset_with_the_launch_count():
+    module = flash_attention_cuda
+    assert set(module.bwd_route_counts()) == {"bf16_mma", "f32_simt"}
+    assert module._BWD_ROUTE_COUNTER.routes
+    assert any(c is module._BWD_ROUTE_COUNTER for c in _build._COUNTERS)
+    module._BWD_ROUTE_COUNTER.add("bf16_mma")
+    assert module.route_counts()["bf16_mma"] == 0      # the forward's routes
+    module.reset_launch_counts()
+    assert module.bwd_route_counts() == {"bf16_mma": 0, "f32_simt": 0}
+
+
+def _code(name: str) -> str:
+    """A csrc file without its ``//`` comments."""
+    return re.sub(r"//[^\n]*", "", (_build.CSRC / name).read_text())
+
+
+def _kernel_body(src: str, name: str) -> str:
+    """The body of the ``__global__`` function ``name`` (braces balanced)."""
+    start = src.index("{", re.search(rf"__global__[^;{{]*\b{name}\(", src).end())
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start:i + 1]
+    raise AssertionError(name)
+
+
+@pytest.mark.parametrize("kernel,mmas", [("flash_bwd_dq_bf16_mma", 6),
+                                         ("flash_bwd_dkdv_bf16_mma", 8)])
+def test_bf16_backward_multiplies_on_the_tensor_cores_in_registers(kernel, mmas):
+    """Every product of the bfloat16 backward is an m16n8k16 mma (dq: S,
+    dP, dQ; dk/dv: S^T, dP^T, dV, dK; two n-blocks a call site); P and dS
+    reach the next product as A fragments (no store of a score tile to
+    shared memory), and nothing adds atomically or calls a library."""
+    src = _code("flash_attention_bwd.cu")
+    body = _kernel_body(src, kernel)
+    assert body.count("mma_bf16_16816(") == mmas
+    assert "c_to_a(" in body
+    # The only shared-memory writes are cp.async copies and the final
+    # staging of dQ / dK / dV rows (store_rows).
+    assert "reinterpret_cast<uint32_t*>" not in body
+    assert re.search(r"\b(qs|dos|ks|vs|ls|dl)\[[^\]]*\]\s*=", body) is None
+    for word in ("atomic", "cublas", "cudnn", "cutlass", "#include <"):
+        assert word not in src.lower().replace("#include <cuda_bf16.h>", "").replace(
+            "#include <cuda_runtime.h>", "").replace("#include <stdint.h>", "")
+
+
+PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_bwd_dq_bf16_mmaILi64EEEvPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_bwd_dq_bf16_mmaILi64EEEvPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112flash_bwd_dqIfLi128EEEvPKT_S3_S3_S3_S3_PKfPfPS1_iiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112flash_bwd_dqIfLi128EEEvPKT_S3_S3_S3_S3_PKfPfPS1_iiiiiif
+    8 bytes stack frame, 24 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 420 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills_per_kernel():
+    report = _build.ptxas_report(PTXAS)
+    assert sorted(report.values(), key=lambda r: r["registers"]) == [
+        {"registers": 168, "spill_stores": 0, "spill_loads": 0},
+        {"registers": 255, "spill_stores": 24, "spill_loads": 16}]
+    assert _build.ptxas_report("") == {}
 
 
 # -- launches recorded by a CUDA-graph capture count at each replay ---------------

@@ -14,6 +14,15 @@ gradients.  Inputs come from a numpy seed.  Tolerance: 1e-5 of the
 largest |gradient| in float32 (the same function; only the order of
 float32 sums differs).  A window or a softcap with a gradient raises.
 
+The bfloat16 kernel on the card rounds P and dS to bfloat16 before the
+dV, dK and dQ products (float32 sums, one final rounding).  A torch
+emulation of those rounding points is held to
+`flash_attention_backward_plain` within the card's gates, which the kernel
+meets there: 2e-2 of the output's max (chip_smoke.py's ``LM_TOL``) and,
+row by row, 1.6e-2 of each row's max floored at 2^-8 of the output's
+(``FLASH_ROW_TOL``, ``FLASH_BWD_ROW_FLOOR``), at the shapes of the
+``cuda`` test (tests/test_torch_cuda_kernels.py).
+
 The GMM's autograd (`GroupedMatmul`: both backward products through the
 GMM itself) is held against ``jax.grad`` of the reference's
 ``moe_gmm_ref`` at 1e-5, in float32, and in bfloat16 against the same
@@ -143,6 +152,69 @@ def test_no_gradient_asked_takes_the_plain_forward():
     q, k, v, _ = _inputs(1, 16, 16, 2, 2, 16, seed=4)
     out = fa.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)))
     assert out.grad_fn is None
+
+
+# -- the bfloat16 kernel's rounding points -------------------------------------------
+
+BF16_TOL = 2e-2                         # chip_smoke.py's LM_TOL["bfloat16"]
+ROW_TOL = 1.6e-2                        # FLASH_ROW_TOL
+ROW_FLOOR = 2.0 ** -8                   # FLASH_BWD_ROW_FLOOR
+LOG2E = 1.4426950408889634
+
+# The cuda test's shapes: (b, sq, skv, h, kvh, d, causal, q_offset).
+CARD_CASES = [
+    (2, 256, 256, 16, 8, 64, True, 0), (1, 1000, 1000, 4, 2, 64, True, 0),
+    (2, 77, 50, 4, 2, 32, False, 0), (1, 33, 33, 8, 1, 128, True, 0),
+    (1, 20, 45, 4, 4, 16, True, 25), (3, 5, 7, 2, 2, 16, False, 0)]
+
+
+def _bf16_kernel_emulation(q, k, v, o, lse, do, causal, q_offset):
+    """The tensor-core kernel's arithmetic in float32 torch: P =
+    exp2(S·scale·log2 e − LSE·log2 e) (0 where masked), dS = P ∘ (dP − D)
+    from the float32 P, both rounded to bfloat16 before dV = Pᵀ·dO,
+    dK = scale·dSᵀ·Q and dQ = scale·dS·K; float32 sums, one final
+    rounding."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    rep, scale = h // kvh, 1.0 / np.sqrt(d)
+    qf = q.float().reshape(b, sq, kvh, rep, d)
+    dof = do.float().reshape(b, sq, kvh, rep, d)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float())
+    p = torch.exp2(s * np.float32(scale * LOG2E)
+                   - lse.reshape(b, kvh, rep, sq, 1) * np.float32(LOG2E))
+    if causal:
+        p = p.masked_fill(fa.hidden_keys(sq, skv, causal=True, q_offset=q_offset,
+                                         window=0), 0.0)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dof, v.float())
+    delta = (dof * o.float().reshape(b, sq, kvh, rep, d)).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", pb, dof)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", dsb, qf) * np.float32(scale)
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", dsb, k.float()) * np.float32(scale)
+    return (dq.reshape(b, sq, h, d).bfloat16(), dk.bfloat16(), dv.bfloat16())
+
+
+@pytest.mark.parametrize("case", CARD_CASES, ids=str)
+def test_bf16_rounding_points_fit_the_card_gates(case):
+    b, sq, skv, h, kvh, d, causal, off = case
+    rng = np.random.default_rng(sq + skv + h + d)      # the cuda test's inputs
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                    ).bfloat16()
+                   for shape in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d),
+                                 (b, sq, h, d)))
+    kw = {"causal": causal, "q_offset": off}
+    o = fa.flash_attention_plain(q, k, v, **kw)
+    lse = fa.flash_lse_plain(q, k, **kw)
+    got = _bf16_kernel_emulation(q, k, v, o, lse, do, causal, off)
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        g, w = g.float(), w.float()
+        top = float(w.abs().max())
+        assert float((g - w).abs().max()) <= BF16_TOL * top, f"d{name}"
+        rows = w.abs().amax(-1).clamp_min(ROW_FLOOR * top)
+        assert float(((g - w).abs().amax(-1) / rows).max()) <= ROW_TOL, f"d{name} rows"
 
 
 # -- the GMM ------------------------------------------------------------------------
