@@ -41,9 +41,11 @@ result line:
          plain version without the softcap, or with it after the log2(e)
          fold, fails those gates (gated);
          the flash backward kernel (dq, dk, dv) against
-         `flash_attention_backward_plain` at `FLASH_BWD_CASES` (the
-         forward's log-sum-exp within `LSE_TOL` of its plain version, its
-         output bit-equal to the inference forward's) and the GMM's
+         `flash_attention_backward_plain` at `FLASH_BWD_CASES` (gemma2's
+         global and local training calls with their softcap and window,
+         windows of 100 with an offset, on both routes; the forward's
+         log-sum-exp within `LSE_TOL` of its plain version, its output
+         bit-equal to the inference forward's) and the GMM's
          autograd at `GMM_BWD_CASES` against the plain version's, within
          `LM_TOL`, bfloat16 flash rows within `FLASH_ROW_TOL` of their
          floored max (`FLASH_BWD_ROW_FLOOR`);
@@ -52,9 +54,16 @@ result line:
          reduced Granite-MoE and Qwen2 in float32 on the card against the
          port on the host within `HOST_TOL`;
        * the SSD scan (`SSD_CASES`: both SSM path shapes, a ragged shape,
-         one chunk, bfloat16) bit-equal to its plain version; reduced
-         Mamba2 and a 5-layer Zamba2 (two groups and a tail) in float32
-         on the card against the port on the host within `HOST_TOL`.
+         one chunk, bfloat16) bit-equal to its plain version; its backward
+         (`SSD_BWD_CASES`: Mamba2's and Zamba2's training calls, one
+         chunk, a ragged shape on the scalar route, a nonzero g_final,
+         bfloat16) with ds bit-equal to `ssd_scan_backward_plain`, ddecay
+         within its worst-case sum ceiling (`ddecay_tolerance`) and within
+         DDECAY_SIGMAS·sqrt(P·N)·u·Σ|x| of the float64 sum (`ddecay_gates`),
+         both repeatable;
+         reduced Mamba2 and a 5-layer Zamba2 (two groups and a tail) in
+         float32 on the card against the port on the host within
+         `HOST_TOL`.
   3. Paths, each with every launch count zeroed just before it and read
      just after:
        * float32 (`fused_groups`): profile 40 NAS graphs at 224×224, train
@@ -192,19 +201,29 @@ result line:
          first step's, launches a step gated (flash forward 48, backward
          24, GMM 144 + 144, all on the tensor-core routes), no plain
          version called; step ms, tokens/s, peak memory and a profiled
-         step (device busy, idle share, top kernels).  Then Granite at 2
-         of 24 layers in float32: one train step on the card against the
-         host (`HOST_TOL`, AdamW's noise-normalized elements excepted,
-         `NOISE_SHARE`), microbatches=2 against the halves' mean gradient,
-         two compressed steps, a checkpoint at step 2 restored bit for
-         bit into a fresh state and continued beside the uninterrupted
-         run; and a Mamba2 loss with a gradient, which must raise (the
-         SSD scan has no backward yet).
+         step (device busy, idle share, top kernels).  Then, the same way
+         with the counts zeroed before each (`TRAIN_MODELS`),
+         mamba2-2.7b and zamba2-1.2b at full width and depth (4 × 1,024
+         tokens: the scan 2 and its backward 1 a layer; Zamba2's shared
+         block flash 12 and backward 6 a step) and gemma2-27b at full
+         width and 2 of 46 layers (1 × 4,608 tokens, its window and
+         softcaps: flash 4 and backward 2 a step), each freed before the
+         next.  Then Granite at 2 of 24 layers in float32: one train step
+         on the card against the host (`HOST_TOL`, AdamW's
+         noise-normalized elements excepted, `NOISE_SHARE`),
+         microbatches=2 against the halves' mean gradient, two compressed
+         steps, a checkpoint at step 2 restored bit for bit into a fresh
+         state and continued beside the uninterrupted run; the same one
+         step for reduced Mamba2 and the 5-layer Zamba2; and gradients
+         through Winograd and the tree kernels, which must raise (they
+         have no backward).
   4. Times at the paths' shapes — kernel (with its launch plan for the
      int8 GEMM, Winograd and the tree kernels), plain version, library call where one exists (``torch._int_mm``, ``F.conv2d``,
      ``F.scaled_dot_product_attention``, ``torch.bmm``; none for the tree
-     kernels and the SSD scan; SDPA's backward for the flash backward,
-     ``torch.bmm`` for the GMM's two backward products) and the bound from
+     kernels and the SSD scan and its backward; SDPA's backward for the
+     flash backward, with flex_attention's compiled backward beside it at
+     gemma2's softcapped calls; ``torch.bmm`` for the GMM's two backward
+     products) and the bound from
      bytes at 3.35 TB/s or operations (67 TFLOP/s float32, 989 TFLOP/s
      bfloat16 and 1,979 TOP/s int8 on the tensor cores); the GMM's decode
      shapes also with a cold L2 (weights rotated over 4 sets); for the tree
@@ -249,7 +268,8 @@ SOURCES = {"tree_gather_leaves": CSRC + "tree_gather.cu",
            "flash_attention": CSRC + "flash_attention.cu",
            "flash_attention_backward": CSRC + "flash_attention_bwd.cu",
            "moe_gmm": CSRC + "moe_gmm.cu",
-           "ssd_scan": CSRC + "ssd_scan.cu"}
+           "ssd_scan": CSRC + "ssd_scan.cu",
+           "ssd_scan_backward": CSRC + "ssd_scan.cu"}
 REPLACES = {"tree_gather_leaves": "src/repro/kernels/tree_gather_pallas.py:57",
             "tree_predict_fused": "src/repro/kernels/tree_gather_pallas.py:57",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:27",
@@ -258,7 +278,9 @@ REPLACES = {"tree_gather_leaves": "src/repro/kernels/tree_gather_pallas.py:57",
             # No Pallas kernel: XLA's gradient of the reference's attention.
             "flash_attention_backward": "src/repro/models/attention.py:61",
             "moe_gmm": "src/repro/kernels/moe_gmm.py:25",
-            "ssd_scan": "src/repro/kernels/ssd_scan.py:29"}
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:29",
+            # No Pallas kernel: XLA's gradient of the reference's lax.scan.
+            "ssd_scan_backward": "src/repro/models/ssm.py:114"}
 # The int8 executor's requantize multiplier (ACT·WEIGHT/ACT), the GEMMs' scale.
 INT8_SCALE = 4.0 / 127.0 * (0.4 / 127.0) / (4.0 / 127.0)
 # Winograd against its plain version: float32 summation order only;
@@ -2437,7 +2459,13 @@ FLASH_CASES = [FlashCase(*c) for c in (
     # bfloat16 instances too: 128, and 16 with queries that continue 128
     # cached keys (q_offset, sq != skv).
     ("d128_bf16", 2, 1000, 16, 4, 128, True, "bfloat16"),
-    ("d16_offset", 2, 200, 8, 2, 16, True, "bfloat16", 328, 0, 0.0, 1.0, 128))]
+    ("d16_offset", 2, 200, 8, 2, 16, True, "bfloat16", 328, 0, 0.0, 1.0, 128),
+    # The backward's masks on the float32 route at gemma2's local call, and
+    # a small window (and a softcap) with an offset over 128 cached keys
+    # on both routes.
+    ("gemma2_local_f32", 1, 6144, 32, 16, 128, True, "float32", 0, 4096, 50.0, 8.0),
+    ("window_offset", 2, 200, 8, 2, 64, True, "bfloat16", 328, 100, 5.0, 2.0, 128),
+    ("window_offset_f32", 2, 200, 8, 2, 64, True, "float32", 328, 100, 5.0, 2.0, 128))]
 # The flash cases `time_flash` times: the Granite, Zamba2 and zoo forwards'
 # shapes.
 FLASH_TIMED = ("forward", "forward_f32", "zamba2_forward", "gemma2_local",
@@ -2550,17 +2578,25 @@ FLASH_BWD_KERNELS = ("flash_bwd_dkdv_bf16_mma", "flash_bwd_dq_bf16_mma",
                      "flash_bwd_dkdv", "flash_bwd_dq")
 
 
+# The bfloat16 pair's template flags (window, cap) → the instance's label.
+BWD_MASKS = {("0", "0"): "", ("1", "0"): ", window", ("0", "1"): ", cap",
+             ("1", "1"): ", window, cap"}
+
+
 def bwd_instance(mangled: str) -> str:
-    """``flash_bwd_dq_bf16_mma<64>`` or ``flash_bwd_dq<float, 64>`` for a
-    mangled backward kernel instance (a length-prefixed name, then its
-    template arguments ``I[f]Li<D>E``); the mangled name itself for any
+    """``flash_bwd_dq_bf16_mma<64>`` (``<64, window, cap>`` and so on with
+    its mask flags) or ``flash_bwd_dq<float, 64>`` for a mangled backward
+    kernel instance (a length-prefixed name, then its template arguments
+    ``I[f]Li<D>E[Lb<window>ELb<cap>E]``); the mangled name itself for any
     other kernel."""
     for stem in FLASH_BWD_KERNELS:
         at = mangled.find(f"{len(stem)}{stem}I")
         if at >= 0:
-            m = re.match(r"I(f?)Li(\d+)E", mangled[at + len(str(len(stem))) + len(stem):])
+            m = re.match(r"I(f?)Li(\d+)E(?:Lb([01])ELb([01])E)?",
+                         mangled[at + len(str(len(stem))) + len(stem):])
             if m:
-                return f"{stem}<{'float, ' if m.group(1) else ''}{m.group(2)}>"
+                masks = BWD_MASKS[(m.group(3), m.group(4))] if m.group(3) else ""
+                return f"{stem}<{'float, ' if m.group(1) else ''}{m.group(2)}{masks}>"
     return mangled
 
 
@@ -2575,8 +2611,9 @@ def flash_bwd_registers() -> dict:
     info = _build.BUILD_INFO.get(fac.BWD_LIBRARY.name, {})
     out = {bwd_instance(k): r for k, r in _build.ptxas_report(info.get("ptxas", "")).items()}
     if info.get("seconds", 0.0) > 0:
-        want = {f"{stem}<{d}>" for stem in FLASH_BWD_KERNELS if stem.endswith("_mma")
-                for d in fac.HEAD_DIMS}
+        want = {f"{stem}<{d}{masks}>" for stem in FLASH_BWD_KERNELS
+                if stem.endswith("_mma") for d in fac.HEAD_DIMS
+                for masks in BWD_MASKS.values()}
         if not want <= set(out):
             raise AssertionError(f"ptxas report lacks {sorted(want - set(out))}")
     spilled = {k: r for k, r in out.items() if k.split("<")[0].endswith("_bf16_mma")
@@ -2714,12 +2751,16 @@ def check_gmm(device) -> dict:
     return {"cases": rows, "max_abs_err": worst}
 
 
-# The flash backward's cases: `FLASH_CASES` without window or softcap (the
-# backward does not take them) and with more than one query row; every
-# head dim on the bfloat16 route (16 with q_offset > 0, 64, 128).
+# The flash backward's cases: `FLASH_CASES` with more than one query row;
+# every head dim on the bfloat16 route (16 with q_offset > 0, 64, 128);
+# gemma2's global (softcap 50) and local (window 4,096 and softcap 50)
+# training calls, the local one also on the float32 route, and windows of
+# 100 (with and without a softcap, with an offset) on both routes.
 FLASH_BWD_CASES = ("forward", "forward_f32", "non_causal", "ragged", "ragged_f32",
                    "d128_one_kv_head", "vlm_cross", "whisper_encoder", "d128_bf16",
-                   "d16_offset")
+                   "d16_offset", "gemma2_global", "gemma2_local", "gemma2_local_f32",
+                   "window_ragged", "window_ragged_f32", "window_offset",
+                   "window_offset_f32")
 # Row by row, bfloat16 backward: a row's scale is its max |plain|, floored
 # at this share of the whole output's max.  dq's first causal row is zero
 # in exact arithmetic (a softmax over one key has no gradient), so both
@@ -2752,8 +2793,9 @@ def _bwd_row_check(label, got, want, tol) -> float:
 
 def check_flash_backward(device) -> dict:
     """The flash backward kernel against `flash_attention_backward_plain`
-    at `FLASH_BWD_CASES`, from the same q, k, v, dO (numpy seeds) and the
-    kernel forward's own output and log-sum-exp: dq, dk and dv each within
+    at `FLASH_BWD_CASES` (with their windows and softcaps), from the same
+    q, k, v, dO (numpy seeds; q scaled as the case says) and the kernel
+    forward's own output and log-sum-exp: dq, dk and dv each within
     `LM_TOL` of max |plain|, bfloat16 also row by row within
     `FLASH_ROW_TOL` (`_bwd_row_check`), repeatable, one launch a call on
     the type's route (`bwd_route_counts`).  The forward with the
@@ -2767,9 +2809,9 @@ def check_flash_backward(device) -> dict:
     rows, worst = [], 0.0
     for i, c in enumerate(x for x in FLASH_CASES if x.label in FLASH_BWD_CASES):
         q, k, v = _flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device,
-                                seed=900 + 4 * i, skv=c.skv)
+                                seed=900 + 4 * i, skv=c.skv, q_scale=c.q_scale)
         do = _randn((c.b, c.s, c.h, c.d), 903 + 4 * i, device, c.dtype)
-        kw = {"causal": c.causal, "q_offset": c.q_offset}
+        kw = _flash_kw(c)
         plain_o = fac.flash_attention_cuda(q, k, v, **kw)
         o, lse = fac.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         if not torch.equal(o, plain_o):
@@ -2790,7 +2832,8 @@ def check_flash_backward(device) -> dict:
                      fac.bwd_route_counts)
         want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
         row = {"case": c.label, "shape": [c.b, c.s, c.h, c.kvh, c.d], "skv": c.keys,
-               "causal": c.causal, "q_offset": c.q_offset, "dtype": c.dtype,
+               "causal": c.causal, "q_offset": c.q_offset, "window": c.window,
+               "softcap": c.softcap, "dtype": c.dtype,
                "route": fac.ROUTES[q.dtype][1], "lse_err_over_max": lse_err,
                "tol": LM_TOL[c.dtype]}
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -3149,6 +3192,147 @@ def check_ssd_scan(device) -> dict:
         rows.append({"case": label, "shape": [nc, b, h, p, n], "dtype": dtype,
                      "decay_dtype": ddtype, "bit_equal": True, "max_abs_err": err})
     log("parity ssd_scan " + json.dumps(rows))
+    return {"cases": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+# The scan's backward: (label, nc, b, h, p, n, s dtype, decay dtype,
+# g_final given): Mamba2's and Zamba2's training calls (4 × 1,024 tokens,
+# chunk 256: 4 chunks; no g_final, as the SSM blocks drop h_final), one
+# chunk, a P·N that is not a multiple of 4 (the scalar route), a nonzero
+# g_final, and bfloat16 s (with a float32 and a bfloat16 decay).
+SSD_BWD_CASES = [
+    ("mamba2_train", 4, 4, 80, 64, 128, "float32", "float32", False),
+    ("zamba2_train", 4, 4, 64, 64, 64, "float32", "float32", False),
+    ("one_chunk", 1, 4, 80, 64, 128, "float32", "float32", True),
+    ("ragged", 3, 1, 3, 5, 7, "float32", "float32", True),
+    ("mamba2_final", 4, 4, 80, 64, 128, "float32", "float32", True),
+    ("bfloat16", 4, 4, 64, 64, 64, "bfloat16", "float32", True),
+    ("bfloat16_decay", 3, 1, 3, 5, 7, "bfloat16", "bfloat16", True)]
+
+
+def _ssd_bwd_inputs(nc, b, h, p, n, dtype, ddtype, final, device, seed):
+    """(g_prev, g_final or None, h_prev, decay), h_prev the plain scan's of
+    random s."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    s, d = _ssd_inputs(nc, b, h, p, n, dtype, ddtype, device, seed)
+    hp, _ = ss.ssd_scan_plain(s, d)
+    gp = _randn((nc, b, h, p, n), seed + 1, device, dtype)
+    gf = _randn((b, h, p, n), seed + 2, device, dtype) if final else None
+    return gp, gf, hp, d
+
+
+def ssd_bwd_bound(nc, b, h, p, n, itemsize, decay_itemsize, final) -> tuple:
+    """(bound_ms, bound_by) of the scan's backward: h_prev and g_prev[1:]
+    read and ds written, (3·nc − 1) arrays of b·h·p·n elements, g_final
+    read when it is given, decay[1:] read and ddecay written; 4 operations
+    per state element and chunk (G's multiply and add, ddecay's product and
+    sum), 2 at chunk 0, which takes no step of G.  g_prev[0] and decay[0]
+    would only feed the zero initial state's gradient: not counted."""
+    state = b * h * p * n
+    moved = (itemsize * (3 * nc - 1 + int(final)) * state
+             + decay_itemsize * (2 * nc - 1) * b * h)
+    return bound(moved, (4 * nc - 2) * state)
+
+
+# The statistical ddecay gate: within DDECAY_SIGMAS·sqrt(P·N)·u·Σ|x| of
+# the float64 sum of the same float32 products x = G·h_prev.  Rounding
+# errors of a float32 sum in any order grow like sqrt(P·N)·u·|x| when
+# they do not line up; the worst case (`ddecay_tolerance`) is P·N·u·Σ|x|.
+DDECAY_SIGMAS = 4
+
+
+def ddecay_tolerance(ds, h_prev, want, ddtype: str):
+    """The worst-case ceiling per (chunk, row): a float32 sum of P·N
+    products in any order is within (P·N − 1)·u·Σ|x| of the exact sum, so
+    two orders within twice that, Σ|x| = Σ|ds·h_prev|; plus one rounding
+    of a bfloat16 decay."""
+    pn = h_prev.shape[-1] * h_prev.shape[-2]
+    tol = 2 * pn * U32 * (ds.double().abs() * h_prev.double().abs()).sum((-2, -1))
+    if ddtype == "bfloat16":
+        tol = tol + 2.0 ** -8 * want.double().abs()
+    return tol + 1e-30
+
+
+def ddecay_gates(got, want, gp, gf, hp, d, ddtype: str, label: str) -> dict:
+    """Hold the kernel's (ds, ddecay) to the plain version's: ds bit-equal,
+    ddecay within the worst-case ceiling of the plain sum
+    (`ddecay_tolerance`) and within DDECAY_SIGMAS·sqrt(P·N)·u·Σ|x| of the
+    float64 sum of the float32 adjoint's products (plus a bfloat16
+    ddecay's rounding).  Returns the readings: the kernel's worst error in
+    units of sqrt(P·N)·u·Σ|x| (`ddecay_sigmas`; None for a bfloat16
+    ddecay, whose rounding is the most of it), and the share of rows
+    with a nonzero sum in which a kernel that dropped one warp's partial
+    (the row's first 32 threads' products) would fail the statistical gate
+    and the ceiling (`fault_caught_share`, `fault_caught_share_ceiling`)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+
+    if not torch.equal(got[0], want[0]):
+        err = float((got[0].float() - want[0].float()).abs().max())
+        raise AssertionError(f"ssd_scan_backward {label}: ds not bit-equal to its "
+                             f"plain version (max |err| {err})")
+    ceiling = ddecay_tolerance(want[0], hp, want[1], ddtype)
+    dd = got[1].double()
+    off_plain = (dd - want[1].double()).abs()
+    if got[1].dtype != want[1].dtype or not bool((off_plain <= ceiling).all()):
+        raise AssertionError(f"ssd_scan_backward {label}: ddecay past its sum ceiling")
+    g32 = ss.ssd_scan_backward_plain(gp.float(), None if gf is None else gf.float(),
+                                     hp.float(), d.float())[0]
+    x = (g32.double() * hp.double()).flatten(-2)
+    exact, mag = x.sum(-1), x.abs().sum(-1)
+    pn = x.shape[-1]
+    unit = pn ** 0.5 * U32 * mag + 1e-30
+    limit = DDECAY_SIGMAS * unit
+    if ddtype == "bfloat16":
+        limit = limit + 2.0 ** -8 * exact.abs()
+    err = (dd - exact).abs()
+    if not bool((err <= limit).all()):
+        raise AssertionError(f"ssd_scan_backward {label}: ddecay "
+                             f"{float((err / limit).max())}× its limit off the float64 "
+                             f"sum")
+    warp = 32 * (4 if pn % 4 == 0 else 1)
+    dropped = x[..., :warp].sum(-1).abs()
+    live = mag > 0
+    n_live = max(int(live.sum()), 1)
+    return {"ddecay_max_abs_err": float(off_plain.max()),
+            "ddecay_err_over_ceiling": float((off_plain / ceiling).max()),
+            "ddecay_sigmas": (None if ddtype == "bfloat16"   # its rounding rules
+                              else float((err / unit).max())),
+            "ddecay_err_over_limit": float((err / limit).max()),
+            "fault_caught_share": int(((dropped > limit) & live).sum()) / n_live,
+            "fault_caught_share_ceiling": int(((dropped > ceiling) & live).sum())
+            / n_live}
+
+
+def check_ssd_scan_backward(device) -> dict:
+    """The scan's backward kernel against `ssd_scan_backward_plain` at
+    `SSD_BWD_CASES`, under `ddecay_gates` (ds bit-equal, ddecay within the
+    worst-case ceiling and the statistical limit), both outputs repeatable
+    bit for bit (a fixed order of sums, no atomics), one launch a call."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+
+    rows = []
+    for i, (label, nc, b, h, p, n, dtype, ddtype, final) in enumerate(SSD_BWD_CASES):
+        gp, gf, hp, d = _ssd_bwd_inputs(nc, b, h, p, n, dtype, ddtype, final, device,
+                                        seed=740 + 3 * i)
+        before = ssc.launch_counts()["ssd_scan_backward"]
+        got = ssc.ssd_scan_backward_cuda(gp, gf, hp, d)
+        again = ssc.ssd_scan_backward_cuda(gp, gf, hp, d)
+        torch.cuda.synchronize()
+        if ssc.launch_counts()["ssd_scan_backward"] != before + 2:
+            raise AssertionError("ssd_scan_backward launch counter did not advance")
+        want = ss.ssd_scan_backward_plain(gp, gf, hp, d)
+        readings = ddecay_gates(got, want, gp, gf, hp, d, ddtype, label)
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError(f"ssd_scan_backward {label} is not repeatable")
+        rows.append({"case": label, "shape": [nc, b, h, p, n], "dtype": dtype,
+                     "decay_dtype": ddtype, "g_final": final, "ds_bit_equal": True,
+                     **readings, "repeatable": True,
+                     "max_abs_err": readings["ddecay_max_abs_err"]})
+    log("parity ssd_scan_backward " + json.dumps(rows))
     return {"cases": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
@@ -3564,10 +3748,28 @@ def run_lm_zoo_path(device, new_tokens: int = 16) -> dict:
     return out
 
 
-# -- the LM training path (Granite-MoE) -------------------------------------------
+# -- the LM training path (Granite-MoE, Mamba2, Zamba2, gemma2) --------------------
 
 TRAIN_SHAPE = (4, 1024)             # (batch, tokens) of a training step
 TRAIN_STEPS = 8
+# The models trained after Granite, each at full width from the port's own
+# init: arch → (config fields replaced, (batch, tokens), the cut listed in
+# its ``reduced`` field).  Mamba2 (2.70 B parameters: 43 GB of float32
+# parameters, gradients and AdamW moments, ~1.7 GB of one recomputed
+# layer's intra-chunk buffers) and Zamba2 (1.10 B) at full depth; gemma2
+# at one local/global pair (2 of 46 layers: 2.31 B parameters, 37 GB of
+# state) on 4,608 tokens, so that the local layer's window of 4,096 hides
+# keys from the last 512 rows.  Its loss holds several float32 buffers of
+# tokens × 256,000 logits at once (capped, tanh, their gradients): at
+# 6,144 tokens (5.86 GiB each) the first backward ran out of the card's
+# 80 GB with 66.4 GiB allocated (NVIDIA H100 80GB HBM3, 700 W).
+TRAIN_MODELS = {
+    "mamba2-2.7b": ({}, (4, 1024), "none"),
+    "zamba2-1.2b": ({}, (4, 1024), "none"),
+    "gemma2-27b": ({"num_layers": 2}, (1, 4608),
+                   "num_layers 2 of 46 (one local/global pair); 4,608 tokens "
+                   "(6,144 ran out of memory)"),
+}
 TRAIN_KW = dict(base_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
 # The card-against-host, microbatch and resume checks: Granite at full
 # width, 2 of 24 layers, float32 compute, batches of 2 × 128 tokens.
@@ -3589,13 +3791,16 @@ CUDA_CORE_BWD_STEP = {"median_step_ms": 429.1, "flash_bwd_ms": 25.9,
 
 def _plain_counters():
     """Patch the plain versions of flash attention (forward, log-sum-exp,
-    backward) and the GMM to count their calls; returns the counts and a
-    function that restores them."""
+    backward), the GMM and the SSD scan (forward, backward) to count their
+    calls; returns the counts and a function that restores them."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
 
+    from repro_torch.kernels import ssd_scan as ss
+
     names = [(fa, "flash_attention_plain"), (fa, "flash_lse_plain"),
-             (fa, "flash_attention_backward_plain"), (gmm, "moe_gmm_plain")]
+             (fa, "flash_attention_backward_plain"), (gmm, "moe_gmm_plain"),
+             (ss, "ssd_scan_plain"), (ss, "ssd_scan_backward_plain")]
     counts = {n: 0 for _, n in names}
     originals = [(m, n, getattr(m, n)) for m, n in names]
 
@@ -3622,8 +3827,9 @@ def _torch_batch(batch: dict, device) -> dict:
 
 def _train_profile(step_fn, state, batch, device) -> tuple:
     """One training step under torch.profiler: wall ms, device-busy ms, idle
-    share, launches, the top kernels and the flash-backward, flash-forward
-    and GMM shares of device time; returns (profile, state after)."""
+    share, launches, the top kernels and the flash-backward, flash-forward,
+    GMM and SSD scan (backward, forward) shares of device time; returns
+    (profile, state after)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3645,7 +3851,7 @@ def _train_profile(step_fn, state, batch, device) -> tuple:
            "launches": sum(1 for e in prof.events() if e.name == "cudaLaunchKernel"),
            "top_kernels_ms": [[k[:80], v / 1e3] for k, v in
                               sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]}
-    for stem in ("flash_bwd", "flash_fwd", "moe_gmm"):
+    for stem in ("flash_bwd", "flash_fwd", "moe_gmm", "ssd_scan_bwd", "ssd_scan_vec4"):
         ms = math.fsum(v for k, v in by_name.items() if stem in k) / 1e3
         out[stem + "_ms"] = ms
         out[stem + "_share"] = ms / busy if busy else 0.0
@@ -3811,83 +4017,154 @@ def check_train_on_host(device) -> dict:
     return out
 
 
-def check_no_grad_through_kernels(device) -> dict:
-    """Mamba2 does not train yet: its loss with a gradient on the card must
-    raise, not cut the graph silently (its chunked SSD forward refuses
-    autograd before the scan is reached), and the SSD scan itself, which
-    has no backward kernel, refuses an input that requires a gradient
-    (`_build.refuse_grad`).  Without a gradient both run."""
+def check_ssm_train_on_host(device) -> dict:
+    """Reduced Mamba2 and a 5-layer Zamba2 (two groups and a tail), float32
+    compute, remat: one train step (lr 3e-4 from step 0) on the card
+    through the scan kernels (and flash) and on the host through the plain
+    versions, from one state; loss and grad norm within `HOST_TOL`, the
+    states by `_close_states`; launches on the card 2 scans and 1 scan
+    backward a layer."""
+    import dataclasses
+
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLMData
-    from repro_torch.distributed.trainstep import trainable
-    from repro_torch.kernels import ops
+    from repro_torch.distributed import init_train_state, make_train_step
     from repro_torch.models import build_model
 
-    cfg = get_arch("mamba2-2.7b").reduced()
-    model = build_model(cfg)
-    params = trainable(model.init(0, device=device))
-    batch = _torch_batch(SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=64,
-                                         global_batch=2).batch_at(0), device)
+    torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
+    for cfg in _ssm_configs():
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        model = build_model(cfg)
+        b, s = HOST_TRAIN_SHAPE
+        data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                               seed=2)
+        kw = dict(base_lr=3e-4, warmup_steps=0, total_steps=10)
+        host = init_train_state(model, 0, device="cpu")
+        card = _copy_state(host, device)
+        step = make_train_step(model, **kw)
+        reset_counts()
+        card, cm = step(card, _torch_batch(data.batch_at(0), device))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        host, hm = step(host, _torch_batch(data.batch_at(0), "cpu"))
+        n = cfg.num_layers
+        if (counts["ssd_scan"], counts["ssd_scan_backward"]) != (2 * n, n):
+            raise AssertionError(f"{cfg.name}: scan launches {counts}")
+        row = {"arch": cfg.name, "num_layers": n, "compute_dtype": "float32",
+               "tokens": [b, s]}
+        for key in ("loss", "grad_norm"):
+            rel = abs(float(cm[key]) - float(hm[key])) / max(abs(float(hm[key])), 1e-30)
+            if not rel <= HOST_TOL:
+                raise AssertionError(f"{cfg.name} train step card vs host: {key} {rel} "
+                                     f"off (> {HOST_TOL})")
+            row[key + "_rel_err"] = rel
+        row.update(_close_states(f"{cfg.name} train step card vs host", card, host,
+                                 kw["base_lr"]))
+        out[f"{cfg.name}_{n}L"] = row
+    log("ssm_train_card_vs_host " + json.dumps(out))
+    return out
+
+
+def check_no_grad_through_kernels(device) -> dict:
+    """Winograd and the tree kernels have no backward: a gradient asked
+    through them on the card must raise, not cut the graph silently
+    (`_build.refuse_grad`); without a gradient they run.  The int8 GEMM's
+    operands are integers, which cannot require a gradient (torch refuses
+    it); its dispatcher refuses one all the same."""
+    import numpy as np
+    import torch
+    from repro_torch.core.predictors import GBDTPredictor
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tree_gather as tg
+
+    out = {}
+
+    def refused(label, fn):
+        try:
+            fn()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            out[label] = f"raised: {e}"[:200]
+        else:
+            raise AssertionError(f"{label} with a gradient launched on the card")
+
+    x = _randn((1, 8, 8, 16), 990, device, "float32").requires_grad_()
+    wt = _randn((3, 3, 16, 16), 991, device, "float32")
+    refused("winograd_conv2d_with_grad", lambda: ops.winograd_conv2d(x, wt))
+    rng = np.random.default_rng(992)
+    feats = np.abs(rng.standard_normal((400, N_FEATURES)))
+    gbdt = GBDTPredictor(n_stages=10, max_depth=3).fit(feats, feats @ rng.random(N_FEATURES))
+    db = gbdt.flat().device_bank(device)
+    mean, std = tg.to_device_scaler(gbdt.scaler, device)
+    kind, scale, bias = gbdt._device_reduction()
+    xr = torch.rand(5, N_FEATURES, device=device, requires_grad=True)
+    refused("tree_predict_fused_with_grad",
+            lambda: db.fused(mean, std, scale, bias, xr, kind))
+    refused("tree_gather_leaves_with_grad",
+            lambda: db.gather_leaves((xr - mean) / std))
     try:
-        model.loss(params, batch)
+        torch.zeros(4, dtype=torch.int8, device=device).requires_grad_()
     except RuntimeError as e:
-        out["mamba2_loss_with_grad"] = f"raised: {e}"[:200]
+        out["int8_operand_with_grad"] = f"raised: {e}"[:200]
     else:
-        raise AssertionError("a Mamba2 loss with a gradient ran on the card")
-    s_chunk = _randn((4, 2, 3, 8, 16), 990, device, "float32").requires_grad_()
-    decay = _randn((4, 2, 3), 991, device, "float32").abs()
-    try:
-        ops.ssd_scan(s_chunk, decay)
-    except RuntimeError as e:
-        if "no backward" not in str(e):
-            raise
-        out["ssd_scan_with_grad"] = f"raised: {e}"[:200]
-    else:
-        raise AssertionError("ssd_scan with a gradient launched on the card")
+        raise AssertionError("an int8 tensor took requires_grad")
     with torch.no_grad():
-        loss, _ = model.loss(params, batch)
-        ops.ssd_scan(s_chunk, decay)
-    if not math.isfinite(float(loss)):
-        raise AssertionError("Mamba2 loss without a gradient is not finite")
+        ops.winograd_conv2d(x, wt)
+        db.fused(mean, std, scale, bias, xr, kind)
     log("no_grad_guard " + json.dumps(out))
     return out
 
 
-def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
-    """Granite-MoE trained at full width and depth from the port's own init
-    (seed 0; float32 parameters and AdamW state, bfloat16 compute, remat):
-    with every launch count zeroed just before and read just after,
-    ``steps`` `make_train_step` steps on `SyntheticLMData(seed=0)` batches
-    of 4 × 1,024 tokens; gates: finite losses and grad norms, the last
-    quarter's mean loss below the first step's, launches a step (flash
-    forward 2 a layer, backward 1, GMM 6 + 6, all on the bfloat16
-    tensor-core routes), no plain version called.  The median step and
-    the profiled step's flash-backward ms and share are reported beside
-    `CUDA_CORE_BWD_STEP`.  Then one profiled step (not counted), the
-    2-layer float32 checks (`check_train_on_host`) and the guard
-    (`check_no_grad_through_kernels`)."""
+def _expected_train_launches(cfg) -> dict:
+    """Launches a training step (remat): flash forward 2 and backward 1
+    per attention layer or shared-block call, the GMM 6 + 6 per MoE layer,
+    the scan 2 and its backward 1 per Mamba2 layer; none elsewhere."""
+    n = cfg.num_layers
+    if cfg.family == "ssm":
+        return {"ssd_scan": 2 * n, "ssd_scan_backward": n}
+    if cfg.family == "hybrid":
+        calls = n // cfg.shared_attn_every
+        return {"ssd_scan": 2 * n, "ssd_scan_backward": n,
+                "flash_attention": 2 * calls, "flash_attention_backward": calls}
+    want = {"flash_attention": 2 * n, "flash_attention_backward": n}
+    if cfg.family == "moe":
+        want["moe_gmm"] = 12 * n
+    return want
+
+
+def train_model(cfg, shape, device, steps: int = TRAIN_STEPS, reduced: str = "none"
+                ) -> dict:
+    """``cfg`` trained from the port's own init (seed 0; float32 parameters
+    and AdamW state, bfloat16 compute, remat): with every launch count
+    zeroed just before and read just after, ``steps`` `make_train_step`
+    steps on `SyntheticLMData(seed=0)` batches of ``shape``; gates: finite
+    losses and grad norms, the last quarter's mean loss below the first
+    step's, each kernel's launches equal to `_expected_train_launches`
+    times the steps (every other kernel none), flash on the bfloat16
+    tensor-core routes, no plain version called.  Then one profiled step
+    (not counted).  Returns the run's line (also logged as
+    ``lm_train_path``) with its launches; frees the model."""
     import gc
     import statistics
 
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLMData
     from repro_torch.distributed import init_train_state, make_train_step
     from repro_torch.models import build_model
     from repro_torch.utils.tree import tree_num_params
 
-    cfg = get_arch(LM_ARCH)
     model = build_model(cfg)
+    resident = torch.cuda.memory_allocated(device) / 1e9
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     state = init_train_state(model, 0, device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    b, s = TRAIN_SHAPE
+    b, s = shape
     data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=0)
-    step_fn = make_train_step(model, **TRAIN_KW)
+    step_fn = make_train_step(model, **dict(TRAIN_KW, total_steps=steps))
     plain, restore = _plain_counters()
     try:
         reset_counts()
@@ -3906,47 +4183,82 @@ def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
     finally:
         restore()
     if any(plain.values()):
-        raise AssertionError(f"plain versions called on the card's path: {plain}")
+        raise AssertionError(f"{cfg.name}: plain versions called on the card's path: "
+                             f"{plain}")
     if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"non-finite training: losses {losses}, norms {norms}")
+        raise AssertionError(f"{cfg.name}: non-finite training: losses {losses}, "
+                             f"norms {norms}")
     last = statistics.mean(losses[-max(1, steps // 4):])
     if not last < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
-    n = cfg.num_layers
-    want = {"flash_attention": 2 * n * steps, "flash_attention_backward": n * steps,
-            "moe_gmm": 12 * n * steps}
-    if {k: counts[k] for k in want} != want:
-        raise AssertionError(f"training launches {counts}, expected {want}")
-    if any(routes[k]["bf16_mma"] != want[k] for k in want):
-        raise AssertionError(f"bfloat16 training off the tensor-core route: {routes}")
+        raise AssertionError(f"{cfg.name}: loss did not fall: {losses}")
+    per_step = _expected_train_launches(cfg)
+    want = {k: per_step.get(k, 0) * steps for k in counts}
+    if counts != want:
+        raise AssertionError(f"{cfg.name}: training launches {counts}, expected {want}")
+    for k in ("flash_attention", "flash_attention_backward", "moe_gmm"):
+        if routes[k]["bf16_mma"] != want[k]:
+            raise AssertionError(f"{cfg.name}: bfloat16 training off the tensor-core "
+                                 f"route: {routes}")
     median_s = statistics.median(step_s[1:])
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     profiled, state = _train_profile(step_fn, state, _torch_batch(data.batch_at(steps),
                                                                   device), device)
-    out = {"arch": cfg.name, "reduced": "none", "params": tree_num_params(state.params),
+    out = {"arch": cfg.name, "reduced": reduced, "params": tree_num_params(state.params),
            "init_s": init_s, "tokens": [b, s], "steps": steps, "losses": losses,
            "grad_norms": norms, "lrs": lrs, "step_s": step_s,
            "median_step_ms": 1e3 * median_s, "tokens_per_s": b * s / median_s,
            "last_quarter_mean_loss": last, "launches": counts,
-           "launches_per_step": {k: v / steps for k, v in want.items()},
+           "launches_per_step": {k: v / steps for k, v in want.items() if v},
            "routes": routes, "plain_calls": plain, "peak_memory_gb": peak,
-           "profile": profiled,
+           "resident_before_gb": resident, "profile": profiled,
            # The profiler slows the host: the device-busy time of the
            # profiled step against the unprofiled median step.
            "idle_share_of_median_step": max(
-               0.0, 1.0 - profiled.get("device_busy_ms", 0.0) / (1e3 * median_s)),
-           # [this run, the CUDA-core backward's step]
-           "against_cuda_core_backward": {
-               "median_step_ms": [1e3 * median_s, CUDA_CORE_BWD_STEP["median_step_ms"]],
-               "flash_bwd_ms": [profiled.get("flash_bwd_ms"),
-                                CUDA_CORE_BWD_STEP["flash_bwd_ms"]],
-               "flash_bwd_share": [profiled.get("flash_bwd_share"),
-                                   CUDA_CORE_BWD_STEP["flash_bwd_share"]]}}
-    log("lm_train_path " + json.dumps(out))
+               0.0, 1.0 - profiled.get("device_busy_ms", 0.0) / (1e3 * median_s))}
     del state, step_fn, model
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
+    """Granite-MoE trained at full width and depth (`train_model`, batches
+    of 4 × 1,024 tokens; flash forward 2 a layer, backward 1, GMM 6 + 6),
+    its median step and the profiled step's flash-backward ms and share
+    reported beside `CUDA_CORE_BWD_STEP`; then `TRAIN_MODELS` one after
+    another (Mamba2, Zamba2, gemma2 at full width, each freed before the
+    next), each with its counts zeroed just before it; then the 2-layer
+    float32 checks (`check_train_on_host`, `check_ssm_train_on_host`) and
+    the guard (`check_no_grad_through_kernels`).  Returns Granite's line
+    with ``models`` (each model's line) and ``launches`` summed over all
+    the runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    out = train_model(get_arch(LM_ARCH), TRAIN_SHAPE, device, steps)
+    profiled, median_ms = out["profile"], out["median_step_ms"]
+    # [this run, the CUDA-core backward's step]
+    out["against_cuda_core_backward"] = {
+        "median_step_ms": [median_ms, CUDA_CORE_BWD_STEP["median_step_ms"]],
+        "flash_bwd_ms": [profiled.get("flash_bwd_ms"), CUDA_CORE_BWD_STEP["flash_bwd_ms"]],
+        "flash_bwd_share": [profiled.get("flash_bwd_share"),
+                            CUDA_CORE_BWD_STEP["flash_bwd_share"]]}
+    log("lm_train_path " + json.dumps(out))
+    launches = dict(out["launches"])
+    out["models"] = {}
+    for arch, (over, shape, reduced) in TRAIN_MODELS.items():
+        t0 = time.perf_counter()
+        row = train_model(dataclasses.replace(get_arch(arch), **over), shape, device,
+                          steps, reduced)
+        row["run_s"] = time.perf_counter() - t0
+        log("lm_train_path " + json.dumps(row))
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        out["models"][arch] = row
+    out["all_launches"] = launches
     out["card_vs_host"] = check_train_on_host(device)
+    out["ssm_card_vs_host"] = check_ssm_train_on_host(device)
     out["guard"] = check_no_grad_through_kernels(device)
     return out
 
@@ -4164,14 +4476,16 @@ def time_winograd(device) -> list:
     return rows
 
 
-def time_flex_attention(c: FlashCase, q, k, v, device) -> dict:
+def time_flex_attention(c: FlashCase, q, k, v, device, do=None) -> dict:
     """One ``torch.nn.attention.flex_attention`` call (compiled, the
     softcap as a tanh ``score_mod``, the causal mask and the window as a
     block mask) on the case's inputs: the library call that computes the
     kernel's function with a softcap.  Its error against the plain
-    version is reported beside its time.  Timed only, used nowhere in the
-    port; where this torch cannot compile it, the error is reported and
-    the time is null."""
+    version is reported beside its time.  Given ``do``, its backward
+    instead: ``torch.autograd.grad`` of one compiled forward with the graph
+    kept, against `flash_attention_backward_plain`.  Timed only, used
+    nowhere in the port; where this torch cannot compile it, the error is
+    reported and the time is null."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -4193,14 +4507,29 @@ def time_flex_attention(c: FlashCase, q, k, v, device) -> dict:
 
         block_mask = create_block_mask(mask_mod, None, None, c.s, c.keys, device=device)
         flex = torch.compile(flex_attention, dynamic=False)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if do is None:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
-        def call():
-            return flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
-                        enable_gqa=True)
+            def call():
+                return flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
+                            enable_gqa=True)
 
-        err = float((call().transpose(1, 2).float() - fa.flash_attention_plain(
-            q, k, v, **_flash_kw(c)).float()).abs().max())
+            err = float((call().transpose(1, 2).float() - fa.flash_attention_plain(
+                q, k, v, **_flash_kw(c)).float()).abs().max())
+        else:
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            out = flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
+                       enable_gqa=True)
+            dot = do.transpose(1, 2)
+
+            def call():
+                return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+            o, lse = _plain_forward(q, k, v, c)
+            want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, **_flash_kw(c))
+            err = max(float((g.transpose(1, 2).float() - w.float()).abs().max())
+                      for g, w in zip(call(), want))
+            del o, lse, want
         ms = cuda_ms(call)["device"]
     except Exception as e:          # a library's limits, not the port's
         log(f"flex_attention {c.label}: could not run ({type(e).__name__}: {e})")
@@ -4322,12 +4651,12 @@ def time_gmm(device) -> list:
     return rows
 
 
-def _flash_bwd_bound(b, s, h, kvh, d, causal, dtype, skv=0) -> tuple:
+def _flash_bwd_bound(b, s, h, kvh, d, causal, dtype, skv=0, window=0) -> tuple:
     """q, k, v, o, dO and the log-sum-exp read once, dq, dk, dv written
     once, against five products of 2·d operations (S, dP, dV, dK, dQ) for
-    each (query, key) pair the mask keeps, at the type's rate."""
+    each (query, key) pair the masks keep, at the type's rate."""
     skv = skv or s
-    pairs = b * h * flash_pairs(s, skv, causal)
+    pairs = b * h * flash_pairs(s, skv, causal, window)
     bf16 = dtype == "bfloat16"
     size = 2 if bf16 else 4
     moved = size * 4 * (b * s * h * d + b * skv * kvh * d) + 4 * b * h * s
@@ -4335,21 +4664,32 @@ def _flash_bwd_bound(b, s, h, kvh, d, causal, dtype, skv=0) -> tuple:
 
 
 # The flash backward cases `time_flash_backward` times: the Granite
-# training call in both types.
-FLASH_BWD_TIMED = ("forward", "forward_f32")
+# training call in both types, and gemma2's global and local ones.
+FLASH_BWD_TIMED = ("forward", "forward_f32", "gemma2_global", "gemma2_local")
 
 
-def sdpa_backward(q, k, v, do, causal: bool) -> tuple:
+def _plain_forward(q, k, v, c: FlashCase) -> tuple:
+    """The plain forward's output and log-sum-exp for case ``c``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kw = _flash_kw(c)
+    return fa.flash_attention_plain(q, k, v, **kw), fa.flash_lse_plain(q, k, **kw)
+
+
+def sdpa_backward(q, k, v, do, causal: bool, mask=None) -> tuple:
     """SDPA's backward for the flash backward's function: the gradient of
-    one ``F.scaled_dot_product_attention`` forward (GQA) of q, k, v
-    (b, s, h, d) through ``torch.autograd.grad`` with the graph kept.
-    Returns a call that recomputes it (to time) and its (dq, dk, dv) in
-    the (b, s, h, d) layout."""
+    one ``F.scaled_dot_product_attention`` forward (GQA; ``mask`` a boolean
+    mask of kept keys in place of the causal flag) of q, k, v (b, s, h, d)
+    through ``torch.autograd.grad`` with the graph kept.  Returns a call
+    that recomputes it (to time) and its (dq, dk, dv) in the (b, s, h, d)
+    layout."""
     import torch
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         is_causal=causal and mask is None,
+                                         enable_gqa=True)
     dot = do.transpose(1, 2)
 
     def call():
@@ -4359,11 +4699,17 @@ def sdpa_backward(q, k, v, do, causal: bool) -> tuple:
 
 def time_flash_backward(device) -> list:
     """The flash backward kernel at Granite's training call (b = 4, s =
-    1,024, 16 query and 8 kv heads, d = 64, causal), bfloat16 and float32:
-    kernel, plain version, and SDPA's backward for the same function (the
+    1,024, 16 query and 8 kv heads, d = 64, causal), bfloat16 and float32,
+    and at gemma2's (b = 1, s = 6,144, 32 query and 16 kv heads, d = 128,
+    causal, softcap 50; the local layer's window 4,096), bfloat16: kernel,
+    plain version, and SDPA's backward for the same function (the
     gradient of one ``F.scaled_dot_product_attention`` forward, GQA, TF32
     off, through ``torch.autograd.grad`` with the graph kept) on the same
-    q, k, v and dO.  Bound: `_flash_bwd_bound`."""
+    q, k, v and dO.  SDPA has no softcap: for gemma2's calls it computes
+    another function (the window as a boolean mask), labelled
+    ``library_fn``; beside it ``flex_ms`` times the same function's
+    backward through flex_attention (`time_flex_attention`).  Bound:
+    `_flash_bwd_bound`."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_cuda as fac
@@ -4371,30 +4717,44 @@ def time_flash_backward(device) -> list:
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
     for c in (c for c in FLASH_CASES if c.label in FLASH_BWD_TIMED):
-        q, k, v = _flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device, seed=1000)
+        kw = _flash_kw(c)
+        q, k, v = _flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device, seed=1000,
+                                q_scale=c.q_scale)
         do = _randn((c.b, c.s, c.h, c.d), 1003, device, c.dtype)
-        o, lse = fac.flash_attention_cuda(q, k, v, causal=c.causal, return_lse=True)
-        got = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, causal=c.causal)
-        want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal=c.causal)
+        o, lse = fac.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        got = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+        want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
         err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
-        kern = cuda_ms(lambda: fac.flash_attention_backward_cuda(
-            q, k, v, o, lse, do, causal=c.causal))
-        plain = cuda_ms(lambda: fa.flash_attention_backward_plain(
-            q, k, v, o, lse, do, causal=c.causal), iters=3, warmup=2)
-        sdpa, lib_grads = sdpa_backward(q, k, v, do, c.causal)
+        kern = cuda_ms(lambda: fac.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw))
+        # One call a loop: three of gemma2's plain backwards (dozens of
+        # launches over 4.8 GB score buffers each) can outlast the sleep.
+        plain = cuda_ms(lambda: fa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw),
+                        iters=1, warmup=2)
+        mask = (~fa.hidden_keys(c.s, c.keys, causal=c.causal, q_offset=0,
+                                window=c.window, device=device) if c.window else None)
+        sdpa, lib_grads = sdpa_backward(q, k, v, do, c.causal, mask)
         lib = cuda_ms(sdpa)
         lib_err = max(float((a.float() - w.float()).abs().max())
                       for a, w in zip(lib_grads, want))
-        b_ms, b_by = _flash_bwd_bound(c.b, c.s, c.h, c.kvh, c.d, c.causal, c.dtype)
+        library_fn = "SDPA backward (same function)"
+        if c.softcap:
+            library_fn = ("SDPA backward, not the same function: no softcap"
+                          + (", window as a boolean mask" if c.window else ""))
+        b_ms, b_by = _flash_bwd_bound(c.b, c.s, c.h, c.kvh, c.d, c.causal, c.dtype,
+                                      window=c.window)
         rows.append({"case": c.label, "shape": [c.b, c.s, c.h, c.kvh, c.d],
                      "dtype": c.dtype, "route": fac.ROUTES[q.dtype][1],
-                     "causal": c.causal, "max_abs_err": err,
-                     "ms": kern["device"], "host_ms": kern["host"],
+                     "causal": c.causal, "window": c.window, "softcap": c.softcap,
+                     "max_abs_err": err, "ms": kern["device"], "host_ms": kern["host"],
                      "plain_ms": plain["device"], "library_ms": lib["device"],
-                     "library_fn": "SDPA backward (same function)",
-                     "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by})
+                     "library_fn": library_fn, "library_max_abs_err": lib_err,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "pairs": c.b * c.h * flash_pairs(c.s, c.keys, c.causal, c.window)})
+        del sdpa, lib_grads, mask
+        if c.softcap:
+            rows[-1].update(time_flex_attention(c, q, k, v, device, do=do))
         log("time flash_attention_backward " + json.dumps(rows[-1]))
-        del q, k, v, do, o, lse, got, want, sdpa, lib_grads
+        del q, k, v, do, o, lse, got, want
         torch.cuda.empty_cache()
     return rows
 
@@ -4460,6 +4820,42 @@ def time_ssd_scan(device) -> list:
         log("time ssd_scan " + json.dumps(rows[-1]))
     log("library_ms: null for ssd_scan — no single PyTorch call computes the "
         "inter-chunk recurrence (a cumulative product-and-sum over chunks)")
+    return rows
+
+
+def time_ssd_scan_backward(device) -> list:
+    """The scan's backward kernel at Mamba2's and Zamba2's training calls
+    (4 × 1,024 tokens, chunk 256, float32, no g_final), held to its plain
+    version under `ddecay_gates` first: kernel, plain version, and the
+    forward kernel at the same shape beside it; bound `ssd_bwd_bound`.  No
+    single PyTorch call computes the reverse recurrence: no library
+    time."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+
+    rows = []
+    for label, nc, b, h, p, n, dtype, ddtype, final in SSD_BWD_CASES[:2]:
+        gp, gf, hp, d = _ssd_bwd_inputs(nc, b, h, p, n, dtype, ddtype, final, device,
+                                        seed=820)
+        s = _randn((nc, b, h, p, n), 823, device, dtype)
+        got, want = ssc.ssd_scan_backward_cuda(gp, gf, hp, d), \
+            ss.ssd_scan_backward_plain(gp, gf, hp, d)
+        readings = ddecay_gates(got, want, gp, gf, hp, d, ddtype, label)
+        kern = cuda_ms(lambda: ssc.ssd_scan_backward_cuda(gp, gf, hp, d))
+        plain = cuda_ms(lambda: ss.ssd_scan_backward_plain(gp, gf, hp, d), iters=5,
+                        warmup=2)
+        fwd = cuda_ms(lambda: ssc.ssd_scan_cuda(s, d))
+        b_ms, b_by = ssd_bwd_bound(nc, b, h, p, n, gp.element_size(), d.element_size(),
+                                   final)
+        rows.append({"case": label, "shape": [nc, b, h, p, n], "dtype": dtype,
+                     "max_abs_err": readings["ddecay_max_abs_err"],
+                     "ms": kern["device"], "host_ms": kern["host"],
+                     "plain_ms": plain["device"], "forward_ms": fwd["device"],
+                     "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+        log("time ssd_scan_backward " + json.dumps(rows[-1]))
+        del gp, gf, hp, d, s, got, want
+    log("library_ms: null for ssd_scan_backward — no single PyTorch call computes "
+        "the reverse recurrence")
     return rows
 
 
@@ -4560,6 +4956,7 @@ def main() -> int:
         gmm_bwd_parity = check_gmm_backward(device)
         check_lm_on_host(device)
         ssd_parity = check_ssd_scan(device)
+        ssd_bwd_parity = check_ssd_scan_backward(device)
         check_ssm_on_host(device)
 
         phase = "main path (float32)"
@@ -4650,6 +5047,7 @@ def main() -> int:
         gmm_rows = time_gmm(device)
         time_gmm_backward(device)
         ssd_rows = time_ssd_scan(device)
+        ssd_bwd_rows = time_ssd_scan_backward(device)
 
         parity_err = max(p["fused_max_abs_err"] for p in parity)
         kernels = []
@@ -4667,25 +5065,32 @@ def main() -> int:
                  wino_parity["max_abs_err"]),
                 ("flash_attention", flash_rows[:1],
                  {"flash_attention": lm["launches"]["flash_attention"]
+                  + ssm["launches"]["flash_attention"]
                   + zoo["launches"]["flash_attention"]
-                  + train["launches"]["flash_attention"]},
+                  + train["all_launches"]["flash_attention"]},
                  flash_parity["max_abs_err"]),
-                ("flash_attention_backward", flash_bwd_rows[:1], train["launches"],
+                ("flash_attention_backward", flash_bwd_rows[:1], train["all_launches"],
                  flash_bwd_parity["max_abs_err"]),
                 ("moe_gmm", [r for r in gmm_rows
                              if r["l2"] == "warm" and r["dtype"] == "bfloat16"],
-                 {"moe_gmm": lm["launches"]["moe_gmm"] + train["launches"]["moe_gmm"]},
+                 {"moe_gmm": lm["launches"]["moe_gmm"]
+                  + train["all_launches"]["moe_gmm"]},
                  max(gmm_parity["max_abs_err"], gmm_bwd_parity["max_abs_err"]))):
             entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name]}
             entry.update(summarize(rows, launches[name], err))
             entry["library_ms"] = math.fsum(r["library_ms"] for r in rows)
             kernels.append(entry)
-        entry = {"name": "ssd_scan", "route": "cuda", "source": SOURCES["ssd_scan"],
-                 "replaces": REPLACES["ssd_scan"]}
-        entry.update(summarize(ssd_rows[:1], ssm["launches"]["ssd_scan"],
-                               ssd_parity["max_abs_err"]))
-        kernels.append(entry)
+        for name, rows, launches, err in (
+                ("ssd_scan", ssd_rows[:1], ssm["launches"]["ssd_scan"]
+                 + train["all_launches"]["ssd_scan"], ssd_parity["max_abs_err"]),
+                ("ssd_scan_backward", ssd_bwd_rows[:1],
+                 train["all_launches"]["ssd_scan_backward"],
+                 ssd_bwd_parity["max_abs_err"])):
+            entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+                     "replaces": REPLACES[name]}
+            entry.update(summarize(rows, launches, err))
+            kernels.append(entry)
         log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f} s")
         log(f"card: {card_line()}")
         log(json.dumps({"kernels": kernels}))

@@ -7,19 +7,25 @@ NVIDIA H100.
         [out.json] [--only int8_matmul,winograd_conv,tree_gather]
     python3 compare_kernels.py --sweep [out.json] [--only tree_gather]
 
-Builds the parent's sources of the chosen kernels (default: all six,
+Builds the parent's sources of the chosen kernels (default: all seven,
 ``flash_attention``, ``flash_attention_bwd``, ``moe_gmm``,
-``int8_matmul``, ``winograd_conv``, ``tree_gather``) with this tree's
-nvcc flags (into ``build/``), and this tree's kernels through their
-wrappers.  At each shape both outputs are first held to their plain
-version, then the two are timed parent, change, change, parent with
-`chip_smoke.cuda_ms` (device time per call):
+``int8_matmul``, ``winograd_conv``, ``tree_gather``,
+``ssd_scan_backward``) with this tree's nvcc flags (into ``build/``), and
+this tree's kernels through their wrappers.  At each shape both outputs
+are first held to their plain version, then the two are timed parent,
+change, change, parent with `chip_smoke.cuda_ms` (device time per call):
   * flash: its ``FLASH_TIMED`` cases without a window, a softcap or
     sq != skv (the parent's function), within ``LM_TOL``;
-  * flash backward: ``FLASH_BWD_TIMED`` (Granite's training call,
-    bfloat16 and float32), dq, dk and dv within ``LM_TOL`` and, in
-    bfloat16, row by row within ``FLASH_ROW_TOL`` (`_bwd_row_check`),
-    with SDPA's backward (`chip_smoke.sdpa_backward`) beside them;
+  * flash backward: ``FLASH_BWD_TIMED`` without a window or a softcap
+    (Granite's training call, bfloat16 and float32: the parent's
+    function), dq, dk and dv within ``LM_TOL`` and, in bfloat16, row by
+    row within ``FLASH_ROW_TOL`` (`_bwd_row_check`), with SDPA's backward
+    (`chip_smoke.sdpa_backward`) beside them;
+  * the SSD scan's backward (``ssd_scan_backward``): no parent (the
+    kernel is new), so this tree's kernel alone, as
+    `chip_smoke.time_ssd_scan_backward` holds and times it at
+    ``SSD_BWD_CASES``' two training calls (Mamba2's and Zamba2's), with
+    the forward kernel at the same shape and the bound beside it;
   * GMM: its ``GMM_TIMED`` shapes on the input sets ``_gmm_turns`` hands
     out (the four serving shapes, and the two decode shapes with a cold
     L2), within ``LM_TOL``;
@@ -57,11 +63,12 @@ t, c, k, stream)``; of the commit before the tree redesign:
 n_nodes, n_trees, depth, rows_per_block, bank_in_smem, grid, smem_bytes,
 stream)`` and ``tree_predict_fused_launch`` likewise (with mean, std,
 scale, bias and the reduction), launched as `parent_tree_plan` plans;
-the GMM's and the flash backward's are this tree's
-(``flash_attention_bwd_launch(q, k, v, o, dout, lse, delta, dq, dk, dv,
-b, sq, skv, heads, kv_heads, d, dtype, causal, q_offset, scale, device,
-stream)``: the parent is called with the same operands and a D scratch
-of its own, the change through its wrapper), and flash's that of the
+the GMM's is this tree's; the flash backward's that of the commit before
+window and softcap (``flash_attention_bwd_launch(q, k, v, o, dout, lse,
+delta, dq, dk, dv, b, sq, skv, heads, kv_heads, d, dtype, causal,
+q_offset, scale, device, stream)``: the parent is called with the same
+operands and a D scratch of its own, the change through its wrapper
+without masks); and flash's that of the
 commit before the log-sum-exp output
 (``flash_attention_launch`` without ``lse``: the parent is called with
 window 0 and softcap 0, the change through its wrapper, whose inference
@@ -81,7 +88,9 @@ ROOT = Path(__file__).resolve().parent
 
 
 KERNELS = ("flash_attention", "flash_attention_bwd", "moe_gmm", "int8_matmul",
-           "winograd_conv", "tree_gather")
+           "winograd_conv", "tree_gather", "ssd_scan_backward")
+# Kernels without a parent source: this tree's is timed alone.
+NEW_KERNELS = ("ssd_scan_backward",)
 # Rows timed on each tree bank of `chip_smoke.parity_models` (the main
 # path's own op-type shapes are added by `tree_shapes`).
 TREE_ROWS = {"gbdt_150x4": (5, 64, 527, 2048, 11437, 32768),
@@ -226,7 +235,8 @@ def compare_flash_bwd(cs, lib, device) -> list:
     from repro_torch.kernels import flash_attention_cuda as fac
 
     rows = []
-    for c in (c for c in cs.FLASH_CASES if c.label in cs.FLASH_BWD_TIMED):
+    for c in (c for c in cs.FLASH_CASES if c.label in cs.FLASH_BWD_TIMED
+              and not c.window and not c.softcap):
         q, k, v = cs._flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device, seed=1000)
         do = cs._randn((c.b, c.s, c.h, c.d), 1003, device, c.dtype)
         o, lse = fac.flash_attention_cuda(q, k, v, causal=c.causal, return_lse=True)
@@ -261,6 +271,14 @@ def compare_flash_bwd(cs, lib, device) -> list:
         del q, k, v, do, o, lse, want, sdpa
         torch.cuda.empty_cache()
     return rows
+
+
+def compare_ssd_bwd(cs, lib, device) -> list:
+    """The SSD scan's backward (no parent: ``lib`` is None):
+    `chip_smoke.time_ssd_scan_backward`'s rows, gates, times and bound
+    included, as change-only rows."""
+    return [dict(row, kernel="ssd_scan_backward", parent_ms=None, change_ms=row["ms"])
+            for row in cs.time_ssd_scan_backward(device)]
 
 
 def compare_gmm(cs, lib, device) -> list:
@@ -787,7 +805,8 @@ def main(argv) -> int:
         return 3
     import chip_smoke as cs
     from repro_torch.kernels import (_build, flash_attention_cuda, int8_matmul_cuda,
-                                     moe_gmm_cuda, tree_gather_cuda, winograd_conv_cuda)
+                                     moe_gmm_cuda, ssd_scan_cuda, tree_gather_cuda,
+                                     winograd_conv_cuda)
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -798,7 +817,8 @@ def main(argv) -> int:
                  "flash_attention_bwd": flash_attention_cuda.BWD_LIBRARY,
                  "moe_gmm": moe_gmm_cuda.LIBRARY, "int8_matmul": int8_matmul_cuda.LIBRARY,
                  "winograd_conv": winograd_conv_cuda.LIBRARY,
-                 "tree_gather": tree_gather_cuda.LIBRARY}
+                 "tree_gather": tree_gather_cuda.LIBRARY,
+                 "ssd_scan_backward": ssd_scan_cuda.LIBRARY}
     if sweep:
         sweeps = {"int8_matmul": sweep_int8, "winograd_conv": sweep_winograd,
                   "tree_gather": sweep_tree}
@@ -806,13 +826,13 @@ def main(argv) -> int:
         _build.build_all([libraries[n] for n in names])
         rows = [r for n in names for r in sweeps[n](cs, device)]
     else:
-        libs = build_parent(parent_csrc, names)
+        libs = build_parent(parent_csrc, [n for n in names if n not in NEW_KERNELS])
         _build.build_all([libraries[n] for n in names])
         compare = {"flash_attention": compare_flash,
                    "flash_attention_bwd": compare_flash_bwd, "moe_gmm": compare_gmm,
                    "int8_matmul": compare_int8, "winograd_conv": compare_winograd,
-                   "tree_gather": compare_tree}
-        rows = [r for n in names for r in compare[n](cs, libs[n], device)]
+                   "tree_gather": compare_tree, "ssd_scan_backward": compare_ssd_bwd}
+        rows = [r for n in names for r in compare[n](cs, libs.get(n), device)]
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))

@@ -244,8 +244,8 @@ def refuse_grad(kernel: str, later: str, *tensors: Optional[torch.Tensor]) -> No
 
     A ctypes launch is invisible to autograd: without this check the graph
     would be cut there and every input below it would silently get no
-    gradient.  Kernels with a backward (flash attention, the GMM) go
-    through their `torch.autograd.Function` instead; ``later`` names the
+    gradient.  Kernels with a backward (flash attention, the GMM, the SSD
+    scan) go through their `torch.autograd.Function` instead; ``later`` names the
     slice of the port that brings this kernel's."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):

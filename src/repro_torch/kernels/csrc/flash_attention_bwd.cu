@@ -7,20 +7,23 @@
 // Pallas kernel.  The forward is flash_attention.cu, which writes each
 // row's log-sum-exp (LSE) when asked.
 //
-// With s_ij = (q_i . k_j) * scale, P_ij = exp(s_ij - LSE_i) (0 where the
-// causal mask, j > i + q_offset, or the end of the keys hides key j):
+// With s_ij = cap((q_i . k_j) * scale), cap(x) = softcap * tanh(x / softcap)
+// (x itself when softcap = 0), and P_ij = exp(s_ij - LSE_i) (0 where a mask
+// hides key j: the causal mask, j > i + q_offset; the window, when
+// window > 0, j <= i + q_offset - window; the end of the keys):
 //
 //   D_i  = sum_d dO_id * O_id
-//   dP_ij = dO_i . v_j,   dS_ij = P_ij * (dP_ij - D_i)
+//   dP_ij = dO_i . v_j,   dS_ij = P_ij * (dP_ij - D_i) * (1 - t_ij^2),
+//   t_ij = s_ij / softcap (the chain rule through the cap; 1 without one),
 //   dV_j = sum_i P_ij dO_i,   dK_j = scale * sum_i dS_ij q_i,
 //   dQ_i = scale * sum_j dS_ij k_j,
 //
 // summed over the query heads h of a kv head's group (h / rep = kv head)
 // for dK and dV.  q, o, dO and dQ are (b, sq, H, D), k, v, dK and dV
 // (b, skv, KVH, D), all contiguous, 16-byte aligned and all float32 or all
-// bfloat16; LSE and D are float32 (b, H, sq).  Window and softcap are not
-// differentiated here (the wrapper refuses them).  The type picks the
-// kernels:
+// bfloat16; LSE and D are float32 (b, H, sq), LSE from the forward with the
+// same masks and cap.  A query row that sees no key is refused by the
+// wrapper, as in the forward.  The type picks the kernels:
 //  * bfloat16: `flash_bwd_dq_bf16_mma` then `flash_bwd_dkdv_bf16_mma`, on
 //    the tensor cores (PTX wrappers in mma_bf16.cuh and ptx_copy.cuh);
 //  * float32: `flash_bwd_dq` then `flash_bwd_dkdv`, float32 FMA on the
@@ -49,9 +52,22 @@
 //    diagonal of EVERY query head of the kv head's group, recomputes S and
 //    dP, and sums dV += P^T.dO and dK += dS^T.Q in registers:
 //    grouped-query attention needs no atomics and no second reduction.
-//  * Causal key (dq) and query (dk/dv) tiles wholly hidden are never
-//    loaded.  Any sq and skv: rows past sq and keys past skv are
-//    zero-filled and masked; q_offset shifts the causal diagonal.
+//  * Key (dq) and query (dk/dv) tiles that the causal mask or the window
+//    hides wholly are never loaded; tiles they hide in part are masked
+//    element by element.  Any sq and skv: rows past sq and keys past skv
+//    are zero-filled and masked; q_offset shifts the causal diagonal.
+//  * Softcap: the cap is recomputed from S with tanhf (no approximate
+//    tanh), P from the capped score, and dS multiplied by 1 - t^2 before it
+//    is rounded (bfloat16: into the A fragments), t held in a register
+//    only for its element.  The bfloat16 kernels take the window and the
+//    cap as template flags (four instances a pass and head dim), so the
+//    instances without them keep the unmasked code as it was (the masked
+//    dq pass at D = 128 reads dO's fragments from shared memory each tile
+//    instead of holding them), and the window's lower edge relative to a
+//    row (q_offset - window) and the cap's two constants (scale / softcap,
+//    softcap log2(e)) arrive as kernel parameters, read from the constant
+//    bank, not held in registers: at D = 128 the passes sit at 255
+//    registers.
 //
 // Design of the bfloat16 kernels (4 warps a block, 16 rows or keys each).
 //  * dq pass: the Q and dO tiles are copied to shared memory once and
@@ -243,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(
     const T* __restrict__ o, const T* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ delta,
     T* __restrict__ dq, int sq, int skv, int heads, int kv_heads, int causal,
-    int q_offset, float scale) {
+    int q_offset, int window, float softcap, float scale) {
   constexpr int LD = BwdTile<D>::kLd;
   constexpr int PER = BwdTile<D>::kPer;
   extern __shared__ __align__(16) float smem[];
@@ -306,7 +322,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(
   }
   int kv_end = skv;
   if (causal) kv_end = min(skv, max(0, q0 + kRows + q_offset));
-  for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
+  int kv_begin = 0;
+  if (window > 0) kv_begin = max(0, q0 + q_offset - window + 1) / kKeys * kKeys;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kKeys) {
     __syncthreads();                      // the previous tiles have been read
     load_tile<T, D>(ks, k + kv_base, kv_row, k0, skv);
     load_tile<T, D>(vs, v + kv_base, kv_row, k0, skv);
@@ -322,9 +340,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(
       for (int j = 0; j < 4; ++j) {
         const int c = tc + 16 * j;
         const int key = k0 + c;
-        const bool seen = row < sq && key < skv && (!causal || key <= row + q_offset);
-        const float p = seen ? expf(s[i][j] * scale - ls[r]) : 0.f;
-        dst[c * kLdp + r] = p * (dp[i][j] - ds[r]);
+        const bool seen = row < sq && key < skv && (!causal || key <= row + q_offset) &&
+                          (window <= 0 || key > row + q_offset - window);
+        float sc = s[i][j] * scale, dcap = 1.f;
+        if (softcap > 0.f) {
+          const float t = tanhf(sc / softcap);
+          sc = t * softcap;
+          dcap = 1.f - t * t;
+        }
+        const float p = seen ? expf(sc - ls[r]) : 0.f;
+        dst[c * kLdp + r] = p * (dp[i][j] - ds[r]) * dcap;
       }
     }
     __syncthreads();
@@ -339,7 +364,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     int sq, int skv, int heads, int kv_heads, int causal, int q_offset,
-    float scale) {
+    int window, float softcap, float scale) {
   constexpr int LD = BwdTile<D>::kLd;
   constexpr int PER = BwdTile<D>::kPer;
   extern __shared__ __align__(16) float smem[];
@@ -374,16 +399,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(
       for (int y = 0; y < 4; ++y) adk[n][x][y] = adv[n][x][y] = 0.f;
     }
   }
-  // Query tiles wholly below the mask (every row's last key before k0)
+  // Query tiles wholly below the causal mask (every row's last key before
+  // k0) or past the window (every row's first key after the tile's last)
   // are skipped.
   int q_begin = 0;
   if (causal) q_begin = max(0, k0 - q_offset) / kRows * kRows;
+  int q_end = sq;
+  if (window > 0) q_end = min(sq, max(0, k0 + kKeys - 1 - q_offset + window));
   for (int g = 0; g < rep; ++g) {
     const int hi = kvi * rep + g;
     const long long q_base = static_cast<long long>(bi) * sq * q_row +
                              static_cast<long long>(hi) * D;
     const long long row_base = (static_cast<long long>(bi) * heads + hi) * sq;
-    for (int q0 = q_begin; q0 < sq; q0 += kRows) {
+    for (int q0 = q_begin; q0 < q_end; q0 += kRows) {
       __syncthreads();                    // the previous tiles have been read
       load_tile<T, D>(qs, q + q_base, q_row, q0, sq);
       load_tile<T, D>(dos, dout + q_base, q_row, q0, sq);
@@ -404,10 +432,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(
         for (int j = 0; j < 4; ++j) {
           const int c = tc + 16 * j;
           const int key = k0 + c;
-          const bool seen = row < sq && key < skv && (!causal || key <= row + q_offset);
-          const float p = seen ? expf(s[i][j] * scale - ls[r]) : 0.f;
+          const bool seen = row < sq && key < skv &&
+                            (!causal || key <= row + q_offset) &&
+                            (window <= 0 || key > row + q_offset - window);
+          float sc = s[i][j] * scale, dcap = 1.f;
+          if (softcap > 0.f) {
+            const float t = tanhf(sc / softcap);
+            sc = t * softcap;
+            dcap = 1.f - t * t;
+          }
+          const float p = seen ? expf(sc - ls[r]) : 0.f;
           ps[r * kLdp + c] = p;
-          dp[i][j] = p * (dp[i][j] - ds[r]);
+          dp[i][j] = p * (dp[i][j] - ds[r]) * dcap;
         }
       }
       __syncthreads();
@@ -430,8 +466,8 @@ template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, void* delta, void* dq,
                void* dk, void* dv, int b, int sq, int skv, int heads,
-               int kv_heads, int causal, int q_offset, float scale,
-               cudaStream_t stream) {
+               int kv_heads, int causal, int q_offset, int window, float softcap,
+               float scale, cudaStream_t stream) {
   constexpr int kSmem = BwdTile<D>::kSmemBytes;
   // More than the default 48 KB of dynamic shared memory: granted once per
   // instance and card (host_launch.cuh).
@@ -450,13 +486,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   flash_bwd_dq<T, D><<<dim3(b * heads, (sq + kRows - 1) / kRows), kThreads,
                        kSmem, stream>>>(
       qt, kt, vt, static_cast<const T*>(o), dot, lt, dt, static_cast<T*>(dq),
-      sq, skv, heads, kv_heads, causal, q_offset, scale);
+      sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dkdv<T, D><<<dim3(b * kv_heads, (skv + kKeys - 1) / kKeys),
                          kThreads, kSmem, stream>>>(
       qt, kt, vt, dot, lt, dt, static_cast<T*>(dk), static_cast<T*>(dv), sq,
-      skv, heads, kv_heads, causal, q_offset, scale);
+      skv, heads, kv_heads, causal, q_offset, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -464,13 +500,13 @@ template <typename T>
 int launch_bwd_d(int d, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const void* lse, void* delta,
                  void* dq, void* dk, void* dv, int b, int sq, int skv,
-                 int heads, int kv_heads, int causal, int q_offset, float scale,
-                 cudaStream_t s) {
+                 int heads, int kv_heads, int causal, int q_offset, int window,
+                 float softcap, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_bwd<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, scale, s);
-    case 32: return launch_bwd<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, scale, s);
-    case 64: return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, scale, s);
-    case 128: return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, scale, s);
+    case 16: return launch_bwd<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
+    case 32: return launch_bwd<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
+    case 64: return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
+    case 128: return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -571,13 +607,31 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c)[N][4],
   a[3] = mma_bf16::pack_bf16x2(c[2 * kc + 1][2], c[2 * kc + 1][3]);
 }
 
-template <int D>
+// P and the cap's factor 1 - t^2 of one score s (the raw q.k): with CAP,
+// t = tanh(s cap_in), P = exp2(t cap_out - LSE log2(e)), cap_in = scale /
+// softcap and cap_out = softcap log2(e); without, P = exp2(s scale log2(e)
+// - LSE log2(e)) and the factor is 1.
+template <bool CAP>
+__device__ __forceinline__ float cap_p(float s, float scale_log2, float cap_in,
+                                       float cap_out, float lse2, float& dcap) {
+  if constexpr (CAP) {
+    const float t = tanhf(s * cap_in);
+    dcap = 1.f - t * t;
+    return exp2f(fmaf(t, cap_out, -lse2));
+  } else {
+    dcap = 1.f;
+    return exp2f(fmaf(s, scale_log2, -lse2));
+  }
+}
+
+template <int D, bool WINDOW, bool CAP>
 __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_bf16_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int sq, int skv,
-    int heads, int kv_heads, int causal, int q_offset, float scale) {
+    int heads, int kv_heads, int causal, int q_offset, int win_lo, float scale,
+    float cap_in, float cap_out) {
   using namespace mma_bf16;
   using namespace ptx;
   constexpr int LD = MmaBwd<D>::kLd;
@@ -614,14 +668,23 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_bf16_mma(
   cp_async_commit();
   int kv_end = skv;
   if (causal) kv_end = min(skv, q0 + kMmaTile + q_offset);
-  const int n_tiles = (kv_end + kMmaTile - 1) / kMmaTile;
+  // The window: the loop starts at the tile of the block's first row's
+  // first visible key; tiles reaching to or below the block's last row's
+  // window edge are masked element by element.
+  // With WINDOW, key j is hidden from row i when j <= i + win_lo
+  // (win_lo = q_offset - window).
+  int kv_begin = 0;
+  if (WINDOW) kv_begin = max(0, q0 + win_lo + 1);
+  const int tile_begin = kv_begin / kMmaTile;
+  const int tile_end = (kv_end + kMmaTile - 1) / kMmaTile;
+  const int window_edge = WINDOW ? q0 + kMmaTile - 1 + win_lo : -1;
   auto load_kv = [&](int tile, int stage) {
     copy_tile<D>(ks + stage * MmaBwd<D>::kTile, k + kv_base, kv_row,
                  tile * kMmaTile, skv);
     copy_tile<D>(vs + stage * MmaBwd<D>::kTile, v + kv_base, kv_row,
                  tile * kMmaTile, skv);
   };
-  if (n_tiles > 0) load_kv(0, 0);
+  if (tile_begin < tile_end) load_kv(tile_begin, tile_begin & 1);
   cp_async_commit();
   cp_async_wait<1>();                     // Q and dO have landed
   __syncthreads();
@@ -657,12 +720,17 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_bf16_mma(
   }
   __syncthreads();
 
-  uint32_t qf[KC][4], df[KC][4];
+  // dO's A fragments are held in registers, but for a masked instance at
+  // D = 128, which reads them again from shared memory each tile: the
+  // masks' and the cap's values would push it past 255 registers.
+  constexpr bool HOLD_DO = D <= 64 || !(WINDOW || CAP);
+  constexpr int HD = HOLD_DO ? KC : 1;
+  uint32_t qf[KC][4], df[HD][4];
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc) {
     const int off = (warp * 16 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8;
     ldmatrix_x4(qf[kc], qs + off);
-    ldmatrix_x4(df[kc], dos + off);
+    if constexpr (HOLD_DO) ldmatrix_x4(df[kc], dos + off);
   }
   const int r0 = warp * 16 + g;           // tile rows r0 and r0 + 8
   float lse2[2], dd[2];
@@ -680,8 +748,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_bf16_mma(
     for (int e = 0; e < 4; ++e) acc[db][e] = 0.f;
   }
 
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) load_kv(it + 1, (it + 1) & 1);
+  for (int it = tile_begin; it < tile_end; ++it) {
+    if (it + 1 < tile_end) load_kv(it + 1, (it + 1) & 1);
     cp_async_commit();
     cp_async_wait<1>();                   // tile `it` has landed
     __syncthreads();
@@ -689,7 +757,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_bf16_mma(
     const __nv_bfloat16* vt = vs + (it & 1) * MmaBwd<D>::kTile;
     const int t0 = it * kMmaTile;
     const bool edge = t0 + kMmaTile > skv ||
-                      (causal && t0 + kMmaTile - 1 > q0 + q_offset);
+                      (causal && t0 + kMmaTile - 1 > q0 + q_offset) ||
+                      (WINDOW && t0 <= window_edge);
 #pragma unroll
     for (int sub = 0; sub < kMmaTile; sub += NS) {
       // S = Q.K^T and dP = dO.V^T, K and V as n-major B fragments.
@@ -701,6 +770,11 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_bf16_mma(
       }
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
+        uint32_t da[4];                   // dO's fragment, when not held
+        if constexpr (!HOLD_DO) {
+          ldmatrix_x4(da, dos + (warp * 16 + (lane & 15)) * LD + kc * 16 +
+                              (lane >> 4) * 8);
+        }
 #pragma unroll
         for (int nb = 0; nb < NB; nb += 2) {
           const int off = (sub + nb * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
@@ -710,23 +784,31 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_bf16_mma(
           mma_bf16_16816(s[nb], qf[kc], b[0], b[1]);
           mma_bf16_16816(s[nb + 1], qf[kc], b[2], b[3]);
           ldmatrix_x4(b, vt + off);
-          mma_bf16_16816(dp[nb], df[kc], b[0], b[1]);
-          mma_bf16_16816(dp[nb + 1], df[kc], b[2], b[3]);
+          if constexpr (HOLD_DO) {
+            mma_bf16_16816(dp[nb], df[kc], b[0], b[1]);
+            mma_bf16_16816(dp[nb + 1], df[kc], b[2], b[3]);
+          } else {
+            mma_bf16_16816(dp[nb], da, b[0], b[1]);
+            mma_bf16_16816(dp[nb + 1], da, b[2], b[3]);
+          }
         }
       }
-      // P = exp2(S scale log2(e) - LSE log2(e)), 0 where masked (only on
-      // tiles that cross the diagonal or the end of the keys), and
-      // dS = P (dP - D), in the C registers.
+      // P = exp2(cap(S scale) log2(e) - LSE log2(e)), 0 where masked (only
+      // on tiles that cross the diagonal, the window's edge or the end of
+      // the keys), and dS = P (dP - D) (1 - t^2), in the C registers.
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = t0 + sub + nb * 8 + 2 * t + (e & 1);
           const int row = q0 + r0 + (e >> 1) * 8;
-          const bool hidden = key >= skv || (causal && key > row + q_offset);
+          const bool hidden = key >= skv || (causal && key > row + q_offset) ||
+                              (WINDOW && key <= row + win_lo);
+          float dcap = 1.f;
           const float p = edge && hidden
-              ? 0.f : exp2f(fmaf(s[nb][e], scale_log2, -lse2[e >> 1]));
-          s[nb][e] = p * (dp[nb][e] - dd[e >> 1]);
+              ? 0.f : cap_p<CAP>(s[nb][e], scale_log2, cap_in, cap_out, lse2[e >> 1],
+                                 dcap);
+          s[nb][e] = p * (dp[nb][e] - dd[e >> 1]) * dcap;
         }
       }
       // dQ += dS.K: dS rounded to bf16 A fragments in registers, K as a
@@ -752,13 +834,14 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_bf16_mma(
                 scale);
 }
 
-template <int D>
+template <int D, bool WINDOW, bool CAP>
 __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_bf16_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq,
-    int skv, int heads, int kv_heads, int causal, int q_offset, float scale) {
+    int skv, int heads, int kv_heads, int causal, int q_offset, int win_lo,
+    float scale, float cap_in, float cap_out) {
   using namespace mma_bf16;
   using namespace ptx;
   constexpr int LD = MmaBwd<D>::kLd;
@@ -793,12 +876,15 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_bf16_mma(
   copy_tile<D>(ks, k + kv_base, kv_row, k0, skv);
   copy_tile<D>(vs, v + kv_base, kv_row, k0, skv);
   cp_async_commit();
-  // Query tiles wholly below the mask (every row's last key before k0)
-  // are skipped.  The walk is every query tile from q_begin of every
-  // query head of the kv head's group, one ring slot a tile.
+  // Query tiles wholly below the causal mask (every row's last key before
+  // k0) or past the window (every row's first key after the tile's last)
+  // are skipped.  The walk is every query tile from q_begin up to q_end of
+  // every query head of the kv head's group, one ring slot a tile.
   int q_begin = 0;
   if (causal) q_begin = max(0, k0 - q_offset) / kMmaTile * kMmaTile;
-  const int n_q = q_begin < sq ? (sq - q_begin + kMmaTile - 1) / kMmaTile : 0;
+  int q_end = sq;
+  if (WINDOW) q_end = min(sq, max(0, k0 + kMmaTile - 1 - win_lo));
+  const int n_q = q_begin < q_end ? (q_end - q_begin + kMmaTile - 1) / kMmaTile : 0;
   const int n_tiles = rep * n_q;
   auto load_q = [&](int it, int stage) {
     const int hi = kvi * rep + it / n_q;
@@ -850,7 +936,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_bf16_mma(
     const float* dlt = dl + (it & 1) * kMmaTile;
     const int q0 = q_begin + (it % n_q) * kMmaTile;
     const bool edge = k0 + kMmaTile > skv || q0 + kMmaTile > sq ||
-                      (causal && k0 + kMmaTile - 1 > q0 + q_offset);
+                      (causal && k0 + kMmaTile - 1 > q0 + q_offset) ||
+                      (WINDOW && k0 <= q0 + kMmaTile - 1 + win_lo);
 #pragma unroll
     for (int sub = 0; sub < kMmaTile; sub += NS) {
       // S^T = K.Q^T and dP^T = V.dO^T, Q and dO as n-major B fragments.
@@ -886,8 +973,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_bf16_mma(
           mma_bf16_16816(dp[nb + 1], va, b[2], b[3]);
         }
       }
-      // P^T and dS^T = P^T (dP^T - D) in the C registers: a column is a
-      // query row, whose LSE and D come from the ring's small arrays.
+      // P^T and dS^T = P^T (dP^T - D) (1 - t^2) in the C registers: a
+      // column is a query row, whose LSE and D come from the ring's small
+      // arrays.
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
         const int col = sub + nb * 8 + 2 * t;
@@ -898,13 +986,16 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_bf16_mma(
           const int row = q0 + col + (e & 1);
           const int key = key0 + (e >> 1) * 8;
           const bool hidden = row >= sq || key >= skv ||
-                              (causal && key > row + q_offset);
+                              (causal && key > row + q_offset) ||
+                              (WINDOW && key <= row + win_lo);
           const float lrow = (e & 1) ? l2.y : l2.x;
           const float drw = (e & 1) ? d2.y : d2.x;
+          float dcap = 1.f;
           const float p = edge && hidden
-              ? 0.f : exp2f(fmaf(s[nb][e], scale_log2, -lrow * kLog2e));
+              ? 0.f : cap_p<CAP>(s[nb][e], scale_log2, cap_in, cap_out,
+                                 lrow * kLog2e, dcap);
           s[nb][e] = p;
-          dp[nb][e] = p * (dp[nb][e] - drw);
+          dp[nb][e] = p * (dp[nb][e] - drw) * dcap;
         }
       }
       // dV += P^T.dO and dK += dS^T.Q: P^T and dS^T rounded to bf16 A
@@ -936,20 +1027,21 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_bf16_mma(
                 1.f);
 }
 
-template <int D>
+template <int D, bool WINDOW, bool CAP>
 int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const void* lse, void* delta, void* dq,
                    void* dk, void* dv, int b, int sq, int skv, int heads,
-                   int kv_heads, int causal, int q_offset, float scale,
-                   cudaStream_t stream) {
+                   int kv_heads, int causal, int q_offset, int window,
+                   float softcap, float scale, cudaStream_t stream) {
   constexpr int kDqSmem = MmaBwd<D>::kDqSmemBytes;
   constexpr int kKvSmem = MmaBwd<D>::kDkdvSmemBytes;
   static int granted_dq[host_launch::kMaxDevices] = {};
   static int granted_kv[host_launch::kMaxDevices] = {};
-  cudaError_t err =
-      host_launch::opt_in(flash_bwd_dq_bf16_mma<D>, granted_dq, kDqSmem);
+  cudaError_t err = host_launch::opt_in(flash_bwd_dq_bf16_mma<D, WINDOW, CAP>,
+                                        granted_dq, kDqSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = host_launch::opt_in(flash_bwd_dkdv_bf16_mma<D>, granted_kv, kKvSmem);
+  err = host_launch::opt_in(flash_bwd_dkdv_bf16_mma<D, WINDOW, CAP>, granted_kv,
+                            kKvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   using bf16 = __nv_bfloat16;
   const bf16* qt = static_cast<const bf16*>(q);
@@ -958,31 +1050,55 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
   const bf16* dot = static_cast<const bf16*>(dout);
   const float* lt = static_cast<const float*>(lse);
   float* dt = static_cast<float*>(delta);
-  flash_bwd_dq_bf16_mma<D><<<dim3(b * heads, (sq + kMmaTile - 1) / kMmaTile),
-                             kMmaThreads, kDqSmem, stream>>>(
-      qt, kt, vt, static_cast<const bf16*>(o), dot, lt, dt, static_cast<bf16*>(dq),
-      sq, skv, heads, kv_heads, causal, q_offset, scale);
+  const float cap_in = CAP ? scale / softcap : 0.f;
+  const float cap_out = softcap * kLog2e;
+  flash_bwd_dq_bf16_mma<D, WINDOW, CAP>
+      <<<dim3(b * heads, (sq + kMmaTile - 1) / kMmaTile), kMmaThreads, kDqSmem,
+         stream>>>(qt, kt, vt, static_cast<const bf16*>(o), dot, lt, dt,
+                   static_cast<bf16*>(dq), sq, skv, heads, kv_heads, causal, q_offset,
+                   q_offset - window, scale, cap_in, cap_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_bf16_mma<D><<<dim3(b * kv_heads, (skv + kMmaTile - 1) / kMmaTile),
-                               kMmaThreads, kKvSmem, stream>>>(
-      qt, kt, vt, dot, lt, dt, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq,
-      skv, heads, kv_heads, causal, q_offset, scale);
+  flash_bwd_dkdv_bf16_mma<D, WINDOW, CAP>
+      <<<dim3(b * kv_heads, (skv + kMmaTile - 1) / kMmaTile), kMmaThreads, kKvSmem,
+         stream>>>(qt, kt, vt, dot, lt, dt, static_cast<bf16*>(dk),
+                   static_cast<bf16*>(dv), sq, skv, heads, kv_heads, causal, q_offset,
+                   q_offset - window, scale, cap_in, cap_out);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool WINDOW, bool CAP>
 int launch_bwd_mma_d(int d, const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const void* lse, void* delta,
                      void* dq, void* dk, void* dv, int b, int sq, int skv,
-                     int heads, int kv_heads, int causal, int q_offset,
-                     float scale, cudaStream_t s) {
+                     int heads, int kv_heads, int causal, int q_offset, int window,
+                     float softcap, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_bwd_mma<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, scale, s);
-    case 32: return launch_bwd_mma<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, scale, s);
-    case 64: return launch_bwd_mma<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, scale, s);
-    case 128: return launch_bwd_mma<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, scale, s);
+    case 16: return launch_bwd_mma<16, WINDOW, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
+    case 32: return launch_bwd_mma<32, WINDOW, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
+    case 64: return launch_bwd_mma<64, WINDOW, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
+    case 128: return launch_bwd_mma<128, WINDOW, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The bfloat16 pair's instance for the call's masks: a window (window > 0)
+// and a cap (softcap > 0) each a template flag.
+int launch_bwd_mma_masks(int d, const void* q, const void* k, const void* v,
+                         const void* o, const void* dout, const void* lse,
+                         void* delta, void* dq, void* dk, void* dv, int b, int sq,
+                         int skv, int heads, int kv_heads, int causal, int q_offset,
+                         int window, float softcap, float scale, cudaStream_t s) {
+  if (window > 0 && softcap > 0.f) {
+    return launch_bwd_mma_d<true, true>(d, q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
+  }
+  if (window > 0) {
+    return launch_bwd_mma_d<true, false>(d, q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
+  }
+  if (softcap > 0.f) {
+    return launch_bwd_mma_d<false, true>(d, q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
+  }
+  return launch_bwd_mma_d<false, false>(d, q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, heads, kv_heads, causal, q_offset, window, softcap, scale, s);
 }
 
 int bwd_smem_bytes(int d) {
@@ -1014,24 +1130,26 @@ int bwd_mma_smem_bytes(int d, int dkdv) {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  delta is
 // a float32 (b, heads, sq) scratch that the dq pass writes and the dk/dv
-// pass reads.
+// pass reads.  window 0 and softcap 0 mean none.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int b, int sq, int skv, int heads, int kv_heads, int d,
-    int dtype, int causal, int q_offset, float scale, int device,
-    void* stream) {
+    int dtype, int causal, int q_offset, int window, float softcap, float scale,
+    int device, void* stream) {
   const host_launch::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (window < 0 || !(softcap >= 0.f)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
     return launch_bwd_d<float>(d, q, k, v, o, dout, lse, delta, dq, dk, dv, b,
-                               sq, skv, heads, kv_heads, causal, q_offset,
-                               scale, s);
+                               sq, skv, heads, kv_heads, causal, q_offset, window,
+                               softcap, scale, s);
   }
   if (dtype == 1) {
-    return launch_bwd_mma_d(d, q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq,
-                            skv, heads, kv_heads, causal, q_offset, scale, s);
+    return launch_bwd_mma_masks(d, q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq,
+                                skv, heads, kv_heads, causal, q_offset, window,
+                                softcap, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -37,9 +37,42 @@
 // not aligned to its vector, takes the scalar kernel (one element a
 // thread), and the last block masks its tail.
 //
-// The kernel allocates nothing and launches on the caller's stream and
-// card (host_launch.cuh's DeviceGuard); the C
-// entry point returns cudaGetLastError() of its launch.
+// Backward (`ssd_scan_bwd_launch`).  The reference has no Pallas backward:
+// XLA differentiates the lax.scan of src/repro/models/ssm.py:105-114.  With
+// upstream gradients g_prev (NC, B, H, P, N) for h_prev and g_final
+// (B, H, P, N) for h_final (null: zero), the adjoint of h_c runs in
+// reverse,
+//
+//   G_{NC-1} = g_final,   G_{c-1} = G_c * decay[c] + g_prev[c]  (c >= 1),
+//   ds[c] = G_c,          ddecay[c] = sum_{p,n} G_c * h_prev[c],
+//
+// (G_{-1}, the zero initial state's gradient, feeds no output, so g_prev[0]
+// and decay[0] are not read), with G carried in float32 and updated as __fadd_rn(__fmul_rn(G, dec), g)
+// (two rounded operations, never an FMA), so ds is bit-equal to the plain
+// version, which computes `G * dec + g` as two rounded ops.  g_prev, h_prev
+// and ds are in s's type, decay and ddecay in decay's.
+//
+// What bounds it.  G's update and the products for ddecay are four
+// operations per state element and chunk against 12 bytes (g_prev and
+// h_prev read, ds written, float32): bound by bytes.  At Mamba2 2.7B's
+// training call (NC 4, B 4, H 80, P 64, N 128, float32, no g_final) it
+// moves (3 NC - 1) x 10.5 MB = 115 MB, 34.4 us at 3.35 TB/s.
+//
+// Design.  The forward's layout and rules: one thread owns four
+// neighbouring elements of one (b, h) row (one element on the scalar
+// route) and walks the chunks backwards with G in registers.  ddecay is a
+// sum over the row's P*N elements (8,192 for Mamba2, 4,096 for Zamba2),
+// taken in a fixed order and without float atomics, so it repeats bit for
+// bit: the thread's own products in order, a warp's by xor shuffles, the
+// block's eight warps in order through shared memory.  So a block covers
+// one stretch of one row (grid x = the B*H rows, grid y = the stretches of
+// a row); a row of one stretch writes ddecay from its block, a row of
+// several writes one partial a block into a float32 scratch that a second
+// kernel, one thread a (chunk, row), sums in block order.
+//
+// The kernels allocate nothing and launch on the caller's stream and card
+// (host_launch.cuh's DeviceGuard); the C entry points return
+// cudaGetLastError() of their launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -211,6 +244,156 @@ int launch_decay(const void* s, const void* decay, void* h_prev, void* h_final,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// -- backward ------------------------------------------------------------------
+
+constexpr int kWarps = kThreads / 32;
+
+// V consecutive elements (V = 4: one vector; V = 1: one scalar) of one row,
+// widened to float32 on load and rounded once on store.
+template <typename T, int V>
+struct Elems {
+  __device__ __forceinline__ static void load(const T* p, float* v) {
+    if constexpr (V == 4) {
+      Vec4<T>::load(p, v);
+    } else {
+      v[0] = to_f32(*p);
+    }
+  }
+  __device__ __forceinline__ static void store_(T* p, const float* v) {
+    if constexpr (V == 4) {
+      Vec4<T>::store(p, v);
+    } else {
+      store(p, v[0]);
+    }
+  }
+};
+
+// Block (row, stretch): elements stretch * kThreads * V + threadIdx.x * V
+// .. + V - 1 of row `row`; threads past the row's end hold zeros and take
+// part in the sums and barriers.
+template <typename T, typename D, int V>
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_bwd(const T* __restrict__ g_prev, const T* __restrict__ g_final,
+             const T* __restrict__ h_prev, const D* __restrict__ decay,
+             T* __restrict__ ds, float* __restrict__ partial,
+             D* __restrict__ ddecay, int nc, long long bh, long long pn,
+             int stretches) {
+  __shared__ float warp_sums[kWarps];
+  const long long row = blockIdx.x;
+  const long long e = (static_cast<long long>(blockIdx.y) * kThreads + threadIdx.x) * V;
+  const bool in = e < pn;
+  const long long plane = bh * pn;
+  const long long at = row * pn + e;            // offset within one chunk
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float G[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) G[i] = 0.f;
+  if (in && g_final != nullptr) Elems<T, V>::load(g_final + at, G);
+  for (int c = nc - 1; c >= 0; --c) {
+    float part = 0.f;
+    if (in) {
+      const long long o = c * plane + at;
+      float h[V];
+      Elems<T, V>::load(h_prev + o, h);
+      Elems<T, V>::store_(ds + o, G);
+#pragma unroll
+      for (int i = 0; i < V; ++i) part = __fadd_rn(part, __fmul_rn(G[i], h[i]));
+      if (c > 0) {                               // G_{-1} feeds no output
+        float g[V];
+        Elems<T, V>::load(g_prev + o, g);
+        const float dec = to_f32(decay[c * bh + row]);
+#pragma unroll
+        for (int i = 0; i < V; ++i) G[i] = step(G[i], dec, g[i]);
+      }
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, m));
+    }
+    if (lane == 0) warp_sums[warp] = part;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float sum = warp_sums[0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) sum = __fadd_rn(sum, warp_sums[w]);
+      const long long r = c * bh + row;
+      if (stretches == 1) {
+        store(ddecay + r, sum);
+      } else {
+        partial[r * stretches + blockIdx.y] = sum;
+      }
+    }
+    __syncthreads();                             // warp_sums is reused
+  }
+}
+
+// ddecay[r] = the stretches' partials of (chunk, row) r, summed in order.
+template <typename D>
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_bwd_rows(const float* __restrict__ partial, D* __restrict__ ddecay,
+                  long long rows, int stretches) {
+  const long long r = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= rows) return;
+  const float* p = partial + r * stretches;
+  float sum = p[0];
+  for (int i = 1; i < stretches; ++i) sum = __fadd_rn(sum, p[i]);
+  store(ddecay + r, sum);
+}
+
+template <typename T, typename D>
+int launch_bwd(const void* g_prev, const void* g_final, const void* h_prev,
+               const void* decay, void* ds, void* partial, void* ddecay, int nc,
+               long long bh, long long pn, cudaStream_t stream) {
+  const bool vec = pn % 4 == 0 && aligned<T>(g_prev) && aligned<T>(h_prev) &&
+                   aligned<T>(ds) && (g_final == nullptr || aligned<T>(g_final));
+  const long long per_block = static_cast<long long>(kThreads) * (vec ? 4 : 1);
+  const long long stretches = (pn + per_block - 1) / per_block;
+  if (nc == 0 || bh == 0 || pn == 0) return static_cast<int>(cudaSuccess);
+  if (bh > 0x7fffffffLL || stretches > 65535) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const dim3 grid(static_cast<unsigned>(bh), static_cast<unsigned>(stretches));
+  const T* gp = static_cast<const T*>(g_prev);
+  const T* gf = static_cast<const T*>(g_final);
+  const T* hp = static_cast<const T*>(h_prev);
+  const D* dp = static_cast<const D*>(decay);
+  T* dsp = static_cast<T*>(ds);
+  float* pp = static_cast<float*>(partial);
+  D* ddp = static_cast<D*>(ddecay);
+  const int n = static_cast<int>(stretches);
+  if (vec) {
+    ssd_scan_bwd<T, D, 4><<<grid, kThreads, 0, stream>>>(gp, gf, hp, dp, dsp, pp, ddp,
+                                                         nc, bh, pn, n);
+  } else {
+    ssd_scan_bwd<T, D, 1><<<grid, kThreads, 0, stream>>>(gp, gf, hp, dp, dsp, pp, ddp,
+                                                         nc, bh, pn, n);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n == 1) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(nc) * bh;
+  const long long blocks = (rows + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  ssd_scan_bwd_rows<D><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      pp, ddp, rows, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_decay(const void* g_prev, const void* g_final, const void* h_prev,
+                     const void* decay, void* ds, void* partial, void* ddecay,
+                     int nc, long long bh, long long pn, int d_dtype,
+                     cudaStream_t stream) {
+  if (d_dtype == 0) {
+    return launch_bwd<T, float>(g_prev, g_final, h_prev, decay, ds, partial, ddecay,
+                                nc, bh, pn, stream);
+  }
+  if (d_dtype == 1) {
+    return launch_bwd<T, __nv_bfloat16>(g_prev, g_final, h_prev, decay, ds, partial,
+                                        ddecay, nc, bh, pn, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // s_dtype, d_dtype: 0 = float32, 1 = bfloat16.  bh = B*H, pn = P*N.
@@ -228,6 +411,31 @@ extern "C" int ssd_scan_launch(const void* s, const void* decay, void* h_prev,
   if (s_dtype == 1) {
     return launch_decay<__nv_bfloat16>(s, decay, h_prev, h_final, nc, bh, pn,
                                        d_dtype, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward: g_prev, h_prev and ds (NC, B, H, P, N) and g_final
+// (B, H, P, N; null for zero) in s's type, decay and ddecay (NC, B, H) in
+// decay's (g_prev[0] and decay[0] are not read: they would only feed the
+// gradient of the zero initial state); partial is a float32 scratch of at least NC * B * H *
+// ceil(P*N / 256) floats (the most stretches a row can take).
+extern "C" int ssd_scan_bwd_launch(const void* g_prev, const void* g_final,
+                                   const void* h_prev, const void* decay, void* ds,
+                                   void* partial, void* ddecay, int nc, long long bh,
+                                   long long pn, int s_dtype, int d_dtype, int device,
+                                   void* stream) {
+  const host_launch::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nc < 0 || bh < 0 || pn < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (s_dtype == 0) {
+    return launch_bwd_decay<float>(g_prev, g_final, h_prev, decay, ds, partial,
+                                   ddecay, nc, bh, pn, d_dtype, st);
+  }
+  if (s_dtype == 1) {
+    return launch_bwd_decay<__nv_bfloat16>(g_prev, g_final, h_prev, decay, ds,
+                                           partial, ddecay, nc, bh, pn, d_dtype, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,13 +34,13 @@ Gradients.  When gradients are enabled and q, k or v requires one,
 `flash_attention` goes through `FlashAttention` (a
 `torch.autograd.Function`): its forward saves q, k, v, the output and
 each row's log-sum-exp, and its backward computes (dq, dk, dv) from them
-(P = exp(s - lse), D = Σ dO·O, dS = P ∘ (dP - D); the counterpart of the
+(P = exp(s - lse), D = Σ dO·O, dS = P ∘ (dP - D), and through a softcap
+dS ∘ (1 - (s / softcap)²) on the capped scores s; the counterpart of the
 gradient XLA derives for the reference's attention).  On the card both
 are hand-written kernels (the forward writing the log-sum-exp, and
 ``csrc/flash_attention_bwd.cu``); on the host `flash_attention_plain`,
 `flash_lse_plain` and `flash_attention_backward_plain`, which the
-kernels are held against.  Window and softcap are forward-only: asking
-for their gradient raises.
+kernels are held against.  Both take the window and the softcap.
 """
 from __future__ import annotations
 
@@ -78,20 +78,27 @@ def hidden_keys(sq: int, skv: int, *, causal: bool, q_offset: int, window: int,
     return hidden
 
 
-def _scores(q: Tensor, k: Tensor, *, causal: bool, q_offset: int, window: int,
-            softcap: float) -> Tensor:
-    """Float32 scores (b, kvh, rep, sq, skv): q·k / sqrt(d), softcap, masked
-    entries at `NEG_INF`."""
+def _capped_scores(q: Tensor, k: Tensor, softcap: float) -> Tensor:
+    """Float32 scores (b, kvh, rep, sq, skv): q·k / sqrt(d), then the
+    softcap; no mask."""
     b, sq, h, hd = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
+    kvh = k.shape[2]
     qg = q.float().reshape(b, sq, kvh, h // kvh, hd)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) / math.sqrt(hd)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
+    return scores
+
+
+def _scores(q: Tensor, k: Tensor, *, causal: bool, q_offset: int, window: int,
+            softcap: float) -> Tensor:
+    """Float32 scores (b, kvh, rep, sq, skv): q·k / sqrt(d), softcap, masked
+    entries at `NEG_INF`."""
+    scores = _capped_scores(q, k, softcap)
     if causal or window:
         scores = scores.masked_fill(
-            hidden_keys(sq, skv, causal=causal, q_offset=q_offset, window=window,
-                        device=q.device), NEG_INF)
+            hidden_keys(q.shape[1], k.shape[1], causal=causal, q_offset=q_offset,
+                        window=window, device=q.device), NEG_INF)
     return scores
 
 
@@ -111,37 +118,53 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
 
 
 def flash_lse_plain(q: Tensor, k: Tensor, *, causal: bool = True,
-                    q_offset: int = 0) -> Tensor:
-    """Each row's float32 log-sum-exp of its scaled, masked scores,
-    (b, h, sq): what the card's forward writes for the backward."""
+                    q_offset: int = 0, window: int = 0,
+                    softcap: float = 0.0) -> Tensor:
+    """Each row's float32 log-sum-exp of its scaled, capped and masked
+    scores, (b, h, sq): what the card's forward writes for the backward."""
     b, sq, h, _ = q.shape
-    s = _scores(q, k, causal=causal, q_offset=q_offset, window=0, softcap=0.0)
+    s = _scores(q, k, causal=causal, q_offset=q_offset, window=window,
+                softcap=softcap)
     return torch.logsumexp(s, dim=-1).reshape(b, h, sq)
 
 
 def flash_attention_backward_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
                                    lse: Tensor, do: Tensor, *, causal: bool = True,
-                                   q_offset: int = 0):
+                                   q_offset: int = 0, window: int = 0,
+                                   softcap: float = 0.0):
     """(dq, dk, dv) in the inputs' types, by the backward kernel's formulas
-    in plain float32 torch: P = exp(s - lse) (0 where masked), dV = Pᵀ·dO,
-    dP = dO·Vᵀ, D = Σ dO·O over the head dim, dS = P ∘ (dP - D),
-    dQ = scale·dS·K, dK = scale·dSᵀ·Q, GQA summed over each kv head's
-    query heads.  o and lse are the forward's output and (b, h, sq)
-    log-sum-exp."""
+    in plain float32 torch: P = exp(s - lse) from the capped, masked
+    scores s (0 where masked), dV = Pᵀ·dO, dP = dO·Vᵀ, D = Σ dO·O over the
+    head dim, dS = P ∘ (dP - D), through the softcap
+    dS ∘ (1 - (s / softcap)²), dQ = scale·dS·K, dK = scale·dSᵀ·Q, GQA
+    summed over each kv head's query heads.  A row that every key is
+    masked from takes the forward's average of V (P = 1 / skv) and no dS,
+    as the reference's masked softmax gives.  o and lse are the forward's
+    output and (b, h, sq) log-sum-exp."""
     _check_heads(q, k, v)
+    flash_attention_cuda.check_masks(window, softcap)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     rep, scale = h // kvh, 1.0 / math.sqrt(hd)
-    s = _scores(q, k, causal=causal, q_offset=q_offset, window=0, softcap=0.0)
+    capped = _capped_scores(q, k, softcap)
+    hidden = (hidden_keys(sq, skv, causal=causal, q_offset=q_offset, window=window,
+                          device=q.device) if causal or window else None)
+    s = capped if hidden is None else capped.masked_fill(hidden, NEG_INF)
     p = torch.exp(s - lse.float().reshape(b, kvh, rep, sq, 1))
-    if causal:
-        p = p.masked_fill(hidden_keys(sq, skv, causal=True, q_offset=q_offset,
-                                      window=0, device=q.device), 0.0)
+    if hidden is not None:
+        # Without a host sync: rows that see no key take 1 / skv.
+        p = torch.where(hidden.all(-1, keepdim=True), 1.0 / skv,
+                        p.masked_fill(hidden, 0.0))
     dog = do.float().reshape(b, sq, kvh, rep, hd)
     dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
     dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.float())
     delta = (dog * o.float().reshape(b, sq, kvh, rep, hd)).sum(-1)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if softcap:
+        t = capped / softcap
+        ds = ds * (1.0 - t * t)
+    if hidden is not None:
+        ds = ds.masked_fill(hidden, 0.0)
     dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, k.float()) * scale
     dk = torch.einsum("bgrqk,bqgrd->bkgd", ds,
                       q.float().reshape(b, sq, kvh, rep, hd)) * scale
@@ -155,43 +178,39 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                q_offset: int) -> Tensor:
+                q_offset: int, window: int, softcap: float) -> Tensor:
+        kw = {"causal": causal, "q_offset": q_offset, "window": window,
+              "softcap": softcap}
         if q.is_cuda:
-            o, lse = flash_attention_cuda.flash_attention_cuda(
-                q, k, v, causal=causal, q_offset=q_offset, return_lse=True)
+            o, lse = flash_attention_cuda.flash_attention_cuda(q, k, v, return_lse=True,
+                                                               **kw)
         else:
-            o = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
-            lse = flash_lse_plain(q, k, causal=causal, q_offset=q_offset)
+            o = flash_attention_plain(q, k, v, **kw)
+            lse = flash_lse_plain(q, k, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.q_offset = causal, q_offset
+        ctx.kw = kw
         return o
 
     @staticmethod
     def backward(ctx, do: Tensor):
         q, k, v, o, lse = ctx.saved_tensors
-        kw = {"causal": ctx.causal, "q_offset": ctx.q_offset}
         if q.is_cuda:
             grads = flash_attention_cuda.flash_attention_backward_cuda(
-                q, k, v, o, lse, do.contiguous(), **kw)
+                q, k, v, o, lse, do.contiguous(), **ctx.kw)
         else:
-            grads = flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
-        return (*grads, None, None)
+            grads = flash_attention_backward_plain(q, k, v, o, lse, do, **ctx.kw)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     q_offset: int = 0, window: int = 0,
                     softcap: float = 0.0) -> Tensor:
     """Attention of q (b, sq, h, d) over k, v (b, skv, kvh, d), on the
-    device of ``q``; differentiable (`FlashAttention`) without window or
-    softcap."""
+    device of ``q``; differentiable (`FlashAttention`)."""
     _check_heads(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if window or softcap:
-            raise NotImplementedError(
-                "flash attention has no backward with a window or a softcap yet "
-                "(gemma2 training is a later slice of the port)")
         return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                    causal, q_offset)
+                                    causal, q_offset, window, softcap)
     if q.is_cuda:
         return flash_attention_cuda.flash_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,

@@ -21,11 +21,12 @@ launches, and nowhere else.  With ``return_lse=True`` it also returns
 each row's float32 log-sum-exp, (b, h, sq), which the training path
 saves for the backward.
 
-``flash_attention_backward_cuda(q, k, v, o, lse, do, causal, q_offset)``
-→ (dq, dk, dv) in q's type launches the hand-written backward
-(``csrc/flash_attention_bwd.cu``: a dq pass that also writes each row's
-D = dO·O, then a dk/dv pass over every query head of a kv head's group),
-without window or softcap.  The type picks the route as in the forward:
+``flash_attention_backward_cuda(q, k, v, o, lse, do, causal, q_offset,
+window, softcap)`` → (dq, dk, dv) in q's type launches the hand-written
+backward (``csrc/flash_attention_bwd.cu``: a dq pass that also writes
+each row's D = dO·O, then a dk/dv pass over every query head of a kv
+head's group), with the forward's masks and softcap and the same refusal
+of a row that sees no key.  The type picks the route as in the forward:
 bfloat16 the tensor-core kernels (`flash_bwd_dq_bf16_mma`,
 `flash_bwd_dkdv_bf16_mma`), float32 the CUDA-core ones (`flash_bwd_dq`,
 `flash_bwd_dkdv`).  It adds one to ``LAUNCHES["flash_attention_backward"]``
@@ -76,7 +77,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
-                                               i, i, i, i, i, i, f, i, p]
+                                               i, i, i, i, i, i, i, f, f, i, p]
     lib.flash_attention_bwd_launch.restype = i
     lib.flash_attention_bwd_smem_bytes.argtypes = [i]
     lib.flash_attention_bwd_smem_bytes.restype = i
@@ -101,6 +102,14 @@ def check_masks(window: int, softcap: float) -> None:
                          f"(got {window}, {softcap})")
 
 
+def _check_seen(sq: int, skv: int, q_offset: int, window: int) -> None:
+    """The kernels skip the key tiles a window hides, so a query row that
+    sees no key (its plain result averages all of V) is refused."""
+    if window and sq + q_offset - window >= skv:
+        raise ValueError(f"a window of {window} hides every key from the last "
+                         f"query rows (sq {sq}, q_offset {q_offset}, skv {skv})")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, q_offset: int = 0, window: int = 0,
                          softcap: float = 0.0, return_lse: bool = False):
@@ -123,9 +132,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0 (got {q_offset})")
     check_masks(window, softcap)
-    if window and sq + q_offset - window >= skv:
-        raise ValueError(f"a window of {window} hides every key from the last "
-                         f"query rows (sq {sq}, q_offset {q_offset}, skv {skv})")
+    _check_seen(sq, skv, q_offset, window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
@@ -154,10 +161,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   o: torch.Tensor, lse: torch.Tensor,
                                   do: torch.Tensor, *, causal: bool = True,
-                                  q_offset: int = 0):
-    """(dq, dk, dv) of attention without window or softcap: q, o and do
-    (b, sq, h, d), k and v (b, skv, kvh, d) in one type, lse float32
-    (b, h, sq) from the forward."""
+                                  q_offset: int = 0, window: int = 0,
+                                  softcap: float = 0.0):
+    """(dq, dk, dv) of attention: q, o and do (b, sq, h, d), k and v
+    (b, skv, kvh, d) in one type, lse float32 (b, h, sq) from the forward
+    with the same masks and softcap."""
     if q.dtype not in ROUTES:
         raise TypeError(f"q must be float32 or bfloat16 (got {q.dtype})")
     _check(q, "q", q.dtype, q.device)
@@ -177,6 +185,8 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0 (got {q_offset})")
+    check_masks(window, softcap)
+    _check_seen(sq, skv, q_offset, window)
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -190,7 +200,7 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, sq, skv, h, kvh, d, code, int(causal), int(q_offset),
-        1.0 / math.sqrt(d), q.get_device(),
+        int(window), float(softcap), 1.0 / math.sqrt(d), q.get_device(),
         torch.cuda.current_stream(q.device).cuda_stream)
     BWD_LIBRARY.raise_on(err, "flash_attention_backward")
     _COUNTER.add("flash_attention_backward")

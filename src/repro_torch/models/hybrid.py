@@ -11,7 +11,9 @@ runs the flash kernel.
 What differs from the reference: the Mamba layers are per-layer `Params`
 modules in ``params["mamba_groups"]`` (n_groups·k of them, group-major)
 and ``params["tail_mamba"]`` instead of arrays stacked on (n_groups, k)
-and (rem,); its ``lax.scan``s are Python loops and its remat and sharding
+and (rem,); its ``lax.scan``s are Python loops, its ``jax.checkpoint``s
+`torch.utils.checkpoint.checkpoint` (one per group, its k Mamba layers
+and the shared block, and one per tail layer), and its sharding
 constraints are left out, as in `repro_torch.models.transformer`.  Decode
 writes the caches in place (`ssm.mamba_decode_layers`,
 `transformer.layer_decode`).
@@ -21,6 +23,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (
     Params, dtype_of, embed, embed_init, norm_init, rms_norm, softcap, unembed,
@@ -63,20 +66,38 @@ def init_hybrid(gen: torch.Generator, cfg) -> Params:
     return Params(p)
 
 
-def hybrid_forward(params: Params, tokens: Tensor, cfg) -> Tensor:
-    """tokens: (b, s) integer → logits (b, s, vocab) float32, softcapped."""
+def _group_forward(layers, shared: Params, x: Tensor, cfg, positions: Tensor
+                   ) -> Tensor:
+    """One group: its Mamba layers, then the weight-tied shared block."""
+    for lp in layers:
+        x = mamba_forward(lp, x, cfg)
+    x, _ = layer_forward(shared, x, cfg, positions)
+    return x
+
+
+def hybrid_forward(params: Params, tokens: Tensor, cfg, *, remat: bool = True
+                   ) -> Tensor:
+    """tokens: (b, s) integer → logits (b, s, vocab) float32, softcapped.
+    With ``remat`` and gradients enabled (as in `decoder_forward`), each
+    group and each tail layer runs under `torch.utils.checkpoint.checkpoint`;
+    nothing else changes.  The shared block's gradient sums over its
+    n_groups calls."""
     n_groups, k, _ = _groups(cfg)
     b, s = tokens.shape
     x = embed(params["embed"], tokens, dtype_of(cfg))
     positions = torch.arange(s, device=tokens.device).expand(b, s)
+    remat = remat and torch.is_grad_enabled()
+
+    def run(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
     layers = params["mamba_groups"]
     for g in range(n_groups):
-        for lp in layers[g * k:(g + 1) * k]:
-            x = mamba_forward(lp, x, cfg)
-        x, _ = layer_forward(params["shared_attn"], x, cfg, positions)
+        x = run(_group_forward, layers[g * k:(g + 1) * k], params["shared_attn"], x,
+                cfg, positions)
     if "tail_mamba" in params:
         for lp in params["tail_mamba"]:
-            x = mamba_forward(lp, x, cfg)
+            x = run(mamba_forward, lp, x, cfg)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(_head(params, cfg), x)
     return softcap(logits.float(), cfg.final_logit_softcap)

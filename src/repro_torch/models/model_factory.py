@@ -24,6 +24,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, hybrid, ssm, transformer
@@ -121,10 +122,17 @@ def _build_ssm(cfg: ArchConfig) -> Model:
         return Params(p)
 
     def forward(params, batch):
-        """Logits in float32, no softcap (as the reference's SSM)."""
+        """Logits in float32, no softcap (as the reference's SSM).  With
+        gradients enabled each layer runs under
+        `torch.utils.checkpoint.checkpoint` (remat, the reference's
+        ``jax.checkpoint`` of its layer scan), as in `decoder_forward`."""
         x = embed(params["embed"], batch["tokens"], dtype_of(cfg))
+        remat = torch.is_grad_enabled()
         for lp in params["layers"]:
-            x = ssm.mamba_forward(lp, x, cfg)
+            if remat:
+                x = checkpoint(ssm.mamba_forward, lp, x, cfg, use_reentrant=False)
+            else:
+                x = ssm.mamba_forward(lp, x, cfg)
         x = rms_norm(params["final_norm"], x, cfg.norm_eps)
         return unembed(transformer._head(params, cfg), x).float()
 

@@ -14,7 +14,10 @@ What differs from the reference, and why:
     otherwise be free to form a (b, c, t, s, h, p) product, 43 GB at
     Mamba2 2.7B's width on 2 × 4,096 tokens; here the (b, c, h, t, s)
     decay matrix (671 MB there) is built once and turned into the
-    weights in place, then multiplied by x as a batched product over s;
+    weights in place, then multiplied by x as a batched product over s.
+    A gradient takes the same steps out of place, and training runs each
+    block under remat (`model_factory`, `hybrid`), so only one block's
+    weights are held at a time;
   * the per-chunk states come out of their product in chunk-major order
     (nc, b, h, p, n), the kernel's layout, so the scan's operand is not
     a transposed copy;
@@ -98,6 +101,11 @@ def ssd_forward(xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
                 y_t = C_t·state_t (+ D·x_t added by the caller).
     A sequence shorter than ``chunk`` is one chunk; otherwise s must be a
     multiple of s // (s // chunk), as in the reference.
+
+    When a gradient is asked (grad mode on and an input requiring one),
+    every step is out of place, so autograd can follow it, and the scan is
+    `ssd_scan.SSDScan`; otherwise the (b, c, h, t, s) weights and the
+    chunk-major buffers are filled in place (the serving route's memory).
     """
     b, s, h, p = xh.shape
     n = bmat.shape[-1]
@@ -106,6 +114,8 @@ def ssd_forward(xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     if nc * q != s:
         raise ValueError("seq must be divisible by ssm_chunk")
     dev, f32 = xh.device, xh.dtype
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xh, dt, a, bmat, cmat))
 
     log_da = -(dt * a[None, None, :])
     xr = xh.reshape(b, nc, q, h, p)
@@ -115,23 +125,33 @@ def ssd_forward(xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     cum = torch.cumsum(log_da.reshape(b, nc, q, h), dim=2)          # (b,c,Q,h)
 
     # Intra-chunk weights w[b,c,h,t,s] = (C_t·B_s)·exp(cum_t − cum_s)·dt_s,
-    # masked above the diagonal before the exp, all in one buffer.
+    # masked above the diagonal before the exp (so no cotangent is NaN).
     cum_h = cum.permute(0, 1, 3, 2).contiguous()                     # (b,c,h,Q)
-    w = torch.empty((b, nc, h, q, q), dtype=f32, device=dev)
-    torch.sub(cum_h[..., :, None], cum_h[..., None, :], out=w)
     tri = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
-    w.masked_fill_(~tri, MASKED_DECAY).exp_()
-    w.mul_((cr @ br.transpose(-1, -2))[:, :, None])                  # × C_t·B_s
-    w.mul_(dtr.permute(0, 1, 3, 2)[:, :, :, None, :])                # × dt_s
+    cb = (cr @ br.transpose(-1, -2))[:, :, None]                     # C_t·B_s
+    dts = dtr.permute(0, 1, 3, 2)[:, :, :, None, :]                  # dt_s
+    if grad:
+        w = torch.exp((cum_h[..., :, None] - cum_h[..., None, :])
+                      .masked_fill(~tri, MASKED_DECAY)) * cb * dts
+    else:                                # one buffer, filled in place
+        w = torch.empty((b, nc, h, q, q), dtype=f32, device=dev)
+        torch.sub(cum_h[..., :, None], cum_h[..., None, :], out=w)
+        w.masked_fill_(~tri, MASKED_DECAY).exp_()
+        w.mul_(cb).mul_(dts)
     y_intra = w @ xr.permute(0, 1, 3, 2, 4)                          # (b,c,h,t,p)
     del w
 
     # Per-chunk input→state contributions, chunk-major: (c, b, h, p, n).
     tail = torch.exp(cum[:, :, -1:, :] - cum) * dtr                  # (b,c,Q,h)
-    u = torch.empty((nc, b, q, h, p), dtype=f32, device=dev)
-    torch.mul(tail.transpose(0, 1)[..., None], xr.transpose(0, 1), out=u)
+    if grad:
+        u = (tail.transpose(0, 1)[..., None] * xr.transpose(0, 1)).reshape(
+            nc * b, q, h * p)
+    else:
+        u = torch.empty((nc, b, q, h, p), dtype=f32, device=dev)
+        torch.mul(tail.transpose(0, 1)[..., None], xr.transpose(0, 1), out=u)
+        u = u.view(nc * b, q, h * p)
     b_cb = br.transpose(0, 1).reshape(nc * b, q, n)
-    s_chunk = (u.view(nc * b, q, h * p).transpose(1, 2) @ b_cb).view(nc, b, h, p, n)
+    s_chunk = (u.transpose(1, 2) @ b_cb).view(nc, b, h, p, n)
     del u
     chunk_decay = torch.exp(cum[:, :, -1, :]).transpose(0, 1).contiguous()  # (c,b,h)
 
@@ -143,9 +163,13 @@ def ssd_forward(xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     c_cb = cr.transpose(0, 1).reshape(nc * b, q, n)
     y_inter = (c_cb @ h_prev.view(nc * b, h * p, n).transpose(1, 2)).view(nc, b, q, h, p)
     del h_prev
-    y_inter.mul_(torch.exp(cum).transpose(0, 1)[..., None])
-    y = torch.empty((b, nc, q, h, p), dtype=f32, device=dev)
-    torch.add(y_intra.permute(0, 1, 3, 2, 4), y_inter.transpose(0, 1), out=y)
+    decay_t = torch.exp(cum).transpose(0, 1)[..., None]
+    if grad:
+        y = y_intra.permute(0, 1, 3, 2, 4) + (y_inter * decay_t).transpose(0, 1)
+    else:
+        y_inter.mul_(decay_t)
+        y = torch.empty((b, nc, q, h, p), dtype=f32, device=dev)
+        torch.add(y_intra.permute(0, 1, 3, 2, 4), y_inter.transpose(0, 1), out=y)
     return y.reshape(b, s, h, p), h_final
 
 

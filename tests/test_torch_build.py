@@ -146,13 +146,15 @@ def _kernel_body(src: str, name: str) -> str:
     raise AssertionError(name)
 
 
-@pytest.mark.parametrize("kernel,mmas", [("flash_bwd_dq_bf16_mma", 6),
+@pytest.mark.parametrize("kernel,mmas", [("flash_bwd_dq_bf16_mma", 8),
                                          ("flash_bwd_dkdv_bf16_mma", 8)])
 def test_bf16_backward_multiplies_on_the_tensor_cores_in_registers(kernel, mmas):
     """Every product of the bfloat16 backward is an m16n8k16 mma (dq: S,
-    dP, dQ; dk/dv: S^T, dP^T, dV, dK; two n-blocks a call site); P and dS
-    reach the next product as A fragments (no store of a score tile to
-    shared memory), and nothing adds atomically or calls a library."""
+    dP, dQ, dP at two call sites, from dO's fragments held in registers
+    or, in a masked instance at D = 128, read again from shared memory;
+    dk/dv: S^T, dP^T, dV, dK; two n-blocks a call site); P and dS reach
+    the next product as A fragments (no store of a score tile to shared
+    memory), and nothing adds atomically or calls a library."""
     src = _code("flash_attention_bwd.cu")
     body = _kernel_body(src, kernel)
     assert body.count("mma_bf16_16816(") == mmas

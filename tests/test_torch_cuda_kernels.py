@@ -916,6 +916,115 @@ def test_ssd_scan_wrapper_checks_its_inputs(card):
     assert hp.shape == (2, 1, 0, 4, 4) and hf.shape == (1, 0, 4, 4)
 
 
+# The scan's backward: Mamba2's and Zamba2's training calls (4 × 1,024
+# tokens, chunk 256), one chunk, and a p·n that is not a multiple of 4.
+SSD_BWD_SHAPES = [(4, 4, 80, 64, 128), (4, 4, 64, 64, 64), (1, 2, 4, 8, 16),
+                  (3, 1, 3, 5, 7)]
+
+
+def _ddecay_close(got, want, ds, h_prev, decay_dtype):
+    """ddecay within the bound of a float32 sum of P·N products in any
+    order (2·(P·N)·u·Σ|ds·h_prev|), plus one rounding of a bfloat16 decay."""
+    pn = h_prev.shape[-1] * h_prev.shape[-2]
+    scale = (ds.double().abs() * h_prev.double().abs()).sum((-2, -1))
+    w = want.double()
+    tol = 2 * pn * U32 * scale + 1e-30
+    if decay_dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * w.abs()
+    assert bool(((got.double() - w).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("final", [False, True], ids=["no_final", "final"])
+@pytest.mark.parametrize("dtype,decay_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES, ids=str)
+def test_ssd_scan_backward_matches_plain(card, shape, dtype, decay_dtype, final):
+    """ds bit-equal to `ssd_scan_backward_plain` (the same float32 multiply,
+    then add, per chunk), ddecay within its sum bound, both repeatable."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+
+    s, d = _ssd_inputs(shape, card, dtype, decay_dtype, seed=sum(shape) + 1)
+    hp, hf = ss.ssd_scan_plain(s, d)
+    rng = np.random.default_rng(sum(shape) + 2)
+    gp = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card, dtype)
+    gf = (torch.from_numpy(rng.standard_normal(shape[1:]).astype(np.float32))
+          .to(card, dtype) if final else None)
+    before = ssc.launch_counts()["ssd_scan_backward"]
+    ds, dd = ssc.ssd_scan_backward_cuda(gp, gf, hp, d)
+    torch.cuda.synchronize()
+    assert ssc.launch_counts()["ssd_scan_backward"] == before + 1
+    want_ds, want_dd = ss.ssd_scan_backward_plain(gp, gf, hp, d)
+    assert ds.dtype == dtype and dd.dtype == decay_dtype
+    assert torch.equal(ds, want_ds)
+    _ddecay_close(dd, want_dd, want_ds, hp, decay_dtype)
+    again = ssc.ssd_scan_backward_cuda(gp, gf, hp, d)
+    assert torch.equal(again[0], ds) and torch.equal(again[1], dd)
+
+
+def test_ssd_gradient_on_the_card_matches_the_plain(card):
+    """A gradient through `ops.ssd_scan` on the card (`SSDScan`: the
+    forward kernel, then the backward kernel) against autograd of the
+    plain scan on the same card tensors: ds within 1e-6 of max(1, |ds|),
+    ddecay within its sum bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+
+    s, d = _ssd_inputs((4, 2, 8, 16, 32), card, torch.float32, torch.float32, 9)
+    gp = torch.randn(4, 2, 8, 16, 32, device=card)
+    leaves = [s.clone().requires_grad_(), d.clone().requires_grad_()]
+    before = ssc.launch_counts()
+    hp, _ = ops.ssd_scan(*leaves)
+    got = torch.autograd.grad(hp, leaves, gp)
+    torch.cuda.synchronize()
+    after = ssc.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {"ssd_scan": 1,
+                                                        "ssd_scan_backward": 1}
+    ref = [s.clone().requires_grad_(), d.clone().requires_grad_()]
+    want = torch.autograd.grad(ss.ssd_scan_plain(*ref)[0], ref, gp)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-6 * max(
+        1.0, float(want[0].abs().max()))
+    _ddecay_close(got[1], want[1], want[0], hp.detach(), torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_reduced_ssm_train_step_on_the_card_equals_the_host(card, arch):
+    """One float32 train step of reduced Mamba2 and of a 5-layer Zamba2 (two
+    groups and a tail), remat, through the kernels on the card and the
+    plain versions on the host from one state: loss and grad norm within
+    1e-4, AdamW's first moment within 1e-4 of its max."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import init_train_state, make_train_step
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import map_with_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = {"num_layers": 5, "shared_attn_every": 2} if arch.startswith("zamba2") else {}
+    cfg = dataclasses.replace(get_arch(arch).reduced(), compute_dtype="float32", **over)
+    m = build_model(cfg)
+    host = init_train_state(m, 0, device="cpu")
+    dev = map_with_paths(lambda _, t: t.detach().to(card, copy=True), host)
+    batch = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=128,
+                            global_batch=2).batch_at(0)
+    step = make_train_step(m, base_lr=1e-3, warmup_steps=0, total_steps=10)
+    before = ssc.launch_counts()
+    dev, dm = step(dev, {k: torch.from_numpy(v).to(card) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    after = ssc.launch_counts()
+    assert after["ssd_scan"] - before["ssd_scan"] == 2 * cfg.num_layers
+    assert after["ssd_scan_backward"] - before["ssd_scan_backward"] == cfg.num_layers
+    host, hm = step(host, {k: torch.from_numpy(v) for k, v in batch.items()})
+    for key in ("loss", "grad_norm"):
+        assert abs(float(dm[key]) - float(hm[key])) <= 1e-4 * abs(float(hm[key]))
+    scale = max(float(t.abs().max()) for t in host.opt.mu.values())
+    for k_, t in host.opt.mu.items():
+        assert float((dev.opt.mu[k_].cpu() - t).abs().max()) <= 1e-4 * scale, k_
+
+
 @pytest.mark.parametrize("arch,over", [("mamba2-2.7b", {}), ("zamba2-1.2b", {}),
                                        ("zamba2-1.2b", {"num_layers": 5})])
 def test_reduced_ssm_on_the_card_equals_the_host_port(card, arch, over):
@@ -985,6 +1094,10 @@ def _wrapper_calls(card, gbdt):
     k, v = (_bf16(rng, (1, 128, 2, 64)).to(card, bf16) for _ in range(2))
     x, w = _bf16(rng, (4, 32, 64)).to(card, bf16), _bf16(rng, (4, 64, 32)).to(card, bf16)
     s, d = _ssd_inputs((4, 1, 3, 8, 16), card, torch.float32, torch.float32, 5)
+    from repro_torch.kernels import ssd_scan as ss
+
+    hp, _ = ss.ssd_scan_plain(s, d)
+    g = torch.randn_like(hp)
     return {
         "tree_gather_leaves": lambda: tgc.gather_leaves_cuda(db, xs),
         "tree_predict_fused": lambda: tgc.fused_predict_cuda(db, mean, std, scale,
@@ -997,12 +1110,13 @@ def _wrapper_calls(card, gbdt):
             causal=True),
         "moe_gmm": lambda: mgc.moe_gmm_cuda(x, w),
         "ssd_scan": lambda: ssc.ssd_scan_cuda(s, d),
+        "ssd_scan_backward": lambda: ssc.ssd_scan_backward_cuda(g, g[0], hp, d),
     }
 
 
 KERNEL_NAMES = ("tree_gather_leaves", "tree_predict_fused", "int8_matmul",
                 "winograd_conv2d", "flash_attention", "flash_attention_backward",
-                "moe_gmm", "ssd_scan")
+                "moe_gmm", "ssd_scan", "ssd_scan_backward")
 
 
 def _kernel_counts():
@@ -1159,6 +1273,52 @@ def test_flash_backward_within_tolerance_of_plain(card, dtype, b, sq, skv, h, kv
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
+# (b, sq, skv, h, kvh, d, causal, q_offset, window, softcap, q's standard
+# deviation): gemma2's local call cut to 600 rows (window 200, softcap 50,
+# q scaled so the cap bends the scores), its global call's softcap at
+# Granite's heads, a window with an offset over cached keys, and a
+# non-causal window (tests/test_torch_flash_backward.py's CARD_CASES
+# emulate the bfloat16 rounding points at the first three).
+FLASH_BWD_MASK_CASES = [
+    (1, 600, 600, 8, 4, 128, True, 0, 200, 50.0, 8.0),
+    (2, 256, 256, 16, 8, 64, True, 0, 0, 5.0, 1.0),
+    (1, 200, 328, 8, 2, 16, True, 128, 100, 0.0, 1.0),
+    (2, 130, 130, 4, 2, 32, False, 0, 100, 50.0, 4.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_BWD_MASK_CASES, ids=str)
+def test_flash_backward_with_window_and_softcap_within_tolerance_of_plain(
+        card, dtype, case):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_cuda as fac
+
+    b, sq, skv, h, kvh, d, causal, q_offset, window, cap, q_scale = case
+    rng = np.random.default_rng(sq + skv + h + d)
+    q, k, v, do = (torch.from_numpy((rng.standard_normal(shape) * sc).astype(np.float32)
+                                    ).to(card, dtype)
+                   for shape, sc in (((b, sq, h, d), q_scale), ((b, skv, kvh, d), 1.0),
+                                     ((b, skv, kvh, d), 1.0), ((b, sq, h, d), 1.0)))
+    kw = {"causal": causal, "q_offset": q_offset, "window": window, "softcap": cap}
+    o, lse = fac.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, fa.flash_lse_plain(q, k, **kw), rtol=0,
+                               atol=1e-5 * max(1.0, float(lse.abs().max())))
+    routes = fac.bwd_route_counts()
+    got = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fac.bwd_route_counts()[fac.ROUTES[dtype][1]] == routes[fac.ROUTES[dtype][1]] + 1
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        _close(g, w, dtype)
+        if dtype == torch.bfloat16:
+            _bwd_rows_close(g, w)
+    again = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    with pytest.raises(ValueError, match="hides every key"):
+        fac.flash_attention_backward_cuda(q, k, v, o, lse, do, causal=False,
+                                          q_offset=skv + 5, window=4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_autograd_on_the_card_runs_both_kernels(card, dtype):
     from repro_torch.kernels import flash_attention as fa
@@ -1177,8 +1337,15 @@ def test_flash_autograd_on_the_card_runs_both_kernels(card, dtype):
     assert torch.equal(out.detach(), o)
     for g, w in zip(got, fac.flash_attention_backward_cuda(q, k, v, o, lse, do)):
         assert torch.equal(g, w)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fa.flash_attention(*ts, causal=True, window=16)
+    kw = {"causal": True, "window": 16, "softcap": 5.0}
+    before = fac.launch_counts()
+    got = torch.autograd.grad(fa.flash_attention(*ts, **kw), ts, do)
+    torch.cuda.synchronize()
+    after = fac.launch_counts()
+    assert after["flash_attention_backward"] - before["flash_attention_backward"] == 1
+    o, lse = fac.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    for g, w in zip(got, fac.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1204,16 +1371,13 @@ def test_moe_gmm_backward_within_tolerance_of_plain(card, dtype, e, c, d, f):
 
 
 def test_gradient_through_a_kernel_without_backward_raises(card, gbdt_150x4):
-    """The SSD scan, Winograd and the tree kernels have no backward: a
-    gradient asked through them on the card raises instead of cutting the
-    graph.  The int8 GEMM's operands are integers, which cannot require a
-    gradient; its dispatcher refuses one all the same."""
+    """Winograd and the tree kernels have no backward: a gradient asked
+    through them on the card raises instead of cutting the graph.  The int8
+    GEMM's operands are integers, which cannot require a gradient; its
+    dispatcher refuses one all the same."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import tree_gather as tg
 
-    s, d = _ssd_inputs((4, 1, 3, 8, 16), card, torch.float32, torch.float32, 5)
-    with pytest.raises(RuntimeError, match="ssd_scan on the card has no backward"):
-        ops.ssd_scan(s.requires_grad_(), d)
     x = torch.randn(1, 8, 8, 16, device=card, requires_grad=True)
     wt = torch.randn(3, 3, 16, 16, device=card)
     with pytest.raises(RuntimeError, match="winograd_conv2d on the card has no backward"):
@@ -1225,7 +1389,6 @@ def test_gradient_through_a_kernel_without_backward_raises(card, gbdt_150x4):
     with pytest.raises(RuntimeError, match="tree_predict_fused on the card has no backward"):
         db.fused(mean, std, scale, bias, xr, kind)
     with torch.no_grad():
-        ops.ssd_scan(s, d)
         ops.winograd_conv2d(x, wt)
 
 

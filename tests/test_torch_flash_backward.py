@@ -9,14 +9,18 @@ tests/test_torch_cuda_kernels.py; here that plain backward is held
     ``chunked_attention`` (``q_chunk`` 64, so several chunks and a padded
     one),
 for causal and non-causal attention, sq != skv and h / kvh in {1, 2, 4},
-and `flash_attention`'s autograd path (`FlashAttention`) gives the same
-gradients.  Inputs come from a numpy seed.  Tolerance: 1e-5 of the
-largest |gradient| in float32 (the same function; only the order of
-float32 sums differs).  A window or a softcap with a gradient raises.
+each with windows {0, 8, 100} and softcaps {0, 5, 50} (a window of 8
+hides every key from the last rows of the non-causal cross-attention
+case, whose forward averages V: the reference's masked softmax gives
+those rows no dq and dk), and `flash_attention`'s autograd path
+(`FlashAttention`) gives the same gradients.  Inputs come from a numpy
+seed.  Tolerance: 1e-5 of the largest |gradient| in float32 (the same
+function; only the order of float32 sums differs).
 
 The bfloat16 kernel on the card rounds P and dS to bfloat16 before the
-dV, dK and dQ products (float32 sums, one final rounding).  A torch
-emulation of those rounding points is held to
+dV, dK and dQ products (float32 sums, one final rounding), dS after the
+softcap's factor 1 - t².  A torch emulation of those rounding points is
+held to
 `flash_attention_backward_plain` within the card's gates, which the kernel
 meets there: 2e-2 of the output's max (chip_smoke.py's ``LM_TOL``) and,
 row by row, 1.6e-2 of each row's max floored at 2^-8 of the output's
@@ -46,7 +50,7 @@ from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 TOL = 1e-5                              # × max |gradient|, float32
 
 # (b, sq, skv, h, kvh, d, causal, q_offset)
-CASES = [
+SHAPES = [
     (2, 37, 37, 4, 4, 16, True, 0),
     (2, 37, 37, 4, 2, 16, True, 0),
     (1, 150, 150, 4, 1, 32, True, 0),       # three query chunks of 64, padded
@@ -54,6 +58,10 @@ CASES = [
     (1, 130, 70, 8, 2, 32, False, 0),
     (2, 20, 45, 4, 4, 16, True, 25),        # decode-style offset, causal
 ]
+# Each shape with windows {0, 8, 100} × softcaps {0, 5, 50}:
+# (b, sq, skv, h, kvh, d, causal, q_offset, window, softcap).
+CASES = [shape + (window, cap) for shape in SHAPES for window in (0, 8, 100)
+         for cap in (0.0, 5.0, 50.0)]
 
 
 def _inputs(b, sq, skv, h, kvh, d, seed):
@@ -78,52 +86,60 @@ def _ref_grads(fn, q, k, v, do, **kw):
     return jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(t) for t in (q, k, v)))
 
 
-def _plain_backward(q, k, v, do, causal, q_offset):
+def _kw(case) -> dict:
+    *_, causal, off, window, cap = case
+    return {"causal": causal, "q_offset": off, "window": window, "softcap": cap}
+
+
+def _seed(case) -> int:
+    return int(sum(case[:8]) + 7 * case[8] + case[9])
+
+
+def _plain_backward(q, k, v, do, kw):
     qt, kt, vt, dot = (torch.from_numpy(t) for t in (q, k, v, do))
-    o = fa.flash_attention_plain(qt, kt, vt, causal=causal, q_offset=q_offset)
-    lse = fa.flash_lse_plain(qt, kt, causal=causal, q_offset=q_offset)
-    return fa.flash_attention_backward_plain(qt, kt, vt, o, lse, dot, causal=causal,
-                                             q_offset=q_offset)
+    o = fa.flash_attention_plain(qt, kt, vt, **kw)
+    lse = fa.flash_lse_plain(qt, kt, **kw)
+    return fa.flash_attention_backward_plain(qt, kt, vt, o, lse, dot, **kw)
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_plain_backward_matches_autograd_of_the_plain_forward(case):
-    b, sq, skv, h, kvh, d, causal, off = case
-    q, k, v, do = _inputs(b, sq, skv, h, kvh, d, seed=sum(case))
+    b, sq, skv, h, kvh, d = case[:6]
+    q, k, v, do = _inputs(b, sq, skv, h, kvh, d, seed=_seed(case))
     ts = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
-    out = fa.flash_attention_plain(*ts, causal=causal, q_offset=off)
+    out = fa.flash_attention_plain(*ts, **_kw(case))
     want = torch.autograd.grad(out, ts, torch.from_numpy(do))
-    _check([g.numpy() for g in _plain_backward(q, k, v, do, causal, off)],
+    _check([g.numpy() for g in _plain_backward(q, k, v, do, _kw(case))],
            [g.numpy() for g in want], "autograd")
 
 
 @pytest.mark.parametrize("impl", ["naive", "chunked"])
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_plain_backward_matches_jax_grad_of_the_reference(case, impl):
-    b, sq, skv, h, kvh, d, causal, off = case
-    q, k, v, do = _inputs(b, sq, skv, h, kvh, d, seed=sum(case) + 1)
-    kw = {"causal": causal, "q_offset": off}
+    b, sq, skv, h, kvh, d, causal, off, window, cap = case
+    q, k, v, do = _inputs(b, sq, skv, h, kvh, d, seed=_seed(case) + 1)
+    kw = {"causal": causal, "q_offset": off, "window": window, "logit_softcap": cap}
     if impl == "chunked":
         fn, kw = rattn.chunked_attention, {**kw, "q_chunk": 64}
     else:
         fn = rattn.naive_attention
     want = _ref_grads(fn, q, k, v, do, **kw)
-    _check([g.numpy() for g in _plain_backward(q, k, v, do, causal, off)], want, impl)
+    _check([g.numpy() for g in _plain_backward(q, k, v, do, _kw(case))], want, impl)
 
 
-@pytest.mark.parametrize("case", CASES[:4], ids=str)
+@pytest.mark.parametrize("case", [c for c in CASES if c[:8] in SHAPES[:4]], ids=str)
 def test_flash_attention_autograd_path_gives_the_plain_gradients(case):
-    b, sq, skv, h, kvh, d, causal, off = case
-    q, k, v, do = _inputs(b, sq, skv, h, kvh, d, seed=sum(case) + 2)
+    b, sq, skv, h, kvh, d = case[:6]
+    q, k, v, do = _inputs(b, sq, skv, h, kvh, d, seed=_seed(case) + 2)
     ts = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
-    out = fa.flash_attention(*ts, causal=causal, q_offset=off)
+    out = fa.flash_attention(*ts, **_kw(case))
     assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
     np.testing.assert_array_equal(
         out.detach().numpy(),
         fa.flash_attention_plain(*(torch.from_numpy(t) for t in (q, k, v)),
-                                 causal=causal, q_offset=off).numpy())
+                                 **_kw(case)).numpy())
     got = torch.autograd.grad(out, ts, torch.from_numpy(do))
-    want = _plain_backward(q, k, v, do, causal, off)
+    want = _plain_backward(q, k, v, do, _kw(case))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -138,14 +154,15 @@ def test_lse_is_the_log_sum_exp_of_the_masked_scores():
     torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("kw", [{"window": 8}, {"softcap": 5.0}])
-def test_window_or_softcap_with_a_gradient_raises(kw):
-    q, k, v, _ = _inputs(1, 16, 16, 2, 2, 16, seed=3)
-    ts = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fa.flash_attention(*ts, causal=True, **kw)
-    with torch.no_grad():
-        fa.flash_attention(*ts, causal=True, **kw)      # forward-only is fine
+def test_lse_with_window_and_softcap_is_that_of_the_capped_masked_scores():
+    q, k, _, _ = _inputs(1, 40, 40, 4, 2, 16, seed=10)
+    qt, kt = torch.from_numpy(q), torch.from_numpy(k)
+    lse = fa.flash_lse_plain(qt, kt, causal=True, window=8, softcap=5.0)
+    s = torch.einsum("bqhd,bkhd->bhqk", qt, kt.repeat_interleave(2, dim=2)) / 4.0
+    s = torch.tanh(s / 5.0) * 5.0
+    i, j = torch.arange(40)[:, None], torch.arange(40)[None, :]
+    s = s.masked_fill((j > i) | (j <= i - 8), -float("inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=0, atol=1e-5)
 
 
 def test_no_gradient_asked_takes_the_plain_forward():
@@ -161,33 +178,49 @@ ROW_TOL = 1.6e-2                        # FLASH_ROW_TOL
 ROW_FLOOR = 2.0 ** -8                   # FLASH_BWD_ROW_FLOOR
 LOG2E = 1.4426950408889634
 
-# The cuda test's shapes: (b, sq, skv, h, kvh, d, causal, q_offset).
+# The cuda tests' shapes: (b, sq, skv, h, kvh, d, causal, q_offset, window,
+# softcap, q's standard deviation); the last three as the card's gemma2
+# calls (window, softcap 50 with q scaled so the cap bends the scores), a
+# softcap of 5 at Granite's heads and a small window with an offset.
 CARD_CASES = [
-    (2, 256, 256, 16, 8, 64, True, 0), (1, 1000, 1000, 4, 2, 64, True, 0),
-    (2, 77, 50, 4, 2, 32, False, 0), (1, 33, 33, 8, 1, 128, True, 0),
-    (1, 20, 45, 4, 4, 16, True, 25), (3, 5, 7, 2, 2, 16, False, 0)]
+    (2, 256, 256, 16, 8, 64, True, 0, 0, 0.0, 1.0),
+    (1, 1000, 1000, 4, 2, 64, True, 0, 0, 0.0, 1.0),
+    (2, 77, 50, 4, 2, 32, False, 0, 0, 0.0, 1.0),
+    (1, 33, 33, 8, 1, 128, True, 0, 0, 0.0, 1.0),
+    (1, 20, 45, 4, 4, 16, True, 25, 0, 0.0, 1.0),
+    (3, 5, 7, 2, 2, 16, False, 0, 0, 0.0, 1.0),
+    (1, 600, 600, 8, 4, 128, True, 0, 200, 50.0, 8.0),
+    (2, 256, 256, 16, 8, 64, True, 0, 0, 5.0, 1.0),
+    (1, 200, 328, 8, 2, 16, True, 128, 100, 0.0, 1.0)]
 
 
-def _bf16_kernel_emulation(q, k, v, o, lse, do, causal, q_offset):
+def _bf16_kernel_emulation(q, k, v, o, lse, do, causal, q_offset, window=0,
+                           softcap=0.0):
     """The tensor-core kernel's arithmetic in float32 torch: P =
-    exp2(S·scale·log2 e − LSE·log2 e) (0 where masked), dS = P ∘ (dP − D)
-    from the float32 P, both rounded to bfloat16 before dV = Pᵀ·dO,
-    dK = scale·dSᵀ·Q and dQ = scale·dS·K; float32 sums, one final
-    rounding."""
+    exp2(cap(S·scale)·log2 e − LSE·log2 e) (0 where masked), dS = P ∘
+    (dP − D) ∘ (1 − t²) from the float32 P, t = tanh(S·scale / softcap),
+    both rounded to bfloat16 before dV = Pᵀ·dO, dK = scale·dSᵀ·Q and
+    dQ = scale·dS·K; float32 sums, one final rounding."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     rep, scale = h // kvh, 1.0 / np.sqrt(d)
     qf = q.float().reshape(b, sq, kvh, rep, d)
     dof = do.float().reshape(b, sq, kvh, rep, d)
     s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float())
-    p = torch.exp2(s * np.float32(scale * LOG2E)
-                   - lse.reshape(b, kvh, rep, sq, 1) * np.float32(LOG2E))
-    if causal:
-        p = p.masked_fill(fa.hidden_keys(sq, skv, causal=True, q_offset=q_offset,
-                                         window=0), 0.0)
+    lse2 = lse.reshape(b, kvh, rep, sq, 1) * np.float32(LOG2E)
+    if softcap:
+        t = torch.tanh(s * np.float32(scale / softcap))
+        p = torch.exp2(t * np.float32(softcap * LOG2E) - lse2)
+    else:
+        p = torch.exp2(s * np.float32(scale * LOG2E) - lse2)
+    if causal or window:
+        p = p.masked_fill(fa.hidden_keys(sq, skv, causal=causal, q_offset=q_offset,
+                                         window=window), 0.0)
     dp = torch.einsum("bqgrd,bkgd->bgrqk", dof, v.float())
     delta = (dof * o.float().reshape(b, sq, kvh, rep, d)).sum(-1)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if softcap:
+        ds = ds * (1.0 - t * t)
     pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
     dv = torch.einsum("bgrqk,bqgrd->bkgd", pb, dof)
     dk = torch.einsum("bgrqk,bqgrd->bkgd", dsb, qf) * np.float32(scale)
@@ -197,16 +230,16 @@ def _bf16_kernel_emulation(q, k, v, o, lse, do, causal, q_offset):
 
 @pytest.mark.parametrize("case", CARD_CASES, ids=str)
 def test_bf16_rounding_points_fit_the_card_gates(case):
-    b, sq, skv, h, kvh, d, causal, off = case
+    b, sq, skv, h, kvh, d, causal, off, window, cap, q_scale = case
     rng = np.random.default_rng(sq + skv + h + d)      # the cuda test's inputs
-    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+    q, k, v, do = (torch.from_numpy((rng.standard_normal(shape) * sc).astype(np.float32)
                                     ).bfloat16()
-                   for shape in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d),
-                                 (b, sq, h, d)))
-    kw = {"causal": causal, "q_offset": off}
+                   for shape, sc in (((b, sq, h, d), q_scale), ((b, skv, kvh, d), 1.0),
+                                     ((b, skv, kvh, d), 1.0), ((b, sq, h, d), 1.0)))
+    kw = {"causal": causal, "q_offset": off, "window": window, "softcap": cap}
     o = fa.flash_attention_plain(q, k, v, **kw)
     lse = fa.flash_lse_plain(q, k, **kw)
-    got = _bf16_kernel_emulation(q, k, v, o, lse, do, causal, off)
+    got = _bf16_kernel_emulation(q, k, v, o, lse, do, causal, off, window, cap)
     want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape

@@ -5,9 +5,12 @@ Both packages start from one reference state (``init_train_state`` of
 the reference, carried over by `convert.train_state_from_reference`) and
 take the same batches (`SyntheticLMData`, bit-equal in both); the
 reference runs ``jax.jit(make_train_step(...))``, the port its
-`make_train_step` with every kernel's plain version (flash attention's
-and the GMM's backward included).  Reduced Granite-MoE and Qwen2 (dense,
-GQA, QKV bias) in float32 compute.
+`make_train_step` with every kernel's plain version (flash attention's,
+the GMM's and the SSD scan's backward included).  Reduced Granite-MoE,
+Qwen2 (dense, GQA, QKV bias), Mamba2, Zamba2 (5 layers in groups of 2:
+two groups and a tail) and gemma2 (its local/global pairs, window 64 on
+96 tokens, so the window hides keys, and softcaps 50 on the scores and
+30 on the logits) in float32 compute.
 
 Tolerances, and why:
   * loss and grad norm after each of 3 steps: 1e-5 relative; with
@@ -62,7 +65,12 @@ from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.utils.tree import flatten_with_paths  # noqa: E402
 
-ARCHS = ["granite-moe-1b-a400m", "qwen2-72b"]
+ARCHS = ["granite-moe-1b-a400m", "qwen2-72b", "mamba2-2.7b", "zamba2-1.2b",
+         "gemma2-27b"]
+# Per arch: overrides of the reduced config, and the tokens of a sequence
+# (64 unless named: gemma2's reduced window is 64, so it takes 96).
+ARCH_OVER = {"zamba2-1.2b": dict(num_layers=5, shared_attn_every=2)}
+SEQ_OF = {"gemma2-27b": 96}
 TOL = 1e-5
 COMP_NORM_TOL = 5e-5
 NOISE_FRACTION = {False: 1e-4, True: 5e-4}       # by compression
@@ -72,6 +80,7 @@ SEQ, BATCH = 64, 4
 
 
 def _pair(arch, **over):
+    over = {**ARCH_OVER.get(arch, {}), **over}
     rcfg = dataclasses.replace(rget(arch).reduced(), compute_dtype="float32", **over)
     cfg = dataclasses.replace(get_arch(arch).reduced(), compute_dtype="float32", **over)
     return rcfg, cfg, rbuild(rcfg), build_model(cfg)
@@ -81,8 +90,8 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _batches(cfg, n, seed=0):
-    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=SEQ, global_batch=BATCH,
+def _batches(cfg, n, seed=0, seq=SEQ):
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=BATCH,
                            seed=seed)
     return [data.batch_at(s) for s in range(n)]
 
@@ -121,7 +130,7 @@ def _run_both(arch, steps, *, microbatches=1, compression=False):
     kw = dict(STEP_KW, microbatches=microbatches, compression=compression)
     rstep, pstep = jax.jit(rmake(rm, **kw)), make_train_step(m, **kw)
     lrs = []
-    for b in _batches(cfg, steps):
+    for b in _batches(cfg, steps, seq=SEQ_OF.get(arch, SEQ)):
         rs, rmet = rstep(rs, {k: jnp.asarray(v) for k, v in b.items()})
         ps, pmet = pstep(ps, {k: torch.from_numpy(v) for k, v in b.items()})
         assert sorted(pmet) == sorted(rmet)
@@ -164,7 +173,8 @@ def test_microbatches_accumulate_the_halves_gradients(arch):
     batch's gradient, so microbatches=1 is held too; the MoE's aux loss is
     a product of batch means and is not additive over microbatches."""
     _, cfg, _, m = _pair(arch, **({"capacity_factor": 4.0} if "granite" in arch else {}))
-    batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1)[0].items()}
+    batch = {k: torch.from_numpy(v)
+             for k, v in _batches(cfg, 1, seq=SEQ_OF.get(arch, SEQ))[0].items()}
     halves = [{k: v[i * BATCH // 2:(i + 1) * BATCH // 2] for k, v in batch.items()}
               for i in range(2)]
     state = init_train_state(m, 0, device="cpu")
@@ -273,6 +283,96 @@ def test_remat_recomputes_each_layer_in_the_backward(monkeypatch):
         assert torch.equal(a, b)
 
 
+def _count_calls(monkeypatch, targets):
+    """Wrap each (module, name) to count its calls; returns the counts."""
+    calls = {name: 0 for _, name in targets}
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for module, name in targets:
+        monkeypatch.setattr(module, name, count(name, getattr(module, name)))
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_remat_recomputes_each_ssm_layer_and_hybrid_group(monkeypatch, arch):
+    """With gradients, each Mamba2 layer (SSM) and each group and tail
+    layer (hybrid) runs under torch.utils.checkpoint: the scan's forward
+    runs twice a layer (forward and recompute) and its backward once, the
+    hybrid's shared block's flash forward twice a group and its backward
+    once; remat changes no number.  Without remat the SSM's checkpoint is
+    replaced by a plain call."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import hybrid, model_factory
+
+    _, cfg, _, m = _pair(arch)
+    calls = _count_calls(monkeypatch, [
+        (ss, "ssd_scan_plain"), (ss, "ssd_scan_backward_plain"),
+        (fa, "flash_attention_plain"), (fa, "flash_attention_backward_plain")])
+    params = trainable(m.init(0, device="cpu"))
+    leaves = flatten_with_paths(params)
+    batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1)[0].items()}
+    real_checkpoint = model_factory.checkpoint
+    n_groups = cfg.num_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
+    grads = {}
+    for remat in (True, False):
+        for key in calls:
+            calls[key] = 0
+        if arch.startswith("zamba2"):
+            logits = hybrid.hybrid_forward(params, batch["tokens"], cfg, remat=remat)
+        else:
+            monkeypatch.setattr(model_factory, "checkpoint", real_checkpoint if remat
+                                else lambda fn, *a, use_reentrant: fn(*a))
+            logits = m.forward(params, batch)
+        from repro_torch.models.model_factory import cross_entropy
+        loss = cross_entropy(logits, batch["labels"])
+        grads[remat] = torch.autograd.grad(loss, list(leaves.values()))
+        n = cfg.num_layers
+        assert calls == {"ssd_scan_plain": (2 if remat else 1) * n,
+                         "ssd_scan_backward_plain": n,
+                         "flash_attention_plain": (2 if remat else 1) * n_groups,
+                         "flash_attention_backward_plain": n_groups}, (remat, calls)
+    for a, b in zip(grads[True], grads[False]):
+        assert torch.equal(a, b)
+
+
+def test_hybrid_shared_block_gradient_sums_over_its_calls():
+    """The weight-tied shared block gets one gradient, the sum over its
+    calls: the same as the gradient of a model whose groups each hold
+    their own copy of the block, summed over the copies."""
+    _, cfg, _, m = _pair("zamba2-1.2b")
+    from repro_torch.models import hybrid
+    from repro_torch.models.model_factory import cross_entropy
+
+    params = trainable(m.init(0, device="cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1)[0].items()}
+    shared = flatten_with_paths(params["shared_attn"])
+    loss = cross_entropy(hybrid.hybrid_forward(params, batch["tokens"], cfg),
+                         batch["labels"])
+    tied = dict(zip(shared, torch.autograd.grad(loss, list(shared.values()))))
+
+    n_groups = cfg.num_layers // cfg.shared_attn_every
+    copies = [trainable(m.init(0, device="cpu"))["shared_attn"] for _ in range(n_groups)]
+    real = hybrid.layer_forward
+    calls = iter(copies)
+    try:
+        hybrid.layer_forward = lambda _p, *a, **kw: real(next(calls), *a, **kw)
+        loss = cross_entropy(hybrid.hybrid_forward(params, batch["tokens"], cfg,
+                                                   remat=False), batch["labels"])
+    finally:
+        hybrid.layer_forward = real
+    per_copy = [dict(zip(shared, torch.autograd.grad(
+        loss, list(flatten_with_paths(c).values()), retain_graph=True)))
+        for c in copies]
+    for k, g in tied.items():
+        want = sum(pc[k] for pc in per_copy)
+        assert float((g - want).abs().max()) <= TOL * max(float(want.abs().max()), 1e-30), k
+
+
 def test_port_checkpoint_resume_is_bit_equal(tmp_path):
     _, cfg, _, m = _pair("granite-moe-1b-a400m")
     step = make_train_step(m, **STEP_KW)
@@ -358,3 +458,25 @@ def _driver_script(train, args, caplog, tmp_path):
     np.testing.assert_array_equal(np.asarray(more), np.asarray(whole[4:]))
     with pytest.raises(SystemExit, match="A.5"):
         train.main(args + ["--steps", "1", "--model-parallel", "2"])
+
+
+def test_train_driver_trains_mamba2_on_the_host(caplog):
+    """The driver on the reduced Mamba2 (remat, the SSD scan's plain
+    backward): finite losses that fall over 6 steps.  The VLM and Whisper
+    are refused, naming the next slice."""
+    from repro_torch.launch import train
+
+    args = ["--arch", "mamba2-2.7b-reduced", "--global-batch", "2", "--seq-len", "64",
+            "--log-every", "3", "--lr", "3e-3", "--device", "cpu"]
+    logging.getLogger("repro").addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.INFO, logger="repro"):
+            losses = train.main(args + ["--steps", "6"])
+    finally:
+        logging.getLogger("repro").removeHandler(caplog.handler)
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    assert np.mean(losses[-2:]) < losses[0]
+    assert any("step 6 loss" in r.getMessage() for r in caplog.records)
+    for arch in ("llama-3.2-vision-90b-reduced", "whisper-large-v3-reduced"):
+        with pytest.raises(SystemExit, match="next slice"):
+            train.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
