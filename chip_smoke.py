@@ -34,7 +34,9 @@ result line:
          MHA shape, and the LM zoo's: gemma2's local (window 4,096) and
          global layers with the softcap of 50 at 6,144 tokens, a ragged
          window of 100 in both types, the VLM's and Whisper's
-         cross-attention (sq != skv) and Whisper's encoder) and the MoE
+         cross-attention (sq != skv), Whisper's encoder, and the VLM's
+         and Whisper's causal self-attention at their training shapes)
+         and the MoE
          GMM (`GMM_CASES`: the decode and prefill shapes, float32,
          ragged) within `LM_TOL`, bfloat16 flash also row by row within
          `FLASH_ROW_TOL`; each softcap case's q is scaled so that the
@@ -43,7 +45,9 @@ result line:
          the flash backward kernel (dq, dk, dv) against
          `flash_attention_backward_plain` at `FLASH_BWD_CASES` (gemma2's
          global and local training calls with their softcap and window,
-         windows of 100 with an offset, on both routes; the forward's
+         windows of 100 with an offset, on both routes, and every
+         attention call of the VLM's and Whisper's training steps; the
+         forward's
          log-sum-exp within `LSE_TOL` of its plain version, its output
          bit-equal to the inference forward's) and the GMM's
          autograd at `GMM_BWD_CASES` against the plain version's, within
@@ -193,6 +197,13 @@ result line:
          tensor-core route; a 4-slot `ServeEngine` answering 8 requests
          (0 / 2 / 32 flash launches a decode step); then a profiled
          forward and decode step (device time, flash share, idle share);
+       * the serving driver (`run_serve_driver_path`): `repro_torch.launch.
+         serve.main` for granite-moe-1b-a400m and whisper-large-v3 at full
+         size and `serve.serve` for the VLM at the zoo's cut, with the
+         reference driver's defaults (8 requests of 16 tokens, 16 new, 4
+         slots), counts zeroed before each: 8 of 8 answered, the
+         ``served`` line's tokens/s, launches a decode step gated (GMM 72
+         / flash 32 / flash 2), flash on the tensor-core route;
        * the LM training path (`run_lm_train_path`): granite-moe-1b-a400m
          at full width and depth (1.33 B parameters, float32 parameters
          and AdamW state, bfloat16 compute, remat) trained 8 steps on
@@ -207,14 +218,20 @@ result line:
          tokens: the scan 2 and its backward 1 a layer; Zamba2's shared
          block flash 12 and backward 6 a step) and gemma2-27b at full
          width and 2 of 46 layers (1 × 4,608 tokens, its window and
-         softcaps: flash 4 and backward 2 a step), each freed before the
-         next.  Then Granite at 2 of 24 layers in float32: one train step
+         softcaps: flash 4 and backward 2 a step), whisper-large-v3 at
+         full depth (4 × 448 tokens over 4 × 1,500 frames: flash 192 and
+         backward 96 a step) and llama-3.2-vision-90b at full width and
+         one self and one cross layer (2 × 2,048 tokens over 2 × 1,600
+         vision embeddings, gates at `ZOO_GATE`: flash 4 and backward 2),
+         each freed before the next.  Then Granite at 2 of 24 layers in
+         float32: one train step
          on the card against the host (`HOST_TOL`, AdamW's
          noise-normalized elements excepted, `NOISE_SHARE`),
          microbatches=2 against the halves' mean gradient, two compressed
          steps, a checkpoint at step 2 restored bit for bit into a fresh
          state and continued beside the uninterrupted run; the same one
-         step for reduced Mamba2 and the 5-layer Zamba2; and gradients
+         step for the reduced VLM (gates 0.7) and Whisper, reduced Mamba2
+         and the 5-layer Zamba2; and gradients
          through Winograd and the tree kernels, which must raise (they
          have no backward).
   4. Times at the paths' shapes — kernel (with its launch plan for the
@@ -239,6 +256,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import logging
 import math
 import os
 import re
@@ -2443,7 +2461,10 @@ FLASH_CASES = [FlashCase(*c) for c in (
     # 50), a window of 100 (not a multiple of the 64-key tile: late rows of
     # a query tile start on wholly hidden key tiles) on both routes, the
     # VLM's cross-attention over 1,600 vision embeddings, Whisper's
-    # encoder and its decode step's cross-attention over 1,500 frames.
+    # encoder and its decode step's cross-attention over 1,500 frames; then
+    # the training calls that no zoo forward makes: Whisper's encoder at
+    # the training batch of 4 and its decoder's cross-attention, 448 queries
+    # over 1,500 frames (non-causal, sq < skv, a partial last 64-key tile).
     # gemma2's q has standard deviation 8, so its scores (sd 8) reach the
     # softcap's bend: a kernel without the softcap, or with it applied
     # after the log2(e) fold, moves the output well past the tolerances
@@ -2455,6 +2476,8 @@ FLASH_CASES = [FlashCase(*c) for c in (
     ("vlm_cross", 2, 2048, 64, 8, 128, False, "bfloat16", 1600),
     ("whisper_encoder", 2, 1500, 20, 20, 64, False, "bfloat16"),
     ("whisper_cross_decode", 4, 1, 20, 20, 64, False, "bfloat16", 1500),
+    ("whisper_encoder_train", 4, 1500, 20, 20, 64, False, "bfloat16"),
+    ("whisper_cross", 4, 448, 20, 20, 64, False, "bfloat16", 1500),
     # Head dims the training path does not take, on the backward's
     # bfloat16 instances too: 128, and 16 with queries that continue 128
     # cached keys (q_offset, sq != skv).
@@ -2465,11 +2488,16 @@ FLASH_CASES = [FlashCase(*c) for c in (
     # on both routes.
     ("gemma2_local_f32", 1, 6144, 32, 16, 128, True, "float32", 0, 4096, 50.0, 8.0),
     ("window_offset", 2, 200, 8, 2, 64, True, "bfloat16", 328, 100, 5.0, 2.0, 128),
-    ("window_offset_f32", 2, 200, 8, 2, 64, True, "float32", 328, 100, 5.0, 2.0, 128))]
+    ("window_offset_f32", 2, 200, 8, 2, 64, True, "float32", 328, 100, 5.0, 2.0, 128),
+    # The training path's causal self-attention calls of the VLM's self
+    # layer (2 × 2,048 tokens, GQA 64/8, d 128) and of Whisper's decoder
+    # (4 × 448 tokens, d 64).
+    ("vlm_self", 2, 2048, 64, 8, 128, True, "bfloat16"),
+    ("whisper_self", 4, 448, 20, 20, 64, True, "bfloat16"))]
 # The flash cases `time_flash` times: the Granite, Zamba2 and zoo forwards'
-# shapes.
+# shapes, and Whisper's training cross-attention.
 FLASH_TIMED = ("forward", "forward_f32", "zamba2_forward", "gemma2_local",
-               "gemma2_global", "whisper_encoder", "vlm_cross")
+               "gemma2_global", "whisper_encoder", "vlm_cross", "whisper_cross")
 GMM_CASES = [                       # (label, e, rows, d, f, dtype)
     ("decode", 32, 32, 1024, 512, "bfloat16"),
     ("decode_down", 32, 32, 512, 1024, "bfloat16"),
@@ -2754,10 +2782,16 @@ def check_gmm(device) -> dict:
 # The flash backward's cases: `FLASH_CASES` with more than one query row;
 # every head dim on the bfloat16 route (16 with q_offset > 0, 64, 128);
 # gemma2's global (softcap 50) and local (window 4,096 and softcap 50)
-# training calls, the local one also on the float32 route, and windows of
-# 100 (with and without a softcap, with an offset) on both routes.
+# training calls, the local one also on the float32 route, windows of 100
+# (with and without a softcap, with an offset) on both routes, and every
+# attention call of the VLM's and Whisper's training steps at its own
+# shape: the VLM's self and cross layers, Whisper's encoder (at the zoo
+# forward's batch of 2 and the training batch of 4), its decoder's self-
+# and cross-attention.
 FLASH_BWD_CASES = ("forward", "forward_f32", "non_causal", "ragged", "ragged_f32",
-                   "d128_one_kv_head", "vlm_cross", "whisper_encoder", "d128_bf16",
+                   "d128_one_kv_head", "vlm_cross", "whisper_encoder",
+                   "whisper_encoder_train", "whisper_cross", "vlm_self", "whisper_self",
+                   "d128_bf16",
                    "d16_offset", "gemma2_global", "gemma2_local", "gemma2_local_f32",
                    "window_ragged", "window_ragged_f32", "window_offset",
                    "window_offset_f32")
@@ -3748,7 +3782,124 @@ def run_lm_zoo_path(device, new_tokens: int = 16) -> dict:
     return out
 
 
-# -- the LM training path (Granite-MoE, Mamba2, Zamba2, gemma2) --------------------
+# -- the serving driver (launch/serve.py) -----------------------------------------
+
+# The serving driver's runs: arch → None for the driver's own `main` at
+# full size, or the zoo's cut (`ZOO`) for a model built here and served
+# through `serve.serve`.  Flags: the reference driver's defaults (8
+# requests of 16 random tokens, 16 new tokens each, 4 slots, max_len 256).
+SERVE_DRIVER = {"granite-moe-1b-a400m": None, "whisper-large-v3": None,
+                "llama-3.2-vision-90b": ZOO["llama-3.2-vision-90b"][0]}
+
+
+class _ServedLines(logging.Handler):
+    """Keeps the arguments of the serving driver's ``served …`` lines:
+    (finished, requests, tokens, seconds, tokens/s)."""
+
+    def __init__(self):
+        super().__init__()
+        self.served = []
+
+    def emit(self, record):
+        if record.getMessage().startswith("served "):
+            self.served.append(record.args)
+
+
+def _serve_calls(args) -> int:
+    """Decode-step calls of the engine for the driver's requests, which all
+    have the same prompt and new-token counts: each prompt replayed but its
+    last token, then waves of ``slots`` requests that finish together
+    after ``max_new`` steps."""
+    waves = -(-args.requests // args.slots)
+    return args.requests * (args.prompt_len - 1) + waves * args.max_new
+
+
+def _serve_launches_per_call(cfg) -> dict:
+    """Kernel launches of one decode step: flash's (`_zoo_flash_calls`) and
+    the MoE's three expert products a layer."""
+    per_call = {"flash_attention": _zoo_flash_calls(cfg)[1]}
+    if cfg.family == "moe":
+        per_call["moe_gmm"] = 3 * cfg.num_layers
+    return per_call
+
+
+def run_serve_driver_path(device) -> dict:
+    """The serving driver, `repro_torch.launch.serve`, as a user runs it:
+    `main` for Granite-MoE and Whisper at full size, and `serve` for the
+    VLM at the zoo's cut (10 of 100 layers), each from the port's own init
+    (seed 0) with the driver's zero extras.  Each run with every launch
+    count zeroed just before it and read just after; gates: every request
+    answered with ``max_new`` tokens in the vocabulary, the driver's
+    ``served`` line saying so, each kernel's launches
+    `_serve_launches_per_call` times `_serve_calls` (every other kernel
+    none), flash on the bfloat16 tensor-core route.  Reports the driver's
+    own tokens/s beside the run's wall time."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    handler = _ServedLines()
+    logger = logging.getLogger("repro.serve")
+    logger.addHandler(handler)
+    out, launches = {}, {}
+    try:
+        for arch, cut in SERVE_DRIVER.items():
+            argv = ["--arch", arch, "--device", str(device)]
+            args = serve.parse_args(argv)
+            cfg = dataclasses.replace(get_arch(arch), **(cut or {}))
+            model = params = None
+            if cut is not None:
+                model = build_model(cfg)
+                params = model.init(args.seed, device=device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_counts()
+            t0 = time.perf_counter()
+            done = serve.main(argv) if cut is None else serve.serve(model, params, args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, routes = read_counts(), read_routes()
+            finished, requests, tokens, seconds, rate = handler.served[-1]
+            if len(done) != args.requests or not finished == requests == args.requests or any(
+                    len(r.generated) != args.max_new
+                    or not all(0 <= t < cfg.vocab_size for t in r.generated)
+                    for r in done):
+                raise AssertionError(f"serve driver {arch}: {len(done)} of "
+                                     f"{args.requests} requests answered")
+            calls = _serve_calls(args)
+            want = {k: v * calls for k, v in _serve_launches_per_call(cfg).items()}
+            if counts != {k: want.get(k, 0) for k in counts}:
+                raise AssertionError(f"serve driver {arch}: launches {counts} in {calls} "
+                                     f"decode steps, expected {want}")
+            if routes["flash_attention"]["bf16_mma"] != counts["flash_attention"]:
+                raise AssertionError(f"serve driver {arch} off the tensor-core route: "
+                                     f"{routes['flash_attention']}")
+            reduced = {k: f"{v} of {getattr(get_arch(arch), k)}" for k, v in
+                       (cut or {}).items()}
+            out[arch] = {
+                "arch": cfg.name, "entry": "main" if cut is None else "serve",
+                "reduced": reduced or "none", "requests": args.requests,
+                "requests_finished": finished, "tokens_generated": tokens,
+                "decode_step_calls": calls, "serve_s": seconds, "tokens_per_s": rate,
+                "wall_s": wall, "launches": counts,
+                "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+            log("serve_driver " + json.dumps(out[arch]))
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            del model, params, done
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        logger.removeHandler(handler)
+    out["launches"] = launches
+    return out
+
+
+# -- the LM training path (Granite-MoE, Mamba2, Zamba2, gemma2, Whisper, VLM) ----
 
 TRAIN_SHAPE = (4, 1024)             # (batch, tokens) of a training step
 TRAIN_STEPS = 8
@@ -3762,19 +3913,45 @@ TRAIN_STEPS = 8
 # keys from the last 512 rows.  Its loss holds several float32 buffers of
 # tokens × 256,000 logits at once (capped, tanh, their gradients): at
 # 6,144 tokens (5.86 GiB each) the first backward ran out of the card's
-# 80 GB with 66.4 GiB allocated (NVIDIA H100 80GB HBM3, 700 W).
+# 80 GB with 66.4 GiB allocated (NVIDIA H100 80GB HBM3, 700 W).  Whisper
+# at full depth (32 encoder and 32 decoder layers: 1.58 B parameters,
+# 25 GB of state) on 4 × 448 tokens over 4 × 1,500 frames.  The VLM at one
+# self- and one cross-attention layer (the reference's own `reduced()`
+# takes cross_attn_every 2): one published group of 4 self layers and a
+# cross layer with the 2.10 B-parameter embedding and head is 5.67 B
+# parameters, 91 GB of state, past the card; this cut is 3.11 B, 50 GB.
+# Its gates start at zero, where the cross-attention's backward would
+# receive dO = 0 and hide a fault: they are set to `ZOO_GATE`.  The last
+# field is the peak learning rate.  The VLM's is 1e-5: at 8,192 wide,
+# AdamW's first steps (about ±lr on every element, two warm-up steps)
+# threw its loss from 18.2 to 45–156 at peaks of 2e-5 to 3e-4 and it had
+# not come back below the first step's by step 8 (`train_model` at those
+# peaks on an NVIDIA H100 80GB HBM3, 700 W).  The reference's own train
+# step does the same when the rate is too large for the width, and the
+# port's step follows it through the rise
+# (tests/test_torch_train.py::test_wide_vlm_loss_rise_at_a_large_rate_is_the_references).
 TRAIN_MODELS = {
-    "mamba2-2.7b": ({}, (4, 1024), "none"),
-    "zamba2-1.2b": ({}, (4, 1024), "none"),
+    "mamba2-2.7b": ({}, (4, 1024), "none", 3e-4),
+    "zamba2-1.2b": ({}, (4, 1024), "none", 3e-4),
     "gemma2-27b": ({"num_layers": 2}, (1, 4608),
                    "num_layers 2 of 46 (one local/global pair); 4,608 tokens "
-                   "(6,144 ran out of memory)"),
+                   "(6,144 ran out of memory)", 3e-4),
+    "whisper-large-v3": ({}, (4, 448), "none", 3e-4),
+    "llama-3.2-vision-90b": ({"num_layers": 2, "cross_attn_every": 2}, (2, 2048),
+                             "num_layers 2 of 100, cross_attn_every 2 of 5 (one self "
+                             "and one cross layer: 100 layers do not fit one card); "
+                             "gates set to 1.0 (zero at init)", 1e-5),
 }
 TRAIN_KW = dict(base_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
 # The card-against-host, microbatch and resume checks: Granite at full
 # width, 2 of 24 layers, float32 compute, batches of 2 × 128 tokens.
 HOST_TRAIN_LAYERS = 2
 HOST_TRAIN_SHAPE = (2, 128)
+# The reduced models of the zoo held card against host in training, and
+# the VLM's gates there (zero at init, as the reference's; the host tests
+# set 0.7).
+HOST_TRAIN_ZOO = ("llama-3.2-vision-90b", "whisper-large-v3")
+HOST_GATE = 0.7
 # AdamW divides each element's first moment by the root of its second:
 # an element whose gradient is float32 noise (zero in exact arithmetic, as
 # a key bias's, or cancelling to near zero) takes a step of up to about
@@ -3817,6 +3994,18 @@ def _plain_counters():
         for m, n, fn in originals:
             setattr(m, n, fn)
     return counts, restore
+
+
+def _train_data(cfg, b: int, s: int, seed: int):
+    """The training driver's data: `SyntheticLMData` with the VLM's vision
+    embeddings or Whisper's frames (float32, as the reference's driver)."""
+    from repro_torch.data import SyntheticLMData
+
+    return SyntheticLMData(
+        vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=seed,
+        with_vision=cfg.vision_seq if cfg.family == "vlm" else 0,
+        with_frames=cfg.encoder_seq if cfg.family == "encdec" else 0,
+        d_model=cfg.d_model)
 
 
 def _torch_batch(batch: dict, device) -> dict:
@@ -3902,7 +4091,9 @@ def check_train_on_host(device) -> dict:
     and on the host through the plain versions, from one state; then, on
     the card, microbatches=2 against the mean of the halves' gradients,
     two compressed steps, and a checkpoint at step 2 restored into a fresh
-    state and continued two steps beside the uninterrupted run."""
+    state and continued two steps beside the uninterrupted run; last, the
+    reduced VLM (gates `HOST_GATE`) and Whisper one step each, card against
+    host (`_one_step_card_vs_host`)."""
     import dataclasses
     import shutil
 
@@ -4013,55 +4204,64 @@ def check_train_on_host(device) -> dict:
         raise AssertionError(f"resumed losses {resumed} against {losses[2:]}")
     out.update({"uninterrupted_losses": losses, "resumed_losses": resumed,
                 "resume_loss_rel_err": resume_err, "checkpoint_arrays": len(saved)})
+
+    # The reduced VLM and Whisper: one step each, card against host.
+    out["zoo"] = {arch: _one_step_card_vs_host(get_arch(arch).reduced(), device, seed=3)
+                  for arch in HOST_TRAIN_ZOO}
     log("train_card_vs_host " + json.dumps(out))
     return out
 
 
-def check_ssm_train_on_host(device) -> dict:
-    """Reduced Mamba2 and a 5-layer Zamba2 (two groups and a tail), float32
-    compute, remat: one train step (lr 3e-4 from step 0) on the card
-    through the scan kernels (and flash) and on the host through the plain
-    versions, from one state; loss and grad norm within `HOST_TOL`, the
-    states by `_close_states`; launches on the card 2 scans and 1 scan
-    backward a layer."""
+def _one_step_card_vs_host(cfg, device, seed: int) -> dict:
+    """``cfg`` in float32 compute (the VLM's gates at `HOST_GATE`): one
+    train step (lr 3e-4 from step 0) on the card through the kernels and
+    on the host through the plain versions, from one state, on
+    `_train_data` batches of `HOST_TRAIN_SHAPE`; loss and grad norm
+    within `HOST_TOL`, the states by `_close_states`; the card's launches
+    `_expected_train_launches` (every other kernel none)."""
     import dataclasses
 
     import torch
-    from repro_torch.data import SyntheticLMData
     from repro_torch.distributed import init_train_state, make_train_step
     from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {}
-    for cfg in _ssm_configs():
-        cfg = dataclasses.replace(cfg, compute_dtype="float32")
-        model = build_model(cfg)
-        b, s = HOST_TRAIN_SHAPE
-        data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
-                               seed=2)
-        kw = dict(base_lr=3e-4, warmup_steps=0, total_steps=10)
-        host = init_train_state(model, 0, device="cpu")
-        card = _copy_state(host, device)
-        step = make_train_step(model, **kw)
-        reset_counts()
-        card, cm = step(card, _torch_batch(data.batch_at(0), device))
-        torch.cuda.synchronize()
-        counts = read_counts()
-        host, hm = step(host, _torch_batch(data.batch_at(0), "cpu"))
-        n = cfg.num_layers
-        if (counts["ssd_scan"], counts["ssd_scan_backward"]) != (2 * n, n):
-            raise AssertionError(f"{cfg.name}: scan launches {counts}")
-        row = {"arch": cfg.name, "num_layers": n, "compute_dtype": "float32",
-               "tokens": [b, s]}
-        for key in ("loss", "grad_norm"):
-            rel = abs(float(cm[key]) - float(hm[key])) / max(abs(float(hm[key])), 1e-30)
-            if not rel <= HOST_TOL:
-                raise AssertionError(f"{cfg.name} train step card vs host: {key} {rel} "
-                                     f"off (> {HOST_TOL})")
-            row[key + "_rel_err"] = rel
-        row.update(_close_states(f"{cfg.name} train step card vs host", card, host,
-                                 kw["base_lr"]))
-        out[f"{cfg.name}_{n}L"] = row
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    model = build_model(cfg)
+    b, s = HOST_TRAIN_SHAPE
+    data = _train_data(cfg, b, s, seed=seed)
+    kw = dict(base_lr=3e-4, warmup_steps=0, total_steps=10)
+    host = init_train_state(model, 0, device="cpu")
+    _set_gates(host.params, cfg, HOST_GATE)
+    card = _copy_state(host, device)
+    step = make_train_step(model, **kw)
+    reset_counts()
+    card, cm = step(card, _torch_batch(data.batch_at(0), device))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    host, hm = step(host, _torch_batch(data.batch_at(0), "cpu"))
+    want = _expected_train_launches(cfg)
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"{cfg.name}: training launches {counts}, expected {want}")
+    row = {"arch": cfg.name, "num_layers": cfg.num_layers, "compute_dtype": "float32",
+           "tokens": [b, s], "launches": counts}
+    for key in ("loss", "grad_norm"):
+        rel = abs(float(cm[key]) - float(hm[key])) / max(abs(float(hm[key])), 1e-30)
+        if not rel <= HOST_TOL:
+            raise AssertionError(f"{cfg.name} train step card vs host: {key} {rel} "
+                                 f"off (> {HOST_TOL})")
+        row[key + "_rel_err"] = rel
+    row.update(_close_states(f"{cfg.name} train step card vs host", card, host,
+                             kw["base_lr"]))
+    return row
+
+
+def check_ssm_train_on_host(device) -> dict:
+    """Reduced Mamba2 and a 5-layer Zamba2 (two groups and a tail), float32
+    compute, remat: one train step on the card and on the host
+    (`_one_step_card_vs_host`: 2 scans and 1 scan backward a layer)."""
+    out = {f"{cfg.name}_{cfg.num_layers}L": _one_step_card_vs_host(cfg, device, seed=2)
+           for cfg in _ssm_configs()}
     log("ssm_train_card_vs_host " + json.dumps(out))
     return out
 
@@ -4119,9 +4319,14 @@ def check_no_grad_through_kernels(device) -> dict:
 
 def _expected_train_launches(cfg) -> dict:
     """Launches a training step (remat): flash forward 2 and backward 1
-    per attention layer or shared-block call, the GMM 6 + 6 per MoE layer,
-    the scan 2 and its backward 1 per Mamba2 layer; none elsewhere."""
+    per attention call (a decoder layer, a VLM cross layer, a shared-block
+    call; Whisper's encoder layers one each, its decoder layers two:
+    self- and cross-attention), the GMM 6 + 6 per MoE layer, the scan 2 and
+    its backward 1 per Mamba2 layer; none elsewhere."""
     n = cfg.num_layers
+    if cfg.family == "encdec":
+        calls = cfg.encoder_layers + 2 * n
+        return {"flash_attention": 2 * calls, "flash_attention_backward": calls}
     if cfg.family == "ssm":
         return {"ssd_scan": 2 * n, "ssd_scan_backward": n}
     if cfg.family == "hybrid":
@@ -4134,12 +4339,14 @@ def _expected_train_launches(cfg) -> dict:
     return want
 
 
-def train_model(cfg, shape, device, steps: int = TRAIN_STEPS, reduced: str = "none"
-                ) -> dict:
+def train_model(cfg, shape, device, steps: int = TRAIN_STEPS, reduced: str = "none",
+                base_lr: float = TRAIN_KW["base_lr"]) -> dict:
     """``cfg`` trained from the port's own init (seed 0; float32 parameters
     and AdamW state, bfloat16 compute, remat): with every launch count
     zeroed just before and read just after, ``steps`` `make_train_step`
-    steps on `SyntheticLMData(seed=0)` batches of ``shape``; gates: finite
+    steps (`TRAIN_KW` with the peak ``base_lr``) on `_train_data(seed=0)`
+    batches of ``shape`` (the VLM's gates
+    at `ZOO_GATE`); gates: finite
     losses and grad norms, the last quarter's mean loss below the first
     step's, each kernel's launches equal to `_expected_train_launches`
     times the steps (every other kernel none), flash on the bfloat16
@@ -4150,7 +4357,6 @@ def train_model(cfg, shape, device, steps: int = TRAIN_STEPS, reduced: str = "no
     import statistics
 
     import torch
-    from repro_torch.data import SyntheticLMData
     from repro_torch.distributed import init_train_state, make_train_step
     from repro_torch.models import build_model
     from repro_torch.utils.tree import tree_num_params
@@ -4162,9 +4368,10 @@ def train_model(cfg, shape, device, steps: int = TRAIN_STEPS, reduced: str = "no
     state = init_train_state(model, 0, device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    _set_gates(state.params, cfg, ZOO_GATE)
     b, s = shape
-    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=0)
-    step_fn = make_train_step(model, **dict(TRAIN_KW, total_steps=steps))
+    data = _train_data(cfg, b, s, seed=0)
+    step_fn = make_train_step(model, **dict(TRAIN_KW, total_steps=steps, base_lr=base_lr))
     plain, restore = _plain_counters()
     try:
         reset_counts()
@@ -4204,8 +4411,8 @@ def train_model(cfg, shape, device, steps: int = TRAIN_STEPS, reduced: str = "no
     profiled, state = _train_profile(step_fn, state, _torch_batch(data.batch_at(steps),
                                                                   device), device)
     out = {"arch": cfg.name, "reduced": reduced, "params": tree_num_params(state.params),
-           "init_s": init_s, "tokens": [b, s], "steps": steps, "losses": losses,
-           "grad_norms": norms, "lrs": lrs, "step_s": step_s,
+           "init_s": init_s, "tokens": [b, s], "base_lr": base_lr, "steps": steps,
+           "losses": losses, "grad_norms": norms, "lrs": lrs, "step_s": step_s,
            "median_step_ms": 1e3 * median_s, "tokens_per_s": b * s / median_s,
            "last_quarter_mean_loss": last, "launches": counts,
            "launches_per_step": {k: v / steps for k, v in want.items() if v},
@@ -4226,10 +4433,11 @@ def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
     of 4 × 1,024 tokens; flash forward 2 a layer, backward 1, GMM 6 + 6),
     its median step and the profiled step's flash-backward ms and share
     reported beside `CUDA_CORE_BWD_STEP`; then `TRAIN_MODELS` one after
-    another (Mamba2, Zamba2, gemma2 at full width, each freed before the
-    next), each with its counts zeroed just before it; then the 2-layer
-    float32 checks (`check_train_on_host`, `check_ssm_train_on_host`) and
-    the guard (`check_no_grad_through_kernels`).  Returns Granite's line
+    another (Mamba2, Zamba2, gemma2, Whisper and the VLM at full width,
+    each freed before the next), each with its counts zeroed just before
+    it; then the float32 card-against-host checks (`check_train_on_host`:
+    Granite at 2 layers, the reduced VLM and Whisper;
+    `check_ssm_train_on_host`) and the guard (`check_no_grad_through_kernels`).  Returns Granite's line
     with ``models`` (each model's line) and ``launches`` summed over all
     the runs."""
     import dataclasses
@@ -4247,10 +4455,10 @@ def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
     log("lm_train_path " + json.dumps(out))
     launches = dict(out["launches"])
     out["models"] = {}
-    for arch, (over, shape, reduced) in TRAIN_MODELS.items():
+    for arch, (over, shape, reduced, lr) in TRAIN_MODELS.items():
         t0 = time.perf_counter()
         row = train_model(dataclasses.replace(get_arch(arch), **over), shape, device,
-                          steps, reduced)
+                          steps, reduced, lr)
         row["run_s"] = time.perf_counter() - t0
         log("lm_train_path " + json.dumps(row))
         for k, v in row["launches"].items():
@@ -4664,8 +4872,10 @@ def _flash_bwd_bound(b, s, h, kvh, d, causal, dtype, skv=0, window=0) -> tuple:
 
 
 # The flash backward cases `time_flash_backward` times: the Granite
-# training call in both types, and gemma2's global and local ones.
-FLASH_BWD_TIMED = ("forward", "forward_f32", "gemma2_global", "gemma2_local")
+# training call in both types, gemma2's global and local ones, the VLM's
+# cross-attention and Whisper's encoder and cross-attention.
+FLASH_BWD_TIMED = ("forward", "forward_f32", "gemma2_global", "gemma2_local",
+                   "vlm_cross", "whisper_encoder_train", "whisper_cross")
 
 
 def _plain_forward(q, k, v, c: FlashCase) -> tuple:
@@ -4701,8 +4911,11 @@ def time_flash_backward(device) -> list:
     """The flash backward kernel at Granite's training call (b = 4, s =
     1,024, 16 query and 8 kv heads, d = 64, causal), bfloat16 and float32,
     and at gemma2's (b = 1, s = 6,144, 32 query and 16 kv heads, d = 128,
-    causal, softcap 50; the local layer's window 4,096), bfloat16: kernel,
-    plain version, and SDPA's backward for the same function (the
+    causal, softcap 50; the local layer's window 4,096), the VLM's
+    cross-attention (2, 2,048 queries over 1,600 rows, 64 query and 8 kv
+    heads, d = 128) and Whisper's encoder (4, 1,500, 20 heads, d = 64) and
+    cross-attention (448 queries over 1,500 frames), none causal, bfloat16:
+    kernel, plain version, and SDPA's backward for the same function (the
     gradient of one ``F.scaled_dot_product_attention`` forward, GQA, TF32
     off, through ``torch.autograd.grad`` with the graph kept) on the same
     q, k, v and dO.  SDPA has no softcap: for gemma2's calls it computes
@@ -4719,7 +4932,7 @@ def time_flash_backward(device) -> list:
     for c in (c for c in FLASH_CASES if c.label in FLASH_BWD_TIMED):
         kw = _flash_kw(c)
         q, k, v = _flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device, seed=1000,
-                                q_scale=c.q_scale)
+                                skv=c.skv, q_scale=c.q_scale)
         do = _randn((c.b, c.s, c.h, c.d), 1003, device, c.dtype)
         o, lse = fac.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         got = fac.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
@@ -4741,9 +4954,9 @@ def time_flash_backward(device) -> list:
             library_fn = ("SDPA backward, not the same function: no softcap"
                           + (", window as a boolean mask" if c.window else ""))
         b_ms, b_by = _flash_bwd_bound(c.b, c.s, c.h, c.kvh, c.d, c.causal, c.dtype,
-                                      window=c.window)
+                                      skv=c.skv, window=c.window)
         rows.append({"case": c.label, "shape": [c.b, c.s, c.h, c.kvh, c.d],
-                     "dtype": c.dtype, "route": fac.ROUTES[q.dtype][1],
+                     "skv": c.keys, "dtype": c.dtype, "route": fac.ROUTES[q.dtype][1],
                      "causal": c.causal, "window": c.window, "softcap": c.softcap,
                      "max_abs_err": err, "ms": kern["device"], "host_ms": kern["host"],
                      "plain_ms": plain["device"], "library_ms": lib["device"],
@@ -5025,6 +5238,11 @@ def main() -> int:
         zoo = run_lm_zoo_path(device)
         log(f"lm_zoo_path_s {time.perf_counter() - t0:.1f}")
 
+        phase = "serving driver path"
+        t0 = time.perf_counter()
+        served = run_serve_driver_path(device)
+        log(f"serve_driver_path_s {time.perf_counter() - t0:.1f}")
+
         phase = "LM training path"
         t0 = time.perf_counter()
         train = run_lm_train_path(device)
@@ -5067,6 +5285,7 @@ def main() -> int:
                  {"flash_attention": lm["launches"]["flash_attention"]
                   + ssm["launches"]["flash_attention"]
                   + zoo["launches"]["flash_attention"]
+                  + served["launches"]["flash_attention"]
                   + train["all_launches"]["flash_attention"]},
                  flash_parity["max_abs_err"]),
                 ("flash_attention_backward", flash_bwd_rows[:1], train["all_launches"],
@@ -5074,6 +5293,7 @@ def main() -> int:
                 ("moe_gmm", [r for r in gmm_rows
                              if r["l2"] == "warm" and r["dtype"] == "bfloat16"],
                  {"moe_gmm": lm["launches"]["moe_gmm"]
+                  + served["launches"]["moe_gmm"]
                   + train["all_launches"]["moe_gmm"]},
                  max(gmm_parity["max_abs_err"], gmm_bwd_parity["max_abs_err"]))):
             entry = {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -17,8 +17,8 @@ change, change, parent with `chip_smoke.cuda_ms` (device time per call):
   * flash: its ``FLASH_TIMED`` cases without a window, a softcap or
     sq != skv (the parent's function), within ``LM_TOL``;
   * flash backward: ``FLASH_BWD_TIMED`` without a window or a softcap
-    (Granite's training call, bfloat16 and float32: the parent's
-    function), dq, dk and dv within ``LM_TOL`` and, in bfloat16, row by
+    (Granite's training call, bfloat16 and float32, and the VLM's and
+    Whisper's non-causal ones: the parent's function), dq, dk and dv within ``LM_TOL`` and, in bfloat16, row by
     row within ``FLASH_ROW_TOL`` (`_bwd_row_check`), with SDPA's backward
     (`chip_smoke.sdpa_backward`) beside them;
   * the SSD scan's backward (``ssd_scan_backward``): no parent (the
@@ -237,7 +237,8 @@ def compare_flash_bwd(cs, lib, device) -> list:
     rows = []
     for c in (c for c in cs.FLASH_CASES if c.label in cs.FLASH_BWD_TIMED
               and not c.window and not c.softcap):
-        q, k, v = cs._flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device, seed=1000)
+        q, k, v = cs._flash_inputs(c.b, c.s, c.h, c.kvh, c.d, c.dtype, device, seed=1000,
+                                   skv=c.skv)
         do = cs._randn((c.b, c.s, c.h, c.d), 1003, device, c.dtype)
         o, lse = fac.flash_attention_cuda(q, k, v, causal=c.causal, return_lse=True)
         want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal=c.causal)
@@ -259,13 +260,13 @@ def compare_flash_bwd(cs, lib, device) -> list:
                     errs[who][name]["row_err_over_max"] = cs._bwd_row_check(
                         label, g, w, cs.FLASH_ROW_TOL)
         row = {"kernel": "flash_attention_bwd", "case": c.label,
-               "shape": [c.b, c.s, c.h, c.kvh, c.d], "dtype": c.dtype,
+               "shape": [c.b, c.s, c.h, c.kvh, c.d], "skv": c.keys, "dtype": c.dtype,
                "route": fac.ROUTES[q.dtype][1], "err_over_max": errs}
         row.update(in_turns(cs, parent, change))
         sdpa, _ = cs.sdpa_backward(q, k, v, do, c.causal)
         row["library_ms"] = cs.cuda_ms(sdpa)["device"]
         row["bound_ms"], row["bound_by"] = cs._flash_bwd_bound(
-            c.b, c.s, c.h, c.kvh, c.d, c.causal, c.dtype)
+            c.b, c.s, c.h, c.kvh, c.d, c.causal, c.dtype, skv=c.skv)
         rows.append(row)
         cs.log("compare " + json.dumps(row))
         del q, k, v, do, o, lse, want, sdpa

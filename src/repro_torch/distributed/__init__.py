@@ -8,8 +8,8 @@ reference's ``repro.distributed.straggler``) plans weighted microbatches
 over data-parallel groups from the paper's §3.1.1 model
 (`repro_torch.core.distributed_model`); it is numpy only.  The rest of the
 reference's ``repro.distributed`` (sharding rules, FSDP, pipeline,
-activations, elastic, ``compressed_psum``) waits for the multi-device
-slice (ROADMAP A.5).
+activations, elastic, ``compressed_psum``) waits for the port's
+multi-device slice.
 """
 from repro_torch.distributed.straggler import StragglerMonitor
 from repro_torch.distributed.trainstep import (

@@ -18,8 +18,8 @@ the reference's element for element.
 
 The reference's ``compressed_psum`` (the shard_map collective that sums
 int8 payloads under one shared scale across a named mesh axis) needs a
-process group and is not ported here: it belongs to the multi-device
-slice (ROADMAP A.5).
+process group and is not ported here: it belongs to the port's
+multi-device slice.
 """
 from __future__ import annotations
 

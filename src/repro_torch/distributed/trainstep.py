@@ -20,7 +20,7 @@
 The state's parameters must require gradients (`init_train_state` turns
 that on).  There is no mesh: the reference's sharding constraints are the
 identity on one device, and its deferred cross-device reduction waits for
-the multi-device slice (ROADMAP A.5).
+the port's multi-device slice.
 """
 from __future__ import annotations
 

@@ -6,14 +6,15 @@ card (twin of ``repro.launch.train``).
 
 trains on the card (``--device cuda``, the default); ``--device cpu``
 runs the same loop on the host at a reduced size (``--arch
-qwen2-72b-reduced``).  It trains the dense decoders (gemma2's local and
-global pairs with their window and softcaps among them), the MoE, the SSM
-(``--arch mamba2-2.7b``) and the hybrid (``--arch zamba2-1.2b``); the VLM
-and the encoder-decoder are refused until the next slice of the port
-(ROADMAP A.4).  The flags, the log lines and resuming from the latest
-checkpoint under ``--ckpt-dir`` are the reference's.  There is no mesh:
-``--model-parallel`` above 1 is refused until the multi-device slice
-(ROADMAP A.5).
+qwen2-72b-reduced``).  It trains every family: the dense decoders
+(gemma2's local and global pairs with their window and softcaps among
+them), the MoE, the SSM (``--arch mamba2-2.7b``), the hybrid (``--arch
+zamba2-1.2b``), the VLM (``--arch llama-3.2-vision-90b``, on the stub
+frontend's vision embeddings) and the encoder-decoder (``--arch
+whisper-large-v3``, on the stub frontend's audio frames).  The flags, the
+data, the log lines and resuming from the latest checkpoint under
+``--ckpt-dir`` are the reference's.  There is no mesh: ``--model-parallel``
+above 1 is refused until the port's multi-device slice.
 """
 from __future__ import annotations
 
@@ -34,9 +35,6 @@ from repro_torch.utils.logging import get_logger
 from repro_torch.utils.tree import tree_num_params
 
 log = get_logger("repro.train")
-
-# The families whose training the port runs (the VLM and encdec not yet).
-TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> list:
@@ -60,22 +58,22 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     args = ap.parse_args(argv)
     if args.model_parallel > 1:
         raise SystemExit("--model-parallel > 1 needs a mesh: the port trains on one "
-                         "card until the multi-device slice (ROADMAP A.5)")
+                         "card until its multi-device slice")
     device = resolve_device(args.device)
 
     cfg = get_arch(args.arch)
-    if cfg.family not in TRAINED_FAMILIES:
-        raise SystemExit(f"{cfg.name} ({cfg.family}): the port trains the "
-                         f"{', '.join(TRAINED_FAMILIES)} families so far; the VLM and "
-                         f"Whisper train in the next slice (ROADMAP A.4)")
     model = build_model(cfg)
     log.info("arch %s (family=%s): ~%.1fM params (config estimate)",
              cfg.name, cfg.family, cfg.num_params() / 1e6)
 
     # Data pipeline (pure function of step — resume-safe).
-    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
-                           global_batch=args.global_batch, seed=args.seed,
-                           d_model=cfg.d_model)
+    data = SyntheticLMData(
+        vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+        global_batch=args.global_batch, seed=args.seed,
+        with_vision=cfg.vision_seq if cfg.family == "vlm" else 0,
+        with_frames=cfg.encoder_seq if cfg.family == "encdec" else 0,
+        d_model=cfg.d_model,
+    )
 
     state = init_train_state(model, args.seed, compression=args.compression,
                              device=device)

@@ -20,8 +20,11 @@ non-causal self-attention, the decoder's causal one and the
 cross-attention over the encoder's memory, in `decode_step` too (one
 query row over the memory).  The decode step's self-attention reads the
 cache with plain einsums (`decode_attention`), as the reference does.
-Layers are a Python loop over per-layer `Params`; the reference's scan,
-remat and sharding constraints have no counterpart on one device.
+Layers are a Python loop over per-layer `Params` (the reference scans a
+stacked tree).  `encode` and `decode_train` remat each layer body, as the
+reference's ``jax.checkpoint`` does: with gradients enabled, each runs
+under `torch.utils.checkpoint.checkpoint`.  The reference's sharding
+constraints have no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from repro_torch.models.layers import (
     mlp_gelu,
     mlp_gelu_init,
     norm_init,
+    remat_runner,
     rms_norm,
     sinusoidal_positions,
     torch_dtype,
@@ -106,38 +110,59 @@ def _mlp_block(lp: Params, x: Tensor, cfg) -> Tensor:
     return x + mlp_gelu(lp["mlp"], h, "gelu", dtype_of(cfg))
 
 
-def encode(params: Params, frames: Tensor, cfg) -> Tensor:
-    """frames: (b, enc_seq, d_model) stub frontend output → encoder memory."""
+def _enc_layer(lp: Params, x: Tensor, positions: Tensor, cfg) -> Tensor:
+    """One encoder layer: non-causal self-attention, then the MLP."""
+    dt = dtype_of(cfg)
+    h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+    q, k, v = qkv_project(lp["attn"], h, cfg, positions, dt)
+    o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
+    o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
+    x = x + dense(lp["attn"]["o"], o, dt)
+    return _mlp_block(lp, x, cfg)
+
+
+def encode(params: Params, frames: Tensor, cfg, *, remat: bool = True) -> Tensor:
+    """frames: (b, enc_seq, d_model) stub frontend output → encoder memory.
+    With ``remat`` and gradients enabled, each layer runs under a checkpoint."""
     dt = dtype_of(cfg)
     b, s, d = frames.shape
     x = frames.to(dt) + _sinusoid_table(s, d, frames.device).to(dt)
     positions = torch.arange(s, device=frames.device).expand(b, s)
+    run = remat_runner(remat)
     for lp in params["enc_layers"]:
-        h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        q, k, v = qkv_project(lp["attn"], h, cfg, positions, dt)
-        o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
-        o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
-        x = x + dense(lp["attn"]["o"], o, dt)
-        x = _mlp_block(lp, x, cfg)
+        x = run(_enc_layer, lp, x, positions, cfg)
     return rms_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def decode_train(params: Params, tokens: Tensor, memory: Tensor, cfg) -> Tensor:
-    """Teacher-forced decoder: tokens (b, s) + memory → logits float32."""
+def _dec_layer(lp: Params, x: Tensor, memory: Tensor, positions: Tensor, cfg
+               ) -> Tensor:
+    """One decoder layer: causal self-attention, cross-attention over the
+    encoder's memory, then the MLP."""
+    dt = dtype_of(cfg)
+    h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+    q, k, v = qkv_project(lp["attn"], h, cfg, positions, dt)
+    o = chunked_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk)
+    o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
+    x = x + dense(lp["attn"]["o"], o, dt)
+    h = rms_norm(lp["xattn_norm"], x, cfg.norm_eps)
+    x = x + cross_attention(lp["xattn"], h, memory, cfg, dt)
+    return _mlp_block(lp, x, cfg)
+
+
+def decode_train(params: Params, tokens: Tensor, memory: Tensor, cfg, *,
+                 remat: bool = True) -> Tensor:
+    """Teacher-forced decoder: tokens (b, s) + memory → logits float32.
+    With ``remat`` and gradients enabled, each layer runs under a
+    checkpoint; ``memory`` is an input of each, so its gradient sums over
+    the layers and the encoder is not rerun."""
     dt = dtype_of(cfg)
     b, s = tokens.shape
     x = embed(params["dec_embed"], tokens, dt)
     x = x + params.cast("dec_pos", dt)[:s]
     positions = torch.arange(s, device=tokens.device).expand(b, s)
+    run = remat_runner(remat)
     for lp in params["dec_layers"]:
-        h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        q, k, v = qkv_project(lp["attn"], h, cfg, positions, dt)
-        o = chunked_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk)
-        o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
-        x = x + dense(lp["attn"]["o"], o, dt)
-        h = rms_norm(lp["xattn_norm"], x, cfg.norm_eps)
-        x = x + cross_attention(lp["xattn"], h, memory, cfg, dt)
-        x = _mlp_block(lp, x, cfg)
+        x = run(_dec_layer, lp, x, memory, positions, cfg)
     x = rms_norm(params["dec_norm"], x, cfg.norm_eps)
     return unembed(params["dec_embed"], x).float()
 

@@ -23,10 +23,10 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (
-    Params, dtype_of, embed, embed_init, norm_init, rms_norm, softcap, unembed,
+    Params, dtype_of, embed, embed_init, norm_init, remat_runner, rms_norm, softcap,
+    unembed,
 )
 from repro_torch.models.ssm import (
     init_mamba_cache, mamba_decode_layers, mamba_forward, mamba_init,
@@ -86,11 +86,7 @@ def hybrid_forward(params: Params, tokens: Tensor, cfg, *, remat: bool = True
     b, s = tokens.shape
     x = embed(params["embed"], tokens, dtype_of(cfg))
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    remat = remat and torch.is_grad_enabled()
-
-    def run(fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
-
+    run = remat_runner(remat)
     layers = params["mamba_groups"]
     for g in range(n_groups):
         x = run(_group_forward, layers[g * k:(g + 1) * k], params["shared_attn"], x,

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
 
@@ -28,6 +29,15 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def dtype_of(cfg) -> torch.dtype:
     return torch_dtype(cfg.compute_dtype)
+
+
+def remat_runner(remat: bool = True):
+    """``run(fn, *args, **kw)``: ``fn`` under
+    `torch.utils.checkpoint.checkpoint` (the reference's ``jax.checkpoint``)
+    when ``remat`` and gradients are enabled, else a plain call."""
+    if remat and torch.is_grad_enabled():
+        return lambda fn, *args, **kw: checkpoint(fn, *args, use_reentrant=False, **kw)
+    return lambda fn, *args, **kw: fn(*args, **kw)
 
 
 class Params(nn.Module):

@@ -24,12 +24,11 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.layers import (
-    Params, dtype_of, embed, embed_init, norm_init, rms_norm, unembed,
+    Params, dtype_of, embed, embed_init, norm_init, remat_runner, rms_norm, unembed,
 )
 from repro_torch.utils.device import DeviceLike, resolve_device
 
@@ -127,12 +126,9 @@ def _build_ssm(cfg: ArchConfig) -> Model:
         `torch.utils.checkpoint.checkpoint` (remat, the reference's
         ``jax.checkpoint`` of its layer scan), as in `decoder_forward`."""
         x = embed(params["embed"], batch["tokens"], dtype_of(cfg))
-        remat = torch.is_grad_enabled()
+        run = remat_runner()
         for lp in params["layers"]:
-            if remat:
-                x = checkpoint(ssm.mamba_forward, lp, x, cfg, use_reentrant=False)
-            else:
-                x = ssm.mamba_forward(lp, x, cfg)
+            x = run(ssm.mamba_forward, lp, x, cfg)
         x = rms_norm(params["final_norm"], x, cfg.norm_eps)
         return unembed(transformer._head(params, cfg), x).float()
 

@@ -41,7 +41,6 @@ import math
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (
     attention_init,
@@ -61,6 +60,7 @@ from repro_torch.models.layers import (
     mlp_gelu,
     mlp_gelu_init,
     norm_init,
+    remat_runner,
     rms_norm,
     softcap,
     swiglu,
@@ -246,13 +246,7 @@ def decoder_forward(params: Params, tokens: Tensor, cfg, *,
     x = embed(params["embed"], tokens, dt, scale=cfg.scale_embed)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    remat = remat and torch.is_grad_enabled()
-
-    def run(fn, *args, **kw):
-        if remat:
-            return checkpoint(fn, *args, use_reentrant=False, **kw)
-        return fn(*args, **kw)
-
+    run = remat_runner(remat)
     for stack, i, window in layer_order(cfg):
         lp = params[stack][i]
         if stack == "cross_layers":

@@ -9,8 +9,11 @@ paths (`repro_torch.utils.tree.flatten_with_paths`).
 
 What differs, and why: the reference returns new arrays from donated
 buffers; here `adamw_update` writes the parameters and both moments in
-place under `torch.no_grad()`, which is what the donation buys it.  The
-returned state holds the same moment tensors and a new step.
+place under `torch.no_grad()`, which is what the donation buys it, and
+clips one leaf at a time (the reference's ``clip_by_global_norm``
+product, g · min(1, max_norm / norm)), so no second copy of every
+gradient is held.  The returned state holds the same moment tensors and
+a new step.
 """
 from __future__ import annotations
 
@@ -47,13 +50,6 @@ def global_norm(tree: Any) -> Tensor:
     return torch.sqrt(sum(leaves))
 
 
-def clip_by_global_norm(grads: Dict[str, Tensor], max_norm: float
-                        ) -> Tuple[Dict[str, Tensor], Tensor]:
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {k: g * scale for k, g in grads.items()}, norm
-
-
 @torch.no_grad()
 def adamw_update(
     grads: Dict[str, Tensor],
@@ -74,14 +70,15 @@ def adamw_update(
     if set(grads) != set(flat):
         raise KeyError(f"grads and params differ: "
                        f"{sorted(set(grads) ^ set(flat))[:5]}")
-    grads, gnorm = clip_by_global_norm({k: g.float() for k, g in grads.items()},
-                                       max_grad_norm)
+    grads = {k: g.float() for k, g in grads.items()}
+    gnorm = global_norm(grads)
+    scale = torch.clamp(max_grad_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     stepf = step.float()
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
     for k, p in flat.items():
-        g, m, v = grads[k], state.mu[k], state.nu[k]
+        g, m, v = grads[k] * scale, state.mu[k], state.nu[k]
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         u = (m / bc1) / (torch.sqrt(v / bc2) + eps)

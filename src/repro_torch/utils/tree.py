@@ -41,19 +41,22 @@ def flatten_with_paths(tree: Any) -> Dict[str, Tensor]:
     Dict keys are taken in sorted order, as JAX's tree flattening takes
     them; a module's parameters in registration order."""
     flat: Dict[str, Tensor] = {}
-
-    def walk(prefix: str, node: Any) -> None:
-        if node is None:
-            return
-        items = _items(node)
-        if items is None:
-            flat[prefix] = node
-            return
-        for key, child in items:
-            walk(f"{prefix}/{key}" if prefix else key, child)
-
-    walk("", tree)
+    _walk("", tree, flat)
     return flat
+
+
+def _walk(prefix: str, node: Any, flat: Dict[str, Tensor]) -> None:
+    # A module-level function: a recursive closure would be a reference
+    # cycle holding ``flat``, and with it every leaf (a step's gradients),
+    # until the cyclic garbage collector ran.
+    if node is None:
+        return
+    items = _items(node)
+    if items is None:
+        flat[prefix] = node
+        return
+    for key, child in items:
+        _walk(f"{prefix}/{key}" if prefix else key, child, flat)
 
 
 def tree_leaves(tree: Any):

@@ -144,6 +144,34 @@ def test_flash_attention_autograd_path_gives_the_plain_gradients(case):
         assert torch.equal(g, w)
 
 
+# Whisper's training cross-attention in miniature: non-causal, MHA, fewer
+# queries than keys, and a key count that leaves a partial last 64-key tile
+# (the card's call: 448 queries over 1,500 frames, d = 64).
+CROSS_SHORT_Q = [(2, 56, 150, 4, 4, 16, False, 0), (1, 28, 94, 4, 4, 64, False, 0)]
+
+
+@pytest.mark.parametrize("impl", ["naive", "chunked"])
+@pytest.mark.parametrize("shape", CROSS_SHORT_Q, ids=str)
+def test_cross_attention_with_fewer_queries_than_keys_matches_the_reference(
+        shape, impl):
+    b, sq, skv, h, kvh, d, causal, off = shape
+    assert sq < skv and skv % 64 and not causal
+    q, k, v, do = _inputs(b, sq, skv, h, kvh, d, seed=sq + skv + d)
+    kw = {"causal": causal, "q_offset": off}
+    if impl == "chunked":
+        fn, kw = rattn.chunked_attention, {**kw, "q_chunk": 64}
+    else:
+        fn = rattn.naive_attention
+    want = _ref_grads(fn, q, k, v, do, **kw)
+    got = _plain_backward(q, k, v, do, {"causal": causal, "q_offset": off})
+    _check([g.numpy() for g in got], want, impl)
+    ts = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(fa.flash_attention(*ts, causal=causal), ts,
+                               torch.from_numpy(do))
+    for g, w in zip(auto, got):
+        assert torch.equal(g, w)
+
+
 def test_lse_is_the_log_sum_exp_of_the_masked_scores():
     q, k, _, _ = _inputs(2, 33, 33, 4, 2, 16, seed=9)
     qt, kt = torch.from_numpy(q), torch.from_numpy(k)

@@ -358,3 +358,27 @@ def test_tree_helpers():
     assert ptree.check_no_nans(state) == (True, "ok")
     p.layers[1].w.data[0, 0] = float("nan")
     assert ptree.check_no_nans(state) == (False, "non-finite values at params/layers/1/w")
+
+
+def test_a_step_frees_its_gradients_without_the_cycle_collector():
+    """`adamw_update` (through `global_norm` and `flatten_with_paths`)
+    keeps no reference to the gradients it was given once it returns: a
+    recursive closure in `flatten_with_paths` once held them in a
+    reference cycle until the cyclic collector ran, a second set of
+    gradients alive in every step (the VLM's training cut on the card ran
+    out of memory for it).  With the collector off, the gradients die
+    with the caller's last reference."""
+    import gc
+    import weakref
+
+    params = {"w": torch.ones(3, 2), "b": [torch.zeros(2)]}
+    state = adamw.adamw_init(params)
+    grads = {"w": torch.full((3, 2), 0.5), "b/0": torch.ones(2)}
+    refs = [weakref.ref(g) for g in grads.values()]
+    gc.disable()
+    try:
+        adamw.adamw_update(grads, state, params, lr=torch.tensor(0.1))
+        del grads
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
