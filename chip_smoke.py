@@ -4471,6 +4471,425 @@ def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
     return out
 
 
+# -- the multi-device path -----------------------------------------------------
+
+# The sharded flush: one card listed this many times (the reference's
+# forced host devices), flushes of this many rows (above SHARD_MIN_ROWS,
+# not a multiple of the shard count, as the reference test's).
+FLUSH_SHARDS = 4
+FLUSH_ROWS = 2050
+# The sharded step: Granite-MoE at full width and depth under the fsdp
+# variant with fsdp_gather and seq_shard on a world-size-1 NCCL mesh.
+SHARDED_VARIANT = "fsdp"
+# The host ranks: gloo processes on the card machine's CPU, the reduced
+# qwen2-72b step sharded over a (2, 2) mesh against one rank, float32.
+HOST_RANKS = 4
+HOST_RANKS_TOL = 1e-5
+HOST_RANKS_TIMEOUT_S = 300
+PIPE = dict(layers=8, d=16, micro=4, mb=2, s=4)
+
+
+def check_sharded_flush(bank, population, device) -> dict:
+    """Every tree model of ``bank`` with a device reduction: a bank built
+    over ``[device] * FLUSH_SHARDS`` (`CudaBank.from_flat(devices=…)`,
+    one upload) flushes its op type's rows of the 1,024-graph population
+    (a NAS generation) and their first `FLUSH_ROWS` rows through
+    `fused_predict` and the leaves route; gates: bit-equal to the same
+    flush on the unsharded card bank, `FLUSH_SHARDS` launches of the
+    kernel a flush of at least `SHARD_MIN_ROWS` rows and one below it,
+    every shard's rows equal.  Counts are zeroed just before each flush
+    and read just after; returns the launches summed."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import tree_gather as tg
+
+    pop32 = per_type_matrices(population, bank.predictors, f32=True)
+    rows_out, largest = [], []
+    launches = {"tree_gather_leaves": 0, "tree_predict_fused": 0}
+    for t, x in pop32.items():
+        model = bank.predictors[t]
+        red = model._device_reduction() if hasattr(model, "_device_reduction") else None
+        if red is None:
+            continue
+        kind, scale, bias = red
+        largest.append(t)
+        flat = model.flat()
+        whole = tg.CudaBank.from_flat(flat, device, devices=[device])
+        sharded = tg.CudaBank.from_flat(flat, device, devices=[device] * FLUSH_SHARDS)
+        mean, std = tg.to_device_scaler(model.scaler, device)
+        flushes = [("generation", x)]
+        if len(x) > FLUSH_ROWS:
+            flushes.append(("flush_2050", x[:FLUSH_ROWS]))
+        for label, rows in flushes:
+            xs = model.scaler.transform(rows.astype(np.float64))
+            for route in ("fused", "leaves"):
+                if route == "fused":
+                    want = whole.fused(mean, std, scale, bias, whole.stage_input(rows), kind)
+                    staged = sharded.stage_input(rows)
+                    reset_counts()
+                    got = sharded.fused(mean, std, scale, bias, staged, kind)
+                else:
+                    want = whole.gather_leaves(whole.stage_input(xs))
+                    staged = sharded.stage_input(xs)
+                    reset_counts()
+                    got = sharded.gather_leaves(staged)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                name = "tree_predict_fused" if route == "fused" else "tree_gather_leaves"
+                n = FLUSH_SHARDS if len(rows) >= tg.SHARD_MIN_ROWS else 1
+                if counts[name] != n or sum(counts.values()) != n:
+                    raise AssertionError(f"sharded flush {t} {label} {route}: launches "
+                                         f"{counts}, expected {n} of {name}")
+                if n > 1 and len({len(s) for s in staged.shards}) != 1:
+                    raise AssertionError(f"uneven shards: {[len(s) for s in staged.shards]}")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"sharded flush {t} {label} {route} differs from "
+                                         f"the unsharded card flush")
+                launches[name] += counts[name]
+                rows_out.append({"op_type": t, "flush": label, "route": route,
+                                 "rows": len(rows), "launches": counts[name],
+                                 "sharded": n > 1})
+        if sharded.stats()["uploads"] != 1 or not sharded.stats()["sharded"]:
+            raise AssertionError(f"sharded bank stats {sharded.stats()}")
+    if not any(r["sharded"] for r in rows_out) or not rows_out:
+        raise AssertionError("no sharded flush ran")
+    # Times of the largest flush, sharded against unsharded (same card),
+    # inputs staged beforehand.
+    t = max(largest, key=lambda k: len(pop32[k]))
+    model, x = bank.predictors[t], pop32[t]
+    kind, scale, bias = model._device_reduction()
+    mean, std = tg.to_device_scaler(model.scaler, device)
+    whole = tg.CudaBank.from_flat(model.flat(), device, devices=[device])
+    sharded = tg.CudaBank.from_flat(model.flat(), device, devices=[device] * FLUSH_SHARDS)
+    xw, xs = whole.stage_input(x), sharded.stage_input(x)
+    timing = {"op_type": t, "rows": len(x),
+              "unsharded": cuda_ms(lambda: whole.fused(mean, std, scale, bias, xw, kind)),
+              "sharded": cuda_ms(lambda: sharded.fused(mean, std, scale, bias, xs, kind))}
+    out = {"flushes": rows_out, "launches": launches, "time": timing}
+    log("sharded_flush " + json.dumps(out))
+    return out
+
+
+def _nccl_world_of_one(device):
+    """The default process group: NCCL, world size 1, rendezvous through a
+    FileStore under build/ (no port)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = tempfile.mkstemp(prefix="store_", dir=ROOT / "build")[1]
+    os.unlink(path)
+    dist.init_process_group("nccl", store=dist.FileStore(path, 1), rank=0,
+                            world_size=1, device_id=device)
+    return path
+
+
+def _host_split(model, step_fn, state, batch) -> tuple:
+    """One training step with host timers around its parts: the forward
+    and loss (``model.loss``), the backward (`torch.autograd.grad`, with
+    its remat recomputes), AdamW (`adamw_update`), and the sharding hooks
+    the decoder calls (`gather_layer`, inside the forward and the
+    recomputes; `pin_layer_stack`; `local_params` of the top leaves).
+    Each is the host's time in it, waits for the card included; the
+    parts nest.  Returns ({part: ms}, state after)."""
+    import torch
+    import repro_torch.distributed.trainstep as ts
+    import repro_torch.models.transformer as tr
+
+    spent = {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] = spent.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return call
+
+    targets = [(model, "loss"), (torch.autograd, "grad"), (ts, "adamw_update"),
+               (tr, "gather_layer"), (tr, "pin_layer_stack"), (tr, "local_params")]
+    originals = [(o, n, getattr(o, n)) for o, n in targets]
+    for o, n, fn in originals:
+        setattr(o, n, timed(n, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        spent["step"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        for o, n, fn in originals:
+            setattr(o, n, fn)
+    return spent, state
+
+
+def _unsharded_host_split(cfg, shape, device, steps: int) -> dict:
+    """`_host_split` of the unsharded step of ``cfg`` (seed 0, `TRAIN_KW`,
+    after two warm-up steps), for comparison with the sharded one."""
+    import gc
+
+    import torch
+    from repro_torch.distributed import init_train_state, make_train_step
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    state = init_train_state(model, 0, device=device)
+    data = _train_data(cfg, *shape, seed=0)
+    step_fn = make_train_step(model, **dict(TRAIN_KW, total_steps=steps))
+    for i in range(2):
+        state, _ = step_fn(state, _torch_batch(data.batch_at(i), device))
+    split, state = _host_split(model, step_fn, state, _torch_batch(data.batch_at(2), device))
+    del state, step_fn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return split
+
+
+def sharded_train(cfg, shape, device, mesh, steps: int, unsharded: dict) -> dict:
+    """``cfg`` trained as `train_model` trains it (seed 0, `TRAIN_KW`,
+    `_train_data` batches) but on ``mesh`` under `SHARDED_VARIANT` with
+    fsdp_gather and seq_shard: the first step shards the state; gates:
+    each step's loss within `LM_TOL` (bfloat16) of ``unsharded``'s at the
+    same step, launches equal to `_expected_train_launches` × steps on the
+    bfloat16 tensor-core routes, no plain version called, every parameter
+    and moment a DTensor.  Then, not counted, one step under torch.profiler
+    and one under `_host_split`, and `_unsharded_host_split` of ``cfg``
+    itself: where the sharded step's extra time goes."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import flatten_with_paths
+
+    base, cfg = cfg, dataclasses.replace(cfg, fsdp_gather=True, seq_shard=True)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(device)
+    state = init_train_state(model, 0, device=device)
+    b, s = shape
+    data = _train_data(cfg, b, s, seed=0)
+    step_fn = make_train_step(model, mesh=mesh, variant=SHARDED_VARIANT,
+                              **dict(TRAIN_KW, total_steps=steps))
+    plain, restore = _plain_counters()
+    try:
+        reset_counts()
+        losses, norms, step_s = [], [], []
+        for i in range(steps):
+            batch = _torch_batch(data.batch_at(i), device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            norms.append(float(metrics["grad_norm"]))
+        counts, routes = read_counts(), read_routes()
+    finally:
+        restore()
+    if any(plain.values()):
+        raise AssertionError(f"sharded {cfg.name}: plain versions called: {plain}")
+    leaves = list(flatten_with_paths(state.params).values()) + \
+        list(state.opt.mu.values()) + list(state.opt.nu.values())
+    if not all(isinstance(t, DTensor) for t in leaves):
+        raise AssertionError("the sharded state holds plain tensors")
+    tol = LM_TOL["bfloat16"]
+    diffs = [abs(a - w) / abs(w) for a, w in zip(losses, unsharded["losses"])]
+    if len(diffs) != steps or max(diffs) > tol:
+        raise AssertionError(f"sharded losses {losses} against unsharded "
+                             f"{unsharded['losses']}: {max(diffs)} > {tol}")
+    per_step = _expected_train_launches(cfg)
+    want = {k: per_step.get(k, 0) * steps for k in counts}
+    if counts != want or counts != unsharded["launches"]:
+        raise AssertionError(f"sharded launches {counts}, expected {want} "
+                             f"(unsharded {unsharded['launches']})")
+    for k in ("flash_attention", "flash_attention_backward", "moe_gmm"):
+        if routes[k]["bf16_mma"] != want[k]:
+            raise AssertionError(f"sharded step off the tensor-core route: {routes}")
+    median_s = statistics.median(step_s[1:])
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    profiled, state = _train_profile(step_fn, state, _torch_batch(data.batch_at(steps),
+                                                                  device), device)
+    host, state = _host_split(model, step_fn, state, _torch_batch(data.batch_at(steps + 1),
+                                                                  device))
+    out = {"arch": cfg.name, "variant": SHARDED_VARIANT, "fsdp_gather": True,
+           "seq_shard": True, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+           "tokens": [b, s], "steps": steps, "losses": losses, "grad_norms": norms,
+           "unsharded_losses": unsharded["losses"], "max_rel_loss_diff": max(diffs),
+           "step_s": step_s, "median_step_ms": 1e3 * median_s,
+           "tokens_per_s": b * s / median_s,
+           "peak_memory_gb": peak,
+           "unsharded": {k: unsharded[k] for k in ("median_step_ms", "tokens_per_s",
+                                                   "peak_memory_gb")},
+           "launches": counts, "routes": routes,
+           # One profiled step each (not counted): the device-busy time
+           # against the unsharded run's, and where the host's time went.
+           "profile": {k: profiled[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                                "launches")},
+           "unsharded_profile": {k: unsharded["profile"][k] for k in (
+               "wall_ms", "device_busy_ms", "idle_share", "launches")},
+           "host_split_ms": host}
+    del state, step_fn, model, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["unsharded_host_split_ms"] = _unsharded_host_split(base, shape, device, steps)
+    return out
+
+
+def check_collectives_on_card(device) -> dict:
+    """`compressed_psum` and `pipeline_forward` on the NCCL group of one
+    rank: the psum is the int8 round trip of its input (the only rank's
+    part) within 0.02 of it; the pipeline (one stage, `PIPE`'s sizes,
+    tanh(x @ w), float32 without TF32) within 1e-5 of the sequential
+    loop, with the bubble fraction 0."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.compression import _quantize, compressed_psum
+    from repro_torch.distributed.pipeline import (
+        pipeline_bubble_fraction, pipeline_forward, split_layers_to_stages)
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.asarray(rng.standard_normal(64), np.float32)).to(device)
+    got = compressed_psum(x, "data", make_mesh((1,), ("data",)))
+    scale = x.abs().max() / 127.0 + 1e-12
+    if not torch.equal(got, _quantize(x, scale).float() * scale):
+        raise AssertionError("compressed_psum on one rank is not the int8 round trip")
+    rel = float(torch.linalg.norm(got - x) / torch.linalg.norm(x))
+    p = PIPE
+    ws = torch.from_numpy(np.asarray(rng.standard_normal((p["layers"], p["d"], p["d"]))
+                                     * 0.1, np.float32)).to(device)
+    xm = torch.from_numpy(np.asarray(rng.standard_normal(
+        (p["micro"], p["mb"], p["s"], p["d"])), np.float32)).to(device)
+    ref = xm
+    for i in range(p["layers"]):
+        ref = torch.tanh(ref @ ws[i])
+    out = pipeline_forward(lambda w, a: torch.tanh(a @ w), split_layers_to_stages(ws, 1),
+                           xm, mesh=make_mesh((1,), ("pipe",)), axis="pipe")
+    err = float((out - ref).abs().max())
+    if rel >= 0.02 or err >= 1e-5 or pipeline_bubble_fraction(1, p["micro"]) != 0.0:
+        raise AssertionError(f"collectives: psum rel {rel}, pipeline err {err}")
+    res = {"compressed_psum_rel_err": rel, "pipeline_max_abs_err": err}
+    log("card_collectives " + json.dumps(res))
+    return res
+
+
+HOST_RANK_BODY = """
+import dataclasses, datetime, json, os, sys
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+dist.init_process_group("gloo", store=dist.FileStore(os.environ["STORE"], world),
+                        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
+from repro_torch.configs import get_arch
+from repro_torch.data import SyntheticLMData
+from repro_torch.distributed import init_train_state, make_train_step
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import build_model
+cfg = dataclasses.replace(get_arch("qwen2-72b").reduced(), compute_dtype="float32")
+model = build_model(cfg)
+batch = {k: torch.from_numpy(v) for k, v in SyntheticLMData(
+    vocab_size=cfg.vocab_size, seq_len=32, global_batch=4, seed=0).batch_at(0).items()}
+mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+res = {}
+for name, m in (("sharded", mesh), ("one_rank", None)):
+    step = make_train_step(model, mesh=m, base_lr=1e-2, warmup_steps=1)
+    state, out = init_train_state(model, 0, device="cpu"), []
+    for _ in range(3):
+        state, metrics = step(state, batch)
+        out.append([float(metrics["loss"]), float(metrics["grad_norm"])])
+    res[name] = out
+with open(os.path.join(os.environ["OUT"], f"rank{rank}.json"), "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def check_host_ranks() -> dict:
+    """`HOST_RANKS` gloo processes on this machine's CPU (a FileStore
+    rendezvous under build/): reduced qwen2-72b, 3 steps sharded over a
+    (2, 2) mesh against the port's step on one rank, loss and grad norm
+    within `HOST_RANKS_TOL` relative on every rank."""
+    import subprocess
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = tempfile.mkdtemp(prefix="host_ranks_", dir=ROOT / "build")
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
+    env.update(PYTHONPATH=str(ROOT / "src"), WORLD_SIZE=str(HOST_RANKS), OUT=out,
+               STORE=os.path.join(out, "store"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", HOST_RANK_BODY],
+                              env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(HOST_RANKS)]
+    errors = []
+    try:
+        for r, proc in enumerate(procs):
+            _, err = proc.communicate(timeout=HOST_RANKS_TIMEOUT_S)
+            if proc.returncode:
+                errors.append(f"rank {r}: rc {proc.returncode}: {err[-2000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if errors:
+        raise AssertionError("host ranks failed: " + " | ".join(errors))
+    worst = 0.0
+    for r in range(HOST_RANKS):
+        res = json.loads(Path(out, f"rank{r}.json").read_text())
+        for got, want in zip(res["sharded"], res["one_rank"]):
+            for a, w in zip(got, want):
+                worst = max(worst, abs(a - w) / abs(w))
+    if worst > HOST_RANKS_TOL:
+        raise AssertionError(f"host ranks: sharded vs one rank {worst} > {HOST_RANKS_TOL}")
+    line = {"ranks": HOST_RANKS, "mesh": [2, 2], "steps": 3, "max_rel_diff": worst,
+            "seconds": time.perf_counter() - t0}
+    log("host_ranks " + json.dumps(line))
+    return line
+
+
+def run_multi_device_path(device, bank, population, unsharded: dict) -> dict:
+    """(a) the sharded tree flush (`check_sharded_flush`) over the main
+    path's bank; (b) Granite-MoE at full width trained on a world-size-1
+    NCCL mesh (`sharded_train`) against ``unsharded`` (the training path's
+    Granite run: same seed, data and steps); (c) `compressed_psum` and
+    `pipeline_forward` on that group and the host ranks
+    (`check_host_ranks`).  The process group is destroyed before it
+    returns.  Returns the launches of (a) and (b) and their lines."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
+
+    flush = check_sharded_flush(bank, population, device)
+    store = _nccl_world_of_one(device)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        step = sharded_train(get_arch(LM_ARCH), TRAIN_SHAPE, device, mesh, TRAIN_STEPS,
+                             unsharded)
+        log("sharded_train " + json.dumps(step))
+        collectives = check_collectives_on_card(device)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.unlink(store)
+    host = check_host_ranks()
+    launches = dict(flush["launches"])
+    for k, v in step["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return {"flush": flush, "sharded_train": step, "collectives": collectives,
+            "host_ranks": host, "launches": launches}
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def _timed(op_type: str, db, rows: int, d: int, fused: bool, kernel, plain,
@@ -5248,6 +5667,11 @@ def main() -> int:
         train = run_lm_train_path(device)
         log(f"lm_train_path_s {time.perf_counter() - t0:.1f}")
 
+        phase = "multi-device path"
+        t0 = time.perf_counter()
+        multi = run_multi_device_path(device, main_f32["bank"], pop, train)
+        log(f"multi_device_path_s {time.perf_counter() - t0:.1f}")
+
         phase = "times"
         log("device_guard " + json.dumps(time_device_guard(device)))
         timed = time_kernels(main_f32["bank"], main_f32["held"], pop, device)
@@ -5273,7 +5697,8 @@ def main() -> int:
             entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name]}
             entry.update(summarize(timed[name],
-                                   main_f32["summary"]["launches"][name],
+                                   main_f32["summary"]["launches"][name]
+                                   + multi["launches"][name],
                                    parity_err if name == "tree_predict_fused" else 0.0))
             kernels.append(entry)
         for name, rows, launches, err in (
@@ -5286,15 +5711,20 @@ def main() -> int:
                   + ssm["launches"]["flash_attention"]
                   + zoo["launches"]["flash_attention"]
                   + served["launches"]["flash_attention"]
-                  + train["all_launches"]["flash_attention"]},
+                  + train["all_launches"]["flash_attention"]
+                  + multi["launches"]["flash_attention"]},
                  flash_parity["max_abs_err"]),
-                ("flash_attention_backward", flash_bwd_rows[:1], train["all_launches"],
+                ("flash_attention_backward", flash_bwd_rows[:1],
+                 {"flash_attention_backward":
+                  train["all_launches"]["flash_attention_backward"]
+                  + multi["launches"]["flash_attention_backward"]},
                  flash_bwd_parity["max_abs_err"]),
                 ("moe_gmm", [r for r in gmm_rows
                              if r["l2"] == "warm" and r["dtype"] == "bfloat16"],
                  {"moe_gmm": lm["launches"]["moe_gmm"]
                   + served["launches"]["moe_gmm"]
-                  + train["all_launches"]["moe_gmm"]},
+                  + train["all_launches"]["moe_gmm"]
+                  + multi["launches"]["moe_gmm"]},
                  max(gmm_parity["max_abs_err"], gmm_bwd_parity["max_abs_err"]))):
             entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name]}

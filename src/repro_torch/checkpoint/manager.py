@@ -15,6 +15,14 @@ cannot race the writer thread; bfloat16 leaves are written as float32
 on its target leaf's device and dtype; without a target it returns the
 arrays as a dict, which is also how a checkpoint of the reference is read
 (`repro_torch.convert.train_state_from_reference`).
+
+A sharded state (DTensor leaves, `repro_torch.distributed.sharding`) is
+saved whole: every rank calls `save`, each leaf is gathered
+(``full_tensor``), and rank 0 alone writes; a blocking save ends on a
+barrier, so no rank reads the step before it is published.
+`restore(..., shardings=...)` distributes each restored leaf of one or
+more dims onto its sharding's mesh and placements, whatever mesh wrote
+it (elastic resharding, `repro_torch.distributed.elastic.recover`).
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils.logging import get_logger
 from repro_torch.utils.tree import flatten_with_paths, map_with_paths
@@ -36,6 +45,10 @@ log = get_logger("repro.checkpoint")
 
 
 def _to_host(t: Any) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.detach().full_tensor()
     if isinstance(t, torch.Tensor):
         t = t.detach()
         if t.dtype == torch.bfloat16:
@@ -66,12 +79,16 @@ class CheckpointManager:
         meta = dict(metadata or {})
         meta["step"] = step
         meta["time"] = time.time()
-        if self._async:
-            self._queue.put((step, host, meta))
-            if block:
-                self._queue.join()
-        else:
-            self._write(step, host, meta)
+        ranks = dist.is_available() and dist.is_initialized()
+        if not ranks or dist.get_rank() == 0:
+            if self._async:
+                self._queue.put((step, host, meta))
+                if block:
+                    self._queue.join()
+            else:
+                self._write(step, host, meta)
+        if ranks and (block or not self._async):
+            dist.barrier()
 
     def wait(self) -> None:
         if self._async:
@@ -130,11 +147,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, target: Any = None
+    def restore(self, step: Optional[int] = None, target: Any = None,
+                shardings: Optional[Dict[str, Any]] = None
                 ) -> Tuple[Any, Dict[str, Any]]:
         """Restore into the structure of ``target`` (a tree of tensors or
         numpy arrays): each array onto its target leaf's device and dtype,
-        in a new tree.  Without a target, the arrays as a dict."""
+        in a new tree; with ``shardings`` ({path: NamedSharding}), each
+        leaf of one or more dims a DTensor with its sharding's placements.
+        Without a target, the arrays as a dict."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
@@ -151,8 +171,13 @@ class CheckpointManager:
 
         def put(key: str, leaf: Any) -> Any:
             if isinstance(leaf, torch.Tensor):
-                return torch.from_numpy(arrays[key]).to(device=leaf.device,
-                                                        dtype=leaf.dtype)
+                t = torch.from_numpy(arrays[key]).to(device=leaf.device,
+                                                     dtype=leaf.dtype)
+                sh = (shardings or {}).get(key)
+                if sh is None or t.dim() == 0:
+                    return t
+                from torch.distributed.tensor import distribute_tensor
+                return distribute_tensor(t, sh.mesh, sh.placements)
             return arrays[key].astype(np.asarray(leaf).dtype)
 
         return map_with_paths(put, target), meta

@@ -158,16 +158,22 @@ class FlatEnsemble:
         return depth
 
     # -- device residency -----------------------------------------------------
-    def device_bank(self, device="cuda"):
+    def device_bank(self, device="cuda", devices=None):
         """This ensemble's resident `CudaBank` on ``device`` (uploaded on
-        first use; a request for another device re-uploads there)."""
+        first use; a request for another device re-uploads there).  A
+        ``devices`` list (re)builds it sharded over those devices; without
+        one, the resident bank is kept as it was built, and a new bank
+        takes `CudaBank.from_flat`'s default (`flush_mesh`); a list of
+        fewer than two devices means unsharded."""
         from repro_torch.kernels.tree_gather import CudaBank
         from repro_torch.utils.device import resolve_device
 
         dev = resolve_device(device)
         db = self._device_bank
-        if db is None or db.device != dev:
-            db = self._device_bank = CudaBank.from_flat(self, dev)
+        want = None if devices is None or len(devices) < 2 else \
+            [resolve_device(d) for d in devices]
+        if db is None or db.device != dev or (devices is not None and db.devices != want):
+            db = self._device_bank = CudaBank.from_flat(self, dev, devices)
         return db
 
     # -- prediction -----------------------------------------------------------

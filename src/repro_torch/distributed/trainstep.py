@@ -1,5 +1,4 @@
-"""Train and serve steps on one card (twin of
-``repro.distributed.trainstep``).
+"""Train and serve steps (twin of ``repro.distributed.trainstep``).
 
 `make_train_step` builds the step for any decoder `Model`:
   * the loss and its gradient by autograd (the reference's
@@ -18,9 +17,19 @@
     buffers).
 
 The state's parameters must require gradients (`init_train_state` turns
-that on).  There is no mesh: the reference's sharding constraints are the
-identity on one device, and its deferred cross-device reduction waits for
-the port's multi-device slice.
+that on).
+
+On a mesh (``mesh=``, or the ambient one of
+`repro_torch.launch.mesh.use_mesh`) the step runs under it, one process
+per rank: a state of plain tensors is first sharded by the variant's
+rules (`shard_train_state`: parameters and both moments become DTensors
+with the rules' placements); each rank takes its rows of the whole batch
+over the data axes (`sharding.local_batch`); the layers gather their
+leaves (`fsdp.gather_layer`), whose gradients come back averaged over the
+data axes and cut to each leaf's shard; AdamW updates each shard and
+clips by the norm over all of them; the reported loss and metrics are
+the mean over the data axes.  Compression is not run on a mesh: its
+int8 scale is a maximum over the whole leaf.
 """
 from __future__ import annotations
 
@@ -28,9 +37,13 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.distributed.compression import (
     CompressionState, compress_grads, compression_init,
 )
+from repro_torch.distributed.sharding import distribute_params, local_batch, shard_params
+from repro_torch.launch.mesh import ambient_mesh, data_axes, use_mesh
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.schedules import linear_warmup_cosine
 from repro_torch.utils.device import DeviceLike
@@ -71,6 +84,40 @@ def train_state_for(params: Params, *, compression: bool = False) -> TrainState:
                       step=torch.zeros((), dtype=torch.int32, device=opt.step.device))
 
 
+def _is_sharded(params: Params) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(p, DTensor) for p in flatten_with_paths(params).values())
+
+
+def shard_train_state(state: TrainState, mesh, variant: str = "tp") -> TrainState:
+    """``state`` on ``mesh``, in place: its parameters made DTensors by the
+    variant's rules (`distribute_params`), its AdamW moments DTensors with
+    the same placements (each whole moment freed as its shard replaces
+    it).  Every rank must hold the same whole state."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if state.comp is not None:
+        raise ValueError("gradient compression is not run on a mesh")
+    shardings = shard_params(state.params, mesh, variant)
+    distribute_params(state.params, mesh, variant, shardings)
+    for moments in (state.opt.mu, state.opt.nu):
+        for k, v in moments.items():
+            moments[k] = distribute_tensor(v, mesh, shardings[k].placements)
+    return state
+
+
+def _data_mean(x: Tensor, mesh) -> Tensor:
+    """The mean over the mesh's data axes of a per-rank value."""
+    for name in data_axes(mesh):
+        n = mesh.size(mesh.mesh_dim_names.index(name))
+        if n > 1:
+            x = x.clone()
+            dist.all_reduce(x, group=mesh.get_group(name))
+            x = x / n
+    return x
+
+
 def _split(batch: Dict[str, Tensor], n: int):
     for key, x in batch.items():
         if x.shape[0] % n:
@@ -89,7 +136,11 @@ def make_train_step(
     weight_decay: float = 0.1,
     microbatches: int = 1,
     compression: bool = False,
+    mesh=None,
+    variant: str = "tp",
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict[str, Any]]]:
+    """The step; on ``mesh`` (default: the ambient mesh when the step
+    runs) with the ``variant``'s rules (see the module docstring)."""
 
     def value_and_grad(params, leaves, batch):
         loss, metrics = model.loss(params, batch)
@@ -99,12 +150,25 @@ def make_train_step(
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
+        on = mesh if mesh is not None else ambient_mesh()
+        if on is None:
+            return _step(state, batch)
+        if compression:
+            raise ValueError("gradient compression is not run on a mesh")
+        if not _is_sharded(state.params):
+            shard_train_state(state, on, variant)
+        with use_mesh(on):
+            state, metrics = _step(state, local_batch(batch, on))
+        return state, {k: _data_mean(v, on) if k in ("loss", "nll", "aux") else v
+                       for k, v in metrics.items()}
+
+    def _step(state: TrainState, batch: Dict[str, Any]):
         leaves = flatten_with_paths(state.params)
         if not all(p.requires_grad for p in leaves.values()):
             raise ValueError("the state's parameters do not require gradients "
                              "(build the state with init_train_state)")
         if microbatches > 1:
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            grads = {k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in leaves.items()}
             loss_sum = torch.zeros((), dtype=torch.float32, device=state.step.device)
             for mb in _split(batch, microbatches):

@@ -13,7 +13,8 @@ its launch; `CudaLibrary.raise_on` turns a non-zero code into an error.
 `add_launches` move launches recorded by a CUDA-graph capture to the
 graph's replays), `check_tensor` is the wrappers' argument check and
 `refuse_grad` the dispatchers' refusal to cut an autograd graph at a
-kernel without a backward; `ptxas_report` reads each kernel's registers
+kernel without a backward, `refuse_dtensor` their refusal of a sharded
+operand; `ptxas_report` reads each kernel's registers
 and spills from a build's compiler report.
 """
 from __future__ import annotations
@@ -253,12 +254,26 @@ def refuse_grad(kernel: str, later: str, *tensors: Optional[torch.Tensor]) -> No
                            f"run it under torch.no_grad() or detach its inputs")
 
 
+def refuse_dtensor(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise if a DTensor reaches ``kernel``: a launch (or its plain
+    version) reads one block of memory, so a sharded operand must come as
+    its local shard (`repro_torch.distributed.activations`), never
+    unwrapped here."""
+    from torch.distributed.tensor import DTensor
+
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(f"{kernel} got a DTensor; pass its local shard "
+                            f"(placements {t.placements})")
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
                  device: torch.device, shape: Optional[tuple] = None) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor on the CUDA
-    ``device`` (and of ``shape``, when given)."""
+    ``device`` (and of ``shape``, when given), and not a DTensor."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor")
+    refuse_dtensor(name, t)
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name} must lie on {device} (got {t.device})")
     if t.dtype != dtype:

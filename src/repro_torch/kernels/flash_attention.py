@@ -49,6 +49,7 @@ import math
 import torch
 
 from repro_torch.kernels import flash_attention_cuda
+from repro_torch.kernels._build import refuse_dtensor
 
 Tensor = torch.Tensor
 
@@ -207,6 +208,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     softcap: float = 0.0) -> Tensor:
     """Attention of q (b, sq, h, d) over k, v (b, skv, kvh, d), on the
     device of ``q``; differentiable (`FlashAttention`)."""
+    refuse_dtensor("flash_attention", q, k, v)
     _check_heads(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),

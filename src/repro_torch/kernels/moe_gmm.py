@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import moe_gmm_cuda
+from repro_torch.kernels._build import refuse_dtensor
 
 Tensor = torch.Tensor
 
@@ -63,6 +64,7 @@ class GroupedMatmul(torch.autograd.Function):
 def moe_gmm(x: Tensor, w: Tensor) -> Tensor:
     """(e, c, d) × (e, d, f) → (e, c, f) on the device of ``x``;
     differentiable (`GroupedMatmul`)."""
+    refuse_dtensor("moe_gmm", x, w)
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"expected x (e, c, d) and w (e, d, f), got "

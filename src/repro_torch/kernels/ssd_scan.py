@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ssd_scan_cuda
+from repro_torch.kernels._build import refuse_dtensor
 
 Tensor = torch.Tensor
 
@@ -108,6 +109,7 @@ class SSDScan(torch.autograd.Function):
 def ssd_scan(s_chunk: Tensor, decay: Tensor) -> Tuple[Tensor, Tensor]:
     """(h_prev, h_final) of the inter-chunk recurrence, on the device of
     ``s_chunk``; differentiable (`SSDScan`)."""
+    refuse_dtensor("ssd_scan", s_chunk, decay)
     _check_shapes(s_chunk, decay)
     if torch.is_grad_enabled() and (s_chunk.requires_grad or decay.requires_grad):
         return SSDScan.apply(s_chunk.contiguous(), decay.contiguous())

@@ -25,18 +25,29 @@ form (``xv <= thr``), so leaves match the reference's jax and Pallas
 tiers bit for bit; near-tie rows can route differently from the float64
 numpy tier, as in the reference.
 
-Row sharding over several cards (the reference's mesh flush) waits until
-the port runs on more than one GPU.
+Sharding (the reference's mesh flush): a bank built over several
+devices (``devices``; None means `repro_torch.launch.mesh.flush_mesh`,
+the local cards when there are more than one, and a list of fewer than
+two devices means unsharded) is copied once to each
+distinct one, and a flush of at least `SHARD_MIN_ROWS` rows is padded
+with zero rows to a multiple of the device count, split in row order
+(`ShardedRows`), run shard by shard on each shard's device (one kernel
+launch per shard on the card, with the unsharded flush's launch plan, so
+each row is computed as it would be unsharded), and reassembled in row
+order with the pad sliced off.  Smaller flushes take the unsharded
+route.  Listing one card several times (``[cuda:0] * 4``) runs every
+shard there: the analogue of the reference forcing several host devices.
 """
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import refuse_grad
+from repro_torch.kernels._build import refuse_dtensor, refuse_grad
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
@@ -50,6 +61,20 @@ _NO_TREE_GRAD = "no training slice of the port runs it"
 _COUNTERS = {"banks_built": 0, "bank_bytes": 0, "inputs_staged": 0,
              "input_bytes": 0}
 _COUNTERS_LOCK = threading.Lock()
+
+# Flushes below this many rows skip sharding: the split and reassembly
+# cost more than the per-device win on small batches.
+SHARD_MIN_ROWS = 1024
+
+
+@dataclass
+class ShardedRows:
+    """A staged flush split by rows: ``shards[i]`` on ``shards[i].device``,
+    in row order, padded with zero rows to equal parts; ``rows`` is the
+    flush's own row count."""
+
+    shards: List[Tensor]
+    rows: int
 
 
 def residency_counters() -> Dict[str, int]:
@@ -155,20 +180,28 @@ class CudaBank:
     __slots__ = ("device", "n_nodes", "n_trees", "n_features", "depth",
                  "feature", "threshold", "left", "right", "value", "roots",
                  "nodes", "cnodes", "cleaves", "nbytes", "uploads",
-                 "inputs_staged", "input_bytes", "_lock")
+                 "inputs_staged", "input_bytes", "devices", "replicas", "_lock")
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
         self.nodes = None
         self.cnodes = None
         self.cleaves = None
+        self.devices: Optional[List[torch.device]] = None
+        self.replicas: Dict[torch.device, "CudaBank"] = {}
         self.uploads = 0
         self.inputs_staged = 0
         self.input_bytes = 0
         self._lock = threading.Lock()
 
     @classmethod
-    def from_flat(cls, flat, device: DeviceLike = "cuda") -> "CudaBank":
+    def from_flat(cls, flat, device: DeviceLike = "cuda",
+                  devices: Optional[Sequence[DeviceLike]] = None) -> "CudaBank":
+        """Upload ``flat``'s arrays to ``device``; with ``devices`` (a list
+        of more than one device) copy the bank once to each distinct one
+        for sharded flushes (see the module docstring).  ``devices=None``
+        means `flush_mesh()` for a bank on the card and unsharded for a
+        bank on the host."""
         db = cls(resolve_device(device))
         db.n_nodes = flat.n_nodes
         db.n_trees = flat.n_trees
@@ -182,19 +215,43 @@ class CudaBank:
                 flat.right.astype(np.int32),
                 flat.value.astype(np.float32),
                 flat.roots.astype(np.int32))
-        (db.feature, db.threshold, db.left, db.right, db.value,
-         db.roots) = (torch.from_numpy(a).to(db.device) for a in host)
-        if db.device.type == "cuda":
-            from repro_torch.kernels.tree_gather_cuda import has_complete
-            if has_complete(db.n_trees, db.depth):
-                db.cnodes, db.cleaves = complete_layout(*db.bank_args,
-                                                        depth=db.depth)
-            else:
-                db.nodes = packed_layout(*db.bank_args)
+        db._place(tuple(torch.from_numpy(a).to(db.device) for a in host))
         db.nbytes = sum(a.nbytes for a in host)
         db.uploads = 1
         _count(banks_built=1, bank_bytes=db.nbytes)
+        if devices is None:
+            from repro_torch.launch.mesh import flush_mesh
+            devices = flush_mesh() if db.device.type == "cuda" else None
+        if devices is not None and len(devices) > 1:
+            db.devices = [resolve_device(d) for d in devices]
+            for dev in dict.fromkeys(db.devices):
+                if dev != db.device:
+                    db.replicas[dev] = db._copy_to(dev)
         return db
+
+    def _place(self, arrays: Tuple[Tensor, ...]) -> None:
+        """Take the node arrays (on ``self.device``) and build the
+        kernels' layouts from them on the card."""
+        (self.feature, self.threshold, self.left, self.right, self.value,
+         self.roots) = arrays
+        if self.device.type == "cuda":
+            from repro_torch.kernels.tree_gather_cuda import has_complete
+            if has_complete(self.n_trees, self.depth):
+                self.cnodes, self.cleaves = complete_layout(*self.bank_args,
+                                                            depth=self.depth)
+            else:
+                self.nodes = packed_layout(*self.bank_args)
+
+    def _copy_to(self, device: torch.device) -> "CudaBank":
+        """This bank copied device to device (not a second host upload)."""
+        rep = CudaBank(device)
+        rep.n_nodes, rep.n_trees, rep.depth = self.n_nodes, self.n_trees, self.depth
+        rep.n_features, rep.nbytes = self.n_features, self.nbytes
+        rep._place(tuple(t.to(device) for t in self.bank_args))
+        return rep
+
+    def _on(self, device: torch.device) -> "CudaBank":
+        return self if device == self.device else self.replicas[device]
 
     @property
     def bank_args(self) -> Tuple[Tensor, ...]:
@@ -202,34 +259,64 @@ class CudaBank:
                 self.value, self.roots)
 
     # -- input staging --------------------------------------------------------
-    def stage_input(self, x: np.ndarray) -> Tensor:
-        """Host rows → contiguous float32 tensor on the bank's device."""
+    def stage_input(self, x: np.ndarray, *, sharded: bool = True):
+        """Host rows → contiguous float32 tensor on the bank's device, or,
+        on a sharded bank for a flush of at least `SHARD_MIN_ROWS` rows,
+        `ShardedRows` (padded to a device multiple, split in row order)."""
         x32 = np.ascontiguousarray(x, dtype=np.float32)
         if x32.ndim != 2:
             raise ValueError(f"X must be 2-D, got {x32.shape}")
-        xd = torch.from_numpy(x32).to(self.device)
+        rows = len(x32)
+        devices = self.devices if (sharded and rows >= SHARD_MIN_ROWS) else None
+        if devices is not None:
+            pad = (-rows) % len(devices)
+            if pad:
+                x32 = np.concatenate([x32, np.zeros((pad, x32.shape[1]), np.float32)])
+            parts = np.split(x32, len(devices))
+            xd = ShardedRows([torch.from_numpy(p).to(d) for p, d in zip(parts, devices)],
+                             rows)
+        else:
+            xd = torch.from_numpy(x32).to(self.device)
         with self._lock:
             self.inputs_staged += 1
             self.input_bytes += x32.nbytes
         _count(inputs_staged=1, input_bytes=x32.nbytes)
         return xd
 
+    def _reassemble(self, outs: Sequence[Tensor], rows: int) -> Tensor:
+        return torch.cat([o.to(self.device) for o in outs])[:rows]
+
     # -- traversal dispatch ---------------------------------------------------
-    def gather_leaves(self, xd: Tensor) -> Tensor:
-        """(rows, trees) leaf values for staged rows ``xd``."""
+    def gather_leaves(self, xd, whole_rows: Optional[int] = None) -> Tensor:
+        """(rows, trees) leaf values for staged rows ``xd``.  A shard of a
+        flush of ``whole_rows`` rows launches with the whole flush's plan
+        (`tree_gather_cuda.plan_for`), so sharding changes no bit."""
+        if isinstance(xd, ShardedRows):
+            return self._reassemble([self._on(x.device).gather_leaves(x, xd.rows)
+                                     for x in xd.shards], xd.rows)
+        refuse_dtensor("tree_gather_leaves", xd)
         if self.device.type == "cuda":
             from repro_torch.kernels.tree_gather_cuda import gather_leaves_cuda
             refuse_grad("tree_gather_leaves", _NO_TREE_GRAD, xd)
-            return gather_leaves_cuda(self, xd)
+            return gather_leaves_cuda(self, xd, whole_rows)
         return gather_leaves_plain(*self.bank_args, xd, depth=self.depth)
 
     def fused(self, mean: Tensor, std: Tensor, scale: float, bias: float,
-              xd: Tensor, kind: str) -> Tensor:
-        """standardize → traverse → reduce → clamp: one kernel on the card."""
+              xd, kind: str, whole_rows: Optional[int] = None) -> Tensor:
+        """standardize → traverse → reduce → clamp: one kernel on the card
+        (one per shard for `ShardedRows`, each with the whole flush's plan,
+        as in `gather_leaves`)."""
+        if isinstance(xd, ShardedRows):
+            return self._reassemble(
+                [self._on(x.device).fused(mean.to(x.device), std.to(x.device),
+                                          scale, bias, x, kind, xd.rows)
+                 for x in xd.shards], xd.rows)
+        refuse_dtensor("tree_predict_fused", mean, std, xd)
         if self.device.type == "cuda":
             from repro_torch.kernels.tree_gather_cuda import fused_predict_cuda
             refuse_grad("tree_predict_fused", _NO_TREE_GRAD, mean, std, xd)
-            return fused_predict_cuda(self, mean, std, scale, bias, xd, kind)
+            return fused_predict_cuda(self, mean, std, scale, bias, xd, kind,
+                                      whole_rows)
         return fused_plain(*self.bank_args, mean, std, scale, bias, xd,
                            depth=self.depth, kind=kind)
 
@@ -239,7 +326,9 @@ class CudaBank:
                 "n_trees": int(self.n_trees), "uploads": int(self.uploads),
                 "inputs_staged": int(self.inputs_staged),
                 "input_bytes": int(self.input_bytes),
-                "sharded": False}
+                "sharded": self.devices is not None,
+                "shard_devices": [str(d) for d in self.devices or ()],
+                "replicas": len(self.replicas)}
 
 
 # -- public entry points ------------------------------------------------------

@@ -36,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -194,13 +194,21 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan_for(bank, rows: int, d: int, fused: bool) -> Plan:
+def plan_for(bank, rows: int, d: int, fused: bool,
+             whole_rows: Optional[int] = None) -> Plan:
     """`plan` for ``rows`` rows of ``d`` features on ``bank`` (a `CudaBank`
-    on the card)."""
+    on the card).  With ``whole_rows``, the rows are one shard of a
+    sharded flush of that many: the launch keeps the whole flush's route,
+    threads a row and lane layout (so each row's trees are summed in the
+    order the unsharded flush sums them) with a grid for the shard."""
     index = bank.device.index
     n_sm = _sm_count(torch.cuda.current_device() if index is None else index)
-    return plan(fused, bank.n_trees, bank.depth, bank.cnodes is not None,
-                rows, d, n_sm)
+    pl = plan(fused, bank.n_trees, bank.depth, bank.cnodes is not None,
+              rows if whole_rows is None else whole_rows, d, n_sm)
+    if whole_rows is None or whole_rows == rows:
+        return pl
+    return make_plan(pl.route, pl.groups, pl.rows_on_lanes, bank.n_trees,
+                     bank.depth, rows, d, n_sm)
 
 
 def _check_bank_and_x(bank, x: torch.Tensor) -> None:
@@ -230,15 +238,17 @@ def _bank_pointers(bank, route: str) -> tuple:
 
 # -- wrappers -----------------------------------------------------------------
 
-def gather_leaves_cuda(bank, x: torch.Tensor) -> torch.Tensor:
+def gather_leaves_cuda(bank, x: torch.Tensor,
+                       whole_rows: Optional[int] = None) -> torch.Tensor:
     """(rows, trees) float32 leaf values for standardized rows ``x``
-    (float32, contiguous, on the bank's card) — `tree_gather_leaves`."""
+    (float32, contiguous, on the bank's card) — `tree_gather_leaves`;
+    ``whole_rows`` as in `plan_for`."""
     _check_bank_and_x(bank, x)
     rows, d = x.shape
     if rows == 0:
         return torch.empty((0, bank.n_trees), dtype=torch.float32,
                            device=bank.device)
-    return launch_leaves(bank, x, plan_for(bank, rows, d, False))
+    return launch_leaves(bank, x, plan_for(bank, rows, d, False, whole_rows))
 
 
 def launch_leaves(bank, x: torch.Tensor, pl: Plan) -> torch.Tensor:
@@ -262,9 +272,10 @@ def launch_leaves(bank, x: torch.Tensor, pl: Plan) -> torch.Tensor:
 
 def fused_predict_cuda(bank, mean: torch.Tensor, std: torch.Tensor,
                        scale: float, bias: float, x: torch.Tensor,
-                       kind: str) -> torch.Tensor:
+                       kind: str, whole_rows: Optional[int] = None) -> torch.Tensor:
     """(rows,) float32 clamped predictions from raw rows ``x`` —
-    `tree_predict_fused`.  ``kind`` is "sum" (GBDT) or "mean" (RF)."""
+    `tree_predict_fused`.  ``kind`` is "sum" (GBDT) or "mean" (RF);
+    ``whole_rows`` as in `plan_for`."""
     if kind not in ("sum", "mean"):
         raise ValueError(f"unknown reduction {kind!r} (sum or mean)")
     _check_bank_and_x(bank, x)
@@ -274,7 +285,7 @@ def fused_predict_cuda(bank, mean: torch.Tensor, std: torch.Tensor,
     if rows == 0:
         return torch.empty((0,), dtype=torch.float32, device=bank.device)
     return launch_fused(bank, mean, std, scale, bias, x, kind,
-                        plan_for(bank, rows, d, True))
+                        plan_for(bank, rows, d, True, whole_rows))
 
 
 def launch_fused(bank, mean: torch.Tensor, std: torch.Tensor, scale: float,
@@ -304,5 +315,5 @@ def predict_trees_cuda(flat, x: np.ndarray, device="cuda") -> np.ndarray:
     db = flat.device_bank(device)
     if db.device.type != "cuda":
         raise ValueError("predict_trees_cuda needs a CUDA device")
-    out = gather_leaves_cuda(db, db.stage_input(x))
+    out = db.gather_leaves(db.stage_input(x))
     return out.cpu().numpy().astype(np.float64)

@@ -1,5 +1,5 @@
-"""Training driver: end-to-end LM training with checkpoint/resume, on one
-card (twin of ``repro.launch.train``).
+"""Training driver: end-to-end LM training with checkpoint/resume (twin of
+``repro.launch.train``).
 
   python -m repro_torch.launch.train --arch granite-moe-1b-a400m \
       --steps 20 --global-batch 4 --seq-len 1024 --ckpt-dir runs/granite
@@ -13,22 +13,38 @@ zamba2-1.2b``), the VLM (``--arch llama-3.2-vision-90b``, on the stub
 frontend's vision embeddings) and the encoder-decoder (``--arch
 whisper-large-v3``, on the stub frontend's audio frames).  The flags, the
 data, the log lines and resuming from the latest checkpoint under
-``--ckpt-dir`` are the reference's.  There is no mesh: ``--model-parallel``
-above 1 is refused until the port's multi-device slice.
+``--ckpt-dir`` are the reference's.
+
+On several ranks it takes the reference's mesh path: launched by
+``torchrun`` (one process per card; NCCL on the card, gloo with
+``--device cpu``), or inside a process group its caller initialised, it
+builds ``elastic_mesh_shape(world, model_parallel=…)``, then
+`make_mesh`, and runs the step on that mesh (the tp rules; see
+`repro_torch.distributed.trainstep`):
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen2-72b-reduced --steps 2 --global-batch 4 --seq-len 32 \
+      --model-parallel 2 --device cpu
+
+A lone process without a group trains on its one device with no mesh
+(the reference's (1, 1) mesh changes nothing there).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.distributed.trainstep import init_train_state, make_train_step
+from repro_torch.launch.mesh import elastic_mesh_shape, make_mesh, mesh_shape
 from repro_torch.models import build_model
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
@@ -56,10 +72,19 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise SystemExit("--model-parallel > 1 needs a mesh: the port trains on one "
-                         "card until its multi-device slice")
     device = resolve_device(args.device)
+    owns_group = not dist.is_initialized() and "WORLD_SIZE" in os.environ
+    if owns_group:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    mesh = None
+    if dist.is_initialized():
+        shape, axes = elastic_mesh_shape(dist.get_world_size(),
+                                         model_parallel=args.model_parallel)
+        mesh = make_mesh(shape, axes, device.type)
+        log.info("mesh: %s", dict(zip(axes, shape)))
 
     cfg = get_arch(args.arch)
     model = build_model(cfg)
@@ -93,8 +118,10 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
 
     step_fn = make_train_step(model, base_lr=args.lr, total_steps=args.steps,
                               microbatches=args.microbatches,
-                              compression=args.compression)
+                              compression=args.compression, mesh=mesh)
     meta = {"device": str(device), "arch": cfg.name}
+    if mesh is not None:
+        meta["mesh_shape"] = mesh_shape(mesh)
     t0 = time.time()
     tokens_per_step = args.global_batch * args.seq_len
     losses = []
@@ -119,6 +146,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         first = np.mean(losses[: max(1, len(losses) // 10)])
         last = np.mean(losses[-max(1, len(losses) // 10):])
         log.info("done: loss %.4f → %.4f over %d steps", first, last, len(losses))
+    if owns_group:
+        dist.destroy_process_group()
     return losses
 
 

@@ -16,14 +16,24 @@ reference rounds them to the compute type.
 ``decode_attention`` stays plain torch einsums (`_attend`), as the
 reference computes it outside any kernel.  GQA never repeats K/V: query
 head i reads kv head i // (h / kvh).
+
+On a mesh the q, k and v projections are column-cut over `model`
+(`layers.dense`): a head count that divides the axis keeps this rank's
+heads, any other is gathered whole.  The prefill attentions, given the
+global head counts (``heads``), run the kernel on this rank's query
+heads and the K/V heads they read (`activations.attention_heads`) and
+return this rank's heads, which the row-cut o projection takes as its
+block of the input.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+
+from repro_torch.distributed.activations import attention_heads, heads_split, model_whole
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, dense, dense_init, softcap
 
@@ -42,16 +52,22 @@ def attention_init(gen: torch.Generator, cfg) -> Dict[str, Dict[str, Tensor]]:
     }
 
 
-def _split_heads(x: Tensor, n: int, hd: int) -> Tensor:
-    return x.reshape(x.shape[:-1] + (n, hd))
+def _split_heads(x: Tensor, hd: int) -> Tensor:
+    return x.reshape(x.shape[:-1] + (x.shape[-1] // hd, hd))
+
+
+def _heads(p: Params, x: Tensor, heads: int, hd: int, dtype) -> Tensor:
+    """x's projection split into heads: this rank's heads when the
+    projection is column-cut over `model` and ``heads`` divides it."""
+    return _split_heads(dense(p, x, dtype, keep_cut=heads_split(heads)), hd)
 
 
 def qkv_project(p: Params, x: Tensor, cfg, positions: Tensor,
                 dtype=None) -> Tuple[Tensor, Tensor, Tensor]:
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _split_heads(dense(p["q"], x, dtype), h, hd)
-    k = _split_heads(dense(p["k"], x, dtype), kvh, hd)
-    v = _split_heads(dense(p["v"], x, dtype), kvh, hd)
+    q = _heads(p["q"], x, h, hd, dtype)
+    k = _heads(p["k"], x, kvh, hd, dtype)
+    v = _heads(p["v"], x, kvh, hd, dtype)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -78,19 +94,34 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
 
 def naive_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int = 0, logit_softcap: float = 0.0,
-                    q_offset: int = 0) -> Tensor:
-    """q (b, sq, h, d) over k, v (b, skv, kvh, d) → (b, sq, h, d)."""
-    return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
-                               window=window, softcap=logit_softcap)
+                    q_offset: int = 0,
+                    heads: Optional[Tuple[int, int]] = None) -> Tensor:
+    """q (b, sq, h, d) over k, v (b, skv, kvh, d) → (b, sq, h, d).
+
+    On a mesh with a `model` axis the heads divide, the kernel runs on
+    this rank's query heads and the K/V heads they read
+    (`activations.attention_heads`).  Without ``heads`` q, k and v are
+    whole and so is the output (gathered after the kernel); with the
+    global (h, kvh) they may be this rank's heads, and the output is this
+    rank's heads (see the module docstring)."""
+    local = attention_heads(q, k, v, heads)
+    if local is None:
+        return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                   window=window, softcap=logit_softcap)
+    o = ops.flash_attention(*local, causal=causal, q_offset=q_offset,
+                            window=window, softcap=logit_softcap)
+    return o if heads is not None else model_whole(o, 2)
 
 
 def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                       window: int = 0, logit_softcap: float = 0.0,
-                      q_chunk: int = 512, q_offset: int = 0) -> Tensor:
+                      q_chunk: int = 512, q_offset: int = 0,
+                      heads: Optional[Tuple[int, int]] = None) -> Tensor:
     """The same function as `naive_attention`; ``q_chunk`` bounded the
     reference's memory and has no effect here (the kernel streams K/V)."""
     return naive_attention(q, k, v, causal=causal, window=window,
-                           logit_softcap=logit_softcap, q_offset=q_offset)
+                           logit_softcap=logit_softcap, q_offset=q_offset,
+                           heads=heads)
 
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, *,
@@ -129,9 +160,9 @@ def cross_attention(p: Params, x: Tensor, memory: Tensor, cfg,
     (b, sq, d) over memory (b, skv, d), through the flash kernel, with
     every product in ``dtype``."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _split_heads(dense(p["q"], x, dtype), h, hd)
-    k = _split_heads(dense(p["k"], memory, dtype), kvh, hd)
-    v = _split_heads(dense(p["v"], memory, dtype), kvh, hd)
-    out = naive_attention(q, k, v, causal=False)
-    out = out.reshape(x.shape[:-1] + (h * hd,))
+    q = _heads(p["q"], x, h, hd, dtype)
+    k = _heads(p["k"], memory, kvh, hd, dtype)
+    v = _heads(p["v"], memory, kvh, hd, dtype)
+    out = naive_attention(q, k, v, causal=False, heads=(h, kvh))
+    out = out.reshape(x.shape[:-1] + (-1,))
     return dense(p["o"], out, dtype)

@@ -33,6 +33,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.activations import constrain_logits
+from repro_torch.distributed.fsdp import gather_layer, local_params, pin_layer_stack
 from repro_torch.models.attention import (
     attention_init,
     chunked_attention,
@@ -111,38 +113,45 @@ def _mlp_block(lp: Params, x: Tensor, cfg) -> Tensor:
 
 
 def _enc_layer(lp: Params, x: Tensor, positions: Tensor, cfg) -> Tensor:
-    """One encoder layer: non-causal self-attention, then the MLP."""
+    """One encoder layer: non-causal self-attention, then the MLP; its
+    leaves gathered first (`fsdp.gather_layer`, the identity off-mesh)."""
     dt = dtype_of(cfg)
+    lp = gather_layer(lp, cfg)
     h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
     q, k, v = qkv_project(lp["attn"], h, cfg, positions, dt)
-    o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
-    o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
+    o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+                          heads=(cfg.num_heads, cfg.num_kv_heads))
+    o = o.reshape(x.shape[:-1] + (-1,))
     x = x + dense(lp["attn"]["o"], o, dt)
     return _mlp_block(lp, x, cfg)
 
 
 def encode(params: Params, frames: Tensor, cfg, *, remat: bool = True) -> Tensor:
     """frames: (b, enc_seq, d_model) stub frontend output → encoder memory.
-    With ``remat`` and gradients enabled, each layer runs under a checkpoint."""
+    With ``remat`` and gradients enabled, each layer runs under a checkpoint.
+    The sharding hooks sit where the reference's do."""
     dt = dtype_of(cfg)
     b, s, d = frames.shape
+    top = local_params(params)
     x = frames.to(dt) + _sinusoid_table(s, d, frames.device).to(dt)
     positions = torch.arange(s, device=frames.device).expand(b, s)
     run = remat_runner(remat)
-    for lp in params["enc_layers"]:
+    for lp in pin_layer_stack(params["enc_layers"], cfg):
         x = run(_enc_layer, lp, x, positions, cfg)
-    return rms_norm(params["enc_norm"], x, cfg.norm_eps)
+    return rms_norm(top["enc_norm"], x, cfg.norm_eps)
 
 
 def _dec_layer(lp: Params, x: Tensor, memory: Tensor, positions: Tensor, cfg
                ) -> Tensor:
     """One decoder layer: causal self-attention, cross-attention over the
-    encoder's memory, then the MLP."""
+    encoder's memory, then the MLP; its leaves gathered first."""
     dt = dtype_of(cfg)
+    lp = gather_layer(lp, cfg)
     h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
     q, k, v = qkv_project(lp["attn"], h, cfg, positions, dt)
-    o = chunked_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk)
-    o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
+    o = chunked_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                          heads=(cfg.num_heads, cfg.num_kv_heads))
+    o = o.reshape(x.shape[:-1] + (-1,))
     x = x + dense(lp["attn"]["o"], o, dt)
     h = rms_norm(lp["xattn_norm"], x, cfg.norm_eps)
     x = x + cross_attention(lp["xattn"], h, memory, cfg, dt)
@@ -154,17 +163,19 @@ def decode_train(params: Params, tokens: Tensor, memory: Tensor, cfg, *,
     """Teacher-forced decoder: tokens (b, s) + memory → logits float32.
     With ``remat`` and gradients enabled, each layer runs under a
     checkpoint; ``memory`` is an input of each, so its gradient sums over
-    the layers and the encoder is not rerun."""
+    the layers and the encoder is not rerun.  The sharding hooks sit
+    where the reference's do."""
     dt = dtype_of(cfg)
     b, s = tokens.shape
-    x = embed(params["dec_embed"], tokens, dt)
-    x = x + params.cast("dec_pos", dt)[:s]
+    top = local_params(params)
+    x = embed(top["dec_embed"], tokens, dt)
+    x = x + top.cast("dec_pos", dt)[:s]
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     run = remat_runner(remat)
-    for lp in params["dec_layers"]:
+    for lp in pin_layer_stack(params["dec_layers"], cfg):
         x = run(_dec_layer, lp, x, memory, positions, cfg)
-    x = rms_norm(params["dec_norm"], x, cfg.norm_eps)
-    return unembed(params["dec_embed"], x).float()
+    x = rms_norm(top["dec_norm"], x, cfg.norm_eps)
+    return constrain_logits(unembed(top["dec_embed"], x), cfg.vocab_size).float()
 
 
 def init_encdec_cache(cfg, batch: int, max_len: int, dtype: str = "bfloat16",

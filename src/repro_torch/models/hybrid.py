@@ -24,12 +24,14 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.activations import constrain_logits, constrain_seq
+from repro_torch.distributed.fsdp import gather_layer, local_params, pin_layer_stack
 from repro_torch.models.layers import (
     Params, dtype_of, embed, embed_init, norm_init, remat_runner, rms_norm, softcap,
     unembed,
 )
 from repro_torch.models.ssm import (
-    init_mamba_cache, mamba_decode_layers, mamba_forward, mamba_init,
+    init_mamba_cache, mamba_decode_layers, mamba_init, mamba_layer,
 )
 from repro_torch.models.transformer import (
     _head, layer_decode, layer_forward, layer_init,
@@ -69,8 +71,9 @@ def init_hybrid(gen: torch.Generator, cfg) -> Params:
 def _group_forward(layers, shared: Params, x: Tensor, cfg, positions: Tensor
                    ) -> Tensor:
     """One group: its Mamba layers, then the weight-tied shared block."""
+    s = positions.shape[1]
     for lp in layers:
-        x = mamba_forward(lp, x, cfg)
+        x = mamba_layer(lp, constrain_seq(x, cfg), cfg, s)
     x, _ = layer_forward(shared, x, cfg, positions)
     return x
 
@@ -81,21 +84,24 @@ def hybrid_forward(params: Params, tokens: Tensor, cfg, *, remat: bool = True
     With ``remat`` and gradients enabled (as in `decoder_forward`), each
     group and each tail layer runs under `torch.utils.checkpoint.checkpoint`;
     nothing else changes.  The shared block's gradient sums over its
-    n_groups calls."""
+    n_groups calls.  The sharding hooks sit where the reference's do
+    (the shared block gathered once, outside the groups)."""
     n_groups, k, _ = _groups(cfg)
     b, s = tokens.shape
-    x = embed(params["embed"], tokens, dtype_of(cfg))
+    top = local_params(params)
+    x = embed(top["embed"], tokens, dtype_of(cfg))
     positions = torch.arange(s, device=tokens.device).expand(b, s)
+    shared = gather_layer(top["shared_attn"], cfg)
     run = remat_runner(remat)
-    layers = params["mamba_groups"]
+    layers = pin_layer_stack(params["mamba_groups"], cfg)
     for g in range(n_groups):
-        x = run(_group_forward, layers[g * k:(g + 1) * k], params["shared_attn"], x,
+        x = run(_group_forward, layers[g * k:(g + 1) * k], shared, x,
                 cfg, positions)
     if "tail_mamba" in params:
-        for lp in params["tail_mamba"]:
-            x = run(mamba_forward, lp, x, cfg)
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(_head(params, cfg), x)
+        for lp in pin_layer_stack(params["tail_mamba"], cfg):
+            x = run(mamba_layer, lp, x, cfg, s)
+    x = rms_norm(top["final_norm"], x, cfg.norm_eps)
+    logits = constrain_logits(unembed(_head(top, cfg), x), cfg.vocab_size)
     return softcap(logits.float(), cfg.final_logit_softcap)
 
 

@@ -20,6 +20,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.activations import (
+    model_copy, model_shard, model_sum, model_whole, vocab_parallel_embedding,
+)
+
 Tensor = torch.Tensor
 
 
@@ -75,6 +79,11 @@ class Params(nn.Module):
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
+    def cut(self, name: str) -> Optional[int]:
+        """The dim of leaf ``name`` cut over `model`: None, a module's
+        leaves are whole (see `ParamView.cut`)."""
+        return None
+
     def cast(self, name: str, dtype: Optional[torch.dtype]) -> Tensor:
         t = self._parameters[name]
         if dtype is None or t.dtype == dtype:
@@ -87,6 +96,36 @@ class Params(nn.Module):
             hit = (stamp, t.detach().to(dtype))
             self._casts[(name, dtype)] = hit
         return hit[1]
+
+
+class ParamView:
+    """A read-only tree with `Params`'s interface (``p["q"]["kernel"]``,
+    ``"bias" in p``, `cast`, `cut`) over nested dicts of tensors: what
+    `repro_torch.distributed.fsdp.gather_layer` hands a layer in place of
+    its `Params`.  A child that is not a dict (a layer stack) is returned
+    as it is.  ``cut`` mirrors the tree with, for each leaf that is this
+    rank's block of a dim cut over `model`, that dim."""
+
+    __slots__ = ("_tree", "_cut")
+
+    def __init__(self, tree: Dict[str, Any], cut: Optional[Dict[str, Any]] = None):
+        self._tree = tree
+        self._cut = cut or {}
+
+    def __getitem__(self, name: str):
+        node = self._tree[name]
+        return ParamView(node, self._cut.get(name)) if isinstance(node, dict) else node
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._tree
+
+    def cut(self, name: str) -> Optional[int]:
+        """The dim of leaf ``name`` cut over `model`, or None when whole."""
+        return self._cut.get(name)
+
+    def cast(self, name: str, dtype: Optional[torch.dtype]) -> Tensor:
+        t = self._tree[name]
+        return t if dtype is None or t.dtype == dtype else t.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -122,13 +161,32 @@ def norm_init(dim: int, dtype: str, device) -> Dict[str, Tensor]:
 # Layers
 # ---------------------------------------------------------------------------
 
-def dense(p: Params, x: Tensor, dtype: Optional[torch.dtype] = None) -> Tensor:
+def dense(p: Params, x: Tensor, dtype: Optional[torch.dtype] = None, *,
+          keep_cut: bool = False) -> Tensor:
+    """x @ kernel (+ bias).  A kernel cut over `model` (`Params.cut`) is
+    Megatron's: column-cut, this rank's output columns (with this rank's
+    block of the bias), gathered whole unless ``keep_cut``; row-cut, this
+    rank's block of x's columns (x may be that block already) times the
+    kernel's rows, summed over the axis, then the whole bias.  A whole
+    kernel given x's block gathers x whole first."""
     kernel = p.cast("kernel", dtype)
     if dtype is not None:
         x = x.to(dtype)
-    y = x @ kernel
+    cut = p.cut("kernel")
+    if cut == 0:
+        if x.shape[-1] != kernel.shape[0]:
+            x = model_shard(x, -1)
+        y = model_sum(x @ kernel)
+    elif cut == 1:
+        y = model_copy(x) @ kernel
+    else:
+        if x.shape[-1] != kernel.shape[0]:
+            x = model_whole(x, -1)
+        y = x @ kernel
     if "bias" in p:
         y = y + p.cast("bias", y.dtype)
+    if cut == 1 and not keep_cut:
+        y = model_whole(y, -1)
     return y
 
 
@@ -143,14 +201,17 @@ def rms_norm(p: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
 def embed(p: Params, ids: Tensor, dtype: Optional[torch.dtype] = None,
           scale: bool = False) -> Tensor:
     e = p.cast("embedding", dtype)
-    y = F.embedding(ids, e)
+    y = vocab_parallel_embedding(e, ids) if p.cut("embedding") == 0 else F.embedding(ids, e)
     if scale:
         y = y * torch.tensor(math.sqrt(e.shape[-1]), dtype=y.dtype)
     return y
 
 
 def unembed(p: Params, x: Tensor) -> Tensor:
-    """Project to vocab logits (uses embedding transpose when tied)."""
+    """Project to vocab logits (uses embedding transpose when tied); a
+    vocab cut over `model` gives this rank's block of the logits."""
+    if p.cut("embedding") == 0:
+        x = model_copy(x)
     return x @ p.cast("embedding", x.dtype).T
 
 
@@ -171,8 +232,8 @@ _ACTS = {
 
 def swiglu(p: Params, x: Tensor, act: str = "silu",
            dtype: Optional[torch.dtype] = None) -> Tensor:
-    g = dense(p["gate"], x, dtype)
-    u = dense(p["up"], x, dtype)
+    g = dense(p["gate"], x, dtype, keep_cut=True)
+    u = dense(p["up"], x, dtype, keep_cut=True)
     return dense(p["down"], _ACTS[act](g) * u, dtype)
 
 
@@ -184,7 +245,7 @@ def mlp_gelu_init(gen: torch.Generator, d_model: int, d_ff: int, dtype: str,
 
 def mlp_gelu(p: Params, x: Tensor, act: str = "gelu",
              dtype: Optional[torch.dtype] = None) -> Tensor:
-    return dense(p["down"], _ACTS[act](dense(p["up"], x, dtype)), dtype)
+    return dense(p["down"], _ACTS[act](dense(p["up"], x, dtype, keep_cut=True)), dtype)
 
 
 # ---------------------------------------------------------------------------

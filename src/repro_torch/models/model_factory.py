@@ -21,11 +21,15 @@ out.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.activations import (
+    constrain_logits, constrain_seq, vocab_parallel_cross_entropy,
+)
+from repro_torch.distributed.fsdp import local_params, pin_layer_stack
 from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.layers import (
     Params, dtype_of, embed, embed_init, norm_init, remat_runner, rms_norm, unembed,
@@ -34,8 +38,13 @@ from repro_torch.utils.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
 
-def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
-    """Mean token NLL. logits: (..., vocab) float32; labels: (...) integer."""
+def cross_entropy(logits: Tensor, labels: Tensor, vocab: Optional[int] = None
+                  ) -> Tensor:
+    """Mean token NLL. logits: (..., vocab) float32; labels: (...) integer.
+    Logits narrower than ``vocab`` are this rank's block of a vocab cut
+    over `model` (`activations.constrain_logits`)."""
+    if vocab is not None and logits.shape[-1] != vocab:
+        return vocab_parallel_cross_entropy(logits, labels)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return torch.mean(logz - gold)
@@ -70,9 +79,9 @@ def _generator(seed: int, device: DeviceLike) -> torch.Generator:
     return gen
 
 
-def _nll_loss(forward):
+def _nll_loss(forward, vocab: int):
     def loss(params, batch):
-        nll = cross_entropy(forward(params, batch), batch["labels"])
+        nll = cross_entropy(forward(params, batch), batch["labels"], vocab)
         return nll, {"nll": nll}
     return loss
 
@@ -89,7 +98,7 @@ def _build_decoder(cfg: ArchConfig) -> Model:
     def loss(params, batch):
         logits, aux = transformer.decoder_forward(
             params, batch["tokens"], cfg, vision_embeds=batch.get("vision_embeds"))
-        nll = cross_entropy(logits, batch["labels"])
+        nll = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
     def init_cache(batch: int, max_len: int, device: DeviceLike = "cuda"):
@@ -120,17 +129,21 @@ def _build_ssm(cfg: ArchConfig) -> Model:
                                       cfg.param_dtype)
         return Params(p)
 
-    def forward(params, batch):
+    def forward(params, batch, *, remat: bool = True):
         """Logits in float32, no softcap (as the reference's SSM).  With
-        gradients enabled each layer runs under
+        ``remat`` and gradients enabled each layer runs under
         `torch.utils.checkpoint.checkpoint` (remat, the reference's
-        ``jax.checkpoint`` of its layer scan), as in `decoder_forward`."""
-        x = embed(params["embed"], batch["tokens"], dtype_of(cfg))
-        run = remat_runner()
-        for lp in params["layers"]:
-            x = run(ssm.mamba_forward, lp, x, cfg)
-        x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-        return unembed(transformer._head(params, cfg), x).float()
+        ``jax.checkpoint`` of its layer scan), as in `decoder_forward`;
+        the sharding hooks sit where the reference's do."""
+        top = local_params(params)
+        x = embed(top["embed"], batch["tokens"], dtype_of(cfg))
+        run = remat_runner(remat)
+        s = x.shape[1]
+        for lp in pin_layer_stack(params["layers"], cfg):
+            x = run(ssm.mamba_layer, lp, constrain_seq(x, cfg), cfg, s)
+        x = rms_norm(top["final_norm"], x, cfg.norm_eps)
+        return constrain_logits(unembed(transformer._head(top, cfg), x),
+                                cfg.vocab_size).float()
 
     def init_cache(batch: int, max_len: int, device: DeviceLike = "cuda"):
         return ssm.init_mamba_cache(cfg, batch, cfg.num_layers,
@@ -142,7 +155,7 @@ def _build_ssm(cfg: ArchConfig) -> Model:
         x = rms_norm(params["final_norm"], x, cfg.norm_eps)
         return unembed(transformer._head(params, cfg), x[:, 0]).float(), cache
 
-    return Model(cfg, init, _nll_loss(forward), forward, init_cache, decode_step)
+    return Model(cfg, init, _nll_loss(forward, cfg.vocab_size), forward, init_cache, decode_step)
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +175,7 @@ def _build_hybrid(cfg: ArchConfig) -> Model:
     def decode_step(params, batch, cache):
         return hybrid.hybrid_decode_step(params, batch["token"], cache, cfg)
 
-    return Model(cfg, init, _nll_loss(forward), forward, init_cache, decode_step)
+    return Model(cfg, init, _nll_loss(forward, cfg.vocab_size), forward, init_cache, decode_step)
 
 
 # ---------------------------------------------------------------------------
@@ -184,4 +197,4 @@ def _build_encdec(cfg: ArchConfig) -> Model:
     def decode_step(params, batch, cache):
         return encdec.decode_step(params, batch["token"], cache, batch["memory"], cfg)
 
-    return Model(cfg, init, _nll_loss(forward), forward, init_cache, decode_step)
+    return Model(cfg, init, _nll_loss(forward, cfg.vocab_size), forward, init_cache, decode_step)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.activations import batch_mean, model_shard, model_whole
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, dense_init, dtype_of, uniform
 
@@ -88,11 +89,20 @@ def moe_ffn(p: Params, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
     expert_in = expert_in.masked_fill((writer < 0)[..., None], 0)
 
     # Expert SwiGLU: three grouped matmuls, batch folded into the rows.
+    # On a mesh the expert stacks hold this rank's experts over `model`
+    # (`fsdp.gather_layer` keeps them cut): the GMM runs on their rows of
+    # the buffer and the outputs are gathered whole.
     xin = expert_in.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
-    g = ops.moe_gmm(xin, p.cast("gate", dt))
-    u = ops.moe_gmm(xin, p.cast("up", dt))
+    w_gate, w_up, w_down = (p.cast(n, dt) for n in ("gate", "up", "down"))
+    local = w_gate.shape[0] != e
+    if local:
+        xin = model_shard(xin, 0)
+    g = ops.moe_gmm(xin, w_gate)
+    u = ops.moe_gmm(xin, w_up)
     h = F.silu(g) * u
-    out = ops.moe_gmm(h, p.cast("down", dt))                       # (e, b·cap, d)
+    out = ops.moe_gmm(h, w_down)                                   # (e, b·cap, d)
+    if local:
+        out = model_whole(out, 0)
     out_flat = out.reshape(e, b, cap, d).transpose(0, 1).reshape(b, slots, d)
 
     # Combine: each kept assignment's output weighted by its gate, summed
@@ -103,11 +113,12 @@ def moe_ffn(p: Params, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
                                * keep[..., None].to(dt))
     y = per_assign.reshape(b, s, k, d).sum(dim=2)
 
-    # Switch-style load-balancing aux loss.
-    me = probs.mean(dim=(0, 1))                                    # (e,)
+    # Switch-style load-balancing aux loss, its means over the whole
+    # batch (over the data axes on a mesh).
+    me = batch_mean(probs.mean(dim=(0, 1)))                        # (e,)
     # One-hot by comparison: F.one_hot checks its indices on the host,
     # which waits for the card in every layer.
     top1 = expert_idx[..., :1] == torch.arange(e, device=dev)
-    ce = top1.float().mean(dim=(0, 1))
+    ce = batch_mean(top1.float().mean(dim=(0, 1)))
     aux = e * torch.sum(me * ce)
     return y, aux

@@ -32,6 +32,8 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.activations import heads_local, heads_whole, unshard_seq
+from repro_torch.distributed.fsdp import gather_layer
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
     Params, dense, dense_init, dtype_of, norm_init, rms_norm, torch_dtype,
@@ -155,8 +157,11 @@ def ssd_forward(xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     del u
     chunk_decay = torch.exp(cum[:, :, -1, :]).transpose(0, 1).contiguous()  # (c,b,h)
 
-    # Inter-chunk recurrence (the ssd_scan kernel).
-    h_prev, h_final = ops.ssd_scan(s_chunk, chunk_decay)
+    # Inter-chunk recurrence (the ssd_scan kernel), on this rank's heads
+    # over `model` on a mesh.
+    h_prev, h_final = ops.ssd_scan(heads_local(s_chunk, 2, h),
+                                   heads_local(chunk_decay, 2, h))
+    h_prev, h_final = heads_whole(h_prev, 2, h), heads_whole(h_final, 1, h)
     del s_chunk
 
     # Inter-chunk output: y[t] += exp(cum_t)·C_t·h_prev, chunk-major.
@@ -194,6 +199,14 @@ def mamba_forward(p: Params, x: Tensor, cfg) -> Tensor:
     y = y.reshape(b, s, d_inner).to(dt_)
     y = rms_norm(p["out_norm"], y * F.silu(z), cfg.norm_eps)
     return x + dense(p["out_proj"], y, dt_)
+
+
+def mamba_layer(lp: Params, x: Tensor, cfg, seq: int) -> Tensor:
+    """One Mamba2 layer of a stack: its carry whole along the sequence of
+    ``seq`` rows again and its leaves gathered (`constrain_seq`'s inverse
+    and `fsdp.gather_layer`, both the identity off-mesh), then
+    `mamba_forward`."""
+    return mamba_forward(gather_layer(lp, cfg), unshard_seq(x, seq), cfg)
 
 
 # ---------------------------------------------------------------------------

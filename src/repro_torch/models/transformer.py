@@ -27,8 +27,9 @@ What differs from the reference, and why:
     each layer's kernels twice forward and once backward, and keeps only
     the layers' inputs between the passes;
   * ``constrain_seq``, ``gather_layer``, ``pin_layer_stack`` and
-    ``constrain_logits`` are sharding constraints that are the identity
-    on one device without a mesh, so they are left out;
+    ``constrain_logits`` (`repro_torch.distributed`) gather a layer's
+    DTensor leaves and cut activations explicitly on a mesh, and are the
+    identity on one device without one;
   * `decode_step` writes the new token's K/V into the cache in place
     (the reference returns new arrays); the cache it returns holds the
     same K/V tensors and a new ``len``.  Each stack's cache stays stacked
@@ -42,6 +43,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.activations import constrain_logits, constrain_seq, unshard_seq
+from repro_torch.distributed.fsdp import gather_layer, local_params, pin_layer_stack
 from repro_torch.models.attention import (
     attention_init,
     chunked_attention,
@@ -111,8 +114,9 @@ def layer_forward(p: Params, x: Tensor, cfg, positions: Tensor,
     attn_fn = naive_attention if cfg.attention_impl == "naive" else chunked_attention
     o = attn_fn(q, k, v, causal=True, window=window,
                 logit_softcap=cfg.attn_logit_softcap,
+                heads=(cfg.num_heads, cfg.num_kv_heads),
                 **({} if cfg.attention_impl == "naive" else {"q_chunk": cfg.q_chunk}))
-    o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
+    o = o.reshape(x.shape[:-1] + (-1,))
     x = x + dense(p["attn"]["o"], o, dt)
     h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
     y, aux = _ffn(p["mlp"], h, cfg)
@@ -234,28 +238,49 @@ def _gated_cross(cp: Params, x: Tensor, vision_embeds: Optional[Tensor], cfg
     return x + torch.tanh(cp["gate"]).to(dt) * xa
 
 
+def _self_layer(lp: Params, x: Tensor, cfg, positions: Tensor, seq: int,
+                window: int) -> Tuple[Tensor, Tensor]:
+    """One self-attention layer of the stack: the carry made whole along
+    the sequence again and the layer's leaves gathered (both the
+    identity off-mesh), then `layer_forward`."""
+    x = unshard_seq(x, seq)
+    return layer_forward(gather_layer(lp, cfg), x, cfg, positions, window=window)
+
+
+def _cross_layer(cp: Params, x: Tensor, vision_embeds: Optional[Tensor], cfg,
+                 seq: int) -> Tensor:
+    return _gated_cross(gather_layer(cp, cfg), unshard_seq(x, seq), vision_embeds, cfg)
+
+
 def decoder_forward(params: Params, tokens: Tensor, cfg, *,
                     vision_embeds: Optional[Tensor] = None,
                     remat: bool = True) -> Tuple[Tensor, Tensor]:
     """tokens: (b, s) integer → (logits (b, s, vocab) float32, moe aux loss).
     The VLM's ``vision_embeds`` are (b, vision_seq, d_model).  With
     ``remat`` and gradients enabled, each layer runs under
-    `torch.utils.checkpoint.checkpoint`; nothing else changes."""
+    `torch.utils.checkpoint.checkpoint`; nothing else changes.  The
+    reference's sharding hooks (`constrain_seq`, `gather_layer`,
+    `pin_layer_stack`, `constrain_logits`) sit where its own do and are
+    the identity off-mesh; on a mesh the logits' vocab may come back cut
+    over `model` (see `repro_torch.distributed.activations`)."""
     dt = dtype_of(cfg)
     b, s = tokens.shape
-    x = embed(params["embed"], tokens, dt, scale=cfg.scale_embed)
+    top = local_params(params)
+    x = embed(top["embed"], tokens, dt, scale=cfg.scale_embed)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     run = remat_runner(remat)
+    stacks = {name: pin_layer_stack(params[name], cfg) for name in decoder_stacks(cfg)}
     for stack, i, window in layer_order(cfg):
-        lp = params[stack][i]
+        lp = stacks[stack][i]
+        x = constrain_seq(x, cfg)
         if stack == "cross_layers":
-            x = run(_gated_cross, lp, x, vision_embeds, cfg)
+            x = run(_cross_layer, lp, x, vision_embeds, cfg, s)
         else:
-            x, a = run(layer_forward, lp, x, cfg, positions, window=window)
+            x, a = run(_self_layer, lp, x, cfg, positions, s, window)
             aux = aux + a
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(_head(params, cfg), x)
+    x = rms_norm(top["final_norm"], x, cfg.norm_eps)
+    logits = constrain_logits(unembed(_head(top, cfg), x), cfg.vocab_size)
     return softcap(logits.float(), cfg.final_logit_softcap), aux
 
 

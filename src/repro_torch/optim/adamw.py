@@ -14,13 +14,20 @@ clips one leaf at a time (the reference's ``clip_by_global_norm``
 product, g · min(1, max_norm / norm)), so no second copy of every
 gradient is held.  The returned state holds the same moment tensors and
 a new step.
+
+On a mesh the parameters, their gradients and both moments are DTensors
+with the parameters' placements: the update runs on each leaf's local
+shard, and the clip's norm is taken over every shard (`global_norm`).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.launch.mesh import axis_info
 from repro_torch.utils.tree import flatten_with_paths
 
 Tensor = torch.Tensor
@@ -42,11 +49,34 @@ def adamw_init(params: Params) -> AdamWState:
                       mu=zeros, nu={k: torch.zeros_like(z) for k, z in zeros.items()})
 
 
+def _local(t: Tensor) -> Tensor:
+    """A DTensor's local shard (a view of its storage), else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tree: Any) -> Tensor:
     """sqrt of the sum over leaves (in path order) of each leaf's float32
-    sum of squares."""
-    leaves = [torch.sum(torch.square(x.float()))
-              for x in flatten_with_paths(tree).values()]
+    sum of squares.
+
+    DTensor leaves (a sharded train state) count every element once, over
+    all shards: the local sums of leaves laid out alike are added, then
+    summed over the mesh axes that shard them, never over the axes that
+    replicate them."""
+    leaves, groups = [], {}
+    for x in flatten_with_paths(tree).values():
+        sq = torch.sum(torch.square(_local(x).float()))
+        if isinstance(x, DTensor):
+            key = (x.device_mesh, tuple(x.placements))
+            groups[key] = groups[key] + sq if key in groups else sq
+        else:
+            leaves.append(sq)
+    for (mesh, placements), sq in groups.items():
+        for name, pl in zip(mesh.mesh_dim_names, placements):
+            group, n, _ = axis_info(mesh, name)
+            if pl.is_shard() and n > 1:
+                sq = sq.clone()
+                dist.all_reduce(sq, group=group)
+        leaves.append(sq)
     return torch.sqrt(sum(leaves))
 
 
@@ -78,7 +108,9 @@ def adamw_update(
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
     for k, p in flat.items():
-        g, m, v = grads[k] * scale, state.mu[k], state.nu[k]
+        # Each leaf's shard on its own: the update is elementwise.
+        p = _local(p)
+        g, m, v = _local(grads[k]) * scale, _local(state.mu[k]), _local(state.nu[k])
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         u = (m / bc1) / (torch.sqrt(v / bc2) + eps)

@@ -126,6 +126,32 @@ def test_tree_kernels_at_each_plan_crossover(card, gbdt_150x4, fused, edge, side
     _hold_tree_kernels(card, gbdt_150x4, raw, route="staged")
 
 
+@pytest.mark.parametrize("rows", [1024, 2050, 11437])
+def test_sharded_tree_flush_is_bit_equal_on_the_card(card, gbdt_150x4, rows):
+    # A bank over the card listed 4 times: one launch a shard, each with
+    # the unsharded flush's plan, so both kernels' outputs equal the
+    # unsharded flush's bit for bit.
+    from repro_torch.kernels import tree_gather as tg
+    from repro_torch.kernels import tree_gather_cuda as tgc
+
+    flat = gbdt_150x4.flat()
+    whole = tg.CudaBank.from_flat(flat, card, devices=[card])
+    sharded = tg.CudaBank.from_flat(flat, card, devices=[card] * 4)
+    mean, std = tg.to_device_scaler(gbdt_150x4.scaler, card)
+    kind, scale, bias = gbdt_150x4._device_reduction()
+    rng = np.random.default_rng(rows)
+    raw = np.abs(rng.standard_normal((rows, 16))) * np.linspace(1, 30, 16)
+    xs = gbdt_150x4.scaler.transform(raw)
+    tgc.reset_launch_counts()
+    got_f = sharded.fused(mean, std, scale, bias, sharded.stage_input(raw), kind)
+    got_l = sharded.gather_leaves(sharded.stage_input(xs))
+    assert tgc.launch_counts() == {"tree_gather_leaves": 4, "tree_predict_fused": 4}
+    assert torch.equal(got_f, whole.fused(mean, std, scale, bias, whole.stage_input(raw),
+                                          kind))
+    assert torch.equal(got_l, whole.gather_leaves(whole.stage_input(xs)))
+    assert sharded.stats()["uploads"] == 1
+
+
 @pytest.mark.parametrize("rows", [5, 2048])
 def test_tree_kernels_on_the_packed_route(card, rows):
     model, rng = _fit("rf", 10, 14, 3000, 6, seed=rows)

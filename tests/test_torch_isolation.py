@@ -78,7 +78,10 @@ def test_port_has_the_slice_modules():
                 "optim/adamw.py", "distributed/compression.py",
                 "data/__init__.py", "data/pipeline.py", "checkpoint/__init__.py",
                 "checkpoint/manager.py", "distributed/trainstep.py",
-                "launch/__init__.py", "launch/train.py", "launch/serve.py"):
+                "launch/__init__.py", "launch/train.py", "launch/serve.py",
+                "launch/mesh.py", "distributed/sharding.py", "distributed/fsdp.py",
+                "distributed/activations.py", "distributed/pipeline.py",
+                "distributed/elastic.py"):
         assert mod in names
     for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
                 "flash_attention.cu", "flash_attention_bwd.cu", "moe_gmm.cu", "ssd_scan.cu",
@@ -181,6 +184,8 @@ def _entry_points():
     from repro_torch.configs import get_arch
     from repro_torch.convert import lm_params_from_reference, train_state_from_reference
     from repro_torch.distributed import init_train_state
+    from repro_torch.distributed.elastic import plan_mesh
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
     from repro_torch.models import build_model
@@ -227,6 +232,8 @@ def _entry_points():
         "init_train_state": lambda: init_train_state(lm, 0),
         "train driver": lambda: train_main(["--arch", "qwen2-72b-reduced", "--steps", "1"]),
         "serve driver": lambda: serve_main(["--arch", "qwen2-72b-reduced"]),
+        "make_mesh": lambda: make_mesh((1,), ("data",)),
+        "plan_mesh": lambda: plan_mesh(1),
         "train_state_from_reference": lambda: train_state_from_reference(
             {"params": {}, "opt": {"step": 0, "mu": {}, "nu": {}}, "step": 0},
             get_arch("qwen2-72b").reduced()),

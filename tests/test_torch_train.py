@@ -576,8 +576,11 @@ def _driver_script(train, args, caplog, tmp_path):
     # The resumed run continues the uninterrupted one: the same losses.
     whole = train.main(args[:-4] + ["--device", "cpu", "--steps", "6"])
     np.testing.assert_array_equal(np.asarray(more), np.asarray(whole[4:]))
-    with pytest.raises(SystemExit, match="multi-device slice"):
-        train.main(args + ["--steps", "1", "--model-parallel", "2"])
+    # One process without a process group: --model-parallel is the
+    # reference's (1, 1) mesh, the same run as without it.
+    np.testing.assert_array_equal(
+        train.main(args[:-4] + ["--device", "cpu", "--steps", "2", "--model-parallel", "2"]),
+        np.asarray(whole[:2]))
 
 
 def test_train_driver_trains_mamba2_on_the_host(caplog):
