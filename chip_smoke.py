@@ -164,38 +164,41 @@ result line:
          the new ops are measured, through the Winograd kernel), then the
          paper's Fig. 8 study times the Winograd op against the direct
          ``conv2d`` op through ``GraphExecutor(op_by_op)``;
-       * the LM serving path: Granite-MoE 1B at full width and depth from
+       * the LM serving path: Granite-MoE 1B at full width and 12 of 24
+         layers (`LM_DEPTH`) from
          the port's own init (seed 0); forward/decode consistency first
          (`check_prefill_decode`, not counted), then `Model.forward` on
-         4 × 1,024 tokens (24 flash and 72 GMM launches) and a 4-slot
-         `ServeEngine` answering 8 requests of 16 new tokens (72 GMM
+         4 × 1,024 tokens (12 flash and 36 GMM launches) and a 4-slot
+         `ServeEngine` answering 8 requests of 16 new tokens (36 GMM
          launches per decode step), every one on the bfloat16 tensor-core
          route, its steps counted in an `Observability` registry
          (``serve_steps_total`` and the ``serve_step_duration`` count equal
          the engine's steps); then a forward and decode steps under torch.profiler for
          the time split, the flash and GMM shares and the idle share;
        * the SSM and hybrid path: Mamba2 2.7B, then Zamba2 1.2B, at full
-         width and depth from the port's own init (seed 0), each with
+         width and 8 of 64 and 8 of 38 layers (`SSM_DEPTH`) from the
+         port's own init (seed 0), each with
          its counts zeroed: decode/forward consistency at 512 tokens
          first (float32 gated at `CONSISTENCY_TOL`, bfloat16 read; not
-         counted), `Model.forward` on 2 × 4,096 tokens (64 ssd_scan
-         launches for Mamba2; 38 and 6 flash launches for Zamba2) and a
+         counted), `Model.forward` on 2 × 4,096 tokens (8 ssd_scan
+         launches for Mamba2; 8 and 1 flash launches for Zamba2) and a
          4-slot `ServeEngine` answering 8 (Mamba2) or 4 (Zamba2)
          requests; then each model's forward and one decode step under
          torch.profiler with the ssd_scan (and, for Zamba2, the flash)
          share of device time;
-       * the LM zoo path (`run_lm_zoo_path`): gemma2-27b (12 of 46 layers),
-         llama-3.2-vision-90b (10 of 100: 2 groups, gates at `ZOO_GATE`)
-         and whisper-large-v3 (full depth) at full width from the port's
+       * the LM zoo path (`run_lm_zoo_path`): gemma2-27b (4 of 46 layers),
+         llama-3.2-vision-90b (5 of 100: 1 group, gates at `ZOO_GATE`)
+         and whisper-large-v3 (8 of 32 encoder and 8 of 32 decoder layers)
+         at full width from the port's
          own init, one after another, each printed with its ``reduced``
          depth and peak memory: the reduced model in float32 on the card
          against the host (`HOST_TOL`); decode against forward at 128
          tokens (and the reduced gemma2 at 160, past its window of 64);
          `Model.forward` (gemma2 1 × 6,144 tokens, the VLM 1 × 2,048 over
          1,600 vision embeddings, Whisper 2 × 1,500 frames and 2 × 448
-         tokens) with 12 / 10 / 96 flash launches, all on the bfloat16
+         tokens) with 4 / 5 / 24 flash launches, all on the bfloat16
          tensor-core route; a 4-slot `ServeEngine` answering 8 requests
-         (0 / 2 / 32 flash launches a decode step); then a profiled
+         (0 / 1 / 8 flash launches a decode step); then a profiled
          forward and decode step (device time, flash share, idle share);
        * the serving driver (`run_serve_driver_path`): `repro_torch.launch.
          serve.main` for granite-moe-1b-a400m and whisper-large-v3 at full
@@ -203,7 +206,7 @@ result line:
          reference driver's defaults (8 requests of 16 tokens, 16 new, 4
          slots), counts zeroed before each: 8 of 8 answered, the
          ``served`` line's tokens/s, launches a decode step gated (GMM 72
-         / flash 32 / flash 2), flash on the tensor-core route;
+         / flash 32 / flash 1), flash on the tensor-core route;
        * the LM training path (`run_lm_train_path`): granite-moe-1b-a400m
          at full width and depth (1.33 B parameters, float32 parameters
          and AdamW state, bfloat16 compute, remat) trained 8 steps on
@@ -214,13 +217,14 @@ result line:
          version called; step ms, tokens/s, peak memory and a profiled
          step (device busy, idle share, top kernels).  Then, the same way
          with the counts zeroed before each (`TRAIN_MODELS`),
-         mamba2-2.7b and zamba2-1.2b at full width and depth (4 × 1,024
-         tokens: the scan 2 and its backward 1 a layer; Zamba2's shared
-         block flash 12 and backward 6 a step) and gemma2-27b at full
+         mamba2-2.7b and zamba2-1.2b at full width and 16 of 64 and 14
+         of 38 layers (4 × 1,024 tokens: the scan 2 and its backward 1 a layer;
+         Zamba2's shared block flash 4 and backward 2 a step) and
+         gemma2-27b at full
          width and 2 of 46 layers (1 × 4,608 tokens, its window and
          softcaps: flash 4 and backward 2 a step), whisper-large-v3 at
-         full depth (4 × 448 tokens over 4 × 1,500 frames: flash 192 and
-         backward 96 a step) and llama-3.2-vision-90b at full width and
+         the zoo's depth (4 × 448 tokens over 4 × 1,500 frames: flash 48
+         and backward 24 a step) and llama-3.2-vision-90b at full width and
          one self and one cross layer (2 × 2,048 tokens over 2 × 1,600
          vision embeddings, gates at `ZOO_GATE`: flash 4 and backward 2),
          each freed before the next.  Then Granite at 2 of 24 layers in
@@ -234,12 +238,22 @@ result line:
          and the 5-layer Zamba2; and gradients
          through Winograd and the tree kernels, which must raise (they
          have no backward).
+     After the multi-device path: the dry run (`run_dryrun_path`):
+     qwen2-72b × decode_32k traced on fake CUDA tensors over a fake
+     group of 256 ranks on the (16, 16) mesh through ``python -m
+     repro_torch.launch.dryrun`` (its record and seconds printed), and
+     Granite at full width and depth on 16 × 1,024 tokens in 16
+     microbatches traced in fake mode, both in child processes started
+     once the kernels are built (`DryrunTraces`), then Granite run on
+     the card (FLOPs and argument bytes equal, traced peak within 15% of
+     ``max_memory_allocated``, loss finite); and the
+     examples (`run_examples_path`): ``examples/torch/quickstart.py``'s
+     ``main`` on the card, cold, its tree-kernel launches gated.
   4. Times at the paths' shapes — kernel (with its launch plan for the
      int8 GEMM, Winograd and the tree kernels), plain version, library call where one exists (``torch._int_mm``, ``F.conv2d``,
      ``F.scaled_dot_product_attention``, ``torch.bmm``; none for the tree
      kernels and the SSD scan and its backward; SDPA's backward for the
-     flash backward, with flex_attention's compiled backward beside it at
-     gemma2's softcapped calls; ``torch.bmm`` for the GMM's two backward
+     flash backward; ``torch.bmm`` for the GMM's two backward
      products) and the bound from
      bytes at 3.35 TB/s or operations (67 TFLOP/s float32, 989 TFLOP/s
      bfloat16 and 1,979 TOP/s int8 on the tensor cores); the GMM's decode
@@ -1289,8 +1303,9 @@ def run_transfer_path(device, target, graphs, oracle, n_train: int = 32,
     int8 target's too) with a GBDT bank on the training graphs.  For each K
     of `TRANSFER_BUDGETS`, `TransferEngine` samples K source ops, measures
     them on the card through a fresh `ProfileSession` with an empty store
-    (the int8 GEMM runs) located in the training graphs (``probe_graphs``),
-    and registers a calibrated bank in a hub of its own; the held-out
+    (the int8 GEMM runs) located in the training graphs (``probe_graphs``;
+    the engine samples from a store of their records only, so no pick is
+    skipped), and registers a calibrated bank in a hub of its own; the held-out
     graphs are scored with it (the leaves kernel: a calibrated tree bank
     takes the swap path) against ``oracle``, the int8 main path, whose
     bank was trained on fully profiled int8 data and whose measured
@@ -1310,6 +1325,7 @@ def run_transfer_path(device, target, graphs, oracle, n_train: int = 32,
     from repro_torch.obs import Observability, attach_session_drift
     from repro_torch.pipeline import LatencyService, PredictorHub, ProfileStore
     from repro_torch.pipeline.store import setting_key
+    from repro_torch.quant.int8 import uses_int8_gemm
     from repro_torch.search import DeviceBudget, LatencyScorer
     from repro_torch.transfer import TransferEngine
 
@@ -1329,6 +1345,17 @@ def run_transfer_path(device, target, graphs, oracle, n_train: int = 32,
     source_train_s = time.perf_counter() - t0
     launches["source_profile_and_train"] = read_counts()
 
+    # The engine samples from a store of the probe (training) graphs'
+    # records only, so every pick can be measured there.
+    probe_store = ProfileStore()
+    for g in train:
+        rec = src_store.get_arch(source, g.fingerprint())
+        probe_store.put_arch(source, g.fingerprint(), rec)
+        for op in rec.ops:
+            probe_store.put_op(source, op)
+    # Which signatures the int8 setting runs as one int8 GEMM.
+    gemm_route = {op_signature(g, n): uses_int8_gemm(g, n) for g in train for n in g.nodes}
+
     o_store = oracle["store"]
     truth = [o_store.get_arch(target, g.fingerprint()).e2e_s for g in held]
     oracle_ops = sum(len(o_store.get_arch(target, g.fingerprint()).ops) for g in train)
@@ -1341,9 +1368,11 @@ def run_transfer_path(device, target, graphs, oracle, n_train: int = 32,
                                 probe_graphs=train)
         reset_counts()
         t0 = time.perf_counter()
-        result = engine.adapt(src_store, hub, session, k)
+        result = engine.adapt(probe_store, hub, session, k)
         adapt_s = time.perf_counter() - t0
         measuring = read_counts()
+        skipped = len(result.plan.records) - result.n_op_measurements
+        gemm_ops = sum(gemm_route[r.signature] for r in session.store.op_records(target))
         if not result.n_measurements <= k or \
                 session.measured_ops + session.measured_graphs > k:
             raise AssertionError(f"K={k}: {result.n_measurements} measurements, "
@@ -1351,9 +1380,13 @@ def run_transfer_path(device, target, graphs, oracle, n_train: int = 32,
         if result.composition != "ratio-scaled" or session.measured_graphs != 0:
             raise AssertionError(f"K={k}: composition {result.composition}, "
                                  f"{session.measured_graphs} graphs measured")
-        if measuring["int8_matmul"] == 0:
-            raise AssertionError(f"K={k}: the int8 GEMM was never launched while "
-                                 f"measuring the target")
+        if skipped:
+            raise AssertionError(f"K={k}: {skipped} sampled ops lie outside the "
+                                 f"probe graphs")
+        if not 0 < gemm_ops <= measuring["int8_matmul"]:
+            raise AssertionError(f"K={k}: {measuring['int8_matmul']} int8 GEMM launches "
+                                 f"while measuring {gemm_ops} GEMM-route ops (needs "
+                                 f"0 < ops <= launches)")
         svc = LatencyService(hub, predictor="gbdt", device=device)
         reset_counts()
         reports = svc.predict_batch(held, target)
@@ -1372,10 +1405,9 @@ def run_transfer_path(device, target, graphs, oracle, n_train: int = 32,
         row = {"k": k, "result": result.to_json(), "adapt_s": adapt_s,
                "measured_ops": session.measured_ops,
                "measured_graphs": session.measured_graphs,
-               # Sampled from the whole source store, measured only where
-               # the probe (training) graphs hold the signature.
-               "sampled_not_in_probe_graphs": len(result.plan.records)
-               - result.n_op_measurements,
+               # Sampled from the probe (training) graphs' records: 0.
+               "sampled_not_in_probe_graphs": skipped,
+               "measured_gemm_route_ops": gemm_ops,
                "e2e_mape_held_out": mape(truth, [r.e2e_s for r in reports]),
                "oracle_e2e_mape_held_out": oracle["summary"]["e2e_mape_held_out"],
                "oracle_trained_on_ops": oracle_ops,
@@ -2425,6 +2457,10 @@ CONSISTENCY_TOL = 2e-2
 # The full-width LM on the card against the port on the host, reduced size.
 HOST_TOL = 1e-4
 FORWARD_SHAPE = (4, 1024)           # (batch, tokens) of the timed forward
+# The LM path's Granite at full width and half its depth: its decode steps
+# are host-bound (97 ms a call at 24 layers), and the serving driver's
+# `main` serves Granite at full depth after it.
+LM_DEPTH = {"num_layers": 12}
 
 
 class FlashCase(NamedTuple):
@@ -3075,11 +3111,13 @@ def profile_lm(model, params, tokens, device, steps: int = 3, tag: str = "lm_pro
 
 
 def run_lm_path(device, new_tokens: int = 16) -> dict:
-    """Granite-MoE at full width from the port's own init (torch.Generator,
-    seed 0): prefill/decode consistency, then, with every launch count
+    """Granite-MoE at full width and `LM_DEPTH` from the port's own init
+    (torch.Generator, seed 0): prefill/decode consistency, then, with every launch count
     zeroed just before and read just after, `Model.forward` on 4 × 1,024
     tokens and a 4-slot `ServeEngine` answering 8 requests; then a
     profiled forward and decode steps (`profile_lm`, not counted)."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -3087,7 +3125,8 @@ def run_lm_path(device, new_tokens: int = 16) -> dict:
     from repro_torch.obs import Observability
     from repro_torch.serving import ServeEngine
 
-    cfg = get_arch(LM_ARCH)
+    full = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(full, **LM_DEPTH)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(0, device=device)
@@ -3158,6 +3197,7 @@ def run_lm_path(device, new_tokens: int = 16) -> dict:
     breakdown = profile_lm(model, params, tokens, device,
                            kernels=("flash_fwd", "moe_gmm"))
     out = {"arch": cfg.name, "params": n_params, "init_s": init_s,
+           "reduced": {k: f"{v} of {getattr(full, k)}" for k, v in LM_DEPTH.items()},
            "forward_tokens": [b, s], "forward_s": forward_s,
            "forward_launches": {k: fwd[k] for k in ("flash_attention", "moe_gmm")},
            "requests": len(prompts), "requests_finished": len(done),
@@ -3180,6 +3220,14 @@ def run_lm_path(device, new_tokens: int = 16) -> dict:
 # -- the SSM and hybrid LM path (Mamba2, Zamba2) ------------------------------------
 
 SSM_ARCHS = ("mamba2-2.7b", "zamba2-1.2b")
+# The depth each SSM runs at on the serving path, at full width: every
+# decode step's host time grows with the layers (a Mamba2 serving call
+# took 93.9 ms at 64 layers and 24.6 ms at 16; NVIDIA H100 80GB HBM3,
+# 700 W), and the check of decode against forward feeds 512 tokens one at
+# a time twice.  Mamba2 at 8 of 64
+# layers; Zamba2 at 8 of 38 (one shared-attention group of 6 and a tail
+# of 2, as the full 6 × 6 + 2).
+SSM_DEPTH = {"mamba2-2.7b": {"num_layers": 8}, "zamba2-1.2b": {"num_layers": 8}}
 SSM_FORWARD_SHAPE = (2, 4096)       # (batch, tokens): 16 chunks of 256
 SSM_CONSISTENCY_SEQ = 512           # two chunks, so h_prev is not all zero
 SSM_REQUESTS = {"mamba2-2.7b": 8, "zamba2-1.2b": 4}
@@ -3470,14 +3518,15 @@ def profile_ssm(cfg, model, params, tokens, device) -> dict:
 
 
 def run_ssm_path(device, new_tokens: int = 16) -> dict:
-    """Mamba2 2.7B, then Zamba2 1.2B, at full width and depth from the
-    port's own init (seed 0; float32 parameters, bfloat16 compute): for
+    """Mamba2 2.7B, then Zamba2 1.2B, at full width (depth cut as
+    `SSM_DEPTH` says) from the port's own init (seed 0; float32 parameters, bfloat16 compute): for
     each, prefill/decode consistency first (not counted), then, with every
     launch count zeroed just before and read just after, `Model.forward` on
     2 × 4,096 tokens (one ssd_scan launch per Mamba block, one flash launch
     per shared-block call) and a 4-slot `ServeEngine`; each is then
     profiled (`profile_ssm`, not counted).  Each model is freed before the
     next is built."""
+    import dataclasses
     import gc
 
     import numpy as np
@@ -3488,7 +3537,8 @@ def run_ssm_path(device, new_tokens: int = 16) -> dict:
 
     out, launches = {}, {}
     for arch in SSM_ARCHS:
-        cfg = get_arch(arch)
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, **SSM_DEPTH[arch])
         model = build_model(cfg)
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
@@ -3547,6 +3597,8 @@ def run_ssm_path(device, new_tokens: int = 16) -> dict:
         generated = sum(len(r.generated) for r in done)
         out[arch] = {
             "arch": cfg.name, "params": n_params, "init_s": init_s,
+            "reduced": {k: f"{v} of {getattr(full, k)}"
+                        for k, v in SSM_DEPTH[arch].items()},
             "forward_tokens": [b, s], "forward_s": forward_s,
             "forward_launches": {k: fwd[k] for k in ("ssd_scan", "flash_attention")},
             "requests": len(prompts), "requests_finished": len(done),
@@ -3572,20 +3624,22 @@ def run_ssm_path(device, new_tokens: int = 16) -> dict:
 # -- the rest of the LM zoo (gemma2, the VLM, Whisper) ------------------------------
 
 # Each model at full width (d_model, heads, head_dim, d_ff, vocab as
-# configured) and the depth that fits on one 80 GB card in float32
-# parameters plus their cached bfloat16 copies; depth is the only cut.
+# configured); depth is the only cut.  Every decode step's host time grows
+# with the layers, and each model feeds 2 × 128 tokens one at a time
+# (`check_prefill_decode`) before it serves 8 requests, so the depth is
+# the least that keeps each model's structure whole.
 #   arch → (layer counts replaced, forward batch, forward tokens)
 ZOO = {
-    # 12 of 46 layers (6 local/global pairs): 7.97 B parameters, 47.8 GB.
+    # 4 of 46 layers (2 local/global pairs): 3.44 B parameters, 13.8 GB.
     # 6,144 tokens: the local layers' window of 4,096 masks keys for the
     # last 2,048 rows.
-    "gemma2-27b": ({"num_layers": 12}, 1, 6144),
-    # 2 of 20 groups (8 self- and 2 cross-attention layers of 100): 9.25 B
-    # parameters, 55.5 GB; 2,048 tokens over 1,600 vision embeddings.
-    "llama-3.2-vision-90b": ({"num_layers": 10}, 1, 2048),
-    # Full depth (32 encoder and 32 decoder layers), 1,500 frames and the
-    # decoder's 448 tokens.
-    "whisper-large-v3": ({}, 2, 448),
+    "gemma2-27b": ({"num_layers": 4}, 1, 6144),
+    # 1 of 20 groups (4 self- and 1 cross-attention layer of 100): 5.67 B
+    # parameters, 22.7 GB; 2,048 tokens over 1,600 vision embeddings.
+    "llama-3.2-vision-90b": ({"num_layers": 5}, 1, 2048),
+    # 8 of 32 encoder and 8 of 32 decoder layers: 0.48 B parameters;
+    # 1,500 frames and the decoder's 448 tokens.
+    "whisper-large-v3": ({"num_layers": 8, "encoder_layers": 8}, 2, 448),
 }
 # The VLM's gates start at zero (as the reference's), which would hide a
 # wrong cross-attention: the card's runs set them to this value.
@@ -3826,7 +3880,7 @@ def _serve_launches_per_call(cfg) -> dict:
 def run_serve_driver_path(device) -> dict:
     """The serving driver, `repro_torch.launch.serve`, as a user runs it:
     `main` for Granite-MoE and Whisper at full size, and `serve` for the
-    VLM at the zoo's cut (10 of 100 layers), each from the port's own init
+    VLM at the zoo's cut (5 of 100 layers), each from the port's own init
     (seed 0) with the driver's zero extras.  Each run with every launch
     count zeroed just before it and read just after; gates: every request
     answered with ``max_new`` tokens in the vocabulary, the driver's
@@ -3905,17 +3959,19 @@ TRAIN_SHAPE = (4, 1024)             # (batch, tokens) of a training step
 TRAIN_STEPS = 8
 # The models trained after Granite, each at full width from the port's own
 # init: arch → (config fields replaced, (batch, tokens), the cut listed in
-# its ``reduced`` field).  Mamba2 (2.70 B parameters: 43 GB of float32
-# parameters, gradients and AdamW moments, ~1.7 GB of one recomputed
-# layer's intra-chunk buffers) and Zamba2 (1.10 B) at full depth; gemma2
+# its ``reduced`` field).  Mamba2 at 16 of 64 layers (0.77 B parameters)
+# and Zamba2 at 14 of 38 (two shared-attention groups and a tail, 0.49 B):
+# at full depth their 8 steps took 34.4 and 20.2 s of the script's time,
+# at these 8.7 and 8.1 s (NVIDIA H100 80GB HBM3, 700 W); gemma2
 # at one local/global pair (2 of 46 layers: 2.31 B parameters, 37 GB of
 # state) on 4,608 tokens, so that the local layer's window of 4,096 hides
 # keys from the last 512 rows.  Its loss holds several float32 buffers of
 # tokens × 256,000 logits at once (capped, tanh, their gradients): at
 # 6,144 tokens (5.86 GiB each) the first backward ran out of the card's
 # 80 GB with 66.4 GiB allocated (NVIDIA H100 80GB HBM3, 700 W).  Whisper
-# at full depth (32 encoder and 32 decoder layers: 1.58 B parameters,
-# 25 GB of state) on 4 × 448 tokens over 4 × 1,500 frames.  The VLM at one
+# at the zoo's depth (8 of 32 encoder and 8 of 32 decoder layers: 0.48 B
+# parameters; 26.4 s at full depth) on 4 × 448 tokens over 4 × 1,500
+# frames.  The VLM at one
 # self- and one cross-attention layer (the reference's own `reduced()`
 # takes cross_attn_every 2): one published group of 4 self layers and a
 # cross layer with the 2.10 B-parameter embedding and head is 5.67 B
@@ -3931,12 +3987,13 @@ TRAIN_STEPS = 8
 # port's step follows it through the rise
 # (tests/test_torch_train.py::test_wide_vlm_loss_rise_at_a_large_rate_is_the_references).
 TRAIN_MODELS = {
-    "mamba2-2.7b": ({}, (4, 1024), "none", 3e-4),
-    "zamba2-1.2b": ({}, (4, 1024), "none", 3e-4),
+    "mamba2-2.7b": ({"num_layers": 16}, (4, 1024), "num_layers 16 of 64", 3e-4),
+    "zamba2-1.2b": ({"num_layers": 14}, (4, 1024), "num_layers 14 of 38", 3e-4),
     "gemma2-27b": ({"num_layers": 2}, (1, 4608),
                    "num_layers 2 of 46 (one local/global pair); 4,608 tokens "
                    "(6,144 ran out of memory)", 3e-4),
-    "whisper-large-v3": ({}, (4, 448), "none", 3e-4),
+    "whisper-large-v3": (ZOO["whisper-large-v3"][0], (4, 448),
+                         "num_layers 8 of 32, encoder_layers 8 of 32", 3e-4),
     "llama-3.2-vision-90b": ({"num_layers": 2, "cross_attn_every": 2}, (2, 2048),
                              "num_layers 2 of 100, cross_attn_every 2 of 5 (one self "
                              "and one cross layer: 100 layers do not fit one card); "
@@ -4858,6 +4915,187 @@ def check_host_ranks() -> dict:
     return line
 
 
+# The dry run's production cell, traced in a child process (a fake
+# process group is process-global) through the CLI a user runs.
+DRYRUN_CELL = ("qwen2-72b", "decode_32k", "single")
+# Granite at full width and depth (24 layers) on 16 × 1,024 tokens, 16
+# microbatches, traced in fake mode and run on the card.
+DRYRUN_TRAIN = ("granite-moe-1b-a400m", 1024, 16)
+# The traced peak against the card's `max_memory_allocated` (less what was
+# allocated before the cell was built): a miss means a tensor the trace
+# does not see.
+DRYRUN_PEAK_BAND = 0.15
+
+
+# The Granite trace's child process: one fake-mode `run_cell` on `cuda`,
+# its record (with the trace's seconds) as the last line of its output.
+DRYRUN_TRAIN_CHILD = """
+import json, sys, time
+from repro_torch.configs import InputShape, get_arch
+from repro_torch.launch import dryrun
+name, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+t0 = time.perf_counter()
+rec = dryrun.run_cell(name, "train_4k", None, cfg_override=get_arch(name),
+                      shape_override=InputShape("train_4k", seq, batch, "train"),
+                      fake=True, device="cuda")
+rec.pop("traceback", None)
+rec["trace_s"] = time.perf_counter() - t0
+print(json.dumps(rec))
+"""
+
+
+class DryrunTraces:
+    """The dry run's two fake-mode traces, each in a child process started
+    as soon as the kernels are built: `DRYRUN_CELL` through the CLI a user
+    runs (a fake process group is process-global) and Granite's
+    `DRYRUN_TRAIN` (`DRYRUN_TRAIN_CHILD`).  A trace is host work on fake
+    tensors that allocates nothing on the card, so both overlap the card's
+    phases; `run_dryrun_path` waits for them.  `stop` ends any child
+    still running."""
+
+    def __init__(self) -> None:
+        arch, shape, mesh = DRYRUN_CELL
+        out_dir = ROOT / "build" / "dryrun"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        self.cell_out = out_dir / f"{arch}_{shape}_{mesh}.json"
+        if self.cell_out.exists():
+            self.cell_out.unlink()
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(ROOT / "src")
+        name, seq, batch = DRYRUN_TRAIN
+        self.logs = {}
+        self.started = time.perf_counter()
+        self.cell = self._start(
+            "cell", ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                     "--mesh", mesh, "--out", str(self.cell_out), "--device", "cuda"],
+            out_dir, env)
+        self.train = self._start("train", ["-c", DRYRUN_TRAIN_CHILD, name, str(seq),
+                                           str(batch)], out_dir, env)
+
+    def _start(self, key: str, args: list, out_dir: Path, env: dict):
+        """A child with its output and errors in files (a pipe nobody reads
+        until the child ends could fill and stall it)."""
+        out, err = out_dir / f"{key}.out", out_dir / f"{key}.err"
+        self.logs[key] = (out, err)
+        with open(out, "w") as fo, open(err, "w") as fe:
+            return subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
+                                    stdout=fo, stderr=fe)
+
+    def wait(self, key: str, what: str, timeout: float = 900) -> str:
+        """The child's output once it has ended; raises if it failed."""
+        proc = getattr(self, key)
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - self.started)))
+        out, err = (path.read_text() for path in self.logs[key])
+        if proc.returncode:
+            raise AssertionError(f"{what} exited {proc.returncode}:\n{err[-3000:]}")
+        return out
+
+    def stop(self) -> None:
+        for proc in (self.cell, self.train):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_dryrun_path(device, traces: DryrunTraces) -> dict:
+    """The dry run (`repro_torch.launch.dryrun`): `DRYRUN_CELL` traced on
+    fake CUDA tensors over a fake group of 256 ranks (its record and
+    seconds printed), then Granite (`DRYRUN_TRAIN`) traced in fake mode
+    and run for real on the card at world size 1.  Both traces run in
+    ``traces``' child processes; this waits for them.  Gates: FLOPs and
+    argument bytes equal, the traced peak within `DRYRUN_PEAK_BAND` of the
+    card's, the real loss finite, every LM kernel of the step launched.
+    Launch counts are zeroed just before the real run and read just after
+    it."""
+    import torch
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.launch import dryrun
+
+    arch, shape, _ = DRYRUN_CELL
+    t0 = time.perf_counter()
+    traces.wait("cell", f"dry run of {arch} × {shape}")
+    cell_wait_s = time.perf_counter() - t0
+    if not traces.cell_out.exists():
+        raise AssertionError(f"dry run of {arch} × {shape} wrote no record")
+    rec = json.loads(traces.cell_out.read_text())["cells"][0]
+    log("dryrun_cell " + json.dumps(rec))
+    log(f"dryrun_cell_s {rec['lower_s'] + rec['compile_s']:.1f} (waited {cell_wait_s:.1f})")
+    if not rec["ok"] or rec["cost"]["flops_per_device"] <= 0 or \
+            rec["mesh"] != {"data": 16, "model": 16}:
+        raise AssertionError(f"dry run of {arch} × {shape}: {rec.get('error', rec)}")
+
+    name, seq, batch = DRYRUN_TRAIN
+    cfg = get_arch(name)
+    train = InputShape("train_4k", seq, batch, "train")
+    t0 = time.perf_counter()
+    fake = json.loads(traces.wait("train", f"trace of {name}").strip().splitlines()[-1])
+    train_wait_s = time.perf_counter() - t0
+    fake_s = fake.pop("trace_s")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    real = dryrun.run_cell(name, "train_4k", None, cfg_override=cfg,
+                           shape_override=train, fake=False, device="cuda")
+    real_s = time.perf_counter() - t0
+    launches = read_counts()
+    real.pop("traceback", None)
+    card_peak = real.get("max_memory_allocated", 0) - real.get("allocated_before_build", 0)
+    row = {"arch": name, "layers": cfg.num_layers, "tokens": [batch, seq],
+           "fake": fake, "real": real, "fake_s": fake_s, "fake_wait_s": train_wait_s,
+           "real_s": real_s, "card_peak_bytes": card_peak,
+           "peak_ratio": fake.get("peak_bytes", 0) / card_peak if card_peak else None,
+           "launches": launches}
+    log("dryrun_train " + json.dumps(row))
+    torch.cuda.empty_cache()
+    if not (fake["ok"] and real["ok"]):
+        raise AssertionError(f"dry run of {name}: {fake.get('error')} / {real.get('error')}")
+    if fake["cost"]["flops_per_device"] != real["cost"]["flops_per_device"]:
+        raise AssertionError(f"traced FLOPs {fake['cost']['flops_per_device']} != the "
+                             f"card's {real['cost']['flops_per_device']}")
+    if fake["memory"]["argument_bytes"] != real["memory"]["argument_bytes"]:
+        raise AssertionError(f"traced argument bytes {fake['memory']['argument_bytes']} "
+                             f"!= the card's {real['memory']['argument_bytes']}")
+    if abs(fake["peak_bytes"] - card_peak) > DRYRUN_PEAK_BAND * card_peak:
+        raise AssertionError(f"traced peak {fake['peak_bytes']} is not within "
+                             f"{DRYRUN_PEAK_BAND:.0%} of the card's {card_peak}")
+    if not (real["loss"] is not None and math.isfinite(real["loss"])):
+        raise AssertionError(f"the card's step loss {real['loss']}")
+    for kernel in ("flash_attention", "flash_attention_backward", "moe_gmm"):
+        if launches[kernel] == 0:
+            raise AssertionError(f"the dry run's step never launched {kernel}")
+    return {"cell": rec, "train": row, "launches": launches}
+
+
+def run_examples_path(device) -> dict:
+    """``examples/torch/quickstart.py``'s ``main`` in this process on the
+    card, with a store of its own under build/ (cold): it profiles its
+    graphs on the card and predicts the held-out ones through the tree
+    kernel.  Gate: the tree kernels launched.  Counts zeroed just before."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch" / "quickstart.py")
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    store = ROOT / "build" / "examples" / "quickstart_store.jsonl"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    reset_counts()
+    t0 = time.perf_counter()
+    svc = quickstart.main(["--store", str(store)])
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    tree = launches["tree_predict_fused"] + launches["tree_gather_leaves"]
+    row = {"example": "quickstart", "seconds": seconds, "tree_launches": tree,
+           "launches": launches, "stats": svc.stats()}
+    log("examples " + json.dumps(row, default=str))
+    if tree == 0:
+        raise AssertionError("quickstart's predictions never launched the tree kernel")
+    return row
+
+
 def run_multi_device_path(device, bank, population, unsharded: dict) -> dict:
     """(a) the sharded tree flush (`check_sharded_flush`) over the main
     path's bank; (b) Granite-MoE at full width trained on a world-size-1
@@ -5103,68 +5341,6 @@ def time_winograd(device) -> list:
     return rows
 
 
-def time_flex_attention(c: FlashCase, q, k, v, device, do=None) -> dict:
-    """One ``torch.nn.attention.flex_attention`` call (compiled, the
-    softcap as a tanh ``score_mod``, the causal mask and the window as a
-    block mask) on the case's inputs: the library call that computes the
-    kernel's function with a softcap.  Its error against the plain
-    version is reported beside its time.  Given ``do``, its backward
-    instead: ``torch.autograd.grad`` of one compiled forward with the graph
-    kept, against `flash_attention_backward_plain`.  Timed only, used
-    nowhere in the port; where this torch cannot compile it, the error is
-    reported and the time is null."""
-    import torch
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as fa
-
-    # Inductor's and Triton's caches go under the repo's ignored build/.
-    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
-        os.environ.setdefault(var, str(_build.BUILD_DIR / sub))
-    cap, window = c.softcap, c.window
-
-    def score_mod(score, b, h, q_idx, kv_idx):
-        return torch.tanh(score / cap) * cap
-
-    def mask_mod(b, h, q_idx, kv_idx):     # the softcap cases are causal
-        keep = q_idx >= kv_idx
-        return keep & (q_idx - kv_idx < window) if window else keep
-
-    try:
-        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
-
-        block_mask = create_block_mask(mask_mod, None, None, c.s, c.keys, device=device)
-        flex = torch.compile(flex_attention, dynamic=False)
-        if do is None:
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-            def call():
-                return flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
-                            enable_gqa=True)
-
-            err = float((call().transpose(1, 2).float() - fa.flash_attention_plain(
-                q, k, v, **_flash_kw(c)).float()).abs().max())
-        else:
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-            out = flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
-                       enable_gqa=True)
-            dot = do.transpose(1, 2)
-
-            def call():
-                return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
-
-            o, lse = _plain_forward(q, k, v, c)
-            want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, **_flash_kw(c))
-            err = max(float((g.transpose(1, 2).float() - w.float()).abs().max())
-                      for g, w in zip(call(), want))
-            del o, lse, want
-        ms = cuda_ms(call)["device"]
-    except Exception as e:          # a library's limits, not the port's
-        log(f"flex_attention {c.label}: could not run ({type(e).__name__}: {e})")
-        return {"flex_ms": None, "flex_max_abs_err": None,
-                "flex_error": f"{type(e).__name__}: {e}"[:300]}
-    return {"flex_ms": ms, "flex_max_abs_err": err}
-
-
 def time_flash(device) -> list:
     """The flash kernel at the Granite forward's shape (b = 4, s = 1,024,
     16 query and 8 kv heads, d = 64, causal, bfloat16 and float32), at the
@@ -5174,8 +5350,7 @@ def time_flash(device) -> list:
     ``F.scaled_dot_product_attention`` call on the same input.  SDPA has
     no softcap: for gemma2's cases it computes another function (no
     softcap; the local case with a boolean window mask), labelled
-    ``library_fn``; beside it ``flex_ms`` times the same function through
-    flex_attention (`time_flex_attention`).  Bound: q, k, v read once and o written once, against
+    ``library_fn``.  Bound: q, k, v read once and o written once, against
     4·d operations for each (query, key) pair the masks keep, at the
     type's rate."""
     import torch
@@ -5213,8 +5388,6 @@ def time_flash(device) -> list:
                      "max_abs_err": err, "ms": kern["device"], "host_ms": kern["host"],
                      "plain_ms": plain["device"], "library_ms": lib["device"],
                      "library_fn": library_fn, "bound_ms": b_ms, "bound_by": b_by})
-        if c.softcap:
-            rows[-1].update(time_flex_attention(c, q, k, v, device))
         log("time flash_attention " + json.dumps(rows[-1]))
         del q, k, v, qt, kt, vt, mask
         torch.cuda.empty_cache()
@@ -5297,14 +5470,6 @@ FLASH_BWD_TIMED = ("forward", "forward_f32", "gemma2_global", "gemma2_local",
                    "vlm_cross", "whisper_encoder_train", "whisper_cross")
 
 
-def _plain_forward(q, k, v, c: FlashCase) -> tuple:
-    """The plain forward's output and log-sum-exp for case ``c``."""
-    from repro_torch.kernels import flash_attention as fa
-
-    kw = _flash_kw(c)
-    return fa.flash_attention_plain(q, k, v, **kw), fa.flash_lse_plain(q, k, **kw)
-
-
 def sdpa_backward(q, k, v, do, causal: bool, mask=None) -> tuple:
     """SDPA's backward for the flash backward's function: the gradient of
     one ``F.scaled_dot_product_attention`` forward (GQA; ``mask`` a boolean
@@ -5339,8 +5504,7 @@ def time_flash_backward(device) -> list:
     off, through ``torch.autograd.grad`` with the graph kept) on the same
     q, k, v and dO.  SDPA has no softcap: for gemma2's calls it computes
     another function (the window as a boolean mask), labelled
-    ``library_fn``; beside it ``flex_ms`` times the same function's
-    backward through flex_attention (`time_flex_attention`).  Bound:
+    ``library_fn``.  Bound:
     `_flash_bwd_bound`."""
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -5383,8 +5547,6 @@ def time_flash_backward(device) -> list:
                      "bound_ms": b_ms, "bound_by": b_by,
                      "pairs": c.b * c.h * flash_pairs(c.s, c.keys, c.causal, c.window)})
         del sdpa, lib_grads, mask
-        if c.softcap:
-            rows[-1].update(time_flex_attention(c, q, k, v, device, do=do))
         log("time flash_attention_backward " + json.dumps(rows[-1]))
         del q, k, v, do, o, lse, got, want
         torch.cuda.empty_cache()
@@ -5452,6 +5614,96 @@ def time_ssd_scan(device) -> list:
         log("time ssd_scan " + json.dumps(rows[-1]))
     log("library_ms: null for ssd_scan — no single PyTorch call computes the "
         "inter-chunk recurrence (a cumulative product-and-sum over chunks)")
+    return rows
+
+
+def time_custom_op_dispatch(device, calls: int = 2000) -> list:
+    """Host µs a call of each LM kernel through its `torch.library` op
+    (`ops.flash_attention`, `ops.moe_gmm`, `ops.ssd_scan`, no gradient:
+    `call_op` sends the call below the autograd step) against the entry
+    point before the ops (its checks, then the CUDA wrapper: ``before``)
+    and the CUDA wrapper alone (``direct``): all launch the same kernel,
+    so the differences are the op's dispatch and the checks.  Beside
+    them, the op called by name (``torch.ops.repro_torch.*``) through the
+    dispatcher's autograd step, as a call that may take a gradient goes.
+    Small shapes (Granite's heads and experts on a few rows), so the host
+    bounds every loop; the loops are timed in turns (direct, before, op,
+    autograd, autograd, op, before, direct) and each pair averaged."""
+    import torch
+    from repro_torch.kernels import flash_attention_cuda as fac
+    from repro_torch.kernels import moe_gmm_cuda as gmmc
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan_cuda as ssc
+    from repro_torch.kernels._build import refuse_dtensor
+    from repro_torch.kernels.flash_attention import _check_heads
+    from repro_torch.kernels.ssd_scan import _check_shapes
+
+    g = torch.Generator(device=device).manual_seed(0)
+    by_name = torch.ops.repro_torch
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=device, dtype=torch.float32).to(dtype)
+
+    q, k, v = randn(1, 16, 16, 64), randn(1, 16, 8, 64), randn(1, 16, 8, 64)
+    x, w = randn(40, 4, 1024), randn(40, 1024, 512)
+    s, d = randn(4, 1, 8, 64, 128, dtype=torch.float32), \
+        torch.rand((4, 1, 8), generator=g, device=device)
+
+    def flash_before():
+        refuse_dtensor("flash_attention", q, k, v)
+        _check_heads(q, k, v)
+        return fac.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                        causal=True, q_offset=0, window=0, softcap=0.0)
+
+    def gmm_before():
+        refuse_dtensor("moe_gmm", x, w)
+        if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
+                or x.shape[2] != w.shape[1]:
+            raise ValueError("shapes")
+        return gmmc.moe_gmm_cuda(x.contiguous(), w.contiguous())
+
+    def scan_before():
+        refuse_dtensor("ssd_scan", s, d)
+        _check_shapes(s, d)
+        return ssc.ssd_scan_cuda(s.contiguous(), d.contiguous())
+
+    cases = {
+        "flash_attention": (lambda: ops.flash_attention(q, k, v),
+                            lambda: by_name.FlashAttention(q, k, v, True, 0, 0, 0.0, False),
+                            flash_before, lambda: fac.flash_attention_cuda(q, k, v)),
+        "moe_gmm": (lambda: ops.moe_gmm(x, w), lambda: by_name.GroupedMatmul(x, w),
+                    gmm_before, lambda: gmmc.moe_gmm_cuda(x, w)),
+        "ssd_scan": (lambda: ops.ssd_scan(s, d), lambda: by_name.SSDScan(s, d),
+                     scan_before, lambda: ssc.ssd_scan_cuda(s, d)),
+    }
+
+    def per_call_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    rows = []
+    with torch.no_grad():
+        for name, (op, autograd, before, direct) in cases.items():
+            d1, b1, o1, a1, a2, o2, b2, d2 = (
+                per_call_us(f) for f in (direct, before, op, autograd, autograd, op,
+                                         before, direct))
+            row = {"kernel": name, "calls": calls, "op_us": (o1 + o2) / 2,
+                   "autograd_us": (a1 + a2) / 2, "before_us": (b1 + b2) / 2,
+                   "direct_us": (d1 + d2) / 2,
+                   "dispatch_us": (o1 + o2 - b1 - b2) / 2}
+            log("custom_op_dispatch " + json.dumps(row))
+            rows.append(row)
+        # Two parts of the flash op's call, alone: the empty log-sum-exp it
+        # returns without a gradient, and the casts of its four scalars.
+        parts = {"new_empty_us": per_call_us(lambda: q.new_empty((0,), dtype=torch.float32)),
+                 "scalar_casts_us": per_call_us(lambda: (bool(True), int(0), int(0),
+                                                         float(0.0)))}
+        log("custom_op_dispatch_flash_parts " + json.dumps(parts))
     return rows
 
 
@@ -5542,13 +5794,20 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    phase = "card"
+    starts = []                     # (phase, its start), in order
+
+    def enter(name: str) -> str:
+        starts.append((name, time.perf_counter()))
+        return name
+
+    phase = enter("card")
+    traces = None
     try:
         card = card_line()
         log(f"card: {card}")
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"python {sys.version.split()[0]}")
-        phase = "build"
+        phase = enter("build")
         from repro_torch.kernels import _build
 
         t0 = time.perf_counter()
@@ -5561,12 +5820,15 @@ def main() -> int:
             for line in b["ptxas"].splitlines():
                 if "registers" in line or "Compiling entry" in line or "spill" in line:
                     log(f"ptxas {name}: " + line.strip())
+        # The dry run's fake-mode traces run beside the card's phases.
+        traces = DryrunTraces()
         log_bf16_smem()
         imma = sass_opcodes("int8_matmul", "IMMA")
         log(f"sass int8_matmul: {imma} IMMA instructions")
         if imma == 0:
             raise AssertionError("the int8 GEMM is not on the s8 tensor cores")
 
+        phase = enter("graphs")
         from repro_torch.core.dataset import synthetic_graphs
         from repro_torch.core.profiler import DeviceSetting
 
@@ -5576,22 +5838,30 @@ def main() -> int:
         f32 = DeviceSetting("h100_f32", "float32", "fused_groups", device="h100")
         int8 = DeviceSetting("h100_int8", "int8", "op_by_op", device="h100")
 
-        phase = "parity"
+        phase = enter("parity (trees)")
         parity = [check_parity(n, m, r, device) for n, m, r in parity_models()]
+        phase = enter("parity (int8)")
         gemm_parity = check_int8_gemm(graphs, device)
+        phase = enter("parity (Winograd)")
         wino_parity = check_winograd(device)
+        phase = enter("parity (int8 round trips and executor)")
         lut_diffs = check_int8_round_trips(device)
         check_int8_executor(graphs[:2], device, lut_diffs)
+        phase = enter("parity (flash)")
         flash_parity = check_flash(device)
         flash_bwd_parity = check_flash_backward(device)
+        phase = enter("parity (GMM)")
         gmm_parity = check_gmm(device)
         gmm_bwd_parity = check_gmm_backward(device)
+        phase = enter("parity (LMs, card against host)")
         check_lm_on_host(device)
+        phase = enter("parity (SSD scan)")
         ssd_parity = check_ssd_scan(device)
         ssd_bwd_parity = check_ssd_scan_backward(device)
+        phase = enter("parity (SSMs, card against host)")
         check_ssm_on_host(device)
 
-        phase = "main path (float32)"
+        phase = enter("main path (float32)")
         main_f32 = run_main_path(device, f32, graphs, pop, pop2)
         tree_routes = {r: main_f32["summary"]["tree_routes"][r]
                        + sum(p["routes"][r] for p in parity)
@@ -5603,7 +5873,7 @@ def main() -> int:
         log("host_featurize_1024_cold_s " + json.dumps(cold_featurize_s(
             synthetic_graphs(1024, resolution=224, seed0=30_000))))
 
-        phase = "main path (int8)"
+        phase = enter("main path (int8)")
         main_i8 = run_main_path(device, int8, graphs, pop, pop2)
         if main_i8["summary"]["launches"]["int8_matmul"] == 0:
             raise AssertionError("the int8 GEMM was never launched on the int8 path")
@@ -5615,64 +5885,74 @@ def main() -> int:
             raise AssertionError(f"int8 GEMM routes {i8_routes} for {i8_launches} "
                                  f"launches: every route should be taken")
 
-        phase = "transfer path"
+        phase = enter("transfer path")
         t0 = time.perf_counter()
         transfer = run_transfer_path(device, int8, graphs, main_i8)
         log(f"transfer_path_s {time.perf_counter() - t0:.1f}")
 
-        phase = "paper method path"
+        phase = enter("paper method path")
         t0 = time.perf_counter()
         run_paper_method_path(device, transfer, int8, main_i8, graphs)
         log(f"paper_method_path_s {time.perf_counter() - t0:.1f}")
 
-        phase = "real-world path"
+        phase = enter("real-world path")
         t0 = time.perf_counter()
         run_realworld_path(device, f32, graphs, main_f32["store"])
         log(f"realworld_path_s {time.perf_counter() - t0:.1f}")
 
-        phase = "search path"
+        phase = enter("search path")
         t0 = time.perf_counter()
         search = run_search_path(device, {f32: (main_f32["bank"], main_f32["store"]),
                                           int8: (main_i8["bank"], main_i8["store"])},
                                  graphs)
         log(f"search_path_s {time.perf_counter() - t0:.1f}")
 
-        phase = "RPC path"
+        phase = enter("RPC path")
         t0 = time.perf_counter()
         run_rpc_path(device, {f32: main_f32["bank"], int8: main_i8["bank"]}, search,
                      graphs)
         log(f"rpc_path_s {time.perf_counter() - t0:.1f}")
 
-        phase = "selection path"
+        phase = enter("selection path")
         sel = run_selection_path(device, f32, graphs, main_f32["store"])
 
-        phase = "LM serving path"
+        phase = enter("LM serving path")
         lm = run_lm_path(device)
 
-        phase = "SSM and hybrid LM path"
+        phase = enter("SSM and hybrid LM path")
         ssm = run_ssm_path(device)
 
-        phase = "LM zoo path"
+        phase = enter("LM zoo path")
         t0 = time.perf_counter()
         zoo = run_lm_zoo_path(device)
         log(f"lm_zoo_path_s {time.perf_counter() - t0:.1f}")
 
-        phase = "serving driver path"
+        phase = enter("serving driver path")
         t0 = time.perf_counter()
         served = run_serve_driver_path(device)
         log(f"serve_driver_path_s {time.perf_counter() - t0:.1f}")
 
-        phase = "LM training path"
+        phase = enter("LM training path")
         t0 = time.perf_counter()
         train = run_lm_train_path(device)
         log(f"lm_train_path_s {time.perf_counter() - t0:.1f}")
 
-        phase = "multi-device path"
+        phase = enter("multi-device path")
         t0 = time.perf_counter()
         multi = run_multi_device_path(device, main_f32["bank"], pop, train)
         log(f"multi_device_path_s {time.perf_counter() - t0:.1f}")
 
-        phase = "times"
+        phase = enter("dry run path")
+        t0 = time.perf_counter()
+        dry = run_dryrun_path(device, traces)
+        log(f"dryrun_path_s {time.perf_counter() - t0:.1f}")
+
+        phase = enter("examples path")
+        t0 = time.perf_counter()
+        run_examples_path(device)
+        log(f"examples_path_s {time.perf_counter() - t0:.1f}")
+
+        phase = enter("times (device guard, tree kernels)")
         log("device_guard " + json.dumps(time_device_guard(device)))
         timed = time_kernels(main_f32["bank"], main_f32["held"], pop, device)
         preds = main_f32["bank"].predictors
@@ -5682,14 +5962,19 @@ def main() -> int:
             [(p["slots"], p["numpy_ms"], p["cuda_path_ms"]) for p in curve]))
         log("library_ms: null for the tree kernels — no single PyTorch call "
             "computes a tree-ensemble traversal")
+        phase = enter("times (int8 GEMM, Winograd)")
         gemm_rows = time_int8_gemm(main_i8["held"][0], device)
         wino_rows = time_winograd(device)
+        phase = enter("times (flash)")
         flash_rows = time_flash(device)
+        phase = enter("times (flash backward)")
         flash_bwd_rows = time_flash_backward(device)
+        phase = enter("times (GMM, SSD scan, dispatch)")
         gmm_rows = time_gmm(device)
         time_gmm_backward(device)
         ssd_rows = time_ssd_scan(device)
         ssd_bwd_rows = time_ssd_scan_backward(device)
+        time_custom_op_dispatch(device)
 
         parity_err = max(p["fused_max_abs_err"] for p in parity)
         kernels = []
@@ -5712,19 +5997,22 @@ def main() -> int:
                   + zoo["launches"]["flash_attention"]
                   + served["launches"]["flash_attention"]
                   + train["all_launches"]["flash_attention"]
-                  + multi["launches"]["flash_attention"]},
+                  + multi["launches"]["flash_attention"]
+                  + dry["launches"]["flash_attention"]},
                  flash_parity["max_abs_err"]),
                 ("flash_attention_backward", flash_bwd_rows[:1],
                  {"flash_attention_backward":
                   train["all_launches"]["flash_attention_backward"]
-                  + multi["launches"]["flash_attention_backward"]},
+                  + multi["launches"]["flash_attention_backward"]
+                  + dry["launches"]["flash_attention_backward"]},
                  flash_bwd_parity["max_abs_err"]),
                 ("moe_gmm", [r for r in gmm_rows
                              if r["l2"] == "warm" and r["dtype"] == "bfloat16"],
                  {"moe_gmm": lm["launches"]["moe_gmm"]
                   + served["launches"]["moe_gmm"]
                   + train["all_launches"]["moe_gmm"]
-                  + multi["launches"]["moe_gmm"]},
+                  + multi["launches"]["moe_gmm"]
+                  + dry["launches"]["moe_gmm"]},
                  max(gmm_parity["max_abs_err"], gmm_bwd_parity["max_abs_err"]))):
             entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name]}
@@ -5741,6 +6029,9 @@ def main() -> int:
                      "replaces": REPLACES[name]}
             entry.update(summarize(rows, launches, err))
             kernels.append(entry)
+        ends = [t for _, t in starts[1:]] + [time.perf_counter()]
+        log("phase_s " + json.dumps({name: round(end - t, 1)
+                                     for (name, t), end in zip(starts, ends)}))
         log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f} s")
         log(f"card: {card_line()}")
         log(json.dumps({"kernels": kernels}))
@@ -5748,6 +6039,9 @@ def main() -> int:
         traceback.print_exc()
         print(f"chip_smoke: FAIL in phase {phase}", file=sys.stderr)
         return 1
+    finally:
+        if traces is not None:
+            traces.stop()
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

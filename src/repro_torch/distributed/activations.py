@@ -199,6 +199,17 @@ def model_sum(x: Tensor) -> Tensor:
     return _Sum.apply(x, ax[0], 1.0)
 
 
+def model_max(x: Tensor) -> Tensor:
+    """The elementwise maximum over `model` of a value each rank holds a
+    part of (no gradient: a softmax's shift)."""
+    ax = _model()
+    if ax is None:
+        return x
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=ax[0])
+    return y
+
+
 def model_copy(x: Tensor) -> Tensor:
     """``x`` (whole on `model`) as the input of a product with this
     rank's block of a weight: the gradient, each rank's part, is summed
@@ -350,6 +361,27 @@ def attention_heads(q: Tensor, k: Tensor, v: Tensor,
     else:
         index = torch.arange(first, first + hl, device=k.device) // g
     return q, model_select(k, 2, index), model_select(v, 2, index)
+
+
+def cache_layout(cache_leaf) -> Optional[Tuple[str, int]]:
+    """How a decode cache leaf (a DTensor of `sharding.cache_shardings`,
+    (n, b, s, kvh, hd)) is cut over a `model` axis of more than one rank:
+    ("heads", rank) or ("seq", first position of this rank's block), or
+    None (whole on `model`, or not a DTensor)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(cache_leaf, DTensor):
+        return None
+    mesh = cache_leaf.device_mesh
+    for name, pl in zip(mesh.mesh_dim_names, cache_leaf.placements):
+        if name != "model" or not pl.is_shard() or axis_info(mesh, name)[1] == 1:
+            continue
+        r = axis_info(mesh, name)[2]
+        if pl.dim == 3:
+            return "heads", r
+        if pl.dim == 2:
+            return "seq", r * cache_leaf.to_local().shape[2]
+    return None
 
 
 def heads_local(x: Tensor, dim: int, heads: int) -> Tensor:

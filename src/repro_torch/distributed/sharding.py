@@ -333,3 +333,14 @@ def cache_shardings(cache_shape, mesh) -> Dict[str, NamedSharding]:
         return NamedSharding(mesh, P(*spec))
 
     return {path: one(leaf) for path, leaf in flatten_with_paths(cache_shape).items()}
+
+
+def local_cache(cache: Any) -> Any:
+    """A decode cache tree (dicts of tensors, None) with each DTensor leaf
+    (`cache_shardings`' layout) replaced by this rank's local tensor, a
+    view: writes into it reach the DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(cache, dict):
+        return {k: local_cache(v) for k, v in cache.items()}
+    return cache.to_local() if isinstance(cache, DTensor) else cache

@@ -14,7 +14,8 @@ its launch; `CudaLibrary.raise_on` turns a non-zero code into an error.
 graph's replays), `check_tensor` is the wrappers' argument check and
 `refuse_grad` the dispatchers' refusal to cut an autograd graph at a
 kernel without a backward, `refuse_dtensor` their refusal of a sharded
-operand; `ptxas_report` reads each kernel's registers
+operand, `call_op` the call of the LM kernels' `torch.library` ops;
+`ptxas_report` reads each kernel's registers
 and spills from a build's compiler report.
 """
 from __future__ import annotations
@@ -246,12 +247,25 @@ def refuse_grad(kernel: str, later: str, *tensors: Optional[torch.Tensor]) -> No
     A ctypes launch is invisible to autograd: without this check the graph
     would be cut there and every input below it would silently get no
     gradient.  Kernels with a backward (flash attention, the GMM, the SSD
-    scan) go through their `torch.autograd.Function` instead; ``later`` names the
+    scan) go through their `torch.library` ops' autograd rules instead; ``later`` names the
     slice of the port that brings this kernel's."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{kernel} on the card has no backward yet ({later}); "
                            f"run it under torch.no_grad() or detach its inputs")
+
+
+def call_op(op, needs_grad: bool, *args: Any):
+    """``op(*args)``, through its autograd rule only when ``needs_grad``
+    (grad mode on and an input requiring a gradient).  Otherwise the call
+    goes straight to the device's implementation, as the autograd rule
+    itself does on such a call, without the Python autograd kernel's cost
+    on the host; dispatch modes (`FakeTensorMode`, `FlopCounterMode`) sit
+    below autograd and see the op either way."""
+    if needs_grad:
+        return op(*args)
+    with torch._C._AutoDispatchBelowAutograd():
+        return op(*args)
 
 
 def refuse_dtensor(kernel: str, *tensors: Optional[torch.Tensor]) -> None:

@@ -30,10 +30,12 @@ hand-written kernel (`repro_torch.kernels.flash_attention_cuda`), a CPU
 tensor takes `flash_attention_plain`.  There is no fallback from one to
 the other.
 
-Gradients.  When gradients are enabled and q, k or v requires one,
-`flash_attention` goes through `FlashAttention` (a
-`torch.autograd.Function`): its forward saves q, k, v, the output and
-each row's log-sum-exp, and its backward computes (dq, dk, dv) from them
+Gradients.  `flash_attention` calls the `FlashAttention` op (a
+`torch.library` custom op, registered below with its fake and FLOP
+rules); when gradients are enabled and q, k or v requires one, its
+forward also returns each row's log-sum-exp and saves q, k, v, the
+output and that log-sum-exp, and its autograd rule runs the
+`FlashAttentionBackward` op, which computes (dq, dk, dv) from them
 (P = exp(s - lse), D = Σ dO·O, dS = P ∘ (dP - D), and through a softcap
 dS ∘ (1 - (s / softcap)²) on the capped scores s; the counterpart of the
 gradient XLA derives for the reference's attention).  On the card both
@@ -45,11 +47,13 @@ kernels are held against.  Both take the window and the softcap.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import flash_attention_cuda
-from repro_torch.kernels._build import refuse_dtensor
+from repro_torch.kernels._build import call_op, refuse_dtensor
 
 Tensor = torch.Tensor
 
@@ -172,50 +176,153 @@ def flash_attention_backward_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
-class FlashAttention(torch.autograd.Function):
-    """Attention with its gradient: the forward keeps each row's
-    log-sum-exp, the backward is the hand-written kernel on the card and
-    `flash_attention_backward_plain` on the host."""
+def flash_pairs(sq: int, skv: int, causal: bool, window: int = 0,
+                q_offset: int = 0) -> int:
+    """(query, key) pairs of one head that the masks keep: query i sits at
+    position i + q_offset, the causal mask keeps keys j <= that position
+    and the window keys j > position - window; a cross-attention (no
+    mask) keeps all sq·skv."""
+    import numpy as np
 
-    @staticmethod
-    def forward(ctx, q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                q_offset: int, window: int, softcap: float) -> Tensor:
-        kw = {"causal": causal, "q_offset": q_offset, "window": window,
-              "softcap": softcap}
-        if q.is_cuda:
-            o, lse = flash_attention_cuda.flash_attention_cuda(q, k, v, return_lse=True,
-                                                               **kw)
-        else:
-            o = flash_attention_plain(q, k, v, **kw)
-            lse = flash_lse_plain(q, k, **kw)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.kw = kw
-        return o
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(pos, skv - 1) if causal else np.full(sq, skv - 1, np.int64)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
 
-    @staticmethod
-    def backward(ctx, do: Tensor):
-        q, k, v, o, lse = ctx.saved_tensors
-        if q.is_cuda:
-            grads = flash_attention_cuda.flash_attention_backward_cuda(
-                q, k, v, o, lse, do.contiguous(), **ctx.kw)
-        else:
-            grads = flash_attention_backward_plain(q, k, v, o, lse, do, **ctx.kw)
-        return (*grads, None, None, None, None)
+
+# -- the custom ops ------------------------------------------------------------
+#
+# `FlashAttention` and `FlashAttentionBackward` are `torch.library` ops of
+# the ``repro_torch`` namespace: the CUDA implementation is the kernel's
+# launch, the CPU one the plain version, the fake one gives the kernel's
+# output shapes (what a trace under `FakeTensorMode` sees, allocating
+# nothing), and the forward's autograd rule runs the backward op.  Their
+# FLOP formulas (`register_flop_formula`) count the products the kernels
+# compute, so `torch.utils.flop_counter.FlopCounterMode` sees them.  The
+# LM kernels' ops are defined on `torch.library.Library` fragments, not
+# with `torch.library.custom_op`, whose Python wrapper around each call (a
+# dynamo guard and an output aliasing check) costs the host µs a call; an
+# entry point that needs no gradient calls its op below the autograd step
+# (`_build.call_op`).
+
+_NO_LSE = (0,)
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("FlashAttention(Tensor q, Tensor k, Tensor v, bool causal, int q_offset, "
+            "int window, float softcap, bool with_lse) -> (Tensor, Tensor)")
+_LIB.define("FlashAttentionBackward(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+            "Tensor do, bool causal, int q_offset, int window, float softcap) "
+            "-> (Tensor, Tensor, Tensor)")
+
+
+def _flash_forward_cuda(q, k, v, causal, q_offset, window, softcap, with_lse):
+    kw = {"causal": causal, "q_offset": q_offset, "window": window,
+          "softcap": softcap}
+    if with_lse:
+        return flash_attention_cuda.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    return (flash_attention_cuda.flash_attention_cuda(q, k, v, **kw),
+            q.new_empty(_NO_LSE, dtype=torch.float32))
+
+
+def _flash_forward_cpu(q, k, v, causal, q_offset, window, softcap, with_lse):
+    kw = {"causal": causal, "q_offset": q_offset, "window": window,
+          "softcap": softcap}
+    o = flash_attention_plain(q, k, v, **kw).contiguous()
+    lse = (flash_lse_plain(q, k, **kw).contiguous() if with_lse
+           else q.new_empty(_NO_LSE, dtype=torch.float32))
+    return o, lse
+
+
+@torch.library.register_fake("repro_torch::FlashAttention", lib=_LIB)
+def _flash_forward_fake(q, k, v, causal, q_offset, window, softcap, with_lse):
+    b, sq, h, _ = q.shape
+    lse_shape = (b, h, sq) if with_lse else _NO_LSE
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+def _flash_backward_cuda(q, k, v, o, lse, do, causal, q_offset, window, softcap):
+    return flash_attention_cuda.flash_attention_backward_cuda(
+        q, k, v, o, lse, do, causal=causal, q_offset=q_offset, window=window,
+        softcap=softcap)
+
+
+def _flash_backward_cpu(q, k, v, o, lse, do, causal, q_offset, window, softcap):
+    grads = flash_attention_backward_plain(q, k, v, o, lse, do, causal=causal,
+                                           q_offset=q_offset, window=window,
+                                           softcap=softcap)
+    return tuple(g.contiguous() for g in grads)
+
+
+@torch.library.register_fake("repro_torch::FlashAttentionBackward", lib=_LIB)
+def _flash_backward_fake(q, k, v, o, lse, do, causal, q_offset, window, softcap):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+_LIB.impl("FlashAttention", _flash_forward_cuda, "CUDA")
+_LIB.impl("FlashAttention", _flash_forward_cpu, "CPU")
+_LIB.impl("FlashAttentionBackward", _flash_backward_cuda, "CUDA")
+_LIB.impl("FlashAttentionBackward", _flash_backward_cpu, "CPU")
+
+# The ops by name (`torch.ops.repro_torch.*`).
+FlashAttention = torch.ops.repro_torch.FlashAttention
+FlashAttentionBackward = torch.ops.repro_torch.FlashAttentionBackward
+
+
+def _flash_setup(ctx, inputs, output) -> None:
+    q, k, v, causal, q_offset, window, softcap, with_lse = inputs
+    if not with_lse:
+        # The backward reads the rows' log-sum-exp: `flash_attention` asks
+        # for it whenever a gradient may be taken.
+        ctx.kw = None
+        return
+    ctx.save_for_backward(q, k, v, output[0], output[1])
+    ctx.kw = (causal, q_offset, window, softcap)
+
+
+def _flash_grad(ctx, do: Tensor, dlse: Optional[Tensor]):
+    if ctx.kw is None:
+        raise RuntimeError("FlashAttention was called with with_lse=False; its "
+                           "gradient needs the forward's log-sum-exp")
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = FlashAttentionBackward(
+        q, k, v, o, lse, do.contiguous(), *ctx.kw)
+    return dq, dk, dv, None, None, None, None, None
+
+
+torch.library.register_autograd("repro_torch::FlashAttention", _flash_grad,
+                                setup_context=_flash_setup, lib=_LIB)
+
+
+def _pairs_of(q_shape, k_shape, causal: bool, q_offset: int, window: int) -> int:
+    b, sq, h, _ = q_shape
+    return b * h * flash_pairs(sq, k_shape[1], causal, window, q_offset)
+
+
+@register_flop_formula(FlashAttention)
+def _flash_forward_flops(q_shape, k_shape, v_shape, causal, q_offset, window,
+                         softcap, with_lse, *, out_shape=None, **kw) -> int:
+    """4·d a kept (query, key) pair: S = q·k and the P·V product."""
+    return 4 * q_shape[3] * _pairs_of(q_shape, k_shape, causal, q_offset, window)
+
+
+@register_flop_formula(FlashAttentionBackward)
+def _flash_backward_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+                          causal, q_offset, window, softcap, *, out_shape=None,
+                          **kw) -> int:
+    """14·d a kept pair: the dq pass computes S, dP and dQ, the dk/dv pass
+    S, dP, dV and dK (both recompute S and dP: ``csrc/flash_attention_bwd.cu``)."""
+    return 14 * q_shape[3] * _pairs_of(q_shape, k_shape, causal, q_offset, window)
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     q_offset: int = 0, window: int = 0,
                     softcap: float = 0.0) -> Tensor:
     """Attention of q (b, sq, h, d) over k, v (b, skv, kvh, d), on the
-    device of ``q``; differentiable (`FlashAttention`)."""
+    device of ``q`` through the `FlashAttention` op; differentiable (the
+    forward then also keeps the rows' log-sum-exp)."""
     refuse_dtensor("flash_attention", q, k, v)
     _check_heads(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                    causal, q_offset, window, softcap)
-    if q.is_cuda:
-        return flash_attention_cuda.flash_attention_cuda(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-            q_offset=q_offset, window=window, softcap=softcap)
-    return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
-                                 window=window, softcap=softcap)
+    with_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    o, _ = call_op(FlashAttention, with_lse, q.contiguous(), k.contiguous(),
+                   v.contiguous(), bool(causal), int(q_offset), int(window),
+                   float(softcap), with_lse)
+    return o

@@ -14,10 +14,10 @@ Dispatch is by the device of ``s_chunk``: a CUDA tensor launches the
 hand-written kernel (`repro_torch.kernels.ssd_scan_cuda`), a CPU tensor
 takes `ssd_scan_plain`.  There is no fallback from one to the other.
 
-Gradients.  When gradients are enabled and s_chunk or decay requires one,
-`ssd_scan` goes through `SSDScan` (a `torch.autograd.Function`): its
-forward saves h_prev and decay, its backward runs the adjoint recurrence
-in reverse (`ssd_scan_backward_plain` states it; the counterpart of the
+Gradients.  `ssd_scan` calls the `SSDScan` op (a `torch.library` custom
+op, registered below with its fake rule): its forward saves h_prev and
+decay, and its autograd rule runs the `SSDScanBackward` op, which runs
+the adjoint recurrence in reverse (`ssd_scan_backward_plain` states it; the counterpart of the
 gradient XLA derives for the reference's ``lax.scan``).  On the card the
 backward is the hand-written kernel (``ssd_scan_bwd_launch`` in
 ``csrc/ssd_scan.cu``), on the host the plain version.
@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ssd_scan_cuda
-from repro_torch.kernels._build import refuse_dtensor
+from repro_torch.kernels._build import call_op, refuse_dtensor
 
 Tensor = torch.Tensor
 
@@ -79,40 +79,80 @@ def ssd_scan_backward_plain(g_prev: Tensor, g_final: Optional[Tensor],
     return ds, ddecay.to(decay.dtype)
 
 
-class SSDScan(torch.autograd.Function):
-    """The scan with its gradient: the forward saves h_prev and decay, the
-    backward is the hand-written kernel on the card and
-    `ssd_scan_backward_plain` on the host.  An absent gradient (the SSM
-    blocks drop h_final) is zero."""
+# `SSDScan` and `SSDScanBackward` are `torch.library` ops of the
+# ``repro_torch`` namespace: the CUDA implementation is the kernel's
+# launch, the CPU one the plain version, the fake one gives the kernel's
+# outputs (h_prev and h_final; ds and ddecay) so a trace under
+# `FakeTensorMode` allocates nothing, and the scan's autograd rule runs
+# the backward op.  Neither has a FLOP formula: both are elementwise
+# recurrences (a multiply-add a state element and chunk), and
+# `FlopCounterMode` counts no elementwise op.
 
-    @staticmethod
-    def forward(ctx, s_chunk: Tensor, decay: Tensor):
-        if s_chunk.is_cuda:
-            h_prev, h_final = ssd_scan_cuda.ssd_scan_cuda(s_chunk, decay)
-        else:
-            h_prev, h_final = ssd_scan_plain(s_chunk, decay)
-        ctx.save_for_backward(h_prev, decay)
-        ctx.set_materialize_grads(False)
-        return h_prev, h_final
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("SSDScan(Tensor s_chunk, Tensor decay) -> (Tensor, Tensor)")
+_LIB.define("SSDScanBackward(Tensor g_prev, Tensor? g_final, Tensor h_prev, "
+            "Tensor decay) -> (Tensor, Tensor)")
 
-    @staticmethod
-    def backward(ctx, g_prev: Optional[Tensor], g_final: Optional[Tensor]):
-        h_prev, decay = ctx.saved_tensors
-        g_prev = torch.zeros_like(h_prev) if g_prev is None else g_prev.contiguous()
-        if g_final is not None:
-            g_final = g_final.contiguous()
-        if h_prev.is_cuda:
-            return ssd_scan_cuda.ssd_scan_backward_cuda(g_prev, g_final, h_prev, decay)
-        return ssd_scan_backward_plain(g_prev, g_final, h_prev, decay)
+
+def _scan_cuda(s_chunk, decay):
+    return ssd_scan_cuda.ssd_scan_cuda(s_chunk, decay)
+
+
+def _scan_cpu(s_chunk, decay):
+    return ssd_scan_plain(s_chunk, decay)
+
+
+def _scan_backward_cuda(g_prev, g_final, h_prev, decay):
+    return ssd_scan_cuda.ssd_scan_backward_cuda(g_prev, g_final, h_prev, decay)
+
+
+def _scan_backward_cpu(g_prev, g_final, h_prev, decay):
+    return ssd_scan_backward_plain(g_prev, g_final, h_prev, decay)
+
+
+_LIB.impl("SSDScan", _scan_cuda, "CUDA")
+_LIB.impl("SSDScan", _scan_cpu, "CPU")
+_LIB.impl("SSDScanBackward", _scan_backward_cuda, "CUDA")
+_LIB.impl("SSDScanBackward", _scan_backward_cpu, "CPU")
+
+
+@torch.library.register_fake("repro_torch::SSDScan", lib=_LIB)
+def _scan_fake(s_chunk, decay):
+    return torch.empty_like(s_chunk), s_chunk.new_empty(s_chunk.shape[1:])
+
+
+@torch.library.register_fake("repro_torch::SSDScanBackward", lib=_LIB)
+def _scan_backward_fake(g_prev, g_final, h_prev, decay):
+    return torch.empty_like(h_prev), torch.empty_like(decay)
+
+
+def _scan_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(output[0], inputs[1])
+    ctx.set_materialize_grads(False)
+
+
+def _scan_grad(ctx, g_prev: Optional[Tensor], g_final: Optional[Tensor]):
+    """An absent gradient (the SSM blocks drop h_final) is zero."""
+    h_prev, decay = ctx.saved_tensors
+    g_prev = torch.zeros_like(h_prev) if g_prev is None else g_prev.contiguous()
+    if g_final is not None:
+        g_final = g_final.contiguous()
+    return SSDScanBackward(g_prev, g_final, h_prev, decay)
+
+
+torch.library.register_autograd("repro_torch::SSDScan", _scan_grad,
+                                setup_context=_scan_setup, lib=_LIB)
+
+# The ops by name (`torch.ops.repro_torch.*`).
+SSDScan = torch.ops.repro_torch.SSDScan
+SSDScanBackward = torch.ops.repro_torch.SSDScanBackward
 
 
 def ssd_scan(s_chunk: Tensor, decay: Tensor) -> Tuple[Tensor, Tensor]:
     """(h_prev, h_final) of the inter-chunk recurrence, on the device of
-    ``s_chunk``; differentiable (`SSDScan`)."""
+    ``s_chunk`` through the `SSDScan` op; differentiable."""
     refuse_dtensor("ssd_scan", s_chunk, decay)
     _check_shapes(s_chunk, decay)
-    if torch.is_grad_enabled() and (s_chunk.requires_grad or decay.requires_grad):
-        return SSDScan.apply(s_chunk.contiguous(), decay.contiguous())
-    if s_chunk.is_cuda:
-        return ssd_scan_cuda.ssd_scan_cuda(s_chunk.contiguous(), decay.contiguous())
-    return ssd_scan_plain(s_chunk, decay)
+    return call_op(SSDScan, torch.is_grad_enabled() and (
+        s_chunk.requires_grad or decay.requires_grad),
+        s_chunk.contiguous(), decay.contiguous())

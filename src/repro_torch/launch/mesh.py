@@ -96,7 +96,10 @@ def data_axes(mesh) -> Tuple[str, ...]:
 def axis_sizes(mesh) -> dict:
     """{axis name: size} of ``mesh`` (the reference's
     ``dict(zip(mesh.axis_names, mesh.devices.shape))``)."""
-    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.mesh.shape)))
+    # `DeviceMesh.shape` reads no device tensor (``mesh.mesh`` may build
+    # one, which a fake-tensor trace refuses); a bare layout gives ``mesh``.
+    shape = mesh.shape if hasattr(mesh, "shape") else np.shape(mesh.mesh)
+    return dict(zip(mesh.mesh_dim_names, (int(s) for s in shape)))
 
 
 def axis_info(mesh, name: str) -> Tuple[Any, int, int]:

@@ -33,7 +33,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 
-from repro_torch.distributed.activations import attention_heads, heads_split, model_whole
+from repro_torch.distributed.activations import (
+    attention_heads, heads_split, model_max, model_sum, model_whole,
+)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, dense, dense_init, softcap
 
@@ -140,6 +142,38 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, *,
         valid &= kpos > n - 1 - window
     return _attend(q, k_cache, v_cache, valid[:, None, None, None, :],
                    logit_softcap)
+
+
+def seq_parallel_decode_attention(q: Tensor, k_block: Tensor, v_block: Tensor, *,
+                                  cache_len: Tensor, first: int, window: int = 0,
+                                  logit_softcap: float = 0.0) -> Tensor:
+    """`decode_attention` over a cache whose sequence is cut over `model`
+    (``activations.cache_layout`` "seq"): this rank holds positions
+    ``first .. first + k_block.shape[1]`` of every kv head for its batch
+    rows.  q (b, 1, h, hd) has every head.  Each rank takes its block's
+    softmax statistics; the maximum is combined over the axis, then the
+    rescaled sums and weighted values (`activations.model_sum`), the
+    partial reductions GSPMD makes of the reference's sequence-cut cache.
+    No gradient (decode)."""
+    b, sq, h, hd = q.shape
+    kvh = k_block.shape[2]
+    kpos = first + torch.arange(k_block.shape[1], device=q.device)[None, :]
+    n = cache_len.reshape(-1, 1)
+    valid = kpos < n
+    if window:
+        valid &= kpos > n - 1 - window
+    dt = torch.promote_types(q.dtype, k_block.dtype)
+    qg = q.reshape(b, sq, kvh, h // kvh, hd).to(dt)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_block.to(dt)).float()
+    scores = softcap(scores / math.sqrt(hd), logit_softcap)
+    scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    top = model_max(scores.amax(dim=-1, keepdim=True))
+    p = torch.exp(scores - top)
+    part = torch.einsum("bgrqk,bkgd->bqgrd", p, v_block.float())
+    total = model_sum(torch.cat([part.reshape(b, sq, h * hd),
+                                 p.sum(-1).permute(0, 3, 1, 2).reshape(b, sq, h)], -1))
+    out = total[..., :h * hd].reshape(b, sq, h, hd) / total[..., h * hd:, None]
+    return out.to(q.dtype)
 
 
 def cross_attention_init(gen: torch.Generator, cfg) -> Dict[str, Dict[str, Tensor]]:

@@ -40,7 +40,6 @@ from repro_torch.models.attention import (
     chunked_attention,
     cross_attention,
     cross_attention_init,
-    decode_attention,
     qkv_project,
 )
 from repro_torch.models.layers import (
@@ -49,6 +48,7 @@ from repro_torch.models.layers import (
     dtype_of,
     embed,
     embed_init,
+    is_fake,
     mlp_gelu,
     mlp_gelu_init,
     norm_init,
@@ -58,7 +58,9 @@ from repro_torch.models.layers import (
     torch_dtype,
     unembed,
 )
-from repro_torch.models.transformer import _scatter_cache, kv_cache, layer_cache
+from repro_torch.models.transformer import (
+    kv_cache, layer_cache, local_kv, self_attention_decode,
+)
 
 Tensor = torch.Tensor
 
@@ -133,7 +135,8 @@ def encode(params: Params, frames: Tensor, cfg, *, remat: bool = True) -> Tensor
     dt = dtype_of(cfg)
     b, s, d = frames.shape
     top = local_params(params)
-    x = frames.to(dt) + _sinusoid_table(s, d, frames.device).to(dt)
+    table = _sinusoid_table.__wrapped__ if is_fake(frames) else _sinusoid_table
+    x = frames.to(dt) + table(s, d, frames.device).to(dt)
     positions = torch.arange(s, device=frames.device).expand(b, s)
     run = remat_runner(remat)
     for lp in pin_layer_stack(params["enc_layers"], cfg):
@@ -195,23 +198,23 @@ def _decoder_position(params: Params, pos: Tensor, dt: torch.dtype) -> Tensor:
 
 def decode_step(params: Params, token: Tensor, cache: Dict[str, Tensor],
                 memory: Tensor, cfg) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Single-token decode with self-attn KV cache + live cross-attn."""
+    """Single-token decode with self-attn KV cache + live cross-attn.  On a
+    mesh the leaves are gathered layer by layer, ``token`` and ``memory``
+    are this rank's rows and the cache its part (`transformer.local_kv`)."""
     dt = dtype_of(cfg)
-    x = embed(params["dec_embed"], token, dt)
-    x = x + _decoder_position(params, cache["len"][0], dt)[:, None, :]
+    top = local_params(params)
+    kv, seq_first = local_kv(cache)
+    x = embed(top["dec_embed"], token, dt)
+    x = x + _decoder_position(top, kv["len"][0], dt)[:, None, :]
     for i, lp in enumerate(params["dec_layers"]):
-        kc = layer_cache(cache, i)
+        lp = gather_layer(lp, cfg)
         h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        q, k_new, v_new = qkv_project(lp["attn"], h, cfg, kc["len"].reshape(-1, 1), dt)
-        idx = kc["len"].reshape(-1)
-        k_cache = _scatter_cache(kc["k"], k_new, idx)
-        v_cache = _scatter_cache(kc["v"], v_new, idx)
-        o = decode_attention(q, k_cache, v_cache, cache_len=idx + 1)
-        o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
+        o, _, _ = self_attention_decode(lp["attn"], h, cfg, layer_cache(kv, i),
+                                        seq_first=seq_first)
         x = x + dense(lp["attn"]["o"], o, dt)
         h = rms_norm(lp["xattn_norm"], x, cfg.norm_eps)
         x = x + cross_attention(lp["xattn"], h, memory, cfg, dt)
         x = _mlp_block(lp, x, cfg)
-    x = rms_norm(params["dec_norm"], x, cfg.norm_eps)
-    logits = unembed(params["dec_embed"], x[:, 0]).float()
+    x = rms_norm(top["dec_norm"], x, cfg.norm_eps)
+    logits = unembed(top["dec_embed"], x[:, 0]).float()
     return logits, {"k": cache["k"], "v": cache["v"], "len": cache["len"] + 1}

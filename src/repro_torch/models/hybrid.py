@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.distributed.activations import constrain_logits, constrain_seq
 from repro_torch.distributed.fsdp import gather_layer, local_params, pin_layer_stack
+from repro_torch.distributed.sharding import local_cache
 from repro_torch.models.layers import (
     Params, dtype_of, embed, embed_init, norm_init, remat_runner, rms_norm, softcap,
     unembed,
@@ -34,7 +35,7 @@ from repro_torch.models.ssm import (
     init_mamba_cache, mamba_decode_layers, mamba_init, mamba_layer,
 )
 from repro_torch.models.transformer import (
-    _head, layer_decode, layer_forward, layer_init,
+    _head, layer_decode, layer_forward, layer_init, local_kv,
 )
 
 Tensor = torch.Tensor
@@ -131,21 +132,28 @@ def hybrid_decode_step(params: Params, token: Tensor, cache: Dict[str, Any], cfg
                        ) -> Tuple[Tensor, Dict[str, Any]]:
     """token: (b, 1) → (logits (b, vocab) float32, updated cache).  Every
     group's shared block sees the same position; ``len`` advances once per
-    step, after all groups."""
+    step, after all groups.  On a mesh the leaves are gathered layer by
+    layer and the caches are this rank's parts (`local_cache`,
+    `transformer.local_kv`)."""
     n_groups, k, _ = _groups(cfg)
-    x = embed(params["embed"], token, dtype_of(cfg))
-    mc, ac = cache["mamba"], cache["attn"]
+    top = local_params(params)
+    x = embed(top["embed"], token, dtype_of(cfg))
+    mc, tail = local_cache(cache["mamba"]), local_cache(cache["tail"])
+    ac, seq_first = local_kv(cache["attn"])
     layers = params["mamba_groups"]
+    shared = gather_layer(params["shared_attn"], cfg)
     for g in range(n_groups):
         group = slice(g * k, (g + 1) * k)
         x = mamba_decode_layers(layers[group], x, cfg,
                                 {"conv": mc["conv"][group], "state": mc["state"][group]})
-        x, _ = layer_decode(params["shared_attn"], x, cfg,
-                            {"k": ac["k"][g], "v": ac["v"][g], "len": ac["len"][g]})
+        x, _ = layer_decode(shared, x, cfg,
+                            {"k": ac["k"][g], "v": ac["v"][g], "len": ac["len"][g]},
+                            seq_first=seq_first)
     if "tail_mamba" in params:
-        x = mamba_decode_layers(params["tail_mamba"], x, cfg, cache["tail"])
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(_head(params, cfg), x[:, 0])
-    attn = {"k": ac["k"], "v": ac["v"], "len": ac["len"] + 1}
+        x = mamba_decode_layers(params["tail_mamba"], x, cfg, tail)
+    x = rms_norm(top["final_norm"], x, cfg.norm_eps)
+    logits = unembed(_head(top, cfg), x[:, 0])
+    at = cache["attn"]
+    attn = {"k": at["k"], "v": at["v"], "len": at["len"] + 1}
     return (softcap(logits.float(), cfg.final_logit_softcap),
-            {"mamba": mc, "tail": cache["tail"], "attn": attn})
+            {"mamba": cache["mamba"], "tail": cache["tail"], "attn": attn})

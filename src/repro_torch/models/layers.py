@@ -88,7 +88,7 @@ class Params(nn.Module):
         t = self._parameters[name]
         if dtype is None or t.dtype == dtype:
             return t
-        if t.requires_grad and torch.is_grad_enabled():
+        if (t.requires_grad and torch.is_grad_enabled()) or is_fake(t):
             return t.to(dtype)
         stamp = (t.data_ptr(), t.device, t._version)
         hit = self._casts.get((name, dtype))
@@ -263,9 +263,19 @@ def _rope_table(head_dim: int, theta: float, device: torch.device) -> Tensor:
     return torch.as_tensor(rope_frequencies(head_dim, theta), device=device)
 
 
+def is_fake(t: Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (a trace under `FakeTensorMode`): the
+    tables above are then made anew, never cached, so no fake tensor
+    outlives its trace."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
 def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq)."""
-    freqs = _rope_table(x.shape[-1], float(theta), x.device)
+    table = _rope_table.__wrapped__ if is_fake(x) else _rope_table
+    freqs = table(x.shape[-1], float(theta), x.device)
     angles = positions[..., :, None].float() * freqs       # (..., seq, hd/2)
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]

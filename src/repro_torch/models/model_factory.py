@@ -9,30 +9,39 @@ dense), ``ssm`` (Mamba2), ``hybrid`` (Zamba2) and ``encdec`` (Whisper).
   * forward(params, batch) → logits            (prefill)
   * init_cache(batch, max_len, device="cuda") → cache
   * decode_step(params, batch, cache) → (logits, cache)   (serve step body)
+  * input_specs(shape) → {name: InputSpec}     (the dry run's stand-ins)
 
 Batches carry the modality frontends' stub outputs, as the reference's:
 the VLM's ``vision_embeds`` (b, vision_seq, d_model) in ``forward``,
 ``loss`` and ``decode_step``; Whisper's ``frames`` (b, encoder_seq,
 d_model) in ``forward`` and ``loss`` and the encoder's ``memory``
-(`encdec.encode`) in ``decode_step``.  The reference's ``input_specs``
-(shape stand-ins for its dry-run) has no use without a tracer and is left
-out.
+(`encdec.encode`) in ``decode_step``.  ``input_specs`` gives each input's
+shape and dtype for a `configs.InputShape` (the reference's
+``ShapeDtypeStruct`` stand-ins), which `repro_torch.launch.dryrun` makes
+into fake tensors.
+
+``init`` makes every tensor with factory calls on the generator's
+device, so under `torch._subclasses.fake_tensor.FakeTensorMode` it
+allocates nothing; `_generator` only makes the seeded generator, which a
+fake trace on ``cuda`` needs no card memory for.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.distributed.activations import (
     constrain_logits, constrain_seq, vocab_parallel_cross_entropy,
 )
 from repro_torch.distributed.fsdp import local_params, pin_layer_stack
+from repro_torch.distributed.sharding import local_cache
 from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.layers import (
-    Params, dtype_of, embed, embed_init, norm_init, remat_runner, rms_norm, unembed,
+    Params, dtype_of, embed, embed_init, norm_init, remat_runner, rms_norm, torch_dtype,
+    unembed,
 )
 from repro_torch.utils.device import DeviceLike, resolve_device
 
@@ -50,6 +59,21 @@ def cross_entropy(logits: Tensor, labels: Tensor, vocab: Optional[int] = None
     return torch.mean(logz - gold)
 
 
+class InputSpec(NamedTuple):
+    """One input's shape and dtype (the reference's ``ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _token_specs(shape: InputShape) -> Dict[str, InputSpec]:
+    b = shape.global_batch
+    if shape.is_decode:
+        return {"token": InputSpec((b, 1), torch.int32)}
+    return {"tokens": InputSpec((b, shape.seq_len), torch.int32),
+            "labels": InputSpec((b, shape.seq_len), torch.int32)}
+
+
 @dataclass
 class Model:
     cfg: ArchConfig
@@ -59,6 +83,7 @@ class Model:
     init_cache: Callable[..., Dict[str, Any]]
     decode_step: Callable[[Params, Dict[str, Tensor], Dict[str, Any]],
                           Tuple[Tensor, Dict[str, Any]]]
+    input_specs: Callable[[InputShape], Dict[str, InputSpec]]
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -109,7 +134,15 @@ def _build_decoder(cfg: ArchConfig) -> Model:
         return transformer.decode_step(params, batch["token"], cache, cfg,
                                        vision_embeds=batch.get("vision_embeds"))
 
-    return Model(cfg, init, loss, forward, init_cache, decode_step)
+    def input_specs(shape: InputShape) -> Dict[str, InputSpec]:
+        specs = _token_specs(shape)
+        if cfg.family == "vlm":
+            specs["vision_embeds"] = InputSpec(
+                (shape.global_batch, cfg.vision_seq or 1024, cfg.d_model),
+                torch_dtype(cfg.compute_dtype))
+        return specs
+
+    return Model(cfg, init, loss, forward, init_cache, decode_step, input_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -150,12 +183,14 @@ def _build_ssm(cfg: ArchConfig) -> Model:
                                     resolve_device(device))
 
     def decode_step(params, batch, cache):
-        x = embed(params["embed"], batch["token"], dtype_of(cfg))
-        x = ssm.mamba_decode_layers(params["layers"], x, cfg, cache)
-        x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-        return unembed(transformer._head(params, cfg), x[:, 0]).float(), cache
+        top = local_params(params)
+        x = embed(top["embed"], batch["token"], dtype_of(cfg))
+        x = ssm.mamba_decode_layers(params["layers"], x, cfg, local_cache(cache))
+        x = rms_norm(top["final_norm"], x, cfg.norm_eps)
+        return unembed(transformer._head(top, cfg), x[:, 0]).float(), cache
 
-    return Model(cfg, init, _nll_loss(forward, cfg.vocab_size), forward, init_cache, decode_step)
+    return Model(cfg, init, _nll_loss(forward, cfg.vocab_size), forward, init_cache,
+                 decode_step, _token_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +210,8 @@ def _build_hybrid(cfg: ArchConfig) -> Model:
     def decode_step(params, batch, cache):
         return hybrid.hybrid_decode_step(params, batch["token"], cache, cfg)
 
-    return Model(cfg, init, _nll_loss(forward, cfg.vocab_size), forward, init_cache, decode_step)
+    return Model(cfg, init, _nll_loss(forward, cfg.vocab_size), forward, init_cache,
+                 decode_step, _token_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -197,4 +233,14 @@ def _build_encdec(cfg: ArchConfig) -> Model:
     def decode_step(params, batch, cache):
         return encdec.decode_step(params, batch["token"], cache, batch["memory"], cfg)
 
-    return Model(cfg, init, _nll_loss(forward, cfg.vocab_size), forward, init_cache, decode_step)
+    def input_specs(shape: InputShape) -> Dict[str, InputSpec]:
+        """Teacher-forced train/prefill take the shape's decoder length (the
+        reference's: Whisper's real decoder caps at 448)."""
+        b, enc = shape.global_batch, cfg.encoder_seq or 1500
+        frames = InputSpec((b, enc, cfg.d_model), torch_dtype(cfg.compute_dtype))
+        if shape.is_decode:
+            return {"token": InputSpec((b, 1), torch.int32), "memory": frames}
+        return {"frames": frames, **_token_specs(shape)}
+
+    return Model(cfg, init, _nll_loss(forward, cfg.vocab_size), forward, init_cache,
+                 decode_step, input_specs)

@@ -32,7 +32,9 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.activations import heads_local, heads_whole, unshard_seq
+from repro_torch.distributed.activations import (
+    heads_local, heads_whole, model_shard, model_whole, unshard_seq,
+)
 from repro_torch.distributed.fsdp import gather_layer
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
@@ -228,7 +230,12 @@ def init_mamba_cache(cfg, batch: int, n_layers: int, device) -> Dict[str, Tensor
 
 def mamba_decode(p: Params, x: Tensor, cfg, cache: Dict[str, Tensor]
                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """x: (b, 1, d); cache: {'conv': (b, w-1, c), 'state': (b, h, p, n)}."""
+    """x: (b, 1, d); cache: {'conv': (b, w-1, c), 'state': (b, h, p, n)}.
+
+    On a mesh the state may hold this rank's block of the head dim p
+    (`sharding.cache_shardings` cuts p over `model`): the update and the
+    read-out are elementwise in p, so they run on that block and the
+    read-out is gathered whole again."""
     dt_ = dtype_of(cfg)
     d_inner, heads, head_dim, n = ssm_dims(cfg)
     b = x.shape[0]
@@ -246,23 +253,32 @@ def mamba_decode(p: Params, x: Tensor, cfg, cache: Dict[str, Tensor]
     a = torch.exp(p["A_log"].float())
     da = torch.exp(-(dt * a[None, :]))                                # (b,h)
     xh = xin.reshape(b, heads, head_dim)
+    if cache["state"].shape[2] != head_dim:
+        xh = model_shard(xh, 2)
     new_state = (cache["state"] * da[..., None, None]
                  + torch.einsum("bh,bn,bhp->bhpn", dt, bmat, xh))
     y = torch.einsum("bn,bhpn->bhp", cmat, new_state)
     y = y + xh * p["D"].float()[None, :, None]
-    y = y.reshape(b, d_inner).to(dt_)
+    y = unshard_p(y, head_dim).reshape(b, d_inner).to(dt_)
     y = rms_norm(p["out_norm"], y * F.silu(z), cfg.norm_eps)
     out = x + dense(p["out_proj"], y, dt_)[:, None, :]
     return out, {"conv": window[:, 1:], "state": new_state}
+
+
+def unshard_p(y: Tensor, head_dim: int) -> Tensor:
+    """(b, h, p) whole along p again (the identity when it is whole)."""
+    return y if y.shape[2] == head_dim else model_whole(y, 2)
 
 
 def mamba_decode_layers(layers: Sequence[Params], x: Tensor, cfg,
                         cache: Dict[str, Tensor]) -> Tensor:
     """`mamba_decode` through a stack of layers whose caches are stacked on
     the leading axis of ``cache``; each layer's new window and state are
-    written into ``cache`` in place."""
+    written into ``cache`` in place.  On a mesh each layer's leaves are
+    gathered (`fsdp.gather_layer`) and ``cache`` holds this rank's tensors
+    (`sharding.local_cache`)."""
     for i, lp in enumerate(layers):
-        x, new = mamba_decode(lp, x, cfg, {"conv": cache["conv"][i],
+        x, new = mamba_decode(gather_layer(lp, cfg), x, cfg, {"conv": cache["conv"][i],
                                            "state": cache["state"][i]})
         cache["conv"][i] = new["conv"]
         cache["state"][i] = new["state"]

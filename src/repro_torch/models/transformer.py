@@ -43,8 +43,13 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.activations import constrain_logits, constrain_seq, unshard_seq
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.activations import (
+    attention_heads, cache_layout, constrain_logits, constrain_seq, model_whole, unshard_seq,
+)
 from repro_torch.distributed.fsdp import gather_layer, local_params, pin_layer_stack
+from repro_torch.distributed.sharding import local_cache
 from repro_torch.models.attention import (
     attention_init,
     chunked_attention,
@@ -53,6 +58,7 @@ from repro_torch.models.attention import (
     decode_attention,
     naive_attention,
     qkv_project,
+    seq_parallel_decode_attention,
 )
 from repro_torch.models.layers import (
     Params,
@@ -123,19 +129,49 @@ def layer_forward(p: Params, x: Tensor, cfg, positions: Tensor,
     return x + y, aux
 
 
+def self_attention_decode(p: Params, h: Tensor, cfg, cache: Dict[str, Tensor], *,
+                          window: int = 0, seq_first: Optional[int] = None
+                          ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The new token's self-attention over its cache (before the output
+    projection): its K/V written at each row's position, then attention.
+    Returns (o (b, 1, heads · hd), k cache, v cache).
+
+    On a mesh (``p`` is `fsdp.gather_layer`'s view) the query heads are
+    this rank's when they divide `model`; the cache holds this rank's kv
+    heads (the new token's K/V come from the column-cut projections
+    alike), or every kv head for positions ``seq_first ..`` (a cache cut
+    along its sequence: `attention.seq_parallel_decode_attention`), or
+    every kv head whole, of which this rank's query heads read theirs
+    (`activations.attention_heads`)."""
+    dt = dtype_of(cfg)
+    positions = cache["len"].reshape(-1, 1)          # (b, 1) current position
+    q, k_new, v_new = qkv_project(p, h, cfg, positions, dt)
+    idx = cache["len"].reshape(-1)
+    at = idx if seq_first is None else idx - seq_first
+    k_cache = _scatter_cache(cache["k"], k_new, at)
+    v_cache = _scatter_cache(cache["v"], v_new, at)
+    if seq_first is not None:
+        o = seq_parallel_decode_attention(
+            model_whole(q, 2) if q.shape[2] != cfg.num_heads else q, k_cache, v_cache,
+            cache_len=idx + 1, first=seq_first, window=window,
+            logit_softcap=cfg.attn_logit_softcap)
+    else:
+        local = attention_heads(q, k_cache, v_cache,
+                                heads=(cfg.num_heads, cfg.num_kv_heads))
+        o = decode_attention(*(local or (q, k_cache, v_cache)), cache_len=idx + 1,
+                             window=window, logit_softcap=cfg.attn_logit_softcap)
+    return o.reshape(h.shape[:-1] + (-1,)), k_cache, v_cache
+
+
 def layer_decode(p: Params, x: Tensor, cfg, cache: Dict[str, Tensor], *,
-                 window: int = 0) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Single-token decode. cache: {'k': (b,L,kvh,hd), 'v': ..., 'len': (b,)}"""
+                 window: int = 0, seq_first: Optional[int] = None
+                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Single-token decode. cache: {'k': (b,L,kvh,hd), 'v': ..., 'len': (b,)}
+    (on a mesh, this rank's part: `self_attention_decode`)."""
     dt = dtype_of(cfg)
     h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
-    positions = cache["len"].reshape(-1, 1)          # (b, 1) current position
-    q, k_new, v_new = qkv_project(p["attn"], h, cfg, positions, dt)
-    idx = cache["len"].reshape(-1)
-    k_cache = _scatter_cache(cache["k"], k_new, idx)
-    v_cache = _scatter_cache(cache["v"], v_new, idx)
-    o = decode_attention(q, k_cache, v_cache, cache_len=idx + 1, window=window,
-                         logit_softcap=cfg.attn_logit_softcap)
-    o = o.reshape(x.shape[:-1] + (cfg.num_heads * cfg.head_dim,))
+    o, k_cache, v_cache = self_attention_decode(p["attn"], h, cfg, cache, window=window,
+                                                seq_first=seq_first)
     x = x + dense(p["attn"]["o"], o, dt)
     h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
     y, _ = _ffn(p["mlp"], h, cfg)
@@ -149,8 +185,8 @@ def _scatter_cache(cache: Tensor, new: Tensor, idx: Tensor) -> Tensor:
     reference's masked select does: the row is written back unchanged.
     """
     rows = torch.arange(cache.shape[0], device=cache.device)
-    at = idx.clamp(max=cache.shape[1] - 1)
-    inside = (idx < cache.shape[1])[:, None, None]
+    at = idx.clamp(min=0, max=cache.shape[1] - 1)
+    inside = ((idx >= 0) & (idx < cache.shape[1]))[:, None, None]
     cache[rows, at] = torch.where(inside, new[:, 0].to(cache.dtype), cache[rows, at])
     return cache
 
@@ -315,21 +351,41 @@ def layer_cache(kv: Dict[str, Tensor], i: int) -> Dict[str, Tensor]:
 def decode_step(params: Params, token: Tensor, cache: Dict[str, Any], cfg, *,
                 vision_embeds: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Dict[str, Any]]:
-    """token: (b, 1) → (logits (b, vocab) float32, updated cache)."""
+    """token: (b, 1) → (logits (b, vocab) float32, updated cache).
+
+    On a mesh (the ambient one of `repro_torch.launch.mesh.use_mesh`) the
+    token is this rank's rows, the parameters DTensors (gathered layer by
+    layer, as in `decoder_forward`) and the cache's leaves DTensors laid
+    out by `sharding.cache_shardings`; the logits' vocab may come back
+    cut over `model`."""
     dt = dtype_of(cfg)
-    x = embed(params["embed"], token, dt, scale=cfg.scale_embed)
+    top = local_params(params)
+    x = embed(top["embed"], token, dt, scale=cfg.scale_embed)
+    local = {name: local_kv(kv) for name, kv in cache.items()}
     for stack, i, window in layer_order(cfg):
-        lp = params[stack][i]
+        lp = gather_layer(params[stack][i], cfg)
         if stack == "cross_layers":
             x = _gated_cross(lp, x, vision_embeds, cfg)
         else:
-            x, _ = layer_decode(lp, x, cfg, layer_cache(cache[CACHE_OF_STACK[stack]], i),
-                                window=window)
+            kv, seq_first = local[CACHE_OF_STACK[stack]]
+            x, _ = layer_decode(lp, x, cfg, layer_cache(kv, i), window=window,
+                                seq_first=seq_first)
     new_cache = {name: _bump(kv) for name, kv in cache.items()}
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(_head(params, cfg), x[:, 0])
+    x = rms_norm(top["final_norm"], x, cfg.norm_eps)
+    logits = unembed(_head(top, cfg), x[:, 0])
     logits = softcap(logits.float(), cfg.final_logit_softcap)
     return logits, new_cache
+
+
+def local_kv(kv: Dict[str, Tensor]) -> Tuple[Dict[str, Tensor], Optional[int]]:
+    """A K/V cache as this rank's tensors (views: writes reach the
+    DTensors' local shards) and the first position of its sequence block
+    when the sequence is cut over `model`, else None."""
+    if not any(isinstance(t, DTensor) for t in kv.values()):
+        return kv, None
+    layout = cache_layout(kv["k"])
+    kv = local_cache(kv)
+    return kv, layout[1] if layout is not None and layout[0] == "seq" else None
 
 
 def _bump(kvc: Dict[str, Tensor]) -> Dict[str, Tensor]:

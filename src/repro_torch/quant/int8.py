@@ -254,6 +254,23 @@ def _quant_weight(w: np.ndarray) -> np.ndarray:
     return np.clip(np.round(w / WEIGHT_SCALE), -127, 127).astype(np.int8)
 
 
+def _conv_groups(graph, node) -> int:
+    if node.op_type == "dwconv2d":
+        return graph.tensor(node.inputs[0]).shape[-1]
+    return node.params_dict.get("groups", 1)
+
+
+def uses_int8_gemm(graph, node) -> bool:
+    """Whether `build_quant_op_fn` runs ``node`` as one int8 GEMM:
+    `fully_connected` and every dense convolution (groups = 1); depthwise
+    and grouped convolutions are shifted multiply-adds."""
+    t = node.op_type
+    if t == "fully_connected":
+        return True
+    return (t in ("conv2d", "grouped_conv2d", "winograd_conv2d", "dwconv2d")
+            and _conv_groups(graph, node) == 1)
+
+
 def build_quant_op_fn(graph, node, device: DeviceLike = "cuda"
                       ) -> Tuple[Callable, List[int]]:
     """int8 analogue of executor.build_op_fn; weights on ``device``.
@@ -275,12 +292,10 @@ def build_quant_op_fn(graph, node, device: DeviceLike = "cuda"
         kh, kw, _, out_c = w_q.shape
         bias = upload(np.zeros((out_c,), np.int32))
         stride = p.get("stride", 1)
-        groups = p.get("groups", 1)
-        if t == "dwconv2d":
-            groups = graph.tensor(node.inputs[0]).shape[-1]
+        groups = _conv_groups(graph, node)
         act = p.get("act", "")
         padding = p.get("padding", "SAME")
-        if groups == 1:
+        if uses_int8_gemm(graph, node):
             bt = pack_weight(upload(w_q.reshape(kh * kw * w_q.shape[2], out_c)))
             scale = _f32(ACT_SCALE * WEIGHT_SCALE / ACT_SCALE)
 

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, nothing of the reference package, and
 every entry point defaults to the card.
 
-Parses every module of ``src/repro_torch``, ``chip_smoke.py`` and
-``compare_kernels.py`` and fails on ``import jax`` / ``from jax …`` /
+Parses every module of ``src/repro_torch``, ``chip_smoke.py``,
+``compare_kernels.py``, ``compare_decode_steps.py`` and the port's examples (``examples/torch``) and fails on ``import jax`` / ``from jax …`` /
 ``import repro`` / ``from repro.…`` (``repro_torch`` itself is fine).  Then, with CUDA reported absent, each
 entry point called with its default device must raise RuntimeError
 instead of quietly running on the host.
@@ -21,7 +21,9 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "compare_kernels.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "compare_kernels.py",
+                                        ROOT / "compare_decode_steps.py"] \
+    + sorted((ROOT / "examples" / "torch").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -81,7 +83,7 @@ def test_port_has_the_slice_modules():
                 "launch/__init__.py", "launch/train.py", "launch/serve.py",
                 "launch/mesh.py", "distributed/sharding.py", "distributed/fsdp.py",
                 "distributed/activations.py", "distributed/pipeline.py",
-                "distributed/elastic.py"):
+                "distributed/elastic.py", "launch/dryrun.py", "utils/hlo_analysis.py"):
         assert mod in names
     for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
                 "flash_attention.cu", "flash_attention_bwd.cu", "moe_gmm.cu", "ssd_scan.cu",
@@ -175,6 +177,16 @@ def _store():
     return store
 
 
+def _example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _entry_points():
     from repro_torch.core.executor import GraphExecutor, build_op_fn
     from repro_torch.core.predictors import LassoPredictor, MLPPredictor, load_predictor
@@ -185,6 +197,7 @@ def _entry_points():
     from repro_torch.convert import lm_params_from_reference, train_state_from_reference
     from repro_torch.distributed import init_train_state
     from repro_torch.distributed.elastic import plan_mesh
+    from repro_torch.launch.dryrun import main as dryrun_main
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
@@ -233,6 +246,10 @@ def _entry_points():
         "train driver": lambda: train_main(["--arch", "qwen2-72b-reduced", "--steps", "1"]),
         "serve driver": lambda: serve_main(["--arch", "qwen2-72b-reduced"]),
         "make_mesh": lambda: make_mesh((1,), ("data",)),
+        "dry run": lambda: dryrun_main(["--arch", "qwen2-72b", "--shape", "decode_32k",
+                                        "--mesh", "single"]),
+        "quickstart example": lambda: _example("quickstart").main(["--graphs", "2"]),
+        "serve_lm example": lambda: _example("serve_lm").main([]),
         "plan_mesh": lambda: plan_mesh(1),
         "train_state_from_reference": lambda: train_state_from_reference(
             {"params": {}, "opt": {"step": 0, "mu": {}, "nu": {}}, "step": 0},
