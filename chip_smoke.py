@@ -164,23 +164,23 @@ result line:
          the new ops are measured, through the Winograd kernel), then the
          paper's Fig. 8 study times the Winograd op against the direct
          ``conv2d`` op through ``GraphExecutor(op_by_op)``;
-       * the LM serving path: Granite-MoE 1B at full width and 12 of 24
+       * the LM serving path: Granite-MoE 1B at full width and 6 of 24
          layers (`LM_DEPTH`) from
          the port's own init (seed 0); forward/decode consistency first
          (`check_prefill_decode`, not counted), then `Model.forward` on
-         4 × 1,024 tokens (12 flash and 36 GMM launches) and a 4-slot
-         `ServeEngine` answering 8 requests of 16 new tokens (36 GMM
+         4 × 1,024 tokens (6 flash and 18 GMM launches) and a 4-slot
+         `ServeEngine` answering 8 requests of 16 new tokens (18 GMM
          launches per decode step), every one on the bfloat16 tensor-core
          route, its steps counted in an `Observability` registry
          (``serve_steps_total`` and the ``serve_step_duration`` count equal
          the engine's steps); then a forward and decode steps under torch.profiler for
          the time split, the flash and GMM shares and the idle share;
        * the SSM and hybrid path: Mamba2 2.7B, then Zamba2 1.2B, at full
-         width and 8 of 64 and 8 of 38 layers (`SSM_DEPTH`) from the
+         width and 4 of 64 and 8 of 38 layers (`SSM_DEPTH`) from the
          port's own init (seed 0), each with
          its counts zeroed: decode/forward consistency at 512 tokens
          first (float32 gated at `CONSISTENCY_TOL`, bfloat16 read; not
-         counted), `Model.forward` on 2 × 4,096 tokens (8 ssd_scan
+         counted), `Model.forward` on 2 × 4,096 tokens (4 ssd_scan
          launches for Mamba2; 8 and 1 flash launches for Zamba2) and a
          4-slot `ServeEngine` answering 8 (Mamba2) or 4 (Zamba2)
          requests; then each model's forward and one decode step under
@@ -201,12 +201,12 @@ result line:
          (0 / 1 / 8 flash launches a decode step); then a profiled
          forward and decode step (device time, flash share, idle share);
        * the serving driver (`run_serve_driver_path`): `repro_torch.launch.
-         serve.main` for granite-moe-1b-a400m and whisper-large-v3 at full
-         size and `serve.serve` for the VLM at the zoo's cut, with the
-         reference driver's defaults (8 requests of 16 tokens, 16 new, 4
-         slots), counts zeroed before each: 8 of 8 answered, the
-         ``served`` line's tokens/s, launches a decode step gated (GMM 72
-         / flash 32 / flash 1), flash on the tensor-core route;
+         serve.main` for granite-moe-1b-a400m at full size and
+         `serve.serve` for whisper-large-v3 and the VLM at the zoo's cuts,
+         with the reference driver's defaults (8 requests of 16 tokens,
+         16 new, 4 slots), counts zeroed before each: 8 of 8 answered,
+         the ``served`` line's tokens/s, launches a decode step gated
+         (GMM 72 / flash 8 / flash 1), flash on the tensor-core route;
        * the LM training path (`run_lm_train_path`): granite-moe-1b-a400m
          at full width and depth (1.33 B parameters, float32 parameters
          and AdamW state, bfloat16 compute, remat) trained 8 steps on
@@ -227,7 +227,11 @@ result line:
          and backward 24 a step) and llama-3.2-vision-90b at full width and
          one self and one cross layer (2 × 2,048 tokens over 2 × 1,600
          vision embeddings, gates at `ZOO_GATE`: flash 4 and backward 2),
-         each freed before the next.  Then Granite at 2 of 24 layers in
+         each freed before the next.  Every one of these runs repeats:
+         the model rebuilt from the same seed takes its first 3 steps
+         again on the same batches, and the losses, grad norms and every
+         parameter leaf's checksum must be bit-equal to the first run's
+         (``repeat`` in its line).  Then Granite at 2 of 24 layers in
          float32: one train step
          on the card against the host (`HOST_TOL`, AdamW's
          noise-normalized elements excepted, `NOISE_SHARE`),
@@ -242,8 +246,8 @@ result line:
      qwen2-72b × decode_32k traced on fake CUDA tensors over a fake
      group of 256 ranks on the (16, 16) mesh through ``python -m
      repro_torch.launch.dryrun`` (its record and seconds printed), and
-     Granite at full width and depth on 16 × 1,024 tokens in 16
-     microbatches traced in fake mode, both in child processes started
+     Granite at full width and 12 of 24 layers on 16 × 1,024 tokens in
+     16 microbatches traced in fake mode, both in child processes started
      once the kernels are built (`DryrunTraces`), then Granite run on
      the card (FLOPs and argument bytes equal, traced peak within 15% of
      ``max_memory_allocated``, loss finite); and the
@@ -2457,10 +2461,10 @@ CONSISTENCY_TOL = 2e-2
 # The full-width LM on the card against the port on the host, reduced size.
 HOST_TOL = 1e-4
 FORWARD_SHAPE = (4, 1024)           # (batch, tokens) of the timed forward
-# The LM path's Granite at full width and half its depth: its decode steps
-# are host-bound (97 ms a call at 24 layers), and the serving driver's
-# `main` serves Granite at full depth after it.
-LM_DEPTH = {"num_layers": 12}
+# The LM path's Granite at full width and a quarter of its depth: its
+# decode steps are host-bound (97 ms a call at 24 layers), and the
+# serving driver's `main` serves Granite at full depth after it.
+LM_DEPTH = {"num_layers": 6}
 
 
 class FlashCase(NamedTuple):
@@ -3224,10 +3228,10 @@ SSM_ARCHS = ("mamba2-2.7b", "zamba2-1.2b")
 # decode step's host time grows with the layers (a Mamba2 serving call
 # took 93.9 ms at 64 layers and 24.6 ms at 16; NVIDIA H100 80GB HBM3,
 # 700 W), and the check of decode against forward feeds 512 tokens one at
-# a time twice.  Mamba2 at 8 of 64
+# a time twice.  Mamba2 at 4 of 64
 # layers; Zamba2 at 8 of 38 (one shared-attention group of 6 and a tail
 # of 2, as the full 6 × 6 + 2).
-SSM_DEPTH = {"mamba2-2.7b": {"num_layers": 8}, "zamba2-1.2b": {"num_layers": 8}}
+SSM_DEPTH = {"mamba2-2.7b": {"num_layers": 4}, "zamba2-1.2b": {"num_layers": 8}}
 SSM_FORWARD_SHAPE = (2, 4096)       # (batch, tokens): 16 chunks of 256
 SSM_CONSISTENCY_SEQ = 512           # two chunks, so h_prev is not all zero
 SSM_REQUESTS = {"mamba2-2.7b": 8, "zamba2-1.2b": 4}
@@ -3842,7 +3846,8 @@ def run_lm_zoo_path(device, new_tokens: int = 16) -> dict:
 # full size, or the zoo's cut (`ZOO`) for a model built here and served
 # through `serve.serve`.  Flags: the reference driver's defaults (8
 # requests of 16 random tokens, 16 new tokens each, 4 slots, max_len 256).
-SERVE_DRIVER = {"granite-moe-1b-a400m": None, "whisper-large-v3": None,
+SERVE_DRIVER = {"granite-moe-1b-a400m": None,
+                "whisper-large-v3": ZOO["whisper-large-v3"][0],
                 "llama-3.2-vision-90b": ZOO["llama-3.2-vision-90b"][0]}
 
 
@@ -3879,10 +3884,11 @@ def _serve_launches_per_call(cfg) -> dict:
 
 def run_serve_driver_path(device) -> dict:
     """The serving driver, `repro_torch.launch.serve`, as a user runs it:
-    `main` for Granite-MoE and Whisper at full size, and `serve` for the
-    VLM at the zoo's cut (5 of 100 layers), each from the port's own init
-    (seed 0) with the driver's zero extras.  Each run with every launch
-    count zeroed just before it and read just after; gates: every request
+    `main` for Granite-MoE at full size, and `serve` for Whisper and the
+    VLM at the zoo's cuts (8 + 8 of 32 + 32 and 5 of 100 layers), each
+    from the port's own init (seed 0) with the driver's zero extras.  Each
+    run with every launch count zeroed just before it and read just after;
+    gates: every request
     answered with ``max_new`` tokens in the vocabulary, the driver's
     ``served`` line saying so, each kernel's launches
     `_serve_launches_per_call` times `_serve_calls` (every other kernel
@@ -4000,6 +4006,11 @@ TRAIN_MODELS = {
                              "gates set to 1.0 (zero at init)", 1e-5),
 }
 TRAIN_KW = dict(base_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+# The repeat gate: each trained model rebuilt from the same seed takes its
+# first steps again on the same batches; losses, grad norms and every
+# parameter leaf's checksum must equal the first run's bit for bit (the
+# reference's jitted step repeats; an atomic add in a backward does not).
+REPEAT_STEPS = 3
 # The card-against-host, microbatch and resume checks: Granite at full
 # width, 2 of 24 layers, float32 compute, batches of 2 × 128 tokens.
 HOST_TRAIN_LAYERS = 2
@@ -4101,7 +4112,57 @@ def _train_profile(step_fn, state, batch, device) -> tuple:
         ms = math.fsum(v for k, v in by_name.items() if stem in k) / 1e3
         out[stem + "_ms"] = ms
         out[stem + "_share"] = ms / busy if busy else 0.0
+    # torch's own gather, scatter and index kernels (the MoE dispatch and
+    # combine, the loss's gather, the embedding's backward), each instance.
+    out["indexing_kernels_ms"] = [[k[:160], v / 1e3] for k, v in by_name.items()
+                                  if any(w in k for w in ("scatter", "gather", "index",
+                                                          "embedding"))]
     return out, state
+
+
+def _leaf_checksums(params) -> dict:
+    """Per parameter leaf, [sum, sum of squares] of its words viewed as
+    integers, in int64 (wrapping, so the order of the adds does not
+    matter): one changed bit anywhere changes the sum."""
+    import torch
+    from repro_torch.utils.tree import flatten_with_paths
+
+    words = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for key, leaf in flatten_with_paths(params).items():
+        flat = leaf.detach().reshape(-1).view(words[leaf.element_size()])
+        acc = torch.zeros(2, dtype=torch.long, device=flat.device)
+        for part in flat.split(1 << 24):
+            part = part.long()
+            acc += torch.stack([part.sum(), (part * part).sum()])
+        out[key] = acc.tolist()
+    return out
+
+
+def _repeat_run(cfg, data, device, steps: int, base_lr: float, first: dict) -> dict:
+    """``cfg`` rebuilt and initialised from seed 0 as in `train_model`, its
+    first `REPEAT_STEPS` steps taken again on the same batches; ``first``
+    holds the first run's losses, grad norms and `_leaf_checksums` after
+    that step.  ``equal`` when all of them match bit for bit."""
+    from repro_torch.distributed import init_train_state, make_train_step
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    state = init_train_state(model, 0, device=device)
+    _set_gates(state.params, cfg, ZOO_GATE)
+    step_fn = make_train_step(model, **dict(TRAIN_KW, total_steps=steps, base_lr=base_lr))
+    losses, norms = [], []
+    for i in range(REPEAT_STEPS):
+        state, metrics = step_fn(state, _torch_batch(data.batch_at(i), device))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    sums = _leaf_checksums(state.params)
+    differ = [k for k, v in sums.items() if v != first["checksums"].get(k)]
+    return {"steps": REPEAT_STEPS, "losses": losses, "grad_norms": norms,
+            "leaves": len(sums), "leaves_differing": len(differ),
+            "first_differing": differ[:4],
+            "equal": (losses == first["losses"] and norms == first["grad_norms"]
+                      and not differ and sums.keys() == first["checksums"].keys())}
 
 
 def _close_states(label, got, want, lr: float) -> dict:
@@ -4408,8 +4469,11 @@ def train_model(cfg, shape, device, steps: int = TRAIN_STEPS, reduced: str = "no
     step's, each kernel's launches equal to `_expected_train_launches`
     times the steps (every other kernel none), flash on the bfloat16
     tensor-core routes, no plain version called.  Then one profiled step
-    (not counted).  Returns the run's line (also logged as
-    ``lm_train_path``) with its launches; frees the model."""
+    (not counted), and the repeat (`_repeat_run`, not counted): the model
+    rebuilt from seed 0 and its first `REPEAT_STEPS` steps taken again,
+    their result as ``repeat`` (its ``equal`` is gated by the caller).
+    Returns the run's line (also logged as ``lm_train_path``) with its
+    launches; frees the model."""
     import gc
     import statistics
 
@@ -4443,6 +4507,8 @@ def train_model(cfg, shape, device, steps: int = TRAIN_STEPS, reduced: str = "no
             step_s.append(time.perf_counter() - t0)
             norms.append(float(metrics["grad_norm"]))
             lrs.append(float(metrics["lr"]))
+            if i == REPEAT_STEPS - 1:
+                checksums = _leaf_checksums(state.params)
         counts, routes = read_counts(), read_routes()
     finally:
         restore()
@@ -4481,8 +4547,20 @@ def train_model(cfg, shape, device, steps: int = TRAIN_STEPS, reduced: str = "no
                0.0, 1.0 - profiled.get("device_busy_ms", 0.0) / (1e3 * median_s))}
     del state, step_fn, model
     gc.collect()
+    first = {"losses": losses[:REPEAT_STEPS], "grad_norms": norms[:REPEAT_STEPS],
+             "checksums": checksums}
+    out["repeat"] = _repeat_run(cfg, data, device, steps, base_lr, first)
+    gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _gate_repeat(row: dict) -> None:
+    if not row["repeat"]["equal"]:
+        raise AssertionError(f"{row['arch']}: the training run did not repeat bit for "
+                             f"bit: {row['repeat']} against losses "
+                             f"{row['losses'][:REPEAT_STEPS]}, grad norms "
+                             f"{row['grad_norms'][:REPEAT_STEPS]}")
 
 
 def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
@@ -4492,7 +4570,8 @@ def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
     reported beside `CUDA_CORE_BWD_STEP`; then `TRAIN_MODELS` one after
     another (Mamba2, Zamba2, gemma2, Whisper and the VLM at full width,
     each freed before the next), each with its counts zeroed just before
-    it; then the float32 card-against-host checks (`check_train_on_host`:
+    it; each run must repeat bit for bit (``repeat``, gated once its line
+    is logged); then the float32 card-against-host checks (`check_train_on_host`:
     Granite at 2 layers, the reduced VLM and Whisper;
     `check_ssm_train_on_host`) and the guard (`check_no_grad_through_kernels`).  Returns Granite's line
     with ``models`` (each model's line) and ``launches`` summed over all
@@ -4510,6 +4589,7 @@ def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
         "flash_bwd_share": [profiled.get("flash_bwd_share"),
                             CUDA_CORE_BWD_STEP["flash_bwd_share"]]}
     log("lm_train_path " + json.dumps(out))
+    _gate_repeat(out)
     launches = dict(out["launches"])
     out["models"] = {}
     for arch, (over, shape, reduced, lr) in TRAIN_MODELS.items():
@@ -4518,6 +4598,7 @@ def run_lm_train_path(device, steps: int = TRAIN_STEPS) -> dict:
                           steps, reduced, lr)
         row["run_s"] = time.perf_counter() - t0
         log("lm_train_path " + json.dumps(row))
+        _gate_repeat(row)
         for k, v in row["launches"].items():
             launches[k] = launches.get(k, 0) + v
         out["models"][arch] = row
@@ -4918,9 +4999,11 @@ def check_host_ranks() -> dict:
 # The dry run's production cell, traced in a child process (a fake
 # process group is process-global) through the CLI a user runs.
 DRYRUN_CELL = ("qwen2-72b", "decode_32k", "single")
-# Granite at full width and depth (24 layers) on 16 × 1,024 tokens, 16
-# microbatches, traced in fake mode and run on the card.
-DRYRUN_TRAIN = ("granite-moe-1b-a400m", 1024, 16)
+# Granite at full width and 12 of 24 layers on 16 × 1,024 tokens, 16
+# microbatches, traced in fake mode and run on the card (its real step
+# took 56.4 s of the script at 24 layers on an NVIDIA H100 80GB HBM3,
+# 700 W).
+DRYRUN_TRAIN = ("granite-moe-1b-a400m", 1024, 16, 12)
 # The traced peak against the card's `max_memory_allocated` (less what was
 # allocated before the cell was built): a miss means a tensor the trace
 # does not see.
@@ -4930,12 +5013,13 @@ DRYRUN_PEAK_BAND = 0.15
 # The Granite trace's child process: one fake-mode `run_cell` on `cuda`,
 # its record (with the trace's seconds) as the last line of its output.
 DRYRUN_TRAIN_CHILD = """
-import json, sys, time
+import dataclasses, json, sys, time
 from repro_torch.configs import InputShape, get_arch
 from repro_torch.launch import dryrun
-name, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+name, seq, batch, layers = sys.argv[1], *map(int, sys.argv[2:5])
 t0 = time.perf_counter()
-rec = dryrun.run_cell(name, "train_4k", None, cfg_override=get_arch(name),
+rec = dryrun.run_cell(name, "train_4k", None,
+                      cfg_override=dataclasses.replace(get_arch(name), num_layers=layers),
                       shape_override=InputShape("train_4k", seq, batch, "train"),
                       fake=True, device="cuda")
 rec.pop("traceback", None)
@@ -4962,7 +5046,7 @@ class DryrunTraces:
             self.cell_out.unlink()
         env = dict(os.environ)
         env["PYTHONPATH"] = str(ROOT / "src")
-        name, seq, batch = DRYRUN_TRAIN
+        name, seq, batch, layers = DRYRUN_TRAIN
         self.logs = {}
         self.started = time.perf_counter()
         self.cell = self._start(
@@ -4970,7 +5054,7 @@ class DryrunTraces:
                      "--mesh", mesh, "--out", str(self.cell_out), "--device", "cuda"],
             out_dir, env)
         self.train = self._start("train", ["-c", DRYRUN_TRAIN_CHILD, name, str(seq),
-                                           str(batch)], out_dir, env)
+                                           str(batch), str(layers)], out_dir, env)
 
     def _start(self, key: str, args: list, out_dir: Path, env: dict):
         """A child with its output and errors in files (a pipe nobody reads
@@ -5007,6 +5091,8 @@ def run_dryrun_path(device, traces: DryrunTraces) -> dict:
     card's, the real loss finite, every LM kernel of the step launched.
     Launch counts are zeroed just before the real run and read just after
     it."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import InputShape, get_arch
     from repro_torch.launch import dryrun
@@ -5024,8 +5110,8 @@ def run_dryrun_path(device, traces: DryrunTraces) -> dict:
             rec["mesh"] != {"data": 16, "model": 16}:
         raise AssertionError(f"dry run of {arch} × {shape}: {rec.get('error', rec)}")
 
-    name, seq, batch = DRYRUN_TRAIN
-    cfg = get_arch(name)
+    name, seq, batch, layers = DRYRUN_TRAIN
+    cfg = dataclasses.replace(get_arch(name), num_layers=layers)
     train = InputShape("train_4k", seq, batch, "train")
     t0 = time.perf_counter()
     fake = json.loads(traces.wait("train", f"trace of {name}").strip().splitlines()[-1])

@@ -36,10 +36,13 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 
 # rows × trees below which backend="auto" stays on the numpy host tier.
-# 0 = always the device tier: the crossover has not been measured on the
-# card yet.  chip_smoke.py prints the numpy-vs-kernel curve over 2^10 …
-# 2^22 slots, and a later change sets this value from it.  No threshold
-# measured for the reference's TPU tiers is carried over.
+# 0 = always the device tier: chip_smoke.py's `auto_curve` (the fused
+# path with its upload and download, as serving pays it, against numpy
+# over 2^10 … 2^22 slots) puts the card ahead at every point, from its
+# smallest, 900 slots (0.11–0.23 ms against numpy's 0.24–0.60 ms over
+# four runs on an NVIDIA H100 80GB HBM3, 700 W), so there is no crossover
+# to set.  No threshold measured for the reference's TPU tiers is carried
+# over.
 AUTO_DEVICE_MIN_SLOTS = 0
 
 # Concrete tree backends and the device each one's bank lives on.

@@ -133,7 +133,12 @@ class _Select(torch.autograd.Function):
     def backward(ctx, g):
         dim, index, group, shape = ctx.args
         out = torch.zeros(shape, dtype=g.dtype, device=g.device)
-        out.index_add_(dim, index, g)
+        # One entry at a time, in the index's order: a rank whose query
+        # heads straddle kv groups reads a kv head twice, and one
+        # `index_add_` over the whole index would sum the repeats in the
+        # order its atomic adds land on the card.
+        for j in range(index.numel()):
+            out.index_add_(dim, index[j:j + 1], g.narrow(dim, j, 1))
         dist.all_reduce(out, group=group)
         return out, None, None, None
 

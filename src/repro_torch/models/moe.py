@@ -17,7 +17,13 @@ a dropped one of expert j at row (j+1)·cap (the first row of expert
 j+1, or the overflow row for the last expert), and where two writes meet
 the later assignment in token-slot order wins (XLA's scatter).  The port
 builds the same buffer deterministically on every device: each row takes
-the last assignment that writes it.
+the last assignment that writes it.  Dispatch and combine are `_Route`s,
+row gathers whose index is one-to-one between buffer rows and token
+slots (slot j = t·k + i, as the reference's repeat of x k times): the
+backward of each is the gather at the inverse index, and the dispatch's
+then a sum over each token's k slots, the reference's own transpose.
+No backward adds two contributions into one row, so a training step
+gives the same bits on every run, as the reference's does.
 """
 from __future__ import annotations
 
@@ -50,6 +56,51 @@ def expert_capacity(tokens_per_row: int, cfg) -> int:
     return max(cap, cfg.top_k)
 
 
+def _take(src: Tensor, index: Tensor, k: int = 1) -> Tensor:
+    """Row ``index // k`` of ``src`` (b, n, d) for each entry of ``index``
+    (b, m); a zero row where ``index < 0``."""
+    b, m = index.shape
+    rows = src.gather(1, (index.clamp(min=0) // k)[..., None].expand(b, m, src.shape[2]))
+    return rows.masked_fill_((index < 0)[..., None], 0)
+
+
+class _Route(torch.autograd.Function):
+    """Rows moved between token slots and buffer rows: out[r] is row
+    ``index[r] // k`` of ``src`` (zero where ``index[r] < 0``), i.e. slot
+    ``index[r]`` of ``src`` repeated k times along its rows, without the
+    repeat.  ``inverse`` gives for each of those k·n slots the output row
+    that reads it (-1 for none); no two rows read one slot, so the
+    backward is the gather at ``inverse`` and a sum over each source
+    row's k slots, in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, src, index, inverse, k):
+        ctx.save_for_backward(inverse)
+        ctx.k = k
+        return _take(src, index, k)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        inverse, = ctx.saved_tensors
+        grad = _take(g, inverse)
+        if ctx.k > 1:
+            b, n, d = grad.shape
+            grad = grad.reshape(b, n // ctx.k, ctx.k, d).sum(dim=2)
+        return grad, None, None, None
+
+
+def _last_of(b: int, rows: int, dest: Tensor) -> Tensor:
+    """(b, rows): for each row the last assignment j (by position in
+    ``dest``, (b, sk), values ≤ rows) whose destination it is, -1 if
+    none; destination ``rows`` is the overflow row, left out."""
+    sk = dest.shape[1]
+    last = torch.full((b, rows + 1), -1, dtype=torch.long, device=dest.device)
+    last.scatter_reduce_(1, dest, torch.arange(sk, device=dest.device).expand(b, sk),
+                         reduce="amax")
+    return last[:, :rows]
+
+
 def moe_ffn(p: Params, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
     """x: (b, s, d) → (y: (b, s, d), aux_loss: float32 scalar)."""
     dt = dtype_of(cfg)
@@ -78,15 +129,12 @@ def moe_ffn(p: Params, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
     dest = flat_expert * cap + torch.where(keep, pos, cap)         # (b, sk)
 
     # Dispatch: buffer row r holds the token of the last assignment whose
-    # destination is r (token j // k of assignment j), zero if none.
-    writer = torch.full((b, slots + 1), -1, dtype=torch.long, device=dev)
-    writer.scatter_reduce_(1, dest.clamp(max=slots),
-                           torch.arange(sk, device=dev).expand(b, sk),
-                           reduce="amax")
-    writer = writer[:, :slots]
-    expert_in = x.to(dt).gather(
-        1, (writer.clamp(min=0) // k)[..., None].expand(b, slots, d))
-    expert_in = expert_in.masked_fill((writer < 0)[..., None], 0)
+    # destination is r (token j // k of assignment j), zero if none; each
+    # assignment feeds the row it won, if any.
+    row = dest.clamp(max=slots)
+    writer = _last_of(b, slots, row)
+    won = writer.gather(1, row.clamp(max=slots - 1)) == torch.arange(sk, device=dev)
+    expert_in = _Route.apply(x.to(dt), writer, torch.where(won, row, -1), k)
 
     # Expert SwiGLU: three grouped matmuls, batch folded into the rows.
     # On a mesh the expert stacks hold this rank's experts over `model`
@@ -106,11 +154,10 @@ def moe_ffn(p: Params, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
     out_flat = out.reshape(e, b, cap, d).transpose(0, 1).reshape(b, slots, d)
 
     # Combine: each kept assignment's output weighted by its gate, summed
-    # over the k contiguous slots of a token.
-    safe_dest = dest.clamp(max=slots - 1)
-    per_assign = out_flat.gather(1, safe_dest[..., None].expand(b, sk, d))
-    per_assign = per_assign * (gates.reshape(b, sk, 1).to(dt)
-                               * keep[..., None].to(dt))
+    # over the k contiguous slots of a token; a dropped one reads zero.
+    reader = _last_of(b, slots, torch.where(keep, dest, slots))
+    per_assign = _Route.apply(out_flat, torch.where(keep, dest, -1), reader, 1)
+    per_assign = per_assign * gates.reshape(b, sk, 1).to(dt)
     y = per_assign.reshape(b, s, k, d).sum(dim=2)
 
     # Switch-style load-balancing aux loss, its means over the whole

@@ -1444,3 +1444,63 @@ def test_reduced_granite_train_step_on_the_card_equals_the_host(card):
     scale = max(float(t.abs().max()) for t in host.opt.mu.values())
     for k_, t in host.opt.mu.items():
         assert float((dev.opt.mu[k_].cpu() - t).abs().max()) <= 1e-4 * scale, k_
+
+
+def test_moe_ffn_gradients_repeat_bit_for_bit_at_granite_width(card):
+    """Granite's MoE FFN at full width (d 1,024, 32 experts, top 8,
+    capacity 1.25) on 4 × 1,024 bfloat16 tokens, forward and backward
+    twice: every gradient bit-equal (no backward accumulates a token's 8
+    buffer rows with atomic adds)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Params
+
+    cfg = get_arch("granite-moe-1b-a400m")
+    assert (cfg.d_model, cfg.num_experts, cfg.top_k, cfg.compute_dtype) == \
+        (1024, 32, 8, "bfloat16")
+    gen = torch.Generator(card).manual_seed(0)
+    p = Params(moe.moe_init(gen, cfg))
+    for t in p.parameters():
+        t.requires_grad_(True)
+    x = torch.randn((4, 1024, cfg.d_model), generator=gen, device=card).to(torch.bfloat16)
+    cot = torch.randn((4, 1024, cfg.d_model), generator=gen, device=card)
+    runs = []
+    for _ in range(2):
+        xt = x.clone().requires_grad_(True)
+        y, aux = moe.moe_ffn(p, xt, cfg)
+        (torch.sum(y.float() * cot) + aux).backward()
+        runs.append([xt.grad] + [t.grad.clone() for t in p.parameters()])
+        for t in p.parameters():
+            t.grad = None
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_reduced_granite_train_step_repeats_bit_for_bit(card):
+    """One bfloat16 train step of reduced Granite-MoE with Granite's own
+    routing (32 experts, top 8) on 4 × 512 tokens, from seed 0, twice:
+    loss, grad norm and every parameter bit-equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import flatten_with_paths
+
+    cfg = dataclasses.replace(get_arch("granite-moe-1b-a400m").reduced(),
+                              num_experts=32, top_k=8)
+    batch = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=512,
+                            global_batch=4).batch_at(0)
+    runs = []
+    for _ in range(2):
+        m = build_model(cfg)
+        state = init_train_state(m, 0, device=card)
+        step = make_train_step(m, base_lr=1e-3, warmup_steps=0, total_steps=10)
+        state, metrics = step(state, {k: torch.from_numpy(v).to(card)
+                                      for k, v in batch.items()})
+        runs.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                     flatten_with_paths(state.params)))
+    (l0, n0, p0), (l1, n1, p1) = runs
+    assert (l0, n0) == (l1, n1)
+    assert p0.keys() == p1.keys()
+    for k, t in p0.items():
+        assert torch.equal(t, p1[k]), k
