@@ -250,7 +250,12 @@ result line:
      16 microbatches traced in fake mode, both in child processes started
      once the kernels are built (`DryrunTraces`), then Granite run on
      the card (FLOPs and argument bytes equal, traced peak within 15% of
-     ``max_memory_allocated``, loss finite); and the
+     ``max_memory_allocated``, loss finite); a ``step_prediction`` line
+     for each of the two records (`step_prediction`: the analytic
+     step-cost model of `repro_torch.launch.roofline` beside the traced
+     counts, and for Granite its predicted step, which must not exceed the
+     measured one) and the predictor twin
+     ``examples/torch/predict_tpu_step.py``'s lines for qwen2-72b; and the
      examples (`run_examples_path`): ``examples/torch/quickstart.py``'s
      ``main`` on the card, cold, its tree-kernel launches gated.
   4. Times at the paths' shapes — kernel (with its launch plan for the
@@ -5081,6 +5086,93 @@ class DryrunTraces:
                 proc.wait()
 
 
+def _load_example(name: str):
+    """``examples/torch/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def step_prediction(rec: dict, cfg, shape) -> dict:
+    """The analytic step-cost model (`repro_torch.launch.roofline`) of a
+    dry-run record's cell, built from the record's config, shape, mesh,
+    microbatches and variant as the reference's ``derive_terms`` reads a
+    record, beside the record's traced FLOPs, bytes and collective bytes
+    per device; the three terms at the card's published rates and the
+    predicted step (the largest); for a step run on the card also the
+    measured step and predicted ÷ measured, the step's roofline
+    fraction."""
+    from repro_torch.launch import roofline
+
+    ana = roofline.step_costs(cfg, shape, rec["mesh"],
+                              microbatches=rec.get("microbatches", 16),
+                              fsdp=rec.get("variant") == "fsdp")
+    terms, dominant, step = roofline.step_terms(ana)
+    analytic = {"flops": ana["ana_flops_dev"], "bytes": ana["ana_bytes_dev"],
+                "collective_bytes": ana["ana_coll_dev"]}
+    traced = {"flops": rec["cost"]["flops_per_device"],
+              "bytes": rec["cost"]["bytes_per_device"],
+              "collective_bytes": rec["collective_bytes"]}
+    line = {"arch": rec["arch"], "shape": [shape.name, shape.global_batch, shape.seq_len],
+            "layers": cfg.num_layers, "mesh": rec["mesh"], "variant": rec["variant"],
+            "mode": rec["mode"], "analytic_per_device": analytic, "traced_per_device": traced,
+            "analytic_over_traced": {k: analytic[k] / traced[k] if traced[k] else None
+                                     for k in analytic},
+            "terms_ms": {k: 1e3 * v for k, v in terms.items()}, "dominant": dominant,
+            "predicted_step_ms": 1e3 * step,
+            "rates": {"peak_flops": roofline.PEAK_FLOPS, "hbm_bw": roofline.HBM_BW,
+                      "link_bw": roofline.LINK_BW}}
+    if "step_ms" in rec:
+        line.update(measured_step_ms=rec["step_ms"],
+                    predicted_over_measured=1e3 * step / rec["step_ms"],
+                    card=rec.get("nvidia_smi"))
+    return line
+
+
+def check_step_prediction(line: dict) -> None:
+    """Gates of a step run on the card: every number finite and > 0 (the
+    collective term aside: one card moves nothing), and the predicted step
+    at most the measured one: a roofline is a lower bound."""
+    nums = [*(line[k][q] for k in ("analytic_per_device", "traced_per_device")
+              for q in ("flops", "bytes")),
+            line["analytic_over_traced"]["flops"], line["analytic_over_traced"]["bytes"],
+            line["predicted_step_ms"], line["measured_step_ms"],
+            line["predicted_over_measured"]]
+    if not all(x is not None and math.isfinite(x) and x > 0 for x in nums):
+        raise AssertionError(f"step prediction: a number is not finite and > 0: {line}")
+    if line["predicted_step_ms"] > line["measured_step_ms"]:
+        raise AssertionError(f"predicted step {line['predicted_step_ms']} ms above the "
+                             f"measured {line['measured_step_ms']} ms")
+
+
+# The predictor twin's lines for qwen2-72b: a step for each of these
+# shapes, and long_500k skipped (no sub-quadratic context path).
+TWIN_ARCH = "qwen2-72b"
+TWIN_STEPS = ("train_4k", "prefill_32k", "decode_32k")
+
+
+def run_predictor_twin() -> list:
+    """``examples/torch/predict_tpu_step.py``'s ``main`` for `TWIN_ARCH`
+    in this process (arithmetic only); its lines are printed and gated."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _load_example("predict_tpu_step").main(["--arch", TWIN_ARCH])
+    lines = out.getvalue().splitlines()
+    log("predict_tpu_step " + json.dumps(lines, ensure_ascii=False))
+    want = [f"  {name:12s} step ≈" for name in TWIN_STEPS] + ["  long_500k    skipped: "]
+    if not (len(lines) == 5 and "on an H100" in lines[0] and "(256 cards)" in lines[0]
+            and all(ln.startswith(w) for ln, w in zip(lines[1:], want))):
+        raise AssertionError(f"predict_tpu_step printed {lines}")
+    return lines
+
+
 def run_dryrun_path(device, traces: DryrunTraces) -> dict:
     """The dry run (`repro_torch.launch.dryrun`): `DRYRUN_CELL` traced on
     fake CUDA tensors over a fake group of 256 ranks (its record and
@@ -5090,11 +5182,13 @@ def run_dryrun_path(device, traces: DryrunTraces) -> dict:
     argument bytes equal, the traced peak within `DRYRUN_PEAK_BAND` of the
     card's, the real loss finite, every LM kernel of the step launched.
     Launch counts are zeroed just before the real run and read just after
-    it."""
+    it.  Then the analytic model beside both records (`step_prediction`
+    lines; Granite's gated by `check_step_prediction`) and the predictor
+    twin (`run_predictor_twin`): arithmetic on the records, no new run."""
     import dataclasses
 
     import torch
-    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.configs import INPUT_SHAPES, InputShape, get_arch
     from repro_torch.launch import dryrun
 
     arch, shape, _ = DRYRUN_CELL
@@ -5150,7 +5244,15 @@ def run_dryrun_path(device, traces: DryrunTraces) -> dict:
     for kernel in ("flash_attention", "flash_attention_backward", "moe_gmm"):
         if launches[kernel] == 0:
             raise AssertionError(f"the dry run's step never launched {kernel}")
-    return {"cell": rec, "train": row, "launches": launches}
+
+    predicted = {"cell": step_prediction(rec, get_arch(arch), INPUT_SHAPES[shape]),
+                 "train": step_prediction(real, cfg, train)}
+    for line in predicted.values():
+        log("step_prediction " + json.dumps(line))
+    check_step_prediction(predicted["train"])
+    twin = run_predictor_twin()
+    return {"cell": rec, "train": row, "launches": launches,
+            "step_prediction": predicted, "predict_tpu_step": twin}
 
 
 def run_examples_path(device) -> dict:
@@ -5158,12 +5260,7 @@ def run_examples_path(device) -> dict:
     card, with a store of its own under build/ (cold): it profiles its
     graphs on the card and predicts the held-out ones through the tree
     kernel.  Gate: the tree kernels launched.  Counts zeroed just before."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "torch_quickstart", ROOT / "examples" / "torch" / "quickstart.py")
-    quickstart = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(quickstart)
+    quickstart = _load_example("quickstart")
     store = ROOT / "build" / "examples" / "quickstart_store.jsonl"
     store.parent.mkdir(parents=True, exist_ok=True)
     if store.exists():

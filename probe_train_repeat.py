@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Two readings of the port's training steps on one NVIDIA H100, for
+"""Three readings of the port's training steps on one NVIDIA H100, for
 whichever `repro_torch` is first on the path (``PYTHONPATH=src`` for this
 tree, or the ``src`` of another tree unpacked beside it):
 
     python3 probe_train_repeat.py measure out.json
     python3 probe_train_repeat.py diagnose out.json
+    python3 probe_train_repeat.py sharded out.json
 
 ``measure``: Granite-MoE 1B at full width and depth through chip_smoke's
 `train_model` (`TRAIN_SHAPE`, 8 steps, the launch gates, one profiled
@@ -24,6 +25,17 @@ an order that can change (`ACCUMULATING`), with whether its index
 repeats.  The second is needed because in deterministic mode torch swaps
 those ops for sorted versions without a warning.  A diagnostic only: the
 port runs neither setting anywhere else.
+
+``sharded``: where the world-size-1 sharded Granite step's loss parts
+from the unsharded one's.  Granite at full width and depth, `TRAIN_SHAPE`,
+`SHARDED_STEPS` steps from seed 0 on the same batches, with bfloat16 and
+with float32 compute (TF32 off in both), four ways (`SHARDED_RUNS`):
+unsharded; on a world-size-1 NCCL (1, 1) mesh under chip_smoke's
+`SHARDED_VARIANT` with fsdp_gather and seq_shard, as its `sharded_train`;
+on the mesh with seq_shard alone; and without a mesh with fsdp_gather
+alone (its cast of every floating leaf to the compute dtype, nothing
+gathered).  Each run's losses and its largest relative loss difference
+from the unsharded run of its type.
 
 Prints the card line (``nvidia-smi --query-gpu=name,power.limit``) and
 one JSON line per model.
@@ -169,6 +181,66 @@ def measure(device) -> list:
     return [out]
 
 
+# ``sharded``: steps a run, and the runs: (name, config fields, on the mesh).
+SHARDED_STEPS = 3
+SHARDED_RUNS = (("unsharded", {}, False),
+                ("mesh_fsdp_gather_seq_shard", {"fsdp_gather": True, "seq_shard": True}, True),
+                ("mesh_seq_shard", {"seq_shard": True}, True),
+                ("fsdp_gather_cast_only", {"fsdp_gather": True}, False))
+
+
+def sharded(device) -> list:
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import init_train_state, make_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, s = cs.TRAIN_SHAPE
+    store = cs._nccl_world_of_one(device)
+    rows = []
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for dtype in ("float32", "bfloat16"):
+            base = dataclasses.replace(get_arch(cs.LM_ARCH), compute_dtype=dtype)
+            data = cs._train_data(base, b, s, seed=0)
+            first = None
+            for name, fields, on_mesh in SHARDED_RUNS:
+                cfg = dataclasses.replace(base, **fields)
+                model = build_model(cfg)
+                state = init_train_state(model, 0, device=device)
+                kw = dict(mesh=mesh, variant=cs.SHARDED_VARIANT) if on_mesh else {}
+                step = make_train_step(model, **kw, **dict(cs.TRAIN_KW,
+                                                            total_steps=SHARDED_STEPS))
+                losses = []
+                for i in range(SHARDED_STEPS):
+                    state, metrics = step(state, cs._torch_batch(data.batch_at(i), device))
+                    losses.append(float(metrics["loss"]))
+                first = first or losses
+                row = {"compute_dtype": dtype, "run": name, "tokens": [b, s],
+                       "losses": losses, "bit_equal": losses == first,
+                       "max_rel_loss_diff": max(abs(a - w) / abs(w)
+                                                for a, w in zip(losses, first))}
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+                del state, step, model
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.unlink(store)
+    return rows
+
+
 def main(argv) -> int:
     mode, path = argv[1], Path(argv[2])
     if mode == "diagnose":
@@ -189,7 +261,7 @@ def main(argv) -> int:
     _build.build_all([lib for m in cs.kernel_modules()
                       for lib in getattr(m, "LIBRARIES", (m.LIBRARY,))])
     t0 = time.perf_counter()
-    rows = diagnose(device) if mode == "diagnose" else measure(device)
+    rows = {"diagnose": diagnose, "measure": measure, "sharded": sharded}[mode](device)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps({"card": card, "mode": mode,
                                 "repro_torch": str(Path(__import__("repro_torch").__file__)

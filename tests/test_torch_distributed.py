@@ -247,6 +247,57 @@ def test_fsdp_gather_numerics_match_tp(tmp_path):
         assert _rel(tp[0], want) < TOL, (rep, float(want))
 
 
+def test_one_rank_sharded_gap_is_the_gathers_cast(tmp_path):
+    """Reduced Granite-MoE, 2 steps of 2 × 64 tokens on one gloo rank,
+    (1, 1) mesh: the sharded step (fsdp variant, fsdp_gather and
+    seq_shard) against the unsharded one, bit for bit in float32; in
+    bfloat16 seq_shard alone stays bit-equal, and the sharded losses are
+    those of the unsharded step with fsdp_gather alone and no mesh, whose
+    one effect is the reference's cast of every floating leaf (norm scales
+    and router too) to the compute dtype (``src/repro/distributed/fsdp.py``
+    ``gather_layer``).  On the card that cast is the sharded Granite
+    step's bfloat16 loss gap at step 1 (``probe_train_repeat.py
+    sharded``), and float32 is bit-equal there too."""
+    reports = spawn(1, """
+        import dataclasses
+        from repro_torch.configs import get_arch
+        from repro_torch.distributed import init_train_state, make_train_step
+        from repro_torch.data import SyntheticLMData
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import build_model
+
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        runs = {"unsharded": ({}, False),
+                "sharded": ({"fsdp_gather": True, "seq_shard": True}, True),
+                "seq_shard": ({"seq_shard": True}, True),
+                "cast": ({"fsdp_gather": True}, False)}
+        res = {}
+        for dtype in ("float32", "bfloat16"):
+            base = dataclasses.replace(get_arch("granite-moe-1b-a400m").reduced(),
+                                       compute_dtype=dtype)
+            data = SyntheticLMData(vocab_size=base.vocab_size, seq_len=64,
+                                   global_batch=2, seed=0)
+            for name, (fields, on_mesh) in runs.items():
+                model = build_model(dataclasses.replace(base, **fields))
+                state = init_train_state(model, 0, device="cpu")
+                kw = dict(mesh=mesh, variant="fsdp") if on_mesh else {}
+                step = make_train_step(model, **kw, base_lr=3e-4, warmup_steps=1,
+                                       total_steps=2)
+                losses = []
+                for i in range(2):
+                    batch = {k: torch.as_tensor(v) for k, v in data.batch_at(i).items()}
+                    state, m = step(state, batch)
+                    losses.append(float(m["loss"]))
+                res[f"{dtype} {name}"] = losses
+        report(res=res)
+    """, tmp_path)
+    res = reports[0]["res"]
+    for name in ("sharded", "seq_shard", "cast"):
+        assert res[f"float32 {name}"] == res["float32 unsharded"], res
+    assert res["bfloat16 seq_shard"] == res["bfloat16 unsharded"], res
+    assert res["bfloat16 sharded"] == res["bfloat16 cast"] != res["bfloat16 unsharded"], res
+
+
 # Per family: (variant, fsdp_gather and seq_shard) of the sweep below.
 SWEEP = {"granite-moe-1b-a400m": ("tp", False), "mamba2-2.7b": ("fsdp", True),
          "zamba2-1.2b": ("tp", True), "gemma2-27b": ("fsdp", False),

@@ -3,7 +3,8 @@ every entry point defaults to the card.
 
 Parses every module of ``src/repro_torch``, ``chip_smoke.py``,
 ``compare_kernels.py``, ``compare_decode_steps.py`` and the port's examples (``examples/torch``) and fails on ``import jax`` / ``from jax …`` /
-``import repro`` / ``from repro.…`` (``repro_torch`` itself is fine).  Then, with CUDA reported absent, each
+``import repro`` / ``from repro.…`` (``repro_torch`` itself is fine) and
+on an import of the reference's ``benchmarks`` folder.  Then, with CUDA reported absent, each
 entry point called with its default device must raise RuntimeError
 instead of quietly running on the host.
 """
@@ -24,7 +25,7 @@ PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "compare_kernels.py",
                                         ROOT / "compare_decode_steps.py"] \
     + sorted((ROOT / "examples" / "torch").glob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(path):
@@ -83,7 +84,8 @@ def test_port_has_the_slice_modules():
                 "launch/__init__.py", "launch/train.py", "launch/serve.py",
                 "launch/mesh.py", "distributed/sharding.py", "distributed/fsdp.py",
                 "distributed/activations.py", "distributed/pipeline.py",
-                "distributed/elastic.py", "launch/dryrun.py", "utils/hlo_analysis.py"):
+                "distributed/elastic.py", "launch/dryrun.py", "utils/hlo_analysis.py",
+                "launch/roofline.py"):
         assert mod in names
     for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
                 "flash_attention.cu", "flash_attention_bwd.cu", "moe_gmm.cu", "ssd_scan.cu",
@@ -101,9 +103,10 @@ def test_no_jax_or_reference_imports(path):
 def test_checker_catches_forbidden_imports(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import repro_torch.core\nfrom repro.core import ir\n"
-                 "import jax.numpy as jnp\nfrom . import x\n")
+                 "import jax.numpy as jnp\nfrom . import x\n"
+                 "from benchmarks.roofline import analytic_costs\n")
     roots = [m.split(".")[0] for _, m in _imported_roots(p)]
-    assert [r for r in roots if r in FORBIDDEN] == ["repro", "jax"]
+    assert [r for r in roots if r in FORBIDDEN] == ["repro", "jax", "benchmarks"]
 
 
 def test_cuda_kernel_source_names_both_kernels():
