@@ -30,6 +30,14 @@ data axes and cut to each leaf's shard; AdamW updates each shard and
 clips by the norm over all of them; the reported loss and metrics are
 the mean over the data axes.  Compression is not run on a mesh: its
 int8 scale is a maximum over the whole leaf.
+
+Spans (`repro_torch.obs.tracing`): a step is traced into ``obs``'s
+tracer (default: `repro_torch.obs.default()`) while a torch.profiler
+session records, or always when that tracer is enabled: ``train.step``
+around the step, ``train.forward`` (the loss), ``train.backward``
+(autograd, with every recompute and ``.bwd`` span of the model under
+it), ``train.optimizer`` (the rate's schedule and `adamw_update`, whose
+one wait for the card is ``train.sync``), one trace id a step.
 """
 from __future__ import annotations
 
@@ -44,6 +52,8 @@ from repro_torch.distributed.compression import (
 )
 from repro_torch.distributed.sharding import distribute_params, local_batch, shard_params
 from repro_torch.launch.mesh import ambient_mesh, data_axes, use_mesh
+from repro_torch.obs import default as default_obs
+from repro_torch.obs.tracing import train_span, train_step as traced_step
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.schedules import linear_warmup_cosine
 from repro_torch.utils.device import DeviceLike
@@ -138,15 +148,20 @@ def make_train_step(
     compression: bool = False,
     mesh=None,
     variant: str = "tp",
+    obs=None,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict[str, Any]]]:
     """The step; on ``mesh`` (default: the ambient mesh when the step
-    runs) with the ``variant``'s rules (see the module docstring)."""
+    runs) with the ``variant``'s rules, its spans into ``obs``'s tracer
+    (see the module docstring)."""
+    tracer = (obs if obs is not None else default_obs()).tracer
 
     def value_and_grad(params, leaves, batch):
-        loss, metrics = model.loss(params, batch)
-        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(leaves.items(), grads)}
+        with train_span("train.forward"):
+            loss, metrics = model.loss(params, batch)
+        with train_span("train.backward"):
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+            grads = {k: torch.zeros_like(p) if g is None else g
+                     for (k, p), g in zip(leaves.items(), grads)}
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
@@ -163,6 +178,10 @@ def make_train_step(
                        for k, v in metrics.items()}
 
     def _step(state: TrainState, batch: Dict[str, Any]):
+        with traced_step(tracer):
+            return _step_body(state, batch)
+
+    def _step_body(state: TrainState, batch: Dict[str, Any]):
         leaves = flatten_with_paths(state.params)
         if not all(p.requires_grad for p in leaves.values()):
             raise ValueError("the state's parameters do not require gradients "
@@ -187,11 +206,12 @@ def make_train_step(
         if compression and comp_state is not None:
             grads, comp_state = compress_grads(grads, comp_state)
 
-        lr = linear_warmup_cosine(state.step, base_lr=base_lr,
-                                  warmup_steps=warmup_steps,
-                                  total_steps=total_steps)
-        new_params, new_opt, opt_metrics = adamw_update(
-            grads, state.opt, state.params, lr=lr, weight_decay=weight_decay)
+        with train_span("train.optimizer"):
+            lr = linear_warmup_cosine(state.step, base_lr=base_lr,
+                                      warmup_steps=warmup_steps,
+                                      total_steps=total_steps)
+            new_params, new_opt, opt_metrics = adamw_update(
+                grads, state.opt, state.params, lr=lr, weight_decay=weight_decay)
         new_state = TrainState(new_params, new_opt, comp_state, state.step + 1)
         out_metrics = {"loss": loss, "lr": lr, **opt_metrics, **metrics}
         return new_state, out_metrics

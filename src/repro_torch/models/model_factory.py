@@ -43,6 +43,7 @@ from repro_torch.models.layers import (
     Params, dtype_of, embed, embed_init, norm_init, remat_runner, rms_norm, torch_dtype,
     unembed,
 )
+from repro_torch.obs.tracing import train_span
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
@@ -104,6 +105,16 @@ def _generator(seed: int, device: DeviceLike) -> torch.Generator:
     return gen
 
 
+def head_nll(head: Callable[[Tensor], Tensor], x: Tensor, labels: Tensor,
+             vocab: int) -> Tensor:
+    """The loss head: the last layer's output ``x`` → logits (``head``) →
+    the mean token NLL (`cross_entropy`).  Span ``lm.head`` in a traced
+    training step, its backward ``lm.head.bwd``."""
+    with train_span("lm.head") as span:
+        x, = span.inputs(x)
+        return span.output(cross_entropy(head(x), labels, vocab))
+
+
 def _nll_loss(forward, vocab: int):
     def loss(params, batch):
         nll = cross_entropy(forward(params, batch), batch["labels"], vocab)
@@ -121,9 +132,10 @@ def _build_decoder(cfg: ArchConfig) -> Model:
         return logits
 
     def loss(params, batch):
-        logits, aux = transformer.decoder_forward(
+        top, x, aux = transformer.decoder_trunk(
             params, batch["tokens"], cfg, vision_embeds=batch.get("vision_embeds"))
-        nll = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        nll = head_nll(lambda h: transformer.decoder_head(top, h, cfg), x,
+                       batch["labels"], cfg.vocab_size)
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
     def init_cache(batch: int, max_len: int, device: DeviceLike = "cuda"):
@@ -162,21 +174,33 @@ def _build_ssm(cfg: ArchConfig) -> Model:
                                       cfg.param_dtype)
         return Params(p)
 
-    def forward(params, batch, *, remat: bool = True):
-        """Logits in float32, no softcap (as the reference's SSM).  With
-        ``remat`` and gradients enabled each layer runs under
-        `torch.utils.checkpoint.checkpoint` (remat, the reference's
-        ``jax.checkpoint`` of its layer scan), as in `decoder_forward`;
-        the sharding hooks sit where the reference's do."""
+    def trunk(params, batch, remat: bool = True):
+        """(the top-level leaves as computed on, the last layer's output)."""
         top = local_params(params)
         x = embed(top["embed"], batch["tokens"], dtype_of(cfg))
         run = remat_runner(remat)
         s = x.shape[1]
         for lp in pin_layer_stack(params["layers"], cfg):
             x = run(ssm.mamba_layer, lp, constrain_seq(x, cfg), cfg, s)
+        return top, x
+
+    def head(top, x):
         x = rms_norm(top["final_norm"], x, cfg.norm_eps)
         return constrain_logits(unembed(transformer._head(top, cfg), x),
                                 cfg.vocab_size).float()
+
+    def forward(params, batch, *, remat: bool = True):
+        """Logits in float32, no softcap (as the reference's SSM).  With
+        ``remat`` and gradients enabled each layer runs under
+        `torch.utils.checkpoint.checkpoint` (remat, the reference's
+        ``jax.checkpoint`` of its layer scan), as in `decoder_forward`;
+        the sharding hooks sit where the reference's do."""
+        return head(*trunk(params, batch, remat))
+
+    def loss(params, batch):
+        top, x = trunk(params, batch)
+        nll = head_nll(lambda h: head(top, h), x, batch["labels"], cfg.vocab_size)
+        return nll, {"nll": nll}
 
     def init_cache(batch: int, max_len: int, device: DeviceLike = "cuda"):
         return ssm.init_mamba_cache(cfg, batch, cfg.num_layers,
@@ -189,8 +213,7 @@ def _build_ssm(cfg: ArchConfig) -> Model:
         x = rms_norm(top["final_norm"], x, cfg.norm_eps)
         return unembed(transformer._head(top, cfg), x[:, 0]).float(), cache
 
-    return Model(cfg, init, _nll_loss(forward, cfg.vocab_size), forward, init_cache,
-                 decode_step, _token_specs)
+    return Model(cfg, init, loss, forward, init_cache, decode_step, _token_specs)
 
 
 # ---------------------------------------------------------------------------

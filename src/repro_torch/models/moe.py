@@ -24,6 +24,15 @@ backward of each is the gather at the inverse index, and the dispatch's
 then a sum over each token's k slots, the reference's own transpose.
 No backward adds two contributions into one row, so a training step
 gives the same bits on every run, as the reference's does.
+
+Spans of a traced training step (`repro_torch.obs.tracing`):
+``moe.route`` (the router through the rows each assignment writes and
+reads), ``moe.dispatch`` and ``moe.combine`` (the two `_Route`s, the
+combine with its gate weighting), and ``moe.dispatch.bwd`` and
+``moe.combine.bwd`` (their backwards).  ``moe.route`` counts, as 0-d
+tensors left on the device: ``rows`` (b·e·cap), ``filled`` (rows some
+assignment writes), ``dropped`` (assignments past capacity) and
+``displaced`` (kept assignments whose row an overflow write took).
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import torch.nn.functional as F
 from repro_torch.distributed.activations import batch_mean, model_shard, model_whole
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, dense_init, dtype_of, uniform
+from repro_torch.obs.tracing import NOOP_SPAN, train_span
 
 Tensor = torch.Tensor
 
@@ -71,23 +81,24 @@ class _Route(torch.autograd.Function):
     repeat.  ``inverse`` gives for each of those k·n slots the output row
     that reads it (-1 for none); no two rows read one slot, so the
     backward is the gather at ``inverse`` and a sum over each source
-    row's k slots, in a fixed order."""
+    row's k slots, in a fixed order, under the span ``bwd``."""
 
     @staticmethod
-    def forward(ctx, src, index, inverse, k):
+    def forward(ctx, src, index, inverse, k, bwd):
         ctx.save_for_backward(inverse)
-        ctx.k = k
+        ctx.k, ctx.bwd = k, bwd
         return _take(src, index, k)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         inverse, = ctx.saved_tensors
-        grad = _take(g, inverse)
-        if ctx.k > 1:
-            b, n, d = grad.shape
-            grad = grad.reshape(b, n // ctx.k, ctx.k, d).sum(dim=2)
-        return grad, None, None, None
+        with train_span(ctx.bwd):
+            grad = _take(g, inverse)
+            if ctx.k > 1:
+                b, n, d = grad.shape
+                grad = grad.reshape(b, n // ctx.k, ctx.k, d).sum(dim=2)
+        return grad, None, None, None, None
 
 
 def _last_of(b: int, rows: int, dest: Tensor) -> Tensor:
@@ -110,31 +121,42 @@ def moe_ffn(p: Params, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
     slots, sk = e * cap, s * k
     dev = x.device
 
-    # Router (float32 for softmax stability).
-    logits = x.float() @ p["router"]["kernel"].float()            # (b, s, e)
-    probs = torch.softmax(logits, dim=-1)
-    gates, expert_idx = torch.topk(probs, k, dim=-1)               # (b, s, k)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    with train_span("moe.route") as route:
+        # Router (float32 for softmax stability).
+        logits = x.float() @ p["router"]["kernel"].float()        # (b, s, e)
+        probs = torch.softmax(logits, dim=-1)
+        gates, expert_idx = torch.topk(probs, k, dim=-1)           # (b, s, k)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # Position of each (token, slot) in its expert's queue, in token order.
-    flat_expert = expert_idx.reshape(b, sk)
-    order = torch.argsort(flat_expert, dim=1, stable=True)
-    sorted_e = flat_expert.gather(1, order)
-    starts = torch.searchsorted(
-        sorted_e, torch.arange(e, device=dev).expand(b, e).contiguous(),
-        side="left")
-    pos_sorted = torch.arange(sk, device=dev)[None, :] - starts.gather(1, sorted_e)
-    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
-    keep = pos < cap
-    dest = flat_expert * cap + torch.where(keep, pos, cap)         # (b, sk)
+        # Position of each (token, slot) in its expert's queue, in token order.
+        flat_expert = expert_idx.reshape(b, sk)
+        order = torch.argsort(flat_expert, dim=1, stable=True)
+        sorted_e = flat_expert.gather(1, order)
+        starts = torch.searchsorted(
+            sorted_e, torch.arange(e, device=dev).expand(b, e).contiguous(),
+            side="left")
+        pos_sorted = torch.arange(sk, device=dev)[None, :] - starts.gather(1, sorted_e)
+        pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+        keep = pos < cap
+        dest = flat_expert * cap + torch.where(keep, pos, cap)     # (b, sk)
 
-    # Dispatch: buffer row r holds the token of the last assignment whose
-    # destination is r (token j // k of assignment j), zero if none; each
-    # assignment feeds the row it won, if any.
-    row = dest.clamp(max=slots)
-    writer = _last_of(b, slots, row)
-    won = writer.gather(1, row.clamp(max=slots - 1)) == torch.arange(sk, device=dev)
-    expert_in = _Route.apply(x.to(dt), writer, torch.where(won, row, -1), k)
+        # Buffer row r holds the token of the last assignment whose
+        # destination is r (token j // k of assignment j), zero if none;
+        # each assignment feeds the row it won, if any.  The combine reads
+        # each kept assignment's row back.
+        row = dest.clamp(max=slots)
+        writer = _last_of(b, slots, row)
+        won = writer.gather(1, row.clamp(max=slots - 1)) == torch.arange(sk, device=dev)
+        reader = _last_of(b, slots, torch.where(keep, dest, slots))
+        if route is not NOOP_SPAN:
+            route.set_attr("rows", b * slots)
+            route.set_attr("filled", (writer >= 0).sum())
+            route.set_attr("dropped", (~keep).sum())
+            route.set_attr("displaced", (keep & ~won).sum())
+
+    with train_span("moe.dispatch"):
+        expert_in = _Route.apply(x.to(dt), writer, torch.where(won, row, -1), k,
+                                 "moe.dispatch.bwd")
 
     # Expert SwiGLU: three grouped matmuls, batch folded into the rows.
     # On a mesh the expert stacks hold this rank's experts over `model`
@@ -155,10 +177,11 @@ def moe_ffn(p: Params, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
 
     # Combine: each kept assignment's output weighted by its gate, summed
     # over the k contiguous slots of a token; a dropped one reads zero.
-    reader = _last_of(b, slots, torch.where(keep, dest, slots))
-    per_assign = _Route.apply(out_flat, torch.where(keep, dest, -1), reader, 1)
-    per_assign = per_assign * gates.reshape(b, sk, 1).to(dt)
-    y = per_assign.reshape(b, s, k, d).sum(dim=2)
+    with train_span("moe.combine"):
+        per_assign = _Route.apply(out_flat, torch.where(keep, dest, -1), reader, 1,
+                                  "moe.combine.bwd")
+        per_assign = per_assign * gates.reshape(b, sk, 1).to(dt)
+        y = per_assign.reshape(b, s, k, d).sum(dim=2)
 
     # Switch-style load-balancing aux loss, its means over the whole
     # batch (over the data axes on a mesh).

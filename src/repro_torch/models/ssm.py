@@ -40,6 +40,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import (
     Params, dense, dense_init, dtype_of, norm_init, rms_norm, torch_dtype,
 )
+from repro_torch.obs.tracing import train_span
 
 Tensor = torch.Tensor
 
@@ -129,21 +130,25 @@ def ssd_forward(xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     cum = torch.cumsum(log_da.reshape(b, nc, q, h), dim=2)          # (b,c,Q,h)
 
     # Intra-chunk weights w[b,c,h,t,s] = (C_t·B_s)·exp(cum_t − cum_s)·dt_s,
-    # masked above the diagonal before the exp (so no cotangent is NaN).
-    cum_h = cum.permute(0, 1, 3, 2).contiguous()                     # (b,c,h,Q)
-    tri = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
-    cb = (cr @ br.transpose(-1, -2))[:, :, None]                     # C_t·B_s
-    dts = dtr.permute(0, 1, 3, 2)[:, :, :, None, :]                  # dt_s
-    if grad:
-        w = torch.exp((cum_h[..., :, None] - cum_h[..., None, :])
-                      .masked_fill(~tri, MASKED_DECAY)) * cb * dts
-    else:                                # one buffer, filled in place
-        w = torch.empty((b, nc, h, q, q), dtype=f32, device=dev)
-        torch.sub(cum_h[..., :, None], cum_h[..., None, :], out=w)
-        w.masked_fill_(~tri, MASKED_DECAY).exp_()
-        w.mul_(cb).mul_(dts)
-    y_intra = w @ xr.permute(0, 1, 3, 2, 4)                          # (b,c,h,t,p)
-    del w
+    # masked above the diagonal before the exp (so no cotangent is NaN),
+    # and the intra-chunk output: span ``ssm.intra`` in a traced training
+    # step, its backward ``ssm.intra.bwd``.
+    with train_span("ssm.intra") as intra:
+        cum_i, cr_i, br_i, dtr_i, xr_i = intra.inputs(cum, cr, br, dtr, xr)
+        cum_h = cum_i.permute(0, 1, 3, 2).contiguous()               # (b,c,h,Q)
+        tri = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
+        cb = (cr_i @ br_i.transpose(-1, -2))[:, :, None]             # C_t·B_s
+        dts = dtr_i.permute(0, 1, 3, 2)[:, :, :, None, :]            # dt_s
+        if grad:
+            w = torch.exp((cum_h[..., :, None] - cum_h[..., None, :])
+                          .masked_fill(~tri, MASKED_DECAY)) * cb * dts
+        else:                            # one buffer, filled in place
+            w = torch.empty((b, nc, h, q, q), dtype=f32, device=dev)
+            torch.sub(cum_h[..., :, None], cum_h[..., None, :], out=w)
+            w.masked_fill_(~tri, MASKED_DECAY).exp_()
+            w.mul_(cb).mul_(dts)
+        y_intra = intra.output(w @ xr_i.permute(0, 1, 3, 2, 4))      # (b,c,h,t,p)
+        del w
 
     # Per-chunk input→state contributions, chunk-major: (c, b, h, p, n).
     tail = torch.exp(cum[:, :, -1:, :] - cum) * dtr                  # (b,c,Q,h)

@@ -299,6 +299,16 @@ def decoder_forward(params: Params, tokens: Tensor, cfg, *,
     `pin_layer_stack`, `constrain_logits`) sit where its own do and are
     the identity off-mesh; on a mesh the logits' vocab may come back cut
     over `model` (see `repro_torch.distributed.activations`)."""
+    top, x, aux = decoder_trunk(params, tokens, cfg, vision_embeds=vision_embeds,
+                                remat=remat)
+    return decoder_head(top, x, cfg), aux
+
+
+def decoder_trunk(params: Params, tokens: Tensor, cfg, *,
+                  vision_embeds: Optional[Tensor] = None,
+                  remat: bool = True) -> Tuple[Params, Tensor, Tensor]:
+    """`decoder_forward` up to the last layer's output: (the top-level
+    leaves as the layers compute on them, x (b, s, d), moe aux loss)."""
     dt = dtype_of(cfg)
     b, s = tokens.shape
     top = local_params(params)
@@ -315,9 +325,15 @@ def decoder_forward(params: Params, tokens: Tensor, cfg, *,
         else:
             x, a = run(_self_layer, lp, x, cfg, positions, s, window)
             aux = aux + a
+    return top, x, aux
+
+
+def decoder_head(top: Params, x: Tensor, cfg) -> Tensor:
+    """The last layer's output → the final norm → the unembedding → the
+    softcap: logits (b, s, vocab) float32."""
     x = rms_norm(top["final_norm"], x, cfg.norm_eps)
     logits = constrain_logits(unembed(_head(top, cfg), x), cfg.vocab_size)
-    return softcap(logits.float(), cfg.final_logit_softcap), aux
+    return softcap(logits.float(), cfg.final_logit_softcap)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,11 @@ off) so instrumentation is always consistent and never a conditional
 in the hot path.  Passing ONE bundle to every layer is what makes the
 ``metrics`` RPC endpoint's snapshot account for the whole system.
 
+A training step (`repro_torch.distributed.make_train_step`) takes
+``obs=`` too; without one it uses the process-wide `default()` bundle,
+whose tracer is off, so the step's spans are recorded there only while a
+torch.profiler session records (`tracing.train_step`).
+
 Port notes (copy of ``repro.obs``): metric names, span names and the
 Prometheus exposition are the reference's, letter for letter, and every
 component above has its port (`repro_torch.rpc`, `repro_torch.pipeline`,
@@ -44,7 +49,7 @@ __all__ = [
     "DEFAULT_TIME_BUCKETS", "DEFAULT_SIZE_BUCKETS", "to_prometheus",
     "snapshot_to_json", "validate_dump", "NOOP_SPAN", "MetricsTimeline",
     "AlertRule", "AlertEngine", "AuditLog", "METRIC_HELP",
-    "AutopilotConfig", "RecalibrationAutopilot",
+    "AutopilotConfig", "RecalibrationAutopilot", "default",
 ]
 
 
@@ -90,3 +95,16 @@ class Observability:
 
     def prometheus(self) -> str:
         return to_prometheus(self.registry.snapshot(include_collected=False))
+
+
+_DEFAULT: Optional[Observability] = None
+
+
+def default() -> Observability:
+    """The process-wide bundle of the components that are given none
+    (the training step): quiet, so its tracer holds only the spans of
+    steps traced under torch.profiler."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = Observability.quiet()
+    return _DEFAULT

@@ -19,6 +19,16 @@ fault (chaos injection, wedged flush, deadline timeout) `dump()`
 snapshots the ring into a schema-stable dict — the "what was the
 system doing right before it went wrong" artifact, bounded in memory
 and validated by `validate_dump`.
+
+Spans inside a training step (the port's own; see "Spans inside a
+training step" below): `train_step` traces one step of
+`repro_torch.distributed.make_train_step` while a torch.profiler
+session records in the process or the step's tracer is enabled, and
+model code opens its spans with `train_span`, from any thread.  Under
+the profiler each such span is also a profiler range of its name, so
+the profiler's trace gives it the device time of the kernels launched
+under it.  A span's attribute may be a 0-d tensor (a counter left on
+the device); `Tracer.export` turns it into a number.
 """
 from __future__ import annotations
 
@@ -26,9 +36,12 @@ import threading
 import time
 from collections import deque
 from contextlib import contextmanager
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
-__all__ = ["Span", "Tracer", "FlightRecorder", "validate_dump", "NOOP_SPAN"]
+import torch
+
+__all__ = ["Span", "Tracer", "FlightRecorder", "validate_dump", "NOOP_SPAN",
+           "TrainSpan", "train_step", "train_span"]
 
 
 def _now_fn(clock: Any) -> Callable[[], float]:
@@ -53,6 +66,12 @@ class _NoopSpan:
 
     def end(self, status: str = "ok") -> None:
         pass
+
+    def inputs(self, *xs: Any) -> Tuple[Any, ...]:
+        return xs
+
+    def output(self, x: Any) -> Any:
+        return x
 
     def __enter__(self) -> "_NoopSpan":
         return self
@@ -171,6 +190,11 @@ class Tracer:
         a fresh trace."""
         if not self.enabled:
             return NOOP_SPAN
+        return Span(self, name, *self._place(parent, trace), self._now(), attrs)
+
+    def _place(self, parent: Optional[Span], trace: Optional[Dict[str, Any]]
+               ) -> Tuple[str, str, Optional[str]]:
+        """(trace id, span id, parent id) of a new span (see `start_span`)."""
         if trace is not None and trace.get("tid"):
             tid = str(trace["tid"])
             pid = str(trace.get("sid")) if trace.get("sid") else None
@@ -183,7 +207,7 @@ class Tracer:
             else:
                 sid, tid = self._new_ids(want_trace=True)
                 pid = None
-        return Span(self, name, tid, sid, pid, self._now(), attrs)
+        return tid, sid, pid
 
     def span(self, name: str, *, parent: Optional[Span] = None,
              trace: Optional[Dict[str, Any]] = None,
@@ -228,9 +252,194 @@ class Tracer:
         return {"tid": span.trace_id, "sid": span.span_id}
 
     def export(self) -> List[Dict[str, Any]]:
-        """Finished spans, oldest first (bounded by ``capacity``)."""
+        """Finished spans, oldest first (bounded by ``capacity``); a
+        counter held as a tensor is read here (its first export waits
+        for the device) and kept as a number."""
         with self._lock:
-            return list(self._finished)
+            out = list(self._finished)
+        for d in out:
+            attrs = d["attrs"]
+            for k, v in attrs.items():
+                if isinstance(v, torch.Tensor):
+                    attrs[k] = v.item()
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Spans inside a training step
+# ---------------------------------------------------------------------------
+#
+# `train_step` makes one step's `_TrainTrace` the process's ambient one
+# while the step runs, so model code reaches it through `train_span`
+# without new arguments, from any thread: on the card the autograd engine
+# runs the backward (and the recompute of every checkpointed layer) on a
+# thread of its own, whose spans take the stepping thread's innermost
+# span (`train.backward`) as their parent.  With no traced step running,
+# `train_span` costs one global read and returns NOOP_SPAN, and a span's
+# `inputs` and `output` hand their tensors back untouched: no node is
+# added to the autograd graph and no kernel launched.
+
+_ACTIVE: Optional["_TrainTrace"] = None
+
+
+class TrainSpan(Span):
+    """A span of a traced training step.  Under the profiler it also
+    holds a profiler range of its name (`_RecordFunctionFast`: listed as
+    an op, not as a user annotation), so the trace gives the span the
+    device time of the kernels launched under it on its thread.
+
+    ``inputs`` and ``output`` mark a region for the backward: the
+    region's tensors pass through identity functions whose backward opens
+    the span ``<name>.bwd`` when the outputs' gradient arrives and ends it
+    once every input's gradient is ready.  Values and gradients are the
+    same bits as without them."""
+
+    __slots__ = ("_range", "_trace", "_bwd")
+
+    def __init__(self, trace: "_TrainTrace", name: str, parent: Optional[Span]):
+        tracer = trace.tracer
+        super().__init__(tracer, name, *tracer._place(parent, None), tracer._now())
+        self._trace = trace
+        self._bwd: Optional[_Backward] = None
+        self._range = None
+        if trace.profile:
+            self._range = torch._C._profiler._RecordFunctionFast(name)
+            self._range.__enter__()
+
+    def close(self, status: str = "ok") -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        self.end(status)
+
+    def __enter__(self) -> "TrainSpan":
+        self._tracer._push(self)
+        return self
+
+    def __exit__(self, exc_type: Any, *exc: Any) -> bool:
+        self._tracer._pop(self)
+        # A checkpointed layer's recompute stops by raising once it has
+        # every tensor the backward needs: the span ends there, no error.
+        fine = exc_type is None or exc_type.__name__ == "_StopRecomputationError"
+        self.close("ok" if fine else "error")
+        return False
+
+    def inputs(self, *xs: Any) -> Tuple[Any, ...]:
+        """``xs`` with those that need a gradient marked as the region's
+        inputs (the others as they are)."""
+        want = [i for i, x in enumerate(xs)
+                if isinstance(x, torch.Tensor) and x.requires_grad]
+        if not want or not torch.is_grad_enabled():
+            return xs
+        self._bwd = _Backward(self._trace, self.name + ".bwd")
+        marked = _RegionIn.apply(self._bwd, *(xs[i] for i in want))
+        out = list(xs)
+        for i, m in zip(want, marked):
+            out[i] = m
+        return tuple(out)
+
+    def output(self, x: Any) -> Any:
+        """``x`` marked as the region's output, where ``inputs`` marked
+        the region's inputs."""
+        if self._bwd is None or not (isinstance(x, torch.Tensor) and x.requires_grad):
+            return x
+        return _RegionOut.apply(self._bwd, x)
+
+
+class _Backward:
+    """The ``.bwd`` span of one marked region, open from the outputs'
+    gradient to the inputs'."""
+
+    __slots__ = ("trace", "name", "span")
+
+    def __init__(self, trace: "_TrainTrace", name: str):
+        self.trace, self.name, self.span = trace, name, None
+
+    def open(self) -> None:
+        if self.span is None:
+            self.span = self.trace.span(self.name, anchored=True)
+            self.trace.open.add(self)
+
+    def close(self, status: str = "ok") -> None:
+        if self.span is not None:
+            self.span.close(status)
+            self.span = None
+            self.trace.open.discard(self)
+
+
+class _RegionOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, bwd, x):
+        ctx.bwd = bwd
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.bwd.open()
+        return None, g
+
+
+class _RegionIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, bwd, *xs):
+        ctx.bwd = bwd
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.bwd.close()
+        return (None, *gs)
+
+
+class _TrainTrace:
+    """One traced step: its tracer, whether the profiler records, the
+    stepping thread's span stack, and the ``.bwd`` spans still open."""
+
+    __slots__ = ("tracer", "profile", "main", "open")
+
+    def __init__(self, tracer: Tracer, profile: bool):
+        self.tracer, self.profile = tracer, profile
+        self.main = tracer._stack()
+        self.open: set = set()
+
+    def span(self, name: str, anchored: bool = False) -> TrainSpan:
+        """A new span under this thread's innermost one; on a thread with
+        none (autograd's), or ``anchored``, under the stepping thread's."""
+        parent = None if anchored else self.tracer.current()
+        if parent is None and self.main:
+            parent = self.main[-1]
+        return TrainSpan(self, name, parent)
+
+
+@contextmanager
+def train_step(tracer: Tracer) -> Iterator[Any]:
+    """Trace one training step into ``tracer`` as ``train.step`` when the
+    tracer is enabled or a torch.profiler session records (decided here,
+    once a step); otherwise yield NOOP_SPAN and trace nothing."""
+    global _ACTIVE
+    profile = torch.autograd.profiler._is_profiler_enabled
+    if not (profile or tracer.enabled):
+        yield NOOP_SPAN
+        return
+    trace, outer = _TrainTrace(tracer, profile), _ACTIVE
+    _ACTIVE = trace
+    try:
+        with trace.span("train.step") as root:
+            try:
+                yield root
+            finally:
+                # A region whose inputs' gradient was never asked for.
+                for bwd in list(trace.open):
+                    bwd.close("error")
+    finally:
+        _ACTIVE = outer
+
+
+def train_span(name: str) -> Any:
+    """A span of the traced step running in this process (enter it with
+    ``with``), or NOOP_SPAN when none is."""
+    trace = _ACTIVE
+    return NOOP_SPAN if trace is None else trace.span(name)
 
 
 class FlightRecorder:

@@ -28,6 +28,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch.launch.mesh import axis_info
+from repro_torch.obs.tracing import train_span
 from repro_torch.utils.tree import flatten_with_paths
 
 Tensor = torch.Tensor
@@ -105,8 +106,13 @@ def adamw_update(
     scale = torch.clamp(max_grad_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     stepf = step.float()
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
+    # The β tensors are copied from host scalars, from pageable memory:
+    # the host waits for the card here (span ``train.sync``).
+    with train_span("train.sync"):
+        b1t = torch.tensor(b1, dtype=torch.float32, device=stepf.device)
+        b2t = torch.tensor(b2, dtype=torch.float32, device=stepf.device)
+    bc1 = 1 - torch.pow(b1t, stepf)
+    bc2 = 1 - torch.pow(b2t, stepf)
     for k, p in flat.items():
         # Each leaf's shard on its own: the update is elementwise.
         p = _local(p)

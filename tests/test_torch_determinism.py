@@ -184,8 +184,8 @@ def test_moe_ffn_forward_unchanged_by_the_routes(monkeypatch):
     calls = []
     real = moe._Route.apply
 
-    def spy(src, index, inverse, k):
-        out = real(src, index, inverse, k)
+    def spy(src, index, inverse, k, bwd):
+        out = real(src, index, inverse, k, bwd)
         rows = src.gather(1, (index.clamp(min=0) // k)[..., None].expand(*index.shape,
                                                                          src.shape[2]))
         assert torch.equal(out, rows * (index >= 0)[..., None])
@@ -194,12 +194,12 @@ def test_moe_ffn_forward_unchanged_by_the_routes(monkeypatch):
         fed = inverse >= 0
         assert torch.equal(index.gather(1, inverse.clamp(min=0))[fed], slots[fed])
         assert int(fed.sum()) == int((index >= 0).sum())
-        calls.append(k)
+        calls.append((k, bwd))
         return out
 
     monkeypatch.setattr(moe._Route, "apply", spy)
     moe.moe_ffn(p, x, cfg)
-    assert calls == [cfg.top_k, 1]
+    assert calls == [(cfg.top_k, "moe.dispatch.bwd"), (1, "moe.combine.bwd")]
 
 
 # -- (c) the model axis's select, heads straddling kv groups -----------------

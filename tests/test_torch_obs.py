@@ -487,3 +487,125 @@ def test_autopilot_error_is_audited_on_the_port():
     clock.advance(1)
     ap.step()
     assert ap.audit.events("autopilot.error") and not calls
+
+
+# -- spans inside a training step (repro_torch.obs.tracing) ----------------------------
+
+def _names(tracer):
+    return [s["name"] for s in tracer.export()]
+
+
+@pytest.mark.parametrize("mode", ["off", "tracer", "profiler"])
+def test_train_spans_follow_the_switch(mode):
+    """Off (a quiet tracer, no profiler): every site returns NOOP_SPAN and
+    nothing is recorded.  With the tracer enabled, or under torch.profiler,
+    the step's spans are recorded under one trace id, and under the
+    profiler each is also listed as an op of its name (not a user
+    annotation)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import tracing
+
+    tracer = obs.Tracer(clock=Clock(), seed=1, enabled=mode == "tracer")
+
+    def step():
+        with tracing.train_step(tracer) as root:
+            with tracing.train_span("train.forward") as fwd:
+                torch.ones(4).sum()
+            return root, fwd
+
+    if mode == "profiler":
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            root, fwd = step()
+        events = {e.name: e.is_user_annotation for e in prof.events()}
+        assert events["train.step"] is False and events["train.forward"] is False
+    else:
+        root, fwd = step()
+    assert tracing.train_span("train.forward") is obs.NOOP_SPAN
+    if mode == "off":
+        assert root is obs.NOOP_SPAN and fwd is obs.NOOP_SPAN and tracer.export() == []
+        return
+    spans = tracer.export()
+    assert [s["name"] for s in spans] == ["train.forward", "train.step"]
+    assert spans[0]["parent"] == spans[1]["sid"] and spans[1]["parent"] is None
+    assert len({s["tid"] for s in spans}) == 1 and all(s["status"] == "ok" for s in spans)
+
+
+def test_train_span_on_another_thread_takes_the_stepping_threads_parent():
+    """A span opened on a thread with no span of its own (the autograd
+    engine's, on the card) is parented to the stepping thread's innermost
+    span."""
+    import threading
+
+    from repro_torch.obs import tracing
+
+    tracer = obs.Tracer(clock=Clock(), seed=1)
+    with tracing.train_step(tracer):
+        with tracing.train_span("train.backward"):
+            worker = threading.Thread(target=lambda: tracing.train_span("x.bwd").__enter__()
+                                      .__exit__(None, None, None))
+            worker.start()
+            worker.join(timeout=30)
+    assert not worker.is_alive()
+    by = {s["name"]: s for s in tracer.export()}
+    assert by["x.bwd"]["parent"] == by["train.backward"]["sid"]
+
+
+def _graph_names(t):
+    seen, todo = set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        todo.extend(f for f, _ in fn.next_functions)
+    return {type(fn).__name__ for fn in seen}
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_a_marked_region_spans_its_backward_and_keeps_the_bits(traced):
+    """``inputs``/``output`` of a live span put identity nodes around the
+    region, whose backward opens ``<name>.bwd`` when the output's gradient
+    arrives and ends it once every input's is ready; values and gradients
+    are the same bits as unmarked; off, no node is added."""
+    from repro_torch.obs import tracing
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(5, 3, generator=gen, requires_grad=True)
+    b = torch.randn(3, 4, generator=gen, requires_grad=True)
+    c = torch.arange(4.0)                         # needs no gradient
+
+    def run():
+        with tracing.train_span("r") as r:
+            x, y, z = r.inputs(a * 2, b, c)
+            out = r.output(torch.tanh(x @ y) + z)
+        return out, torch.autograd.grad((out * out).sum(), [a, b])
+
+    want, want_g = run()
+    tracer = obs.Tracer(clock=Clock(), seed=1, enabled=traced)
+    with tracing.train_step(tracer):
+        with tracing.train_span("train.backward"):
+            got, got_g = run()
+    assert torch.equal(got, want) and all(torch.equal(g, w) for g, w in zip(got_g, want_g))
+    marks = {"_RegionInBackward", "_RegionOutBackward"}
+    assert (marks <= _graph_names(got)) == traced
+    assert not marks & _graph_names(want)
+    if traced:
+        by = {s["name"]: s for s in tracer.export()}
+        assert by["r.bwd"]["parent"] == by["train.backward"]["sid"]
+        assert by["r.bwd"]["status"] == "ok" and by["r"]["parent"] == by["train.backward"]["sid"]
+    else:
+        assert tracer.export() == []
+
+
+def test_export_reads_tensor_counters():
+    from repro_torch.obs import tracing
+
+    tracer = obs.Tracer(clock=Clock(), seed=1)
+    with tracing.train_step(tracer):
+        with tracing.train_span("moe.route") as sp:
+            sp.set_attr("rows", 8)
+            sp.set_attr("filled", (torch.arange(8) < 5).sum())
+    first = tracer.export()
+    assert first[0]["attrs"] == {"rows": 8, "filled": 5}
+    assert type(first[0]["attrs"]["filled"]) is int and tracer.export() == first

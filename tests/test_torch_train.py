@@ -622,3 +622,120 @@ def test_train_driver_trains_the_vlm_and_whisper_on_the_host(caplog, arch):
     assert len(losses) == 6 and all(np.isfinite(losses))
     assert np.mean(losses[-2:]) < losses[0]
     assert any("step 6 loss" in r.getMessage() for r in caplog.records)
+
+
+# -- spans inside the step (repro_torch.obs.tracing) -----------------------------------
+
+SPAN_ARCHS = ["granite-moe-1b-a400m", "mamba2-2.7b"]
+# Per family: the span of each layer's forward (recomputed in the
+# backward) and the backward spans of each layer.
+LAYER_SPANS = {"moe": (["moe.route", "moe.dispatch", "moe.combine"],
+                       ["moe.dispatch.bwd", "moe.combine.bwd"]),
+               "ssm": (["ssm.intra"], ["ssm.intra.bwd"])}
+
+
+def _portbench_core():
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("portbench.core")
+
+
+def _two_steps(m, cfg, how):
+    """Two steps from one state, untraced (``"off"``), under torch.profiler
+    (CPU activity) or into a bundle with tracing on (``"obs"``): (metrics,
+    parameters, the spans recorded, the profiler or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+
+    bundle = obs.Observability(seed=7) if how == "obs" else None
+    tracer = (bundle or obs.default()).tracer
+    before = len(tracer.export())
+    state = _port_state(m)
+    step = make_train_step(m, obs=bundle, **STEP_KW)
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in _batches(cfg, 2)]
+    prof = None
+    if how == "profiler":
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for b in batches:
+                state, met = step(state, b)
+    else:
+        for b in batches:
+            state, met = step(state, b)
+    params = {k: v.detach().clone() for k, v in flatten_with_paths(state.params).items()}
+    return met, params, tracer.export()[before:], prof
+
+
+@pytest.mark.parametrize("arch", SPAN_ARCHS)
+def test_an_untraced_step_records_no_span_and_marks_nothing(arch):
+    _, cfg, _, m = _pair(arch)
+    *_, spans, _ = _two_steps(m, cfg, "off")
+    assert spans == []
+    params = trainable(m.init(0, device="cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1)[0].items()}
+    loss, _ = m.loss(params, batch)
+    seen, todo = set(), [loss.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is not None and fn not in seen:
+            seen.add(fn)
+            todo.extend(f for f, _ in fn.next_functions)
+    assert not {type(fn).__name__ for fn in seen} & {"_RegionInBackward",
+                                                      "_RegionOutBackward"}
+
+
+@pytest.mark.parametrize("arch", SPAN_ARCHS)
+def test_a_profiled_step_gives_the_span_tree(arch):
+    """Under torch.profiler each step is one trace: ``train.step`` over the
+    forward, the backward and the optimizer (its ``train.sync``); the
+    loss head and each layer's spans under the forward; their recompute
+    and every ``.bwd`` span under the backward.  Each span is an op of the
+    profiler's trace, none a user annotation."""
+    _, cfg, _, m = _pair(arch)
+    *_, spans, prof = _two_steps(m, cfg, "profiler")
+    layer, bwd = LAYER_SPANS[cfg.family]
+    by_sid = {s["sid"]: s for s in spans}
+    tids = sorted({s["tid"] for s in spans})
+    assert len(tids) == 2 and all(s["status"] == "ok" for s in spans)
+    for tid in tids:
+        mine = [s for s in spans if s["tid"] == tid]
+
+        def under(name):
+            return sorted(by_sid[s["parent"]]["name"] if s["parent"] else None
+                          for s in mine if s["name"] == name)
+
+        assert under("train.step") == [None]
+        for name in ("train.forward", "train.backward", "train.optimizer"):
+            assert under(name) == ["train.step"], name
+        assert under("train.sync") == ["train.optimizer"]
+        assert under("lm.head") == ["train.forward"]
+        assert under("lm.head.bwd") == ["train.backward"]
+        n = cfg.num_layers
+        for name in layer:
+            assert under(name) == ["train.backward"] * n + ["train.forward"] * n, name
+        for name in bwd:
+            assert under(name) == ["train.backward"] * n, name
+    trace = _portbench_core().trace_from_profile(prof, 1.0, 2)
+    names = {s["name"] for s in spans}
+    assert names <= {c.name for c in trace.ops}
+    assert not any(e.is_user_annotation for e in prof.events() if e.name in names)
+
+
+@pytest.mark.parametrize("how", ["profiler", "obs"])
+@pytest.mark.parametrize("arch", SPAN_ARCHS)
+def test_tracing_keeps_every_bit(arch, how):
+    """Loss, gradient norm and parameters after two steps are the same bits
+    traced (under the profiler, or into a bundle with tracing on) as
+    untraced."""
+    _, cfg, _, m = _pair(arch)
+    want, want_p, *_ = _two_steps(m, cfg, "off")
+    got, got_p, spans, _ = _two_steps(m, cfg, how)
+    assert spans
+    for key in ("loss", "grad_norm"):
+        assert torch.equal(got[key], want[key]), key
+    assert all(torch.equal(got_p[k], v) for k, v in want_p.items())
