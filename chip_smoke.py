@@ -310,7 +310,9 @@ SOURCES = {"tree_gather_leaves": CSRC + "tree_gather.cu",
            "flash_attention_backward": CSRC + "flash_attention_bwd.cu",
            "moe_gmm": CSRC + "moe_gmm.cu",
            "ssd_scan": CSRC + "ssd_scan.cu",
-           "ssd_scan_backward": CSRC + "ssd_scan.cu"}
+           "ssd_scan_backward": CSRC + "ssd_scan.cu",
+           "ssd_intra": CSRC + "ssd_intra.cu",
+           "ssd_intra_backward": CSRC + "ssd_intra.cu"}
 REPLACES = {"tree_gather_leaves": "src/repro/kernels/tree_gather_pallas.py:57",
             "tree_predict_fused": "src/repro/kernels/tree_gather_pallas.py:57",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:27",
@@ -321,7 +323,11 @@ REPLACES = {"tree_gather_leaves": "src/repro/kernels/tree_gather_pallas.py:57",
             "moe_gmm": "src/repro/kernels/moe_gmm.py:25",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:29",
             # No Pallas kernel: XLA's gradient of the reference's lax.scan.
-            "ssd_scan_backward": "src/repro/models/ssm.py:114"}
+            "ssd_scan_backward": "src/repro/models/ssm.py:114",
+            # No Pallas kernel: the reference's intra-chunk einsums (and
+            # XLA's gradient of them).
+            "ssd_intra": "src/repro/models/ssm.py:90",
+            "ssd_intra_backward": "src/repro/models/ssm.py:90"}
 # The int8 executor's requantize multiplier (ACT·WEIGHT/ACT), the GEMMs' scale.
 INT8_SCALE = 4.0 / 127.0 * (0.4 / 127.0) / (4.0 / 127.0)
 # Winograd against its plain version: float32 summation order only;
@@ -792,11 +798,11 @@ def per_op_mape(bank, graphs, store, setting) -> dict:
 
 def kernel_modules():
     from repro_torch.kernels import (flash_attention_cuda, int8_matmul_cuda,
-                                     moe_gmm_cuda, ssd_scan_cuda,
+                                     moe_gmm_cuda, ssd_intra_cuda, ssd_scan_cuda,
                                      tree_gather_cuda, winograd_conv_cuda)
 
     return (tree_gather_cuda, int8_matmul_cuda, winograd_conv_cuda,
-            flash_attention_cuda, moe_gmm_cuda, ssd_scan_cuda)
+            flash_attention_cuda, moe_gmm_cuda, ssd_scan_cuda, ssd_intra_cuda)
 
 
 def reset_counts() -> None:
@@ -3427,6 +3433,144 @@ def check_ssd_scan_backward(device) -> dict:
     return {"cases": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
+# The SSD's intra-chunk kernel (`ssd_intra.cu`): (label, b, c, q, h, n),
+# p = 64.  Mamba2 2.7B's training call (2 × 2,048 tokens, chunk 256: the
+# main path's b·c 16, q 256, h 80), Zamba2 1.2B's state (n 64), the
+# reduced configs (chunk 32, n 16) and two sequences shorter than a chunk
+# (one chunk of 7 and of 100 positions).
+SSD_INTRA_CASES = [("mamba2_train", 2, 8, 256, 80, 128), ("zamba2_train", 2, 8, 256, 64, 64),
+                   ("reduced", 2, 4, 32, 4, 16), ("short_7", 1, 1, 7, 4, 16),
+                   ("short_100", 2, 1, 100, 8, 128)]
+# Normwise errors, max |got − float64| / max |float64|, that the kernel and
+# the plain version in float32 must both keep (the card tests' limits):
+# float32 sums of up to q·p products in other orders, each weight's expf
+# against torch's exp, and the exp(−60) terms the kernel skips above the
+# diagonal tiles.  y and dx sum positive-weighted terms; d dt, d cum and
+# d cb sum signed products of dw = dy·xᵀ (d cum a difference of two).
+SSD_INTRA_TOL = {"y": 1e-5, "dx": 1e-5, "ddt": 1e-4, "dcum": 1e-4, "dcb": 1e-4}
+
+
+def _ssd_intra_inputs(b, c, q, h, n, device, seed) -> dict:
+    """x, dt, cum, cb = C·Bᵀ and the output's gradient dy, float32 on
+    ``device``: dt = softplus(z − 1), decay rates from 1e-3 (weights across
+    the whole chunk) to 16 (the model's largest, A_log's init)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((b, c, q, h)) - 1.0))
+    cum = np.cumsum(-(dt * np.exp(np.linspace(np.log(1e-3), np.log(16.0), h))), axis=2)
+    cmat = rng.standard_normal((b, c, q, n)) * 0.5
+    bmat = rng.standard_normal((b, c, q, n)) * 0.5
+    arrays = {"x": rng.standard_normal((b, c, q, h, 64)), "dt": dt, "cum": cum,
+              "cb": cmat @ bmat.swapaxes(-1, -2), "dy": rng.standard_normal((b, c, q, h, 64))}
+    return {k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in arrays.items()}
+
+
+def _normwise(got, want) -> float:
+    want = want.double()
+    return float((got.double() - want).abs().max() / want.abs().max().clamp_min(1e-300))
+
+
+def _intra_gate(label: str, names, got, plain32, want) -> dict:
+    """Hold each of the kernel's outputs, and the float32 plain version's,
+    within `SSD_INTRA_TOL` of the float64 plain version, normwise."""
+    import torch
+
+    readings = {}
+    for name, g, p32, w in zip(names, got, plain32, want):
+        err, err32 = _normwise(g, w), _normwise(p32, w)
+        if g.shape != w.shape or g.dtype != torch.float32 or \
+                not bool(torch.isfinite(g).all()) or not err <= SSD_INTRA_TOL[name]:
+            raise AssertionError(f"ssd_intra {label} {name}: {err} normwise off the "
+                                 f"float64 plain version (> {SSD_INTRA_TOL[name]})")
+        if not err32 <= SSD_INTRA_TOL[name]:
+            raise AssertionError(f"ssd_intra {label} {name}: the float32 plain version "
+                                 f"is {err32} off float64: the limit is unfair")
+        readings[name] = {"normwise": err, "plain32_normwise": err32,
+                          "max_abs_err": float((g.double() - w.double()).abs().max())}
+    return readings
+
+
+def check_ssd_intra(device) -> dict:
+    """The intra-chunk kernel (`ssd_intra_cuda`, one launch a call) against
+    `ssd_intra_plain` in float64 at `SSD_INTRA_CASES`, within
+    `SSD_INTRA_TOL` normwise, as the float32 plain version must be too;
+    a second call bit-equal."""
+    import torch
+    from repro_torch.kernels import ssd_intra as si
+    from repro_torch.kernels import ssd_intra_cuda as sic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for i, (label, b, c, q, h, n) in enumerate(SSD_INTRA_CASES):
+        ins = _ssd_intra_inputs(b, c, q, h, n, device, seed=760 + i)
+        args = [ins[k] for k in ("x", "dt", "cum", "cb")]
+        before = sic.launch_counts()["ssd_intra"]
+        got, again = sic.ssd_intra_cuda(*args), sic.ssd_intra_cuda(*args)
+        torch.cuda.synchronize()
+        if sic.launch_counts()["ssd_intra"] != before + 2:
+            raise AssertionError("ssd_intra launch counter did not advance")
+        if not torch.equal(got, again):
+            raise AssertionError(f"ssd_intra {label} is not repeatable")
+        want = si.ssd_intra_plain(*(t.double() for t in args))
+        readings = _intra_gate(label, ("y",), (got,), (si.ssd_intra_plain(*args),), (want,))
+        rows.append({"case": label, "shape": [b, c, q, h, 64, n], "repeatable": True,
+                     **readings, "max_abs_err": readings["y"]["max_abs_err"]})
+        del ins, args, got, again, want
+    log("parity ssd_intra " + json.dumps(rows))
+    return {"cases": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def check_ssd_intra_backward(device) -> dict:
+    """The intra-chunk backward (`ssd_intra_backward_cuda`: dx, d dt, d cum,
+    d cb; four kernels, one counted launch a call) against
+    `ssd_intra_backward_plain` in float64 at `SSD_INTRA_CASES`, within
+    `SSD_INTRA_TOL` normwise, as the float32 plain version must be too;
+    a second call bit-equal (no atomics, fixed-order sums)."""
+    import torch
+    from repro_torch.kernels import ssd_intra as si
+    from repro_torch.kernels import ssd_intra_cuda as sic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = ("dx", "ddt", "dcum", "dcb")
+    rows = []
+    for i, (label, b, c, q, h, n) in enumerate(SSD_INTRA_CASES):
+        ins = _ssd_intra_inputs(b, c, q, h, n, device, seed=780 + i)
+        args = [ins[k] for k in ("dy", "x", "dt", "cum", "cb")]
+        before = sic.launch_counts()["ssd_intra_backward"]
+        got = sic.ssd_intra_backward_cuda(*args)
+        again = sic.ssd_intra_backward_cuda(*args)
+        torch.cuda.synchronize()
+        if sic.launch_counts()["ssd_intra_backward"] != before + 2:
+            raise AssertionError("ssd_intra_backward launch counter did not advance")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"ssd_intra_backward {label} is not repeatable")
+        want = si.ssd_intra_backward_plain(*(t.double() for t in args))
+        readings = _intra_gate(label, names, got, si.ssd_intra_backward_plain(*args),
+                               want)
+        rows.append({"case": label, "shape": [b, c, q, h, 64, n], "repeatable": True,
+                     **readings,
+                     "max_abs_err": max(r["max_abs_err"] for r in readings.values())})
+        del ins, args, got, again, want
+    log("parity ssd_intra_backward " + json.dumps(rows))
+    return {"cases": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def ssd_intra_bound(b, c, q, h, p, backward: bool) -> tuple:
+    """(bound_ms, bound_by) of the intra-chunk kernel, float32: 2·p
+    operations a causal (t, s) pair and head forward (w·x), 4·p backward
+    (dx and dw); x, dt, cum and cb read and y written once forward, dy,
+    x, dt, cum and cb read and dx, d dt, d cum and d cb written once
+    backward."""
+    from repro_torch.kernels.ssd_intra import causal_pairs
+
+    xs, rows, cbs = b * c * q * h * p, b * c * q * h, b * c * q * q
+    ops = (4 if backward else 2) * p * b * c * h * causal_pairs(q)
+    moved = 4 * (3 * xs + 4 * rows + 2 * cbs if backward else 2 * xs + 2 * rows + cbs)
+    return bound(moved, ops)
+
+
 def _f32_kv(cache) -> dict:
     """A hybrid cache with float32 K/V (its default is bfloat16 whatever the
     compute type): float32 checks compare the recurrence, not a rounding."""
@@ -3575,8 +3719,8 @@ def run_ssm_path(device, new_tokens: int = 16) -> dict:
                 or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{arch} forward logits {logits.dtype} "
                                  f"{tuple(logits.shape)}")
-        if fwd["ssd_scan"] != cfg.num_layers or fwd["flash_attention"] != groups \
-                or fwd["moe_gmm"] != 0:
+        if fwd["ssd_scan"] != cfg.num_layers or fwd["ssd_intra"] != cfg.num_layers \
+                or fwd["flash_attention"] != groups or fwd["moe_gmm"] != 0:
             raise AssertionError(f"{arch} forward launches {fwd}")
         del logits
 
@@ -3609,14 +3753,16 @@ def run_ssm_path(device, new_tokens: int = 16) -> dict:
             "reduced": {k: f"{v} of {getattr(full, k)}"
                         for k, v in SSM_DEPTH[arch].items()},
             "forward_tokens": [b, s], "forward_s": forward_s,
-            "forward_launches": {k: fwd[k] for k in ("ssd_scan", "flash_attention")},
+            "forward_launches": {k: fwd[k] for k in ("ssd_scan", "ssd_intra",
+                                                     "flash_attention")},
             "requests": len(prompts), "requests_finished": len(done),
             "prompt_tokens": int(sum(len(p) for p in prompts)),
             "tokens_generated": generated, "decode_steps": stats["steps"],
             "decode_step_calls": calls, "serve_s": serve_s,
             "tokens_per_s": generated / serve_s,
             "mean_step_ms": 1e3 * stats["measured_step_s"],
-            "serve_launches": {k: served[k] for k in ("ssd_scan", "flash_attention")},
+            "serve_launches": {k: served[k] for k in ("ssd_scan", "ssd_intra",
+                                                      "flash_attention")},
             "launches": counts, "prefill_decode": consistency,
             "profile": breakdown,
             "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9}
@@ -3775,7 +3921,8 @@ def run_lm_zoo_path(device, new_tokens: int = 16) -> dict:
                 or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{arch} forward logits {logits.dtype} "
                                  f"{tuple(logits.shape)}")
-        if fwd["flash_attention"] != per_fwd or fwd["moe_gmm"] or fwd["ssd_scan"]:
+        if fwd["flash_attention"] != per_fwd or fwd["moe_gmm"] or fwd["ssd_scan"] \
+                or fwd["ssd_intra"]:
             raise AssertionError(f"{arch} forward launches {fwd}, expected "
                                  f"{per_fwd} flash")
         if fwd_routes["bf16_mma"] != per_fwd:
@@ -4041,16 +4188,19 @@ CUDA_CORE_BWD_STEP = {"median_step_ms": 429.1, "flash_bwd_ms": 25.9,
 
 def _plain_counters():
     """Patch the plain versions of flash attention (forward, log-sum-exp,
-    backward), the GMM and the SSD scan (forward, backward) to count their
-    calls; returns the counts and a function that restores them."""
+    backward), the GMM, the SSD scan and the SSD's intra-chunk output
+    (forward, backward) to count their calls; returns the counts and a
+    function that restores them."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
 
+    from repro_torch.kernels import ssd_intra as si
     from repro_torch.kernels import ssd_scan as ss
 
     names = [(fa, "flash_attention_plain"), (fa, "flash_lse_plain"),
              (fa, "flash_attention_backward_plain"), (gmm, "moe_gmm_plain"),
-             (ss, "ssd_scan_plain"), (ss, "ssd_scan_backward_plain")]
+             (ss, "ssd_scan_plain"), (ss, "ssd_scan_backward_plain"),
+             (si, "ssd_intra_plain"), (si, "ssd_intra_backward_plain")]
     counts = {n: 0 for _, n in names}
     originals = [(m, n, getattr(m, n)) for m, n in names]
 
@@ -4444,18 +4594,20 @@ def _expected_train_launches(cfg) -> dict:
     """Launches a training step (remat): flash forward 2 and backward 1
     per attention call (a decoder layer, a VLM cross layer, a shared-block
     call; Whisper's encoder layers one each, its decoder layers two:
-    self- and cross-attention), the GMM 6 + 6 per MoE layer, the scan 2 and
-    its backward 1 per Mamba2 layer; none elsewhere."""
+    self- and cross-attention), the GMM 6 + 6 per MoE layer, the scan and
+    the intra-chunk output 2 each and their backwards 1 each per Mamba2
+    layer; none elsewhere."""
     n = cfg.num_layers
     if cfg.family == "encdec":
         calls = cfg.encoder_layers + 2 * n
         return {"flash_attention": 2 * calls, "flash_attention_backward": calls}
+    ssd = {"ssd_scan": 2 * n, "ssd_scan_backward": n,
+           "ssd_intra": 2 * n, "ssd_intra_backward": n}
     if cfg.family == "ssm":
-        return {"ssd_scan": 2 * n, "ssd_scan_backward": n}
+        return ssd
     if cfg.family == "hybrid":
         calls = n // cfg.shared_attn_every
-        return {"ssd_scan": 2 * n, "ssd_scan_backward": n,
-                "flash_attention": 2 * calls, "flash_attention_backward": calls}
+        return {**ssd, "flash_attention": 2 * calls, "flash_attention_backward": calls}
     want = {"flash_attention": 2 * n, "flash_attention_backward": n}
     if cfg.family == "moe":
         want["moe_gmm"] = 12 * n
@@ -5800,6 +5952,66 @@ def time_ssd_scan(device) -> list:
     return rows
 
 
+def time_ssd_intra(device) -> list:
+    """The intra-chunk kernel at Mamba2's training call (b·c 16, q 256,
+    h 80, p 64, float32), held to its float64 plain version first: kernel,
+    and the plain version without a gradient (the in-place weights, the
+    route before the kernel); bound `ssd_intra_bound`.  No single PyTorch
+    call computes it: no library time."""
+    import torch
+    from repro_torch.kernels import ssd_intra as si
+    from repro_torch.kernels import ssd_intra_cuda as sic
+
+    label, b, c, q, h, n = SSD_INTRA_CASES[0]
+    ins = _ssd_intra_inputs(b, c, q, h, n, device, seed=840)
+    args = [ins[k] for k in ("x", "dt", "cum", "cb")]
+    got = sic.ssd_intra_cuda(*args)
+    readings = _intra_gate(label, ("y",), (got,), (si.ssd_intra_plain(*args),),
+                           (si.ssd_intra_plain(*(t.double() for t in args)),))
+    kern = cuda_ms(lambda: sic.ssd_intra_cuda(*args))
+    with torch.no_grad():
+        plain = cuda_ms(lambda: si.ssd_intra_plain(*args), iters=5, warmup=2)
+    b_ms, b_by = ssd_intra_bound(b, c, q, h, 64, backward=False)
+    row = {"case": label, "shape": [b, c, q, h, 64], "dtype": "float32",
+           "max_abs_err": readings["y"]["max_abs_err"],
+           "normwise": readings["y"]["normwise"], "ms": kern["device"],
+           "host_ms": kern["host"], "plain_ms": plain["device"], "library_ms": None,
+           "bound_ms": b_ms, "bound_by": b_by}
+    log("time ssd_intra " + json.dumps(row))
+    log("library_ms: null for ssd_intra — no single PyTorch call computes the "
+        "decay-weighted intra-chunk product")
+    return [row]
+
+
+def time_ssd_intra_backward(device) -> list:
+    """The intra-chunk backward at Mamba2's training call, held to its
+    float64 plain version first: kernel and `ssd_intra_backward_plain`;
+    bound `ssd_intra_bound`.  No single PyTorch call computes it: no
+    library time."""
+    from repro_torch.kernels import ssd_intra as si
+    from repro_torch.kernels import ssd_intra_cuda as sic
+
+    label, b, c, q, h, n = SSD_INTRA_CASES[0]
+    ins = _ssd_intra_inputs(b, c, q, h, n, device, seed=850)
+    args = [ins[k] for k in ("dy", "x", "dt", "cum", "cb")]
+    got = sic.ssd_intra_backward_cuda(*args)
+    readings = _intra_gate(label, ("dx", "ddt", "dcum", "dcb"), got,
+                           si.ssd_intra_backward_plain(*args),
+                           si.ssd_intra_backward_plain(*(t.double() for t in args)))
+    kern = cuda_ms(lambda: sic.ssd_intra_backward_cuda(*args))
+    plain = cuda_ms(lambda: si.ssd_intra_backward_plain(*args), iters=5, warmup=2)
+    b_ms, b_by = ssd_intra_bound(b, c, q, h, 64, backward=True)
+    row = {"case": label, "shape": [b, c, q, h, 64], "dtype": "float32",
+           "max_abs_err": max(r["max_abs_err"] for r in readings.values()),
+           "normwise": {k: r["normwise"] for k, r in readings.items()},
+           "ms": kern["device"], "host_ms": kern["host"], "plain_ms": plain["device"],
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    log("time ssd_intra_backward " + json.dumps(row))
+    log("library_ms: null for ssd_intra_backward — no single PyTorch call computes "
+        "the intra-chunk product's gradient")
+    return [row]
+
+
 def time_custom_op_dispatch(device, calls: int = 2000) -> list:
     """Host µs a call of each LM kernel through its `torch.library` op
     (`ops.flash_attention`, `ops.moe_gmm`, `ops.ssd_scan`, no gradient:
@@ -6041,6 +6253,9 @@ def main() -> int:
         phase = enter("parity (SSD scan)")
         ssd_parity = check_ssd_scan(device)
         ssd_bwd_parity = check_ssd_scan_backward(device)
+        phase = enter("parity (SSD intra-chunk)")
+        intra_parity = check_ssd_intra(device)
+        intra_bwd_parity = check_ssd_intra_backward(device)
         phase = enter("parity (SSMs, card against host)")
         check_ssm_on_host(device)
 
@@ -6152,11 +6367,13 @@ def main() -> int:
         flash_rows = time_flash(device)
         phase = enter("times (flash backward)")
         flash_bwd_rows = time_flash_backward(device)
-        phase = enter("times (GMM, SSD scan, dispatch)")
+        phase = enter("times (GMM, SSD scan and intra-chunk, dispatch)")
         gmm_rows = time_gmm(device)
         time_gmm_backward(device)
         ssd_rows = time_ssd_scan(device)
         ssd_bwd_rows = time_ssd_scan_backward(device)
+        intra_rows = time_ssd_intra(device)
+        intra_bwd_rows = time_ssd_intra_backward(device)
         time_custom_op_dispatch(device)
 
         parity_err = max(p["fused_max_abs_err"] for p in parity)
@@ -6207,7 +6424,12 @@ def main() -> int:
                  + train["all_launches"]["ssd_scan"], ssd_parity["max_abs_err"]),
                 ("ssd_scan_backward", ssd_bwd_rows[:1],
                  train["all_launches"]["ssd_scan_backward"],
-                 ssd_bwd_parity["max_abs_err"])):
+                 ssd_bwd_parity["max_abs_err"]),
+                ("ssd_intra", intra_rows, ssm["launches"]["ssd_intra"]
+                 + train["all_launches"]["ssd_intra"], intra_parity["max_abs_err"]),
+                ("ssd_intra_backward", intra_bwd_rows,
+                 train["all_launches"]["ssd_intra_backward"],
+                 intra_bwd_parity["max_abs_err"])):
             entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name]}
             entry.update(summarize(rows, launches, err))

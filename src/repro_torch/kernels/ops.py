@@ -13,8 +13,9 @@ from __future__ import annotations
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.ssd_intra import ssd_intra
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.winograd_conv import winograd_conv2d
 
-__all__ = ["flash_attention", "int8_matmul", "moe_gmm", "ssd_scan",
+__all__ = ["flash_attention", "int8_matmul", "moe_gmm", "ssd_intra", "ssd_scan",
            "winograd_conv2d"]

@@ -10,14 +10,21 @@ Decode is a single-step state update: h ← dA·h + dt·B⊗x, y = C·h + D·x.
 
 What differs from the reference, and why:
   * its einsums are written as explicit steps whose intermediates are
-    known.  The three-operand einsum of the intra-chunk output would
-    otherwise be free to form a (b, c, t, s, h, p) product, 43 GB at
-    Mamba2 2.7B's width on 2 × 4,096 tokens; here the (b, c, h, t, s)
-    decay matrix (671 MB there) is built once and turned into the
-    weights in place, then multiplied by x as a batched product over s.
-    A gradient takes the same steps out of place, and training runs each
-    block under remat (`model_factory`, `hybrid`), so only one block's
-    weights are held at a time;
+    known.  The intra-chunk output w·x, with the weights
+    w[t, s] = exp(cum_t − cum_s)·(C_t·B_s)·dt_s, is `ops.ssd_intra`.  On
+    the card that is one float32 CUDA kernel, forward and backward
+    (`kernels/ssd_intra.py`, ``csrc/ssd_intra.cu``), that builds w tile by
+    tile in shared memory and never writes it to the card's memory: the
+    (b, c, h, t, s) weights are 335 MB a layer at Mamba2 2.7B's width on
+    2 × 2,048 tokens, and elementwise passes over them take a third of
+    its training step on an H100.  The kernel skips the tiles strictly
+    above the diagonal, where every term is exp(−60) ≈ 8.8e-27 times
+    cb·dt·x: below float32's resolution against the kept terms, among
+    them the diagonal's exp(0)·cb·dt·x.  On the host the plain version
+    builds the weights whole (in place when no gradient is asked) and
+    keeps the masked terms.  The reference's three-operand einsum would
+    be free to form a (b, c, t, s, h, p) product, 43 GB at Mamba2's width
+    on 2 × 4,096 tokens;
   * the per-chunk states come out of their product in chunk-major order
     (nc, b, h, p, n), the kernel's layout, so the scan's operand is not
     a transposed copy;
@@ -37,17 +44,13 @@ from repro_torch.distributed.activations import (
 )
 from repro_torch.distributed.fsdp import gather_layer
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssd_intra import MASKED_DECAY  # noqa: F401 (re-exported)
 from repro_torch.models.layers import (
     Params, dense, dense_init, dtype_of, norm_init, rms_norm, torch_dtype,
 )
 from repro_torch.obs.tracing import train_span
 
 Tensor = torch.Tensor
-
-# The masked entries of the intra-chunk decay, set BEFORE the exp (above
-# the diagonal the decay is positive and could overflow): exp(-60) is
-# about 8.8e-27, not zero, as in the reference.
-MASKED_DECAY = -60.0
 
 
 def ssm_dims(cfg) -> Tuple[int, int, int, int]:
@@ -108,9 +111,11 @@ def ssd_forward(xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     multiple of s // (s // chunk), as in the reference.
 
     When a gradient is asked (grad mode on and an input requiring one),
-    every step is out of place, so autograd can follow it, and the scan is
-    `ssd_scan.SSDScan`; otherwise the (b, c, h, t, s) weights and the
-    chunk-major buffers are filled in place (the serving route's memory).
+    every step is out of place, so autograd can follow it, the scan is
+    `ssd_scan.SSDScan` and, on the card, the intra-chunk output
+    `ssd_intra.SSDIntra`; otherwise the chunk-major buffers (and, on the
+    host, the (b, c, h, t, s) weights) are filled in place (the serving
+    route's memory).
     """
     b, s, h, p = xh.shape
     n = bmat.shape[-1]
@@ -131,24 +136,13 @@ def ssd_forward(xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
 
     # Intra-chunk weights w[b,c,h,t,s] = (C_t·B_s)·exp(cum_t − cum_s)·dt_s,
     # masked above the diagonal before the exp (so no cotangent is NaN),
-    # and the intra-chunk output: span ``ssm.intra`` in a traced training
-    # step, its backward ``ssm.intra.bwd``.
+    # and the intra-chunk output y_intra (b,c,t,h,p) (`ops.ssd_intra`):
+    # span ``ssm.intra`` in a traced training step, its backward
+    # ``ssm.intra.bwd``.
     with train_span("ssm.intra") as intra:
         cum_i, cr_i, br_i, dtr_i, xr_i = intra.inputs(cum, cr, br, dtr, xr)
-        cum_h = cum_i.permute(0, 1, 3, 2).contiguous()               # (b,c,h,Q)
-        tri = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
-        cb = (cr_i @ br_i.transpose(-1, -2))[:, :, None]             # C_t·B_s
-        dts = dtr_i.permute(0, 1, 3, 2)[:, :, :, None, :]            # dt_s
-        if grad:
-            w = torch.exp((cum_h[..., :, None] - cum_h[..., None, :])
-                          .masked_fill(~tri, MASKED_DECAY)) * cb * dts
-        else:                            # one buffer, filled in place
-            w = torch.empty((b, nc, h, q, q), dtype=f32, device=dev)
-            torch.sub(cum_h[..., :, None], cum_h[..., None, :], out=w)
-            w.masked_fill_(~tri, MASKED_DECAY).exp_()
-            w.mul_(cb).mul_(dts)
-        y_intra = intra.output(w @ xr_i.permute(0, 1, 3, 2, 4))      # (b,c,h,t,p)
-        del w
+        cb = cr_i @ br_i.transpose(-1, -2)                           # C_t·B_s
+        y_intra = intra.output(ops.ssd_intra(xr_i, dtr_i, cum_i, cb))
 
     # Per-chunk input→state contributions, chunk-major: (c, b, h, p, n).
     tail = torch.exp(cum[:, :, -1:, :] - cum) * dtr                  # (b,c,Q,h)
@@ -177,11 +171,11 @@ def ssd_forward(xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     del h_prev
     decay_t = torch.exp(cum).transpose(0, 1)[..., None]
     if grad:
-        y = y_intra.permute(0, 1, 3, 2, 4) + (y_inter * decay_t).transpose(0, 1)
+        y = y_intra + (y_inter * decay_t).transpose(0, 1)
     else:
         y_inter.mul_(decay_t)
         y = torch.empty((b, nc, q, h, p), dtype=f32, device=dev)
-        torch.add(y_intra.permute(0, 1, 3, 2, 4), y_inter.transpose(0, 1), out=y)
+        torch.add(y_intra, y_inter.transpose(0, 1), out=y)
     return y.reshape(b, s, h, p), h_final
 
 

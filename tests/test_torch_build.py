@@ -12,12 +12,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import (flash_attention_cuda, int8_matmul_cuda,  # noqa: E402
-                                 moe_gmm_cuda, ssd_scan_cuda, tree_gather_cuda,
-                                 winograd_conv_cuda)
+                                 moe_gmm_cuda, ssd_intra_cuda, ssd_scan_cuda,
+                                 tree_gather_cuda, winograd_conv_cuda)
 
 TENSOR_CORE_MODULES = (flash_attention_cuda, moe_gmm_cuda)
 CUDA_MODULES = (tree_gather_cuda, int8_matmul_cuda, winograd_conv_cuda,
-                flash_attention_cuda, moe_gmm_cuda, ssd_scan_cuda)
+                flash_attention_cuda, moe_gmm_cuda, ssd_scan_cuda, ssd_intra_cuda)
 COPY_WRAPPERS = ("smem_addr", "cp_async_16", "cp_async_4", "cp_async_commit",
                  "cp_async_wait", "ldmatrix_x4", "ldmatrix_x4_trans", "ldmatrix_x2")
 

@@ -1015,6 +1015,124 @@ def test_ssd_gradient_on_the_card_matches_the_plain(card):
     _ddecay_close(got[1], want[1], want[0], hp.detach(), torch.float32)
 
 
+# -- the SSD's intra-chunk output (`ssd_intra.cu`) ---------------------------------
+
+# (b, c, q, h, n), p = 64: Mamba2 2.7B's training call (2 × 2,048 tokens),
+# Zamba2 1.2B's state (n 64), the reduced configs (chunk 32, n 16) and two
+# sequences shorter than a chunk (one chunk of 7 and of 100 positions).
+SSD_INTRA_CASES = {"mamba2": (2, 8, 256, 80, 128), "zamba2": (2, 8, 256, 64, 64),
+                   "reduced": (2, 4, 32, 4, 16), "short_7": (1, 1, 7, 4, 16),
+                   "short_100": (2, 1, 100, 8, 128)}
+# Normwise errors, max |got − float64| / max |float64|, that the kernel and
+# the plain version in float32 must both keep: float32 sums of up to q·p
+# products in other orders (the kernel FMAs over s, the plain version's
+# batched products block it), each weight's expf against torch's exp, and
+# the tiny terms the kernel skips above the diagonal tiles.  y and dx are
+# sums of positive-weighted terms; d dt, d cum, dB and dC sum signed
+# products of dw = dy·xᵀ, and d cum is a difference of two such sums.
+SSD_INTRA_TOL = {"y": 1e-5, "dx": 1e-5, "ddt": 1e-4, "dcum": 1e-4, "dC": 1e-4,
+                 "dB": 1e-4}
+
+
+def _ssd_intra_inputs(card, b, c, q, h, n, seed):
+    """x, dt, cum, C, B and the output's gradient, float32 on ``card``:
+    dt = softplus(z − 1) and decay rates from 1e-3 (weights across the
+    whole chunk) to 16 (the model's largest, A_log's init)."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((b, c, q, h)) - 1.0))
+    a = np.exp(np.linspace(np.log(1e-3), np.log(16.0), h))
+    cum = np.cumsum(-(dt * a), axis=2)
+    arrays = {"x": rng.standard_normal((b, c, q, h, 64)), "dt": dt, "cum": cum,
+              "C": rng.standard_normal((b, c, q, n)) * 0.5,
+              "B": rng.standard_normal((b, c, q, n)) * 0.5,
+              "dy": rng.standard_normal((b, c, q, h, 64))}
+    return {k: torch.from_numpy(v.astype(np.float32)).to(card) for k, v in arrays.items()}
+
+
+def _ssd_intra_run(ins, dtype, route):
+    """y and (dx, d dt, d cum, dC, dB) through ``route`` with cb = C·Bᵀ,
+    the inputs cast to ``dtype``."""
+    leaves = [ins[k].to(dtype).requires_grad_() for k in ("x", "dt", "cum", "C", "B")]
+    x, dt, cum, cmat, bmat = leaves
+    y = route(x, dt, cum, cmat @ bmat.transpose(-1, -2))
+    grads = torch.autograd.grad(y, leaves, ins["dy"].to(dtype))
+    return dict(zip(("y", "dx", "ddt", "dcum", "dC", "dB"),
+                    (y.detach(),) + tuple(grads)))
+
+
+def _normwise(got, want):
+    want = want.double()
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("name", list(SSD_INTRA_CASES))
+def test_ssd_intra_matches_the_plain_version_in_float64(card, name, monkeypatch):
+    """`ops.ssd_intra` on the card (the `SSDIntra` op: one forward and one
+    backward launch) against `ssd_intra_plain` in float64, and the plain
+    version in float32 inside the same tolerances; the call without a
+    gradient gives the same y bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_intra as si
+    from repro_torch.kernels import ssd_intra_cuda as sic
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    ins = _ssd_intra_inputs(card, *SSD_INTRA_CASES[name], seed=len(name))
+    before = sic.launch_counts()
+    got = _ssd_intra_run(ins, torch.float32, ops.ssd_intra)
+    torch.cuda.synchronize()
+    after = sic.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {"ssd_intra": 1,
+                                                        "ssd_intra_backward": 1}
+    want = _ssd_intra_run(ins, torch.float64, si.ssd_intra_plain)
+    plain32 = _ssd_intra_run(ins, torch.float32, si.ssd_intra_plain)
+    for k, tol in SSD_INTRA_TOL.items():
+        assert bool(torch.isfinite(got[k]).all()), k
+        assert _normwise(got[k], want[k]) <= tol, (k, _normwise(got[k], want[k]))
+        assert _normwise(plain32[k], want[k]) <= tol, (k, _normwise(plain32[k], want[k]))
+    with torch.no_grad():
+        x, dt, cum, cmat, bmat = (ins[k] for k in ("x", "dt", "cum", "C", "B"))
+        y = ops.ssd_intra(x, dt, cum, cmat @ bmat.transpose(-1, -2))
+    assert torch.equal(y, got["y"])
+
+
+def test_ssd_intra_repeats_bit_for_bit(card):
+    """Forward and backward at Mamba2's shape, twice each: bit-equal (no
+    floating-point atomics; every partial sum in a fixed order)."""
+    from repro_torch.kernels import ssd_intra_cuda as sic
+
+    ins = _ssd_intra_inputs(card, *SSD_INTRA_CASES["mamba2"], seed=3)
+    cb = ins["C"] @ ins["B"].transpose(-1, -2)
+    args = (ins["x"], ins["dt"], ins["cum"], cb)
+    y1, y2 = sic.ssd_intra_cuda(*args), sic.ssd_intra_cuda(*args)
+    g1 = sic.ssd_intra_backward_cuda(ins["dy"], *args)
+    g2 = sic.ssd_intra_backward_cuda(ins["dy"], *args)
+    assert torch.equal(y1, y2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_ssd_intra_wrapper_checks_its_inputs(card):
+    from repro_torch.kernels import ssd_intra_cuda as sic
+
+    ins = _ssd_intra_inputs(card, 1, 2, 9, 3, 4, seed=1)
+    cb = ins["C"] @ ins["B"].transpose(-1, -2)
+    x, dt, cum = ins["x"], ins["dt"], ins["cum"]
+    with pytest.raises(ValueError, match="head dims"):
+        sic.ssd_intra_cuda(x[..., :32].contiguous(), dt, cum, cb)
+    with pytest.raises(TypeError):
+        sic.ssd_intra_cuda(x.double(), dt, cum, cb)
+    with pytest.raises(ValueError, match="contiguous"):
+        sic.ssd_intra_cuda(x, dt.transpose(1, 2).contiguous().transpose(1, 2), cum, cb)
+    with pytest.raises(ValueError, match="shape"):
+        sic.ssd_intra_cuda(x, dt, cum, cb[:, :, :8].contiguous())
+    with pytest.raises(ValueError):
+        sic.ssd_intra_cuda(x.cpu(), dt.cpu(), cum.cpu(), cb.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        sic.ssd_intra_backward_cuda(ins["dy"][:, :1].contiguous(), x, dt, cum, cb)
+    empty = [t[:0].contiguous() for t in (x, dt, cum, cb)]
+    assert sic.ssd_intra_cuda(*empty).shape == (0, 2, 9, 3, 64)
+    assert all(g.shape[0] == 0 for g in sic.ssd_intra_backward_cuda(empty[0], *empty))
+
+
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
 def test_reduced_ssm_train_step_on_the_card_equals_the_host(card, arch):
     """One float32 train step of reduced Mamba2 and of a 5-layer Zamba2 (two
@@ -1024,6 +1142,7 @@ def test_reduced_ssm_train_step_on_the_card_equals_the_host(card, arch):
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLMData
     from repro_torch.distributed import init_train_state, make_train_step
+    from repro_torch.kernels import ssd_intra_cuda as sic
     from repro_torch.kernels import ssd_scan_cuda as ssc
     from repro_torch.models import build_model
     from repro_torch.utils.tree import map_with_paths
@@ -1037,12 +1156,15 @@ def test_reduced_ssm_train_step_on_the_card_equals_the_host(card, arch):
     batch = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=128,
                             global_batch=2).batch_at(0)
     step = make_train_step(m, base_lr=1e-3, warmup_steps=0, total_steps=10)
-    before = ssc.launch_counts()
+    before, intra0 = ssc.launch_counts(), sic.launch_counts()
     dev, dm = step(dev, {k: torch.from_numpy(v).to(card) for k, v in batch.items()})
     torch.cuda.synchronize()
     after = ssc.launch_counts()
     assert after["ssd_scan"] - before["ssd_scan"] == 2 * cfg.num_layers
     assert after["ssd_scan_backward"] - before["ssd_scan_backward"] == cfg.num_layers
+    intra = sic.launch_counts()
+    assert intra["ssd_intra"] - intra0["ssd_intra"] == 2 * cfg.num_layers
+    assert intra["ssd_intra_backward"] - intra0["ssd_intra_backward"] == cfg.num_layers
     host, hm = step(host, {k: torch.from_numpy(v) for k, v in batch.items()})
     for key in ("loss", "grad_norm"):
         assert abs(float(dm[key]) - float(hm[key])) <= 1e-4 * abs(float(hm[key]))
@@ -1061,6 +1183,7 @@ def test_reduced_ssm_on_the_card_equals_the_host_port(card, arch, over):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention_cuda as fac
+    from repro_torch.kernels import ssd_intra_cuda as sic
     from repro_torch.kernels import ssd_scan_cuda as ssc
     from repro_torch.models import build_model
 
@@ -1074,9 +1197,11 @@ def test_reduced_ssm_on_the_card_equals_the_host_port(card, arch, over):
         0, cfg.vocab_size, (2, 128)).astype(np.int64))
     fac.reset_launch_counts()
     ssc.reset_launch_counts()
+    sic.reset_launch_counts()
     got = m.forward(dev, {"tokens": toks.to(card)})
     torch.cuda.synchronize()
     assert ssc.launch_counts()["ssd_scan"] == cfg.num_layers
+    assert sic.launch_counts()["ssd_intra"] == cfg.num_layers
     groups = cfg.num_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
     assert fac.launch_counts()["flash_attention"] == groups
     want = m.forward(host, {"tokens": toks})
@@ -1091,6 +1216,7 @@ def test_reduced_ssm_on_the_card_equals_the_host_port(card, arch, over):
         b, ch = m.decode_step(host, {"token": toks[:, t:t + 1]}, ch)
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
     assert ssc.launch_counts()["ssd_scan"] == cfg.num_layers   # decode: none
+    assert sic.launch_counts()["ssd_intra"] == cfg.num_layers
 
 
 # -- the device guard: every wrapper launched from a new thread -------------------
@@ -1100,6 +1226,7 @@ def _wrapper_calls(card, gbdt):
     from repro_torch.kernels import flash_attention_cuda as fac
     from repro_torch.kernels import int8_matmul_cuda as imc
     from repro_torch.kernels import moe_gmm_cuda as mgc
+    from repro_torch.kernels import ssd_intra_cuda as sic
     from repro_torch.kernels import ssd_scan_cuda as ssc
     from repro_torch.kernels import tree_gather as tg
     from repro_torch.kernels import tree_gather_cuda as tgc
@@ -1124,6 +1251,8 @@ def _wrapper_calls(card, gbdt):
 
     hp, _ = ss.ssd_scan_plain(s, d)
     g = torch.randn_like(hp)
+    ins = _ssd_intra_inputs(card, 1, 2, 70, 3, 16, seed=5)
+    intra = (ins["x"], ins["dt"], ins["cum"], ins["C"] @ ins["B"].transpose(-1, -2))
     return {
         "tree_gather_leaves": lambda: tgc.gather_leaves_cuda(db, xs),
         "tree_predict_fused": lambda: tgc.fused_predict_cuda(db, mean, std, scale,
@@ -1137,22 +1266,25 @@ def _wrapper_calls(card, gbdt):
         "moe_gmm": lambda: mgc.moe_gmm_cuda(x, w),
         "ssd_scan": lambda: ssc.ssd_scan_cuda(s, d),
         "ssd_scan_backward": lambda: ssc.ssd_scan_backward_cuda(g, g[0], hp, d),
+        "ssd_intra": lambda: sic.ssd_intra_cuda(*intra),
+        "ssd_intra_backward": lambda: sic.ssd_intra_backward_cuda(ins["dy"], *intra),
     }
 
 
 KERNEL_NAMES = ("tree_gather_leaves", "tree_predict_fused", "int8_matmul",
                 "winograd_conv2d", "flash_attention", "flash_attention_backward",
-                "moe_gmm", "ssd_scan", "ssd_scan_backward")
+                "moe_gmm", "ssd_scan", "ssd_scan_backward", "ssd_intra",
+                "ssd_intra_backward")
 
 
 def _kernel_counts():
     from repro_torch.kernels import (flash_attention_cuda, int8_matmul_cuda,
-                                     moe_gmm_cuda, ssd_scan_cuda, tree_gather_cuda,
-                                     winograd_conv_cuda)
+                                     moe_gmm_cuda, ssd_intra_cuda, ssd_scan_cuda,
+                                     tree_gather_cuda, winograd_conv_cuda)
 
     out = {}
     for m in (tree_gather_cuda, int8_matmul_cuda, winograd_conv_cuda,
-              flash_attention_cuda, moe_gmm_cuda, ssd_scan_cuda):
+              flash_attention_cuda, moe_gmm_cuda, ssd_scan_cuda, ssd_intra_cuda):
         out.update(m.launch_counts())
     return out
 

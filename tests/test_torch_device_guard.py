@@ -22,10 +22,10 @@ KERNELS = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels
 WRAPPERS = sorted(KERNELS.glob("*_cuda.py"))
 # Launch entry points per wrapper module (tree_gather has two kernels;
 # flash_attention the forward and, from its second library, the backward;
-# ssd_scan the forward and the backward).
+# ssd_scan and ssd_intra the forward and the backward).
 EXPECTED = {"tree_gather_cuda.py": 2, "int8_matmul_cuda.py": 1,
             "winograd_conv_cuda.py": 1, "flash_attention_cuda.py": 2,
-            "moe_gmm_cuda.py": 1, "ssd_scan_cuda.py": 2}
+            "moe_gmm_cuda.py": 1, "ssd_scan_cuda.py": 2, "ssd_intra_cuda.py": 2}
 GUARD = "const host_launch::DeviceGuard guard(device);"
 
 

@@ -65,7 +65,8 @@ def test_port_has_the_slice_modules():
                 "models/moe.py", "models/transformer.py",
                 "models/model_factory.py", "serving/__init__.py",
                 "serving/engine.py", "kernels/ssd_scan.py", "models/encdec.py",
-                "kernels/ssd_scan_cuda.py", "models/ssm.py", "models/hybrid.py",
+                "kernels/ssd_scan_cuda.py", "kernels/ssd_intra.py",
+                "kernels/ssd_intra_cuda.py", "models/ssm.py", "models/hybrid.py",
                 "core/predictors/lasso.py", "core/predictors/mlp.py",
                 "core/realworld.py", "search/__init__.py", "search/pareto.py",
                 "search/encoding.py", "search/objectives.py",
@@ -89,6 +90,7 @@ def test_port_has_the_slice_modules():
         assert mod in names
     for src in ("tree_gather.cu", "int8_matmul.cu", "winograd_conv.cu",
                 "flash_attention.cu", "flash_attention_bwd.cu", "moe_gmm.cu", "ssd_scan.cu",
+                "ssd_intra.cu",
                 "mma_bf16.cuh", "mma_s8.cuh", "ptx_copy.cuh", "host_launch.cuh"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
@@ -127,7 +129,9 @@ def test_cuda_kernel_source_names_both_kernels():
                                 "expf", "fmaf", "__shfl_xor_sync")),
     ("moe_gmm.cu", ("src/repro/kernels/moe_gmm.py", "_gmm_kernel", "fmaf")),
     ("ssd_scan.cu", ("src/repro/kernels/ssd_scan.py", "_ssd_scan_kernel",
-                     "__fmul_rn", "__fadd_rn"))])
+                     "__fmul_rn", "__fadd_rn")),
+    ("ssd_intra.cu", ("src/repro/models/ssm.py", "ssd_forward", "expf", "fmaf",
+                      "__shfl_xor_sync"))])
 def test_cuda_sources_name_the_tpu_kernel_they_replace(source, names):
     src = (PORT / "kernels" / "csrc" / source).read_text()
     for name in names + ("What bounds it", "cudaGetLastError"):
